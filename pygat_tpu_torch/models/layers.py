@@ -1,0 +1,148 @@
+"""Head-batched sparse GATv1 layer (port of the fused branch of
+``pygat_tpu/models/layers.py::gat_v1_sparse_heads`` and the pieces it uses).
+
+Dropout placement copies the reference: on the inputs, after the
+projection, and on the attention numerators, with the softmax denominator
+computed from pre-dropout numerators (reference layers.py:150-160). Masks
+are drawn from an explicit ``torch.Generator``: the same distribution as
+the JAX package's masks, not the same bits.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from pygat_tpu_torch.graph import Graph
+from pygat_tpu_torch.ops.fused_stream import fused_v1_attention, leaky_relu
+
+# Softmax-denominator clamp. 1e-18, not 0: with the bound-shifted softmax a
+# row whose incoming logits all sit far under the bound can underflow its
+# denominator toward the f32 subnormal band; a naive backward forms den^2,
+# which underflows to 0 below den ~1.1e-19, and 1/den^2 = inf turns every
+# parameter gradient NaN. 1e-18 keeps den^2 normal while zeroing only rows
+# whose best incoming edge sits > 41 nats under the bound. The clamp alone
+# is not enough: just above it the per-element products g*agg/den^2 can
+# still overflow, so every division by den goes through softmax_div, whose
+# backward uses one power of den (see _DivStable).
+DEN_MIN = 1e-18
+
+
+class _DivStable(torch.autograd.Function):
+    """``agg / den[..., None]`` with an overflow-safe backward: the den
+    cotangent is computed as ``-sum(g * out) / den`` (intermediates of the
+    scale of the true value), never through ``agg / den**2``."""
+
+    @staticmethod
+    def forward(ctx, agg, den):
+        out = agg / den[..., None]
+        ctx.save_for_backward(out, den)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, den = ctx.saved_tensors
+        return g / den[..., None], -(g * out).sum(-1) / den
+
+
+def softmax_div(agg: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """Clamped, backward-stable softmax normalization: agg [..., F] divided
+    by den [...]; rows with den <= DEN_MIN (padding / numerically collapsed)
+    pass through unscaled with zero den-gradient."""
+    den = torch.where(den > DEN_MIN, den, torch.ones_like(den))
+    return _DivStable.apply(agg, den)
+
+
+class V1Params(NamedTuple):
+    W: torch.Tensor  # [H, F_in, F_out]
+    a: torch.Tensor  # [H, 2 * F_out] (a[:, :F_out] receiver, a[:, F_out:] sender)
+    skip: torch.Tensor | None  # [H, F_in, F_out] or None
+
+
+def _keep(gen: torch.Generator, keep_prob: float, shape) -> torch.Tensor:
+    """Boolean keep mask, one draw per dropout site (P(keep) = keep_prob)."""
+    return torch.rand(shape, generator=gen, device=gen.device) < keep_prob
+
+
+def _heads_tail(out, params: V1Params, h, x_h, concat: bool):
+    """Shared skip/ELU/concat-or-mean tail: ``out`` is [N, H, F_out]."""
+    n, n_heads, f_out = out.shape
+    if params.skip is not None:
+        if x_h is not None:
+            out = out + torch.einsum("nhf,hfo->nho", x_h, params.skip)
+        else:
+            out = out + torch.einsum("nf,hfo->nho", h, params.skip)
+    if concat:
+        return F.elu(out).reshape(n, n_heads * f_out)
+    return out.mean(dim=1)
+
+
+def _att_keepq(gen, keep: float, e_pad: int, n_heads: int, use_drop: bool,
+               device) -> torch.Tensor:
+    """[E, H] attention keep/(1-p) factors (ones in eval)."""
+    if not use_drop:
+        return torch.ones(e_pad, n_heads, dtype=torch.float32, device=device)
+    return torch.where(_keep(gen, keep, (e_pad, n_heads)), 1.0 / keep, 0.0)
+
+
+def gat_v1_sparse_heads(
+    params: V1Params,  # stacked [H, ...] leaves
+    h: torch.Tensor,  # [N, F_in] (or [N, H*F] from a previous concat layer)
+    graph: Graph,
+    gen: torch.Generator | None,  # dropout generator; unused unless train
+    *,
+    alpha: float,
+    drop: float,
+    concat: bool,
+    train: bool,
+) -> torch.Tensor:
+    """Head-batched sparse GATv1 through the fused attention op.
+
+    Heads stay folded into the minor axis (``[N, H*F_out]`` projections,
+    ``[E, H]`` per-edge factors). Returns ``[N, H*F_out]`` (ELU'd head
+    concat) when ``concat`` else the head mean ``[N, F_out]``.
+    """
+    if graph.r_local is None:
+        raise NotImplementedError(
+            "graphs without a stream layout (N_pad not a multiple of 128) "
+            "need the unfused branch, not yet ported (ROADMAP Queue 1, "
+            "item 10: unfused layer branches)")
+    n_heads, f_in, f_out = params.W.shape
+    n = h.shape[0]
+    e_pad = graph.num_edges_padded
+    use_drop = train and drop > 0.0
+    keep = 1.0 - drop
+
+    if use_drop:
+        # per-head masked inputs [N, H, F_in] and one batched product
+        x_h = torch.where(_keep(gen, keep, (n, n_heads, f_in)),
+                          h[:, None, :] / keep, 0.0)
+        wh = torch.einsum("nhf,hfo->nho", x_h, params.W).reshape(
+            n, n_heads * f_out)
+        wh = torch.where(_keep(gen, keep, wh.shape), wh / keep, 0.0)
+    else:
+        x_h = None
+        wh = h @ params.W.permute(1, 0, 2).reshape(f_in, n_heads * f_out)
+
+    wh3 = wh.view(n, n_heads, f_out)
+    f_dst_n = torch.einsum("nho,ho->nh", wh3, params.a[:, :f_out])  # [N, H]
+    # Softmax stabilization without a segment max: the softmax is invariant
+    # to a per-receiver shift, so subtract the upper bound
+    # leaky(f_dst + max over real senders of f_src) >= every logit of the
+    # row (gradient-stopped: the shift's true gradient is zero).
+    with torch.no_grad():
+        f_src_n = torch.einsum("nho,ho->nh", wh3, params.a[:, f_out:])
+        m_src = torch.where(graph.node_mask[:, None], f_src_n,
+                            float("-inf")).amax(dim=0)
+        m_src = torch.where(torch.isfinite(m_src), m_src, 0.0)
+        bound = leaky_relu(f_dst_n + m_src[None, :], alpha)
+    keepq = _att_keepq(gen, keep, e_pad, n_heads, use_drop, wh.device)
+    agg, den = fused_v1_attention(
+        wh, f_dst_n, bound, params.a[:, f_out:], keepq,
+        graph.senders, graph.receivers, graph.r_local, graph.r_chunk,
+        graph.c_slot, graph.c_local, graph.c_chunk, alpha,
+    )
+    out = softmax_div(agg.view(n, n_heads, f_out), den)
+    return _heads_tail(out, params, h, x_h, concat)

@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``. Nothing is
+built when a module is imported: the first CUDA call builds every missing
+library, one ``nvcc`` per source, all started together, into
+``pygat_tpu_torch/_build/``. A library's file name carries a hash of its
+source and flags, so an edited source is rebuilt and a stale one never
+loads. Builds publish by atomic rename, so concurrent processes are safe.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# source name -> (C entry point, ctypes argtypes); every entry point returns
+# cudaGetLastError() as an int
+ENTRY_POINTS = {
+    "stream_scatter": ("pygat_stream_scatter", [_P] * 4 + [_I] * 3 + [_P] * 2),
+    "fused_v1": ("pygat_fused_v1", [_P] * 8 + [_I] * 4 + [_F] + [_P] * 3),
+}
+SOURCES = tuple(ENTRY_POINTS)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_KERNELS: dict[str, ctypes._CFuncPtr] = {}
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the toolkit's
+    default install location."""
+    home = os.environ.get("CUDA_HOME")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(on_path)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build_all() -> float:
+    """Build every missing kernel library in parallel; returns seconds spent
+    (0.0 when all were already built). Raises with nvcc's output on failure.
+    The compiler's report (registers, shared memory, spills) is kept beside
+    each library as ``<lib>.log``."""
+    t0 = time.perf_counter()
+    with _LOCK:
+        todo = [(n, _lib_path(n)) for n in SOURCES
+                if not os.path.exists(_lib_path(n))]
+        if not todo:
+            return 0.0
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = []
+        for name, path in todo:
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC_DIR, f"{name}.cu")]
+            procs.append((name, path, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        failed = []
+        for name, path, tmp, proc in procs:
+            out, _ = proc.communicate()
+            log = out.decode(errors="replace")
+            if proc.returncode != 0:
+                failed.append(f"--- {name}.cu (rc {proc.returncode})\n{log}")
+                continue
+            with open(path + ".log", "w") as f:
+                f.write(log)
+            os.replace(tmp, path)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """The compiler's report for kernel library ``name`` (after a build)."""
+    path = _lib_path(name) + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+def kernel(name: str):
+    """The C entry point of kernel library ``name``, with its argtypes set,
+    building all libraries first if any is missing."""
+    fn = _KERNELS.get(name)
+    if fn is None:
+        build_all()
+        symbol, argtypes = ENTRY_POINTS[name]
+        fn = getattr(ctypes.CDLL(_lib_path(name)), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _KERNELS[name] = fn
+    return fn
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a kernel entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
