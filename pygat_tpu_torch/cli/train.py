@@ -4,15 +4,20 @@ Same flags as the JAX package's CLI (reference train.py:31-45 plus the
 package's own), running on CUDA unless ``--no-cuda`` asks for the CPU:
 
     python -m pygat_tpu_torch.cli.train --dataset cora --model GAT_sparse
+    python -m pygat_tpu_torch.cli.train --dataset pubmed --model GATv2_sparse \\
+        --epoch-chunk 50
 
-Flags whose machinery is not ported yet (``--mesh``, ``--partition``,
-``--corner``, ``--reorder``, ``--epoch-chunk > 1``, ``--distributed``,
-``--backend xla``) raise an error naming the ROADMAP item that ports it.
+``--epoch-chunk K`` with K > 1 runs ``fit_transductive_fast``: K epochs per
+host sync, on CUDA as replays of one captured CUDA graph. Flags whose
+machinery is not ported yet (``--mesh``, ``--partition``, ``--corner``,
+``--reorder``, ``--distributed``, ``--backend xla``, the dense models
+``GAT`` / ``GATv2``) raise an error naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import random
 import time
 
@@ -30,7 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["cora", "pubmed", "citeseer"])
     p.add_argument("--model", type=str, default="GAT_sparse",
                    choices=["GAT_sparse", "GAT", "GATv2", "GATv2_sparse"],
-                   help="only GAT_sparse is ported so far")
+                   help="GAT_sparse and GATv2_sparse are ported; the dense "
+                        "models are not yet")
     p.add_argument("--seed", type=int, default=72)
     p.add_argument("--epochs", type=int, default=10000)
     p.add_argument("--patience", type=int, default=100)
@@ -64,7 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["gspmd", "ring"],
                    help="with --mesh: partitioning mechanism (not ported yet)")
     p.add_argument("--epoch-chunk", type=int, default=1,
-                   help=">1: several epochs per dispatch (not ported yet)")
+                   help=">1: fit_transductive_fast, this many epochs per "
+                        "host sync (a replayed CUDA graph on the GPU); "
+                        "early stop may overshoot by up to K-1 epochs")
     p.add_argument("--distributed", action="store_true", default=False,
                    help="multi-process initialization (not ported yet)")
     return p
@@ -83,8 +91,8 @@ def _reject_unported(args) -> None:
          "Queue 1, item 15: alternative ops"),
         (args.reorder, "--reorder",
          "Queue 1, item 15: ctypes loader for csrc/graphops.cpp"),
-        (args.epoch_chunk > 1, "--epoch-chunk > 1",
-         "Queue 1, item 8: fit_transductive_fast with CUDA graphs"),
+        (args.model in ("GAT", "GATv2"), f"--model {args.model}",
+         "Queue 1, item 10: the dense layers"),
         (args.backend == "xla", "--backend xla",
          "Queue 1, item 10: unfused layer branches"),
     ]
@@ -101,7 +109,10 @@ def main(argv=None) -> int:
     from pygat_tpu_torch.models.gat import GATConfig
     from pygat_tpu_torch.models.presets import PRESETS, TRAIN_PRESETS
     from pygat_tpu_torch.train.logging import TrainLogger
-    from pygat_tpu_torch.train.loop import fit_transductive
+    from pygat_tpu_torch.train.loop import (
+        fit_transductive,
+        fit_transductive_fast,
+    )
     from pygat_tpu_torch.utils.platform import resolve_device
 
     device = resolve_device(cpu=args.no_cuda)
@@ -129,8 +140,7 @@ def main(argv=None) -> int:
 
     print(f"start training on {device}")
     t0 = time.time()
-    result = fit_transductive(
-        cfg, data,
+    fit_kw = dict(
         lr=tp["lr"],
         weight_decay=tp["weight_decay"],
         epochs=args.epochs,
@@ -143,6 +153,14 @@ def main(argv=None) -> int:
         log_every=args.log_every,
         resume=args.resume_training,
     )
+    if args.epoch_chunk > 1:
+        result = fit_transductive_fast(cfg, data,
+                                       epoch_chunk=args.epoch_chunk, **fit_kw)
+        if result.graph_replays:
+            print(f"CUDA graph replays: {result.graph_replays}, each "
+                  f"launching {json.dumps(result.captured_launches)}")
+    else:
+        result = fit_transductive(cfg, data, **fit_kw)
     print("Optimization Finished!")
     print("Total time elapsed: {:.4f}s".format(time.time() - t0))
     print("Loading {}th epoch".format(result.best_epoch))

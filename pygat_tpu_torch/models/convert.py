@@ -1,10 +1,12 @@
 """Parameters from the JAX package to the port.
 
 Both packages keep one stacked parameter set per layer with the same
-layout (``W [H, F_in, F_out]``, ``a [H, 2 F_out]``, ``skip`` or None), so
-the conversion is a copy into leaf tensors that require grad. The input is
-the JAX parameter list with its leaves as numpy arrays (or anything
-``numpy.asarray`` takes); nothing of JAX is imported here.
+layout (GATv1: ``W [H, F_in, F_out]``, ``a [H, 2 F_out]``; GATv2:
+``W [H, 2 F_in, F_out]``, ``a [H, F_out]``; ``skip`` or None), so the
+conversion is a copy into leaf tensors that require grad. The input is the
+JAX parameter list with its leaves as numpy arrays (or anything
+``numpy.asarray`` takes); nothing of JAX is imported here, so the two layer
+kinds are told apart by the width of ``a``.
 """
 
 from __future__ import annotations
@@ -12,20 +14,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pygat_tpu_torch.models.layers import V1Params
+from pygat_tpu_torch.models.layers import V1Params, V2Params
 from pygat_tpu_torch.utils.platform import resolve_device
 
 
 def params_from_jax(layers, device: torch.device | str | None = None
-                    ) -> list[V1Params]:
-    """``[V1Params(W, a, skip), ...]`` of numpy arrays -> the port's
-    parameters on ``device`` (CUDA unless the caller names another device;
-    raises without CUDA)."""
+                    ) -> list[V1Params | V2Params]:
+    """``[V1Params(W, a, skip), ...]`` or ``[V2Params(W, a, skip), ...]`` of
+    numpy arrays -> the port's parameters on ``device`` (CUDA unless the
+    caller names another device; raises without CUDA). A layer is GATv2
+    when ``a`` has ``F_out`` columns, GATv1 when it has ``2 F_out``."""
     device = resolve_device(device)
     out = []
     for layer in layers:
         w, a, skip = layer
-        out.append(V1Params(*(
+        f_out = np.shape(w)[2]
+        if np.shape(a)[1] not in (f_out, 2 * f_out):
+            raise ValueError(f"a {np.shape(a)} fits neither GATv1 nor GATv2 "
+                             f"with W {np.shape(w)}")
+        cls = V2Params if np.shape(a)[1] == f_out else V1Params
+        out.append(cls(*(
             None if t is None else torch.tensor(
                 np.asarray(t, dtype=np.float32), device=device,
                 requires_grad=True)

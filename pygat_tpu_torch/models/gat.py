@@ -1,14 +1,15 @@
 """Multi-layer multi-head GAT model (port of ``pygat_tpu/models/gat.py``).
 
 Each layer's heads live in one stacked ``[H, ...]`` parameter set
-(:class:`~pygat_tpu_torch.models.layers.V1Params`), the layout of the JAX
+(:class:`~pygat_tpu_torch.models.layers.V1Params` or
+:class:`~pygat_tpu_torch.models.layers.V2Params`), the layout of the JAX
 package, so parameters carry over between the two packages unchanged
 (:mod:`pygat_tpu_torch.models.convert`). Semantics follow the reference
 container (models.py:7-35): layer ``i`` takes ``nfeats[i] * nheads[i-1]``
 inputs; non-final layers ELU and concat their heads, the final layer
 averages them.
 
-This slice ports ``GAT_sparse``; the other layer types raise
+``GAT_sparse`` and ``GATv2_sparse`` are ported; the dense layer types raise
 ``NotImplementedError``.
 """
 
@@ -20,11 +21,16 @@ import torch
 
 from pygat_tpu_torch.graph import Graph
 from pygat_tpu_torch.models import init as gini
-from pygat_tpu_torch.models.layers import V1Params, gat_v1_sparse_heads
+from pygat_tpu_torch.models.layers import (
+    V1Params,
+    V2Params,
+    gat_v1_sparse_heads,
+    gat_v2_sparse_heads,
+)
 from pygat_tpu_torch.utils.platform import resolve_device
 
 LAYER_TYPES = ("GAT", "GAT_sparse", "GATv2", "GATv2_sparse")
-PORTED_LAYER_TYPES = ("GAT_sparse",)
+PORTED_LAYER_TYPES = ("GAT_sparse", "GATv2_sparse")
 
 
 class GATConfig(NamedTuple):
@@ -51,8 +57,7 @@ def _check_ported(cfg: GATConfig) -> None:
     if cfg.layer_type not in PORTED_LAYER_TYPES:
         raise NotImplementedError(
             f"layer_type {cfg.layer_type!r} is not ported yet "
-            "(ROADMAP Queue 1: GATv2_sparse is item 7, the dense layers "
-            "item 10)")
+            "(ROADMAP Queue 1, item 10: the dense layers)")
 
 
 def layer_dims(cfg: GATConfig, i: int) -> tuple[int, int, int]:
@@ -62,7 +67,8 @@ def layer_dims(cfg: GATConfig, i: int) -> tuple[int, int, int]:
 
 
 def init_gat(cfg: GATConfig, gen: torch.Generator,
-             device: torch.device | str | None = None) -> list[V1Params]:
+             device: torch.device | str | None = None
+             ) -> list[V1Params | V2Params]:
     """Per-layer stacked-head parameters with the reference's init
     distributions (xavier normal for the sparse W and a, xavier uniform for
     skip projections), drawn from ``gen`` and moved to ``device`` (CUDA
@@ -73,26 +79,31 @@ def init_gat(cfg: GATConfig, gen: torch.Generator,
     if len(cfg.nfeats) != cfg.nlayers + 1 or len(cfg.nheads) != cfg.nlayers:
         raise ValueError("nfeats must have nlayers+1 entries, nheads nlayers")
 
-    params: list[V1Params] = []
+    cls = V2Params if cfg.is_v2 else V1Params
+    params = []
     for i in range(cfg.nlayers):
         f_in, f_out, h = layer_dims(cfg, i)
-        w = gini.xavier_normal(gen, (h, f_in, f_out), f_in + f_out)
-        a = gini.xavier_normal(gen, (h, 2 * f_out), 2 * f_out + 1)
+        if cfg.is_v2:
+            w = gini.xavier_normal(gen, (h, 2 * f_in, f_out), 2 * f_in + f_out)
+            a = gini.xavier_normal(gen, (h, f_out), f_out + 1)
+        else:
+            w = gini.xavier_normal(gen, (h, f_in, f_out), f_in + f_out)
+            a = gini.xavier_normal(gen, (h, 2 * f_out), 2 * f_out + 1)
         skip = (gini.xavier_uniform(gen, (h, f_in, f_out), f_in + f_out)
                 if cfg.skip_connection else None)
-        params.append(V1Params(
+        params.append(cls(
             *(None if t is None else t.to(device).requires_grad_()
               for t in (w, a, skip))))
     return params
 
 
-def parameters(params: list[V1Params]) -> list[torch.Tensor]:
+def parameters(params: list[V1Params | V2Params]) -> list[torch.Tensor]:
     """The parameter tensors in a fixed order (layer by layer, W, a, skip)."""
     return [t for p in params for t in p if t is not None]
 
 
 def apply_gat(
-    params: list[V1Params],
+    params: list[V1Params | V2Params],
     cfg: GATConfig,
     x: torch.Tensor,  # [N_pad, F0]
     graph: Graph,
@@ -105,9 +116,10 @@ def apply_gat(
     log_softmax). ``gen`` draws the dropout masks and is unused unless
     training with dropout."""
     _check_ported(cfg)
+    heads_fn = gat_v2_sparse_heads if cfg.is_v2 else gat_v1_sparse_heads
     h = x
     for i, layer_params in enumerate(params):
-        h = gat_v1_sparse_heads(
+        h = heads_fn(
             layer_params, h, graph, gen,
             alpha=cfg.alpha, drop=cfg.dropout,
             concat=i < cfg.nlayers - 1, train=train,

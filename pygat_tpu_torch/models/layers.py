@@ -1,8 +1,9 @@
-"""Head-batched sparse GATv1 layer (port of the fused branch of
-``pygat_tpu/models/layers.py::gat_v1_sparse_heads`` and the pieces it uses).
+"""Head-batched sparse GATv1 and GATv2 layers (port of the fused branches
+of ``pygat_tpu/models/layers.py::gat_v1_sparse_heads`` and
+``gat_v2_sparse_heads`` and the pieces they use).
 
 Dropout placement copies the reference: on the inputs, after the
-projection, and on the attention numerators, with the softmax denominator
+projection(s), and on the attention numerators, with the softmax denominator
 computed from pre-dropout numerators (reference layers.py:150-160). Masks
 are drawn from an explicit ``torch.Generator``: the same distribution as
 the JAX package's masks, not the same bits.
@@ -16,7 +17,11 @@ import torch
 import torch.nn.functional as F
 
 from pygat_tpu_torch.graph import Graph
-from pygat_tpu_torch.ops.fused_stream import fused_v1_attention, leaky_relu
+from pygat_tpu_torch.ops.fused_stream import (
+    fused_v1_attention,
+    fused_v2_attention,
+    leaky_relu,
+)
 
 # Softmax-denominator clamp. 1e-18, not 0: with the bound-shifted softmax a
 # row whose incoming logits all sit far under the bound can underflow its
@@ -61,12 +66,18 @@ class V1Params(NamedTuple):
     skip: torch.Tensor | None  # [H, F_in, F_out] or None
 
 
+class V2Params(NamedTuple):
+    W: torch.Tensor  # [H, 2 * F_in, F_out] (W[:, :F_in] left, W[:, F_in:] right)
+    a: torch.Tensor  # [H, F_out]
+    skip: torch.Tensor | None  # [H, F_in, F_out] or None
+
+
 def _keep(gen: torch.Generator, keep_prob: float, shape) -> torch.Tensor:
     """Boolean keep mask, one draw per dropout site (P(keep) = keep_prob)."""
     return torch.rand(shape, generator=gen, device=gen.device) < keep_prob
 
 
-def _heads_tail(out, params: V1Params, h, x_h, concat: bool):
+def _heads_tail(out, params: V1Params | V2Params, h, x_h, concat: bool):
     """Shared skip/ELU/concat-or-mean tail: ``out`` is [N, H, F_out]."""
     n, n_heads, f_out = out.shape
     if params.skip is not None:
@@ -87,6 +98,14 @@ def _att_keepq(gen, keep: float, e_pad: int, n_heads: int, use_drop: bool,
     return torch.where(_keep(gen, keep, (e_pad, n_heads)), 1.0 / keep, 0.0)
 
 
+def _need_stream_layout(graph: Graph) -> None:
+    if graph.r_local is None:
+        raise NotImplementedError(
+            "graphs without a stream layout (N_pad not a multiple of 128) "
+            "need the unfused branch, not yet ported (ROADMAP Queue 1, "
+            "item 10: unfused layer branches)")
+
+
 def gat_v1_sparse_heads(
     params: V1Params,  # stacked [H, ...] leaves
     h: torch.Tensor,  # [N, F_in] (or [N, H*F] from a previous concat layer)
@@ -104,11 +123,7 @@ def gat_v1_sparse_heads(
     ``[E, H]`` per-edge factors). Returns ``[N, H*F_out]`` (ELU'd head
     concat) when ``concat`` else the head mean ``[N, F_out]``.
     """
-    if graph.r_local is None:
-        raise NotImplementedError(
-            "graphs without a stream layout (N_pad not a multiple of 128) "
-            "need the unfused branch, not yet ported (ROADMAP Queue 1, "
-            "item 10: unfused layer branches)")
+    _need_stream_layout(graph)
     n_heads, f_in, f_out = params.W.shape
     n = h.shape[0]
     e_pad = graph.num_edges_padded
@@ -141,6 +156,82 @@ def gat_v1_sparse_heads(
     keepq = _att_keepq(gen, keep, e_pad, n_heads, use_drop, wh.device)
     agg, den = fused_v1_attention(
         wh, f_dst_n, bound, params.a[:, f_out:], keepq,
+        graph.senders, graph.receivers, graph.r_local, graph.r_chunk,
+        graph.c_slot, graph.c_local, graph.c_chunk, alpha,
+    )
+    out = softmax_div(agg.view(n, n_heads, f_out), den)
+    return _heads_tail(out, params, h, x_h, concat)
+
+
+def gat_v2_sparse_heads(
+    params: V2Params,  # stacked [H, ...] leaves; W [H, 2*F_in, F_out]
+    h: torch.Tensor,  # [N, F_in]
+    graph: Graph,
+    gen: torch.Generator | None,  # dropout generator; unused unless train
+    *,
+    alpha: float,
+    drop: float,
+    concat: bool,
+    train: bool,
+) -> torch.Tensor:
+    """Head-batched sparse GATv2 through the fused attention op: LeakyReLU
+    before the a-projection (reference layers.py:280-283), aggregation of
+    the LEFT projection ``whi`` gathered at senders (layers.py:296); dropout
+    on the input, both projections and the attention numerator (drawn in
+    that order), with a pre-dropout softmax denominator. Layouts and return
+    value as :func:`gat_v1_sparse_heads`.
+    """
+    _need_stream_layout(graph)
+    n_heads, two_f_in, f_out = params.W.shape
+    f_in = two_f_in // 2
+    n = h.shape[0]
+    hf = n_heads * f_out
+    use_drop = train and drop > 0.0
+    keep = 1.0 - drop
+
+    # both projections in one product: [W_left | W_right] side by side
+    w_ij = torch.cat([params.W[:, :f_in], params.W[:, f_in:]], dim=2)
+    if use_drop:
+        x_h = torch.where(_keep(gen, keep, (n, n_heads, f_in)),
+                          h[:, None, :] / keep, 0.0)
+        wh_ij = torch.einsum("nhf,hfo->nho", x_h, w_ij)  # [N, H, 2F]
+        whi = wh_ij[:, :, :f_out].reshape(n, hf)
+        whj = wh_ij[:, :, f_out:].reshape(n, hf)
+        whi = torch.where(_keep(gen, keep, whi.shape), whi / keep, 0.0)
+        whj = torch.where(_keep(gen, keep, whj.shape), whj / keep, 0.0)
+    else:
+        x_h = None
+        wh_ij = (h @ w_ij.permute(1, 0, 2).reshape(f_in, 2 * hf)).view(
+            n, n_heads, 2 * f_out)
+        whi = wh_ij[:, :, :f_out].reshape(n, hf)
+        whj = wh_ij[:, :, f_out:].reshape(n, hf)
+
+    # Softmax stabilization without a segment max. The logits are
+    #   e[h, i, j] = sum_f a[h, f] * leaky(whi[i, hf] + whj[j, hf])
+    # and leaky_relu is monotone, so per (h, f) the j-term is bounded by the
+    # max (a >= 0) or min (a < 0) of whj[:, hf] over real nodes:
+    #   ub[h, i] = sum_f a+ * leaky(whi + Mq) + a- * leaky(whi + mq) >= e
+    # (gradient-stopped: the shift's true gradient is zero).
+    with torch.no_grad():
+        node_col = graph.node_mask[:, None]
+        big = float("inf")
+        mq_max = torch.where(node_col, whj, -big).amax(dim=0)  # [H*F]
+        mq_min = torch.where(node_col, whj, big).amin(dim=0)
+        mq_max = torch.where(torch.isfinite(mq_max), mq_max, 0.0)
+        mq_min = torch.where(torch.isfinite(mq_min), mq_min, 0.0)
+        whi3 = whi.view(n, n_heads, f_out)
+        ub = torch.einsum(
+            "nhf,hf->nh",
+            leaky_relu(whi3 + mq_max.view(1, n_heads, f_out), alpha),
+            params.a.clamp(min=0.0))
+        ub = ub + torch.einsum(
+            "nhf,hf->nh",
+            leaky_relu(whi3 + mq_min.view(1, n_heads, f_out), alpha),
+            params.a.clamp(max=0.0))
+    keepq = _att_keepq(gen, keep, graph.num_edges_padded, n_heads, use_drop,
+                       whi.device)
+    agg, den = fused_v2_attention(
+        whi, whj, ub, params.a, keepq,
         graph.senders, graph.receivers, graph.r_local, graph.r_chunk,
         graph.c_slot, graph.c_local, graph.c_chunk, alpha,
     )

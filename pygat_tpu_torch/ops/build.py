@@ -28,6 +28,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     "stream_scatter": ("pygat_stream_scatter", [_P] * 4 + [_I] * 3 + [_P] * 2),
     "fused_v1": ("pygat_fused_v1", [_P] * 8 + [_I] * 4 + [_F] + [_P] * 3),
+    "fused_v2": ("pygat_fused_v2", [_P] * 8 + [_I] * 4 + [_F] + [_P] * 3),
 }
 SOURCES = tuple(ENTRY_POINTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,6 +36,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _KERNELS: dict[str, ctypes._CFuncPtr] = {}
+# kernel name -> its Python wrapper, which counts its launches in ``launches``
+WRAPPERS: dict = {}
+
+
+def counted(wrapper):
+    """Register ``wrapper`` as the one that launches the kernel of its name
+    and start its launch count at 0 (the wrapper adds one per launch)."""
+    if wrapper.__name__ not in ENTRY_POINTS:
+        raise KeyError(f"no kernel named {wrapper.__name__}")
+    wrapper.launches = 0
+    WRAPPERS[wrapper.__name__] = wrapper
+    return wrapper
+
+
+def launch_counts() -> dict[str, int]:
+    """The launch count of every kernel's wrapper, by kernel name; raises if
+    a kernel of ``ENTRY_POINTS`` has no registered wrapper."""
+    return {name: WRAPPERS[name].launches for name in ENTRY_POINTS}
 
 
 def nvcc_path() -> str:

@@ -1,21 +1,24 @@
-"""Fused sparse GATv1 attention (port of the v1 half of
-``pygat_tpu/ops/fused_stream.py``).
+"""Fused sparse GAT attention (port of ``pygat_tpu/ops/fused_stream.py``).
 
-:func:`fused_v1` computes, per live stream slot, the logit, the
-bound-shifted exp, the attention keep factor and the message, and scatters
-the aggregated numerator ``out [N, HF]`` and the pre-dropout denominator
-``den [N, H]``. On a CUDA tensor it launches the hand-written kernel
-``csrc/fused_v1.cu``, which replaces the TPU kernel
-``pygat_tpu/ops/fused_stream.py::_make_v1_kernel`` (the source notes what
-bounds it and how it is laid out); on a CPU tensor it runs
-:func:`fused_v1_plain`, the plain PyTorch version that is also the kernel's
-oracle.
+:func:`fused_v1` (GATv1) and :func:`fused_v2` (GATv2) compute, per live
+stream slot, the logit, the bound-shifted exp, the attention keep factor
+and the message, and scatter the aggregated numerator ``out [N, HF]`` and
+the pre-dropout denominator ``den [N, H]``. On a CUDA tensor they launch the
+hand-written kernels ``csrc/fused_v1.cu`` and ``csrc/fused_v2.cu``, which
+replace the TPU kernels ``pygat_tpu/ops/fused_stream.py::_make_v1_kernel``
+and ``_make_v2_kernel`` (each source notes what bounds it and how it is
+laid out); on a CPU tensor they run :func:`fused_v1_plain` and
+:func:`fused_v2_plain`, the plain PyTorch versions that are also the
+kernels' oracles.
 
-:func:`fused_v1_attention` is the differentiable op, the counterpart of the
-reference's custom VJP: the forward is :func:`fused_v1`, and the backward
-is the math of ``_v1_bwd`` in PyTorch, recomputing the per-edge pipeline
-lane-minor and reducing through the stream segment sums (once per receiver
-for ``df_dst``, once per sender for ``dwh``).
+:func:`fused_v1_attention` and :func:`fused_v2_attention` are the
+differentiable ops, the counterparts of the reference's custom VJPs: the
+forward is the kernel, and the backward is the math of ``_v1_bwd`` /
+``_v2_bwd`` in PyTorch, recomputing the per-edge pipeline lane-minor and
+reducing through the stream segment sums (once per receiver, once per
+sender). The reference's ``combined``/``split`` sender-window switch has no
+counterpart: it exists because Mosaic cannot gather rows, and the CUDA
+kernel gathers ``whj[s]`` and ``whi[s]`` itself.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from pygat_tpu_torch.ops.stream import (
     stream_sender_segment_sum,
 )
 
-MAX_F = 256  # widest head the kernel takes (csrc/fused_v1.cu)
+MAX_F = 256  # widest head the kernels take (csrc/fused_v1.cu, fused_v2.cu)
 
 
 def leaky_relu(x: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -49,23 +52,55 @@ def _block_diag_a(a: torch.Tensor) -> torch.Tensor:
     return torch.einsum("hf,hk->hfk", a, eye).reshape(h * f, h)
 
 
-def _check_args(wh, f_dst, bound, a_src, keepq, senders, r_local, r_chunk):
-    n_pad, hf = wh.shape
-    h, f = a_src.shape
+def _check_args(what, wide, narrow, a, keepq, senders, r_local, r_chunk):
+    """Shapes and types of a fused forward: ``wide`` tensors are [N, HF],
+    ``narrow`` ones [N, H], ``a`` is [H, F], the rest cover the stream."""
+    n_pad, hf = wide[0].shape
+    h, f = a.shape
     e = senders.shape[0]
     if n_pad % TILE or h * f != hf:
-        raise ValueError(f"wh {tuple(wh.shape)} does not match a_src "
-                         f"{tuple(a_src.shape)} on 128-row tiles")
-    if f_dst.shape != (n_pad, h) or bound.shape != (n_pad, h):
-        raise ValueError("f_dst and bound must be [N, H]")
+        raise ValueError(f"{what}: node table {tuple(wide[0].shape)} does not "
+                         f"match a {tuple(a.shape)} on 128-row tiles")
+    if any(t.shape != (n_pad, hf) for t in wide):
+        raise ValueError(f"{what}: the node tables must be [N, HF]")
+    if any(t.shape != (n_pad, h) for t in narrow):
+        raise ValueError(f"{what}: the per-node head terms must be [N, H]")
     if keepq.shape != (e, h) or r_local.shape != (e,) or e != r_chunk.shape[0] * EC:
         raise ValueError("keepq, senders and r_local must cover the stream")
-    for t in (wh, f_dst, bound, a_src, keepq):
+    for t in (*wide, *narrow, a, keepq):
         if t.dtype != torch.float32:
-            raise ValueError(f"fused_v1 takes float32, got {t.dtype}")
+            raise ValueError(f"{what} takes float32, got {t.dtype}")
     for t in (senders, r_local, r_chunk):
         if t.dtype != torch.int32:
-            raise ValueError(f"fused_v1 takes int32 indices, got {t.dtype}")
+            raise ValueError(f"{what} takes int32 indices, got {t.dtype}")
+
+
+def _launch(wrapper, tensors, a, alpha: float):
+    """Launch the kernel ``csrc/<wrapper.__name__>.cu`` on the current
+    stream and count the launch on ``wrapper``. ``tensors`` are the kernel's
+    eight array arguments in its order (the first is an [N, HF] table, the
+    last is ``r_chunk``); returns the new (out [N, HF], den [N, H])."""
+    what = wrapper.__name__
+    first, r_chunk = tensors[0], tensors[-1]
+    for t in tensors:
+        if t.device != first.device or not t.is_contiguous():
+            raise ValueError(f"{what}: every tensor must be contiguous and "
+                             "on the same device")
+    h, f = a.shape
+    if f > MAX_F:
+        raise ValueError(f"{what}: head width {f} exceeds {MAX_F}")
+    n_pad, hf = first.shape
+    out = torch.empty(n_pad, hf, dtype=torch.float32, device=first.device)
+    den = torch.empty(n_pad, h, dtype=torch.float32, device=first.device)
+    launch = build.kernel(what)
+    with torch.cuda.device(first.device):
+        rc = launch(*(t.data_ptr() for t in tensors), r_chunk.shape[0],
+                    n_pad // TILE, h, f, float(alpha), out.data_ptr(),
+                    den.data_ptr(),
+                    torch.cuda.current_stream(first.device).cuda_stream)
+    build.check(rc, what)
+    wrapper.launches += 1
+    return out, den
 
 
 def stream_receivers(r_local: torch.Tensor,
@@ -81,7 +116,8 @@ def stream_receivers(r_local: torch.Tensor,
 def fused_v1_plain(wh, f_dst, bound, a_src, keepq, senders, r_local, r_chunk,
                    alpha: float):
     """Plain PyTorch version of :func:`fused_v1` (gathers + ``index_add_``)."""
-    _check_args(wh, f_dst, bound, a_src, keepq, senders, r_local, r_chunk)
+    _check_args("fused_v1", (wh,), (f_dst, bound), a_src, keepq, senders,
+                r_local, r_chunk)
     n_pad, hf = wh.shape
     h, f = a_src.shape
     e = senders.shape[0]
@@ -96,6 +132,7 @@ def fused_v1_plain(wh, f_dst, bound, a_src, keepq, senders, r_local, r_chunk,
     return out.index_add_(0, rcv, msgs), den.index_add_(0, rcv, num)
 
 
+@build.counted
 def fused_v1(wh, f_dst, bound, a_src, keepq, senders, r_local, r_chunk,
              alpha: float):
     """(out [N, HF], den [N, H]) of the fused GATv1 forward.
@@ -112,32 +149,10 @@ def fused_v1(wh, f_dst, bound, a_src, keepq, senders, r_local, r_chunk,
                               r_local, r_chunk, alpha)
     if wh.device.type != "cuda":
         raise ValueError(f"fused_v1: unsupported device {wh.device}")
-    _check_args(wh, f_dst, bound, a_src, keepq, senders, r_local, r_chunk)
-    args = (wh, f_dst, bound, a_src, keepq, senders, r_local, r_chunk)
-    for t in args:
-        if t.device != wh.device or not t.is_contiguous():
-            raise ValueError("fused_v1: every tensor must be contiguous and "
-                             "on the same device")
-    h, f = a_src.shape
-    if f > MAX_F:
-        raise ValueError(f"fused_v1: head width {f} exceeds {MAX_F}")
-    n_pad, hf = wh.shape
-    out = torch.empty(n_pad, hf, dtype=torch.float32, device=wh.device)
-    den = torch.empty(n_pad, h, dtype=torch.float32, device=wh.device)
-    launch = build.kernel("fused_v1")
-    with torch.cuda.device(wh.device):
-        rc = launch(
-            wh.data_ptr(), f_dst.data_ptr(), bound.data_ptr(),
-            a_src.data_ptr(), keepq.data_ptr(), senders.data_ptr(),
-            r_local.data_ptr(), r_chunk.data_ptr(), r_chunk.shape[0],
-            n_pad // TILE, h, f, float(alpha), out.data_ptr(), den.data_ptr(),
-            torch.cuda.current_stream(wh.device).cuda_stream)
-    build.check(rc, "fused_v1")
-    fused_v1.launches += 1
-    return out, den
-
-
-fused_v1.launches = 0
+    _check_args("fused_v1", (wh,), (f_dst, bound), a_src, keepq, senders,
+                r_local, r_chunk)
+    return _launch(fused_v1, (wh, f_dst, bound, a_src, keepq, senders,
+                             r_local, r_chunk), a_src, alpha)
 
 
 class _FusedV1Attention(torch.autograd.Function):
@@ -201,3 +216,112 @@ def fused_v1_attention(wh, f_dst, bound, a_src, keepq, senders, receivers,
     return _FusedV1Attention.apply(wh, f_dst, bound, a_src, keepq, senders,
                                    receivers, r_local, r_chunk, c_slot,
                                    c_local, c_chunk, alpha)
+
+
+# ---------------------------------------------------------------------------
+# v2 (GATv2: LeakyReLU before the a-projection; aggregates the LEFT
+# projection gathered at senders, reference layers.py:278-296)
+# ---------------------------------------------------------------------------
+
+
+def fused_v2_plain(whi, whj, ub, a, keepq, senders, r_local, r_chunk,
+                   alpha: float):
+    """Plain PyTorch version of :func:`fused_v2` (gathers + ``index_add_``)."""
+    _check_args("fused_v2", (whi, whj), (ub,), a, keepq, senders, r_local,
+                r_chunk)
+    n_pad, hf = whi.shape
+    h, f = a.shape
+    e = senders.shape[0]
+    snd, rcv = senders.long(), stream_receivers(r_local, r_chunk)
+    pre = leaky_relu(whi[rcv] + whj[snd], alpha).view(e, h, f)
+    logits = (pre * a).sum(-1)
+    live = (r_local < TILE)[:, None]
+    num = torch.where(live, torch.exp(logits - ub[rcv]), 0.0)
+    msgs = (whi[snd].view(e, h, f) * (num * keepq)[:, :, None]).view(e, hf)
+    out = torch.zeros(n_pad, hf, dtype=whi.dtype, device=whi.device)
+    den = torch.zeros(n_pad, h, dtype=whi.dtype, device=whi.device)
+    return out.index_add_(0, rcv, msgs), den.index_add_(0, rcv, num)
+
+
+@build.counted
+def fused_v2(whi, whj, ub, a, keepq, senders, r_local, r_chunk, alpha: float):
+    """(out [N, HF], den [N, H]) of the fused GATv2 forward.
+
+    whi/whj [N, HF] (left and right projections), ub [N, H] (an upper bound
+    of every logit of the row), a [H, F], keepq [E, H] (keep/(1-p) factors,
+    ones when not training); senders/r_local [E] and r_chunk [E / EC] int32
+    in receiver stream order. On a CUDA tensor this launches
+    ``csrc/fused_v2.cu`` (counted in ``fused_v2.launches``), on a CPU tensor
+    it runs :func:`fused_v2_plain`.
+    """
+    if whi.device.type == "cpu":
+        return fused_v2_plain(whi, whj, ub, a, keepq, senders, r_local,
+                              r_chunk, alpha)
+    if whi.device.type != "cuda":
+        raise ValueError(f"fused_v2: unsupported device {whi.device}")
+    _check_args("fused_v2", (whi, whj), (ub,), a, keepq, senders, r_local,
+                r_chunk)
+    return _launch(fused_v2, (whi, whj, ub, a, keepq, senders, r_local,
+                             r_chunk), a, alpha)
+
+
+class _FusedV2Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, whi, whj, ub, a, keepq, senders, receivers, r_local,
+                r_chunk, c_slot, c_local, c_chunk, alpha):
+        whi, whj, ub, a, keepq = (
+            t.contiguous() for t in (whi, whj, ub, a, keepq))
+        out, den = fused_v2(whi, whj, ub, a, keepq, senders, r_local, r_chunk,
+                            alpha)
+        ctx.save_for_backward(whi, whj, ub, a, keepq, senders, receivers,
+                              r_local, r_chunk, c_slot, c_local, c_chunk)
+        ctx.alpha = alpha
+        return out, den
+
+    @staticmethod
+    def backward(ctx, g_out, g_den):
+        (whi, whj, ub, a, keepq, senders, receivers, r_local, r_chunk,
+         c_slot, c_local, c_chunk) = ctx.saved_tensors
+        alpha = ctx.alpha
+        n_pad, hf = whi.shape
+        h, f = a.shape
+        snd, rcv = senders.long(), receivers.long()
+
+        # recompute the per-edge pipeline, lane-minor ([E, H] / [E, HF])
+        gi = whi[snd]  # the message operand
+        raw = whi[rcv] + whj[snd]  # [E, HF]
+        pre = leaky_relu(raw, alpha)
+        abd = _block_diag_a(a)  # [HF, H]
+        exp_bd = _expand_bd(h, f, device=whi.device)  # [H, HF]
+        live = (r_local < TILE)[:, None]  # dead stream slots contribute nothing
+        num = torch.where(live, torch.exp(pre @ abd - ub[rcv]), 0.0)
+        qnum = num * keepq
+
+        dmsg = g_out[rcv]  # [E, HF]
+        dden = g_den[rcv]  # [E, H]
+        dqnum = (dmsg * gi) @ exp_bd.T  # per-head sums over F
+        dlogits = (dqnum * keepq + dden) * num  # [E, H]
+        dpre = (dlogits @ abd.T) * torch.where(raw >= 0, 1.0, alpha)  # [E, HF]
+
+        # receiver side: dwhi from the logit path
+        dwhi_e = stream_segment_sum(dpre, receivers, r_local, r_chunk, n_pad)
+        # sender side: one reduction for dwhj (logit path) and the message
+        # half of dwhi
+        both = torch.cat([dpre, dmsg * (qnum @ exp_bd)], dim=1)  # [E, 2HF]
+        red = stream_sender_segment_sum(both, senders, c_slot, c_local,
+                                        c_chunk, n_pad)
+        da = (pre * (dlogits @ exp_bd)).sum(0).reshape(h, f)
+        return (dwhi_e + red[:, hf:], red[:, :hf], None, da) + (None,) * 9
+
+
+def fused_v2_attention(whi, whj, ub, a, keepq, senders, receivers, r_local,
+                       r_chunk, c_slot, c_local, c_chunk, alpha: float):
+    """Differentiable fused GATv2 attention: (out [N, HF], den [N, H]).
+
+    ``ub`` must already be detached (its true gradient is zero: the softmax
+    is invariant to a per-receiver shift). Gradients flow to ``whi``,
+    ``whj`` and ``a``.
+    """
+    return _FusedV2Attention.apply(whi, whj, ub, a, keepq, senders, receivers,
+                                   r_local, r_chunk, c_slot, c_local, c_chunk,
+                                   alpha)

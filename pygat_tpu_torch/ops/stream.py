@@ -159,6 +159,7 @@ def stream_scatter_plain(
     return out.index_add_(0, rows, src)[:n_pad]
 
 
+@build.counted
 def stream_scatter(
     data: torch.Tensor,  # [E_s, L] f32 in stream order, or [E, L] with slot
     local: torch.Tensor,  # [E_s] int32 chunk-local rows (DEAD = drop)
@@ -196,9 +197,6 @@ def stream_scatter(
     build.check(rc, "stream_scatter")
     stream_scatter.launches += 1
     return out
-
-
-stream_scatter.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,133 @@
+"""Where the Cora epoch's time goes on the GPU, by ``torch.profiler``.
+
+    python -m pygat_tpu_torch.tools.profile_epoch [--model GATv2_sparse]
+
+Profiles one chunk of 10 epochs of each loop on the synthetic Cora stand-in
+at the reference preset: the fast loop (replays of one captured CUDA graph)
+and the per-epoch loop (eager, a host sync per epoch). For each it prints
+the wall time per epoch (host clock around a synchronize), the device-busy
+time per epoch (the sum of all kernel and memory-operation durations the
+profiler saw), the idle share between them, and the ten kernels with the
+most device time. Exits non-zero without a GPU, when the profiler reports
+no device time, or when it reports more device time than the wall time.
+:func:`epoch_runners` is the set-up of both loops, shared with
+``chip_smoke.py``'s epoch timing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+EPOCHS = 10
+
+
+def epoch_runners(cfg, data, n_epochs):
+    """(epoch, chunk) on ``data``'s device, each on a fresh state from the
+    same seeds: ``epoch()`` is one epoch of the per-epoch loop (train step
+    and eval forward, no host sync), ``chunk`` a :class:`ChunkedEpochs` of
+    ``n_epochs`` with no epoch budget, whose ``run()`` is the fast loop's
+    chunk."""
+    from pygat_tpu_torch.models.gat import init_gat
+    from pygat_tpu_torch.train.loop import ChunkedEpochs, make_transductive_steps
+    from pygat_tpu_torch.train.state import init_state, make_optimizer
+    from pygat_tpu_torch.utils.platform import make_generator
+
+    device = data.features.device
+    args = (data.features, data.graph, data.labels)
+
+    def fresh_state(capturable):
+        params = init_gat(cfg, make_generator("cpu", 72), device=device)
+        return init_state(
+            params, make_optimizer(params, 0.005, 5e-4, capturable=capturable),
+            make_generator(device, 73))
+
+    state = fresh_state(False)
+    train_step, eval_step = make_transductive_steps(cfg)
+
+    def epoch():
+        train_step(state, *args, data.idx_train)
+        return eval_step(state.params, *args, data.idx_val)[0]
+
+    chunk = ChunkedEpochs(cfg, fresh_state(device.type == "cuda"), *args,
+                          data.idx_train, data.idx_val, n_epochs=n_epochs,
+                          max_epochs=10 ** 6, patience=100)
+    return epoch, chunk
+
+
+def _profile(label, run, n_epochs):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    traced_ms = (time.perf_counter() - t0) * 1e3 / n_epochs
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_epochs
+
+    # device-side events only, and no annotation ranges: an operator's or an
+    # annotation's device time repeats the kernels under it
+    rows = [(e.key, e.self_device_time_total / 1e3 / n_epochs,
+             e.count / n_epochs)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation and e.self_device_time_total > 0]
+    busy_ms = sum(r[1] for r in rows)
+    if busy_ms <= 0:
+        raise RuntimeError("the profiler reported no device time")
+    if busy_ms > wall_ms:
+        raise RuntimeError(f"{label}: device busy {busy_ms:.4f} ms per epoch "
+                           f"exceeds the wall time {wall_ms:.4f} ms: rows of "
+                           "the trace were counted twice")
+    print(f"{label}: wall {wall_ms:.4f} ms per epoch ({traced_ms:.4f} ms while "
+          f"traced), device busy {busy_ms:.4f} ms per epoch in "
+          f"{sum(r[2] for r in rows):.0f} kernels and memory operations, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:10]:
+        print(f"    {ms:8.4f} ms  {count:5.1f}x  {key[:100]}")
+
+
+def main(argv=None) -> int:
+    import torch
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model", default="GATv2_sparse",
+                   choices=["GAT_sparse", "GATv2_sparse"])
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_epoch: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+
+    from pygat_tpu_torch.data.citation import load_citation
+    from pygat_tpu_torch.models.gat import GATConfig
+    from pygat_tpu_torch.models.presets import PRESETS
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0])
+    cora = load_citation("cora", device="cuda")
+    cfg = GATConfig(layer_type=args.model, **PRESETS["cora"])
+    cfg = cfg._replace(nfeats=(int(cora.features.shape[1]),) + cfg.nfeats[1:])
+    epoch, chunk = epoch_runners(cfg, cora, EPOCHS)
+    _profile(f"Cora {args.model}, fast loop", chunk.run, EPOCHS)
+
+    def eager_chunk():
+        for _ in range(EPOCHS):
+            float(epoch())  # the per-epoch loop reads the validation loss
+
+    _profile(f"Cora {args.model}, per-epoch loop", eager_chunk, EPOCHS)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

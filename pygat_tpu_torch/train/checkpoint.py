@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from pygat_tpu_torch.models.gat import parameters
-from pygat_tpu_torch.train.state import TrainState
+from pygat_tpu_torch.train.state import TrainState, tensor_leaves
 
 _FNAME = re.compile(r"^(\d+)_(.+)\.ckpt\.npz$")
 
@@ -32,20 +32,13 @@ def _path(ckpt_dir: str, epoch: int, tag: str) -> str:
     return os.path.join(ckpt_dir, f"{epoch}_{tag}.ckpt.npz")
 
 
-def _tensor_leaves(state: TrainState) -> list[torch.Tensor]:
-    """Parameters, then each parameter's optimizer state by sorted key."""
-    params = parameters(state.params)
-    leaves = list(params)
-    for p in params:
-        st = state.optimizer.state[p]
-        leaves += [st[k] for k in sorted(st)]
-    return leaves
-
-
 def save(ckpt_dir: str, epoch: int, tag: str, state: TrainState,
-         extra: dict | None = None) -> str:
+         extra: dict | None = None, params=None) -> str:
+    """Write ``{epoch}_{tag}.ckpt.npz``. ``params`` stores another parameter
+    set of the same structure in place of the state's (the fast loop's best
+    model, kept beside the running one)."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    leaves = _tensor_leaves(state)
+    leaves = tensor_leaves(state, params)
     payload = {f"leaf_{i}": t.detach().cpu().numpy()
                for i, t in enumerate(leaves)}
     payload["generator"] = state.generator.get_state().numpy()
@@ -60,25 +53,39 @@ def save(ckpt_dir: str, epoch: int, tag: str, state: TrainState,
     return path
 
 
+def _load_leaves(z, leaves: list[torch.Tensor]) -> None:
+    """Copy ``leaf_0 .. leaf_{n-1}`` of an open checkpoint into ``leaves``
+    (in place), after checking every shape."""
+    arrays = [z[f"leaf_{i}"] for i in range(len(leaves))]
+    for i, (old, arr) in enumerate(zip(leaves, arrays)):
+        if tuple(arr.shape) != tuple(old.shape):
+            raise ValueError(f"leaf {i}: shape {arr.shape} != template {tuple(old.shape)}")
+    with torch.no_grad():
+        for old, arr in zip(leaves, arrays):
+            old.copy_(torch.from_numpy(arr))
+
+
 def restore(path: str, like: TrainState) -> tuple[TrainState, dict]:
     """Load into ``like`` (in place); returns (state, header)."""
     with np.load(path) as z:
         header = json.loads(bytes(z["header"]).decode())
-        leaves = _tensor_leaves(like)
+        leaves = tensor_leaves(like)
         if header["n_leaves"] != len(leaves):
             raise ValueError(
                 f"checkpoint has {header['n_leaves']} leaves, template has {len(leaves)}"
             )
-        arrays = [z[f"leaf_{i}"] for i in range(len(leaves))]
-        for i, (old, arr) in enumerate(zip(leaves, arrays)):
-            if tuple(arr.shape) != tuple(old.shape):
-                raise ValueError(f"leaf {i}: shape {arr.shape} != template {tuple(old.shape)}")
-        with torch.no_grad():
-            for old, arr in zip(leaves, arrays):
-                old.copy_(torch.from_numpy(arr))
+        _load_leaves(z, leaves)
         like.generator.set_state(torch.from_numpy(z["generator"].copy()))
     like.step = int(header["step"])
     return like, header
+
+
+def restore_params(path: str, into) -> None:
+    """Load only the parameter leaves of a checkpoint (they come first) into
+    the parameter set ``into`` (in place); optimizer state and generator are
+    left alone."""
+    with np.load(path) as z:
+        _load_leaves(z, parameters(into))
 
 
 def list_checkpoints(ckpt_dir: str, tag: str) -> list[tuple[int, str]]:
@@ -116,6 +123,14 @@ def rotate_above_best(
     """
     for epoch, path in list_checkpoints(ckpt_dir, tag):
         if epoch > best_epoch and epoch != keep_epoch:
+            os.remove(path)
+
+
+def rotate_except(ckpt_dir: str, tag: str, keep_epoch: int) -> None:
+    """Drop every checkpoint of ``tag`` but ``keep_epoch``'s (the fast loop's
+    one ``{tag}-best`` file)."""
+    for epoch, path in list_checkpoints(ckpt_dir, tag):
+        if epoch != keep_epoch:
             os.remove(path)
 
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+CUDA-graph fast loop against the per-epoch loop, on the card.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. This
 file imports nothing of JAX, so it runs on a machine without it:
@@ -7,7 +8,8 @@ file imports nothing of JAX, so it runs on a machine without it:
 
 The shapes are small and odd on purpose: widths that are not multiples of
 4 or 8, more than 128 columns (several column slabs / head groups per
-tile), a tile without edges, and dead slots whose logits would overflow.
+tile), heads of 64 to 256 features (one head per block above 128), a tile
+without edges, and dead slots whose logits would overflow.
 chip_smoke.py covers the main path's full-size shapes.
 """
 
@@ -17,9 +19,14 @@ import numpy as np
 import pytest
 import torch
 
+from pygat_tpu_torch.data import synthetic
+from pygat_tpu_torch.data.citation import CitationDataset
 from pygat_tpu_torch.graph import build_graph
+from pygat_tpu_torch.models.gat import GATConfig
 from pygat_tpu_torch.ops import fused_stream as fs
 from pygat_tpu_torch.ops import stream as st
+from pygat_tpu_torch.train.logging import TrainLogger
+from pygat_tpu_torch.train.loop import fit_transductive, fit_transductive_fast
 
 pytestmark = pytest.mark.cuda
 
@@ -137,6 +144,199 @@ def test_fused_attention_gradients_card_vs_cpu(cuda):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
 
 
+def _fused_v2_args(g, h, f, gen, device):
+    n, e = g.num_nodes_padded, g.num_edges_padded
+    whi = torch.randn(n, h * f, generator=gen, device=device) * 0.5
+    whj = torch.randn(n, h * f, generator=gen, device=device) * 0.5
+    a = torch.randn(h, f, generator=gen, device=device) * (2.0 / f) ** 0.5
+    # the exact row maximum as the bound (the layer's sign-split bound grows
+    # loose with F, and numerators of 1e-9 would make the comparison idle)
+    rcv, snd = fs.stream_receivers(g.r_local, g.r_chunk), g.senders.long()
+    logits = (fs.leaky_relu(whi[rcv] + whj[snd], 0.2).view(e, h, f) * a).sum(-1)
+    logits = torch.where((g.r_local < 128)[:, None], logits, float("-inf"))
+    ub = torch.full((n, h), float("-inf"), device=device).scatter_reduce(
+        0, rcv[:, None].expand(e, h), logits, "amax")
+    ub = torch.where(torch.isfinite(ub), ub, 0.0).contiguous()
+    keepq = torch.where(torch.rand(e, h, generator=gen, device=device) < 0.6,
+                        1.0 / 0.6, 0.0)
+    return [whi, whj, ub, a, keepq, g.senders, g.r_local, g.r_chunk, 0.2]
+
+
+@pytest.mark.parametrize("empty_tile", [False, True])
+@pytest.mark.parametrize("h,f", [(8, 8), (1, 7), (8, 3), (3, 5), (20, 8),
+                                 (1, 1), (2, 64), (3, 33), (2, 130), (1, 256),
+                                 (2, 256)])
+def test_fused_v2_kernel_matches_plain(cuda, h, f, empty_tile):
+    g = _graph(cuda, empty_tile)
+    gen = torch.Generator(device=cuda).manual_seed(10 * h + f)
+    args = _fused_v2_args(g, h, f, gen, cuda)
+    before = fs.fused_v2.launches
+    out, den = fs.fused_v2(*args)
+    torch.cuda.synchronize()
+    assert fs.fused_v2.launches == before + 1
+    out_p, den_p = fs.fused_v2_plain(*args)
+    assert float(den_p.max()) >= 1.0  # the comparison is not idle
+    _close(out, out_p)
+    _close(den, den_p)
+    if empty_tile:
+        assert float(out[128:256].abs().max()) == 0.0
+        assert float(den[128:256].abs().max()) == 0.0
+
+
+def test_fused_v2_kills_dead_slots_on_the_card(cuda):
+    g = _graph(cuda, False)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    args = _fused_v2_args(g, 2, 3, gen, cuda)
+    for i in (0, 1):  # the dummy row every dead slot points at
+        args[i] = args[i].clone()
+        args[i][-1] = 1e4
+    out, den = fs.fused_v2(*args)
+    out_p, den_p = fs.fused_v2_plain(*args)
+    _close(out, out_p)
+    _close(den, den_p)
+
+
+def test_fused_v2_rejects_too_wide_a_head(cuda):
+    g = _graph(cuda, False)
+    args = _fused_v2_args(g, 1, 257, torch.Generator(device=cuda), cuda)
+    with pytest.raises(ValueError, match="exceeds 256"):
+        fs.fused_v2(*args)
+
+
+def test_fused_v2_attention_gradients_card_vs_cpu(cuda):
+    """The autograd Function on the card (kernel forward, kernel segment
+    sums in the backward) against the same Function on the CPU."""
+    g = _graph(cuda, False)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    args = _fused_v2_args(g, 4, 8, gen, cuda)
+    g_cpu = g.to("cpu")
+    grads = {}
+    for dev, gg in (("cuda", g), ("cpu", g_cpu)):
+        leaves = [args[i].detach().to(dev).requires_grad_() for i in (0, 1, 3)]
+        out, den = fs.fused_v2_attention(
+            leaves[0], leaves[1], args[2].to(dev), leaves[2], args[4].to(dev),
+            gg.senders, gg.receivers, gg.r_local, gg.r_chunk, gg.c_slot,
+            gg.c_local, gg.c_chunk, 0.2)
+        (out.sin().sum() + den.cos().sum()).backward()
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        scale = max(1e-30, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("h,f", [(8, 8), (16, 8)])
+def test_fused_v2_launch_is_capturable(cuda, h, f):
+    """A launch inside CUDA-graph capture (at (16, 8) with more than 48 KB
+    of shared memory, so the attribute call sits inside the capture too)
+    replays to the plain version's result on fresh inputs."""
+    g = _graph(cuda, False)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    args = _fused_v2_args(g, h, f, gen, cuda)
+    fs.fused_v2(*args)  # build and load outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, den = fs.fused_v2(*args)
+    fresh = _fused_v2_args(g, h, f, gen, cuda)
+    for static, new in zip(args[:5], fresh[:5]):
+        static.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    out_p, den_p = fs.fused_v2_plain(*args)
+    _close(out, out_p)
+    _close(den, den_p)
+
+
+def _planted(device):
+    n = 200
+    s, r, labels = synthetic.planted_partition_graph(n, 3, "fastfit",
+                                                     avg_degree=8)
+    s = np.concatenate([s, np.arange(n)])
+    r = np.concatenate([r, np.arange(n)])
+    g = build_graph(s, r, None, n, device=device)
+    x = np.zeros((g.num_nodes_padded, 128), np.float32)
+    x[:n, :16] = synthetic.class_features(labels, 16, "fastfit", density=0.2)
+    lab = np.full(g.num_nodes_padded, -1, np.int32)
+    lab[:n] = labels
+    tr, va, te = (torch.arange(a, b, dtype=torch.int32, device=device)
+                  for a, b in ((0, 100), (100, 150), (150, 200)))
+    return CitationDataset(
+        graph=g, features=torch.from_numpy(x).to(device),
+        labels=torch.from_numpy(lab).to(device), idx_train=tr, idx_val=va,
+        idx_test=te, num_classes=3, num_features=16, synthetic_parts=("all",))
+
+
+def _quiet():
+    import os
+
+    return TrainLogger(stream=open(os.devnull, "w"))
+
+
+@pytest.mark.parametrize("layer_type,fused", [("GAT_sparse", fs.fused_v1),
+                                              ("GATv2_sparse", fs.fused_v2)])
+def test_fit_fast_on_cuda_replays_a_graph_and_matches_classic(cuda, layer_type,
+                                                              fused):
+    """The fast loop on the card: one captured epoch replayed, the per-epoch
+    loop's losses from the same seeds (dropout on: the graph-registered
+    generator draws the masks the eager loop draws), a best model no worse.
+    The wrappers count their own calls only (the eager warm-up epoch, the
+    captured epoch, the test forward); what the replays launch is
+    ``graph_replays`` x ``captured_launches``."""
+    data = _planted(cuda)
+    cfg = GATConfig(nlayers=2, nheads=(2, 1), nfeats=(128, 8, 3), dropout=0.4,
+                    alpha=0.2, layer_type=layer_type)
+    kw = dict(lr=0.01, weight_decay=5e-4, epochs=24, patience=100, seed=7,
+              checkpoint_dir=None, logger=_quiet(), log_every=100)
+    a = fit_transductive(cfg, data, **kw)
+    before = (fused.launches, st.stream_scatter.launches)
+    b = fit_transductive_fast(cfg, data, epoch_chunk=8, **kw)
+    assert b.graph_replays == 24
+    other = "fused_v1" if fused is fs.fused_v2 else "fused_v2"
+    assert b.captured_launches == {"stream_scatter": 4, fused.__name__: 4,
+                                   other: 0}
+    assert fused.launches - before[0] == 4 + 4 + 2
+    assert st.stream_scatter.launches - before[1] == 4 + 4
+    # atomics reorder every sum, and the capturable Adam rounds its bias
+    # correction on the device
+    np.testing.assert_allclose(b.history, a.history, rtol=1e-4)
+    assert b.best_val_loss <= a.best_val_loss * (1 + 1e-4)
+    assert b.state.step == 24 and np.isfinite(b.test_loss)
+
+
+def test_fit_fast_on_cuda_fastmode(cuda):
+    """--fastmode under capture: validation reads the training forward, so
+    an epoch launches each layer's fused kernel once."""
+    data = _planted(cuda)
+    cfg = GATConfig(nlayers=2, nheads=(2, 1), nfeats=(128, 8, 3), dropout=0.4,
+                    alpha=0.2, layer_type="GATv2_sparse")
+    kw = dict(lr=0.01, weight_decay=5e-4, epochs=6, patience=100, seed=3,
+              checkpoint_dir=None, logger=_quiet(), fastmode=True)
+    a = fit_transductive(cfg, data, **kw)
+    before = fs.fused_v2.launches
+    b = fit_transductive_fast(cfg, data, epoch_chunk=3, **kw)
+    assert b.graph_replays == 6
+    assert b.captured_launches["fused_v2"] == 2
+    assert fs.fused_v2.launches - before == 2 + 2 + 2
+    np.testing.assert_allclose(b.history, a.history, rtol=1e-4)
+
+
+def test_fit_fast_on_cuda_resumes_exactly(cuda, tmp_path):
+    data = _planted(cuda)
+    cfg = GATConfig(nlayers=2, nheads=(3, 1), nfeats=(128, 8, 3), dropout=0.4,
+                    alpha=0.2, layer_type="GATv2_sparse")
+    kw = dict(lr=0.01, weight_decay=5e-4, patience=100, seed=72,
+              epoch_chunk=3, log_every=100, logger=_quiet(), dataset_tag="u")
+    full = fit_transductive_fast(cfg, data, epochs=12,
+                                 checkpoint_dir=str(tmp_path / "full"), **kw)
+    part_dir = str(tmp_path / "part")
+    fit_transductive_fast(cfg, data, epochs=6, checkpoint_dir=part_dir, **kw)
+    res = fit_transductive_fast(cfg, data, epochs=12, checkpoint_dir=part_dir,
+                                resume=True, **kw)
+    assert res.graph_replays == 6
+    np.testing.assert_allclose(res.history, full.history, rtol=1e-4)
+    assert res.best_epoch == full.best_epoch
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
     g = _graph(cuda, False)
 
@@ -145,6 +345,7 @@ def test_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
 
     monkeypatch.setattr(st, "stream_scatter_plain", boom)
     monkeypatch.setattr(fs, "fused_v1_plain", boom)
+    monkeypatch.setattr(fs, "fused_v2_plain", boom)
     data = torch.zeros(4, g.num_edges_padded, device=cuda).T  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         st.stream_scatter(data, g.r_local, g.r_chunk, g.num_nodes_padded)
@@ -152,3 +353,8 @@ def test_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
     args[0] = args[0].T.contiguous().T  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         fs.fused_v1(*args)
+    args = _fused_v2_args(g, 2, 3, torch.Generator(device=cuda), cuda)
+    fs.fused_v2(*args)  # launches the kernel, never the plain version
+    args[1] = args[1].T.contiguous().T  # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.fused_v2(*args)

@@ -63,9 +63,13 @@ def test_fused_v1_attention_matches_jax(graphs, h, f):
             gj.senders, gj.receivers, gj.r_local, gj.r_chunk, gj.c_slot,
             gj.c_local, gj.c_chunk, ALPHA, "high", True)
 
-    (out_j, den_j), vjp = jax.vjp(jfn, jnp.asarray(wh), jnp.asarray(f_dst),
-                                  jnp.asarray(a_src))
-    grads_j = vjp((jnp.asarray(g_out), jnp.asarray(g_den)))
+    @jax.jit  # interpret mode op by op costs several times the compile
+    def run(wh_, f_dst_, a_src_):
+        (out, den), vjp = jax.vjp(jfn, wh_, f_dst_, a_src_)
+        return out, den, vjp((jnp.asarray(g_out), jnp.asarray(g_den)))
+
+    out_j, den_j, grads_j = run(jnp.asarray(wh), jnp.asarray(f_dst),
+                                jnp.asarray(a_src))
 
     leaves = [torch.tensor(v, requires_grad=True) for v in (wh, f_dst, a_src)]
     out_t, den_t = tfs.fused_v1_attention(

@@ -69,7 +69,9 @@ def test_apply_gat_matches_jax_fused(setup, skip):
     prev = jseg._STREAM_PRECISION
     jseg._STREAM_PRECISION = "high"
     try:
-        (_, out_j), grads_j = jax.value_and_grad(loss, has_aux=True)(jparams)
+        # jitted: interpret mode op by op costs several times the compile
+        (_, out_j), grads_j = jax.jit(
+            jax.value_and_grad(loss, has_aux=True))(jparams)
     finally:
         jseg._STREAM_PRECISION = prev
 
@@ -150,7 +152,7 @@ def test_dropout_train_step_is_finite_and_seeded(setup):
 
 
 def test_unported_layer_types_raise():
-    for lt in ("GAT", "GATv2", "GATv2_sparse"):
+    for lt in ("GAT", "GATv2"):  # the sparse types are ported
         cfg = tgat.GATConfig(nlayers=1, nheads=(1,), nfeats=(4, 2),
                              dropout=0.0, alpha=0.2, layer_type=lt)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
