@@ -3,33 +3,50 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises (and so exits non-zero) on failure:
+Phases, each of which raises (and so exits non-zero) on failure, and each
+of which prints its seconds:
 
 1. print the card (``nvidia-smi`` name and power limit), CUDA and nvcc
    versions;
-2. build the three CUDA kernels from ``pygat_tpu_torch/csrc`` and print the
+2. build the eight CUDA kernels from ``pygat_tpu_torch/csrc`` and print the
    build seconds and the compiler's register / shared-memory report;
 3. hold each kernel against its plain PyTorch version on the card, at every
-   shape the GAT_sparse and GATv2_sparse paths give it on Cora and Pubmed
-   (the synthetic stand-ins have the real node, edge and feature counts);
-   both Cora models, forward and gradients, on the card against the same
-   model on the CPU;
-4. train through ``pygat_tpu_torch.cli.train.main`` on CUDA, each run with
-   the launch counters set to 0 just before and read just after, and check
-   finite, falling training losses and the counters: Cora GAT_sparse and
-   Pubmed GATv2_sparse by the per-epoch loop, Cora GATv2_sparse by the
+   shape the GAT_sparse and GATv2_sparse paths give it: the stream kernels
+   on Cora and Pubmed (the synthetic stand-ins have the real node, edge and
+   feature counts), the banded kernels (and ``stream_scatter`` at its
+   banded widths) on the 524,288-node clustered graph with the band plan
+   that ``maybe_plan_large`` picks by itself, and on Cora with
+   ``set_band("on")``; both Cora models, forward and gradients, on the card
+   against the same model on the CPU, over the receiver stream and over
+   the band plan;
+4. train on CUDA, each run with the launch counters set to 0 just before
+   and read just after, and check finite, falling training losses and the
+   counters: through ``pygat_tpu_torch.cli.train.main``, Cora GAT_sparse
+   and Pubmed GATv2_sparse by the per-epoch loop, Cora GATv2_sparse by the
    per-epoch loop and by the fast loop (``--epoch-chunk``, one captured
-   CUDA graph replayed per epoch), whose epoch losses must agree. A
-   wrapper's counter counts the wrapper's launches only; what the replays
-   launch is reported beside it, as replays times launches captured;
-5. time the Cora epoch of both models by both loops (host clock) and each
-   kernel beside its plain version, its bound and, for the segment sum,
-   ``index_add_`` (device time per call: calls captured in a CUDA graph,
-   replays timed with CUDA events);
+   CUDA graph replayed per epoch), whose epoch losses must agree; the
+   524,288-node graph through the trainers with no switch (the band plan
+   chosen automatically): GAT_sparse by ``fit_transductive`` and both
+   models by ``fit_transductive_fast``, with no launch of the stream's
+   fused kernels (there the validation loss must fall: the graph's train
+   split holds one label, and its training loss moves with the dropout
+   masks in the first epochs); and ``PYGAT_BAND=on python -m pygat_tpu_torch.cli.train``
+   on Cora as a subprocess, whose own counts it prints. A wrapper's counter
+   counts the wrapper's launches only; what the replays launch is reported
+   beside it, as replays times launches captured;
+5. time the Cora epoch of both models by both loops and the 524,288-node
+   epoch of both models by the fast loop, over the band plan and over the
+   receiver stream (``set_band("off")``), in turns (host clock), and each
+   kernel at each shape beside its plain version, its bound and, where one
+   PyTorch call computes the same function, that call (``index_add_`` for
+   the segment sums, ``index_select`` of rows for the gathers): device
+   time per call, calls captured in a CUDA graph, replays timed with CUDA
+   events;
 6. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 The script imports nothing of JAX or of the JAX package, needs no network
-and starts no process other than ``nvidia-smi`` and ``nvcc``.
+and starts no process other than ``nvidia-smi``, ``nvcc`` and the one
+trainer subprocess, and waits for each.
 """
 
 from __future__ import annotations
@@ -67,6 +84,19 @@ EPOCH_CHUNK = 5
 TIMED_CHUNKS = 5  # chunks of 10 epochs timed for the fast loop
 GRAPH_CALLS = 20  # kernel calls per captured CUDA graph
 GRAPH_REPLAYS = 10
+# the large graph of the banded path (profile_epoch.large_dataset)
+LARGE_EPOCHS = 3  # per-epoch loop
+LARGE_CHUNK = 5  # fast loop: 2 chunks of 5 epochs
+LARGE_TIMED_CHUNKS = 3
+BIG_CALLS, BIG_REPLAYS = 5, 4  # _time_ms at the large graph's shapes
+REPLACES = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
+            "fused_v1": "pygat_tpu/ops/fused_stream.py:134",
+            "fused_v2": "pygat_tpu/ops/fused_stream.py:207",
+            "expand": "pygat_tpu/ops/large.py:47",
+            "banded_take": "pygat_tpu/ops/banded.py:314",
+            "banded_sender_sum": "pygat_tpu/ops/banded.py:411",
+            "fused_v1_banded": "pygat_tpu/ops/banded.py:978",
+            "fused_v2_banded": "pygat_tpu/ops/banded.py:1046"}
 
 
 def _card_line() -> str:
@@ -155,13 +185,27 @@ def _scatter_call(case, g, fn):
               slot=g.c_slot)
 
 
-def _fused_inputs(g, h, f, gen):
+def _tail(g, plan, e, h, gen):
+    """Keep factors of dropout 0.6 over ``e`` slots, then the edge order's
+    arguments: the receiver stream of ``g``, or the band ``plan``."""
+    import torch
+
+    keepq = torch.where(torch.rand(e, h, generator=gen, device="cuda") < 0.4,
+                        1.0 / 0.4, 0.0)
+    if plan is not None:
+        return (keepq, plan, 0.2)
+    return (keepq, g.senders, g.r_local, g.r_chunk, 0.2)
+
+
+def _fused_inputs(g, h, f, gen, plan=None):
+    """wh, f_dst, the bound as the GATv1 layer builds it, a_src, then
+    :func:`_tail`."""
     import torch
 
     from pygat_tpu_torch.ops.fused_stream import leaky_relu
 
     n = g.num_nodes_padded
-    e = g.num_edges_padded
+    e = g.num_edges_padded if plan is None else plan.num_slots
     wh = torch.randn(n, h * f, generator=gen, device="cuda") * 0.5
     a = torch.randn(h, 2 * f, generator=gen, device="cuda") * 0.5
     wh3 = wh.view(n, h, f)
@@ -169,21 +213,18 @@ def _fused_inputs(g, h, f, gen):
     f_src = torch.einsum("nho,ho->nh", wh3, a[:, f:])
     m_src = torch.where(g.node_mask[:, None], f_src, float("-inf")).amax(0)
     bound = leaky_relu(f_dst + m_src[None], 0.2).contiguous()
-    keepq = torch.where(torch.rand(e, h, generator=gen, device="cuda") < 0.4,
-                        1.0 / 0.4, 0.0)
-    return (wh, f_dst, bound, a[:, f:].contiguous(), keepq, g.senders,
-            g.r_local, g.r_chunk, 0.2)
+    return (wh, f_dst, bound, a[:, f:].contiguous()) + _tail(g, plan, e, h, gen)
 
 
-def _fused_v2_inputs(g, h, f, gen):
-    """whi, whj, the sign-split bound ub as the layer builds it, a, and
-    keep factors of dropout 0.6."""
+def _fused_v2_inputs(g, h, f, gen, plan=None):
+    """whi, whj, the sign-split bound ub as the layer builds it, a, then
+    :func:`_tail`."""
     import torch
 
     from pygat_tpu_torch.ops.fused_stream import leaky_relu
 
     n = g.num_nodes_padded
-    e = g.num_edges_padded
+    e = g.num_edges_padded if plan is None else plan.num_slots
     whi = torch.randn(n, h * f, generator=gen, device="cuda") * 0.5
     whj = torch.randn(n, h * f, generator=gen, device="cuda") * 0.5
     a = torch.randn(h, f, generator=gen, device="cuda") * 0.5
@@ -194,14 +235,13 @@ def _fused_v2_inputs(g, h, f, gen):
     ub = (torch.einsum("nhf,hf->nh", leaky_relu(whi3 + hi, 0.2), a.clamp(min=0))
           + torch.einsum("nhf,hf->nh", leaky_relu(whi3 + lo, 0.2),
                          a.clamp(max=0))).contiguous()
-    keepq = torch.where(torch.rand(e, h, generator=gen, device="cuda") < 0.4,
-                        1.0 / 0.4, 0.0)
-    return (whi, whj, ub, a, keepq, g.senders, g.r_local, g.r_chunk, 0.2)
+    return (whi, whj, ub, a) + _tail(g, plan, e, h, gen)
 
 
-def _model_card_vs_cpu(layer_type, cora):
+def _model_card_vs_cpu(layer_type, cora, plan=None):
     """Forward and gradients of the Cora model on the card against the same
-    model on the CPU (kernels against plain versions, end to end)."""
+    model on the CPU (kernels against plain versions, end to end), over
+    the band ``plan`` when one is given."""
     import torch
 
     from pygat_tpu_torch.models.gat import GATConfig, apply_gat, init_gat, parameters
@@ -214,7 +254,8 @@ def _model_card_vs_cpu(layer_type, cora):
     for dev in ("cuda", "cpu"):
         params = init_gat(cfg, make_generator("cpu", 72), device=dev)
         out = apply_gat(params, cfg, cora.features.to(dev), cora.graph.to(dev),
-                        None, train=False)
+                        None, train=False,
+                        plans=None if plan is None else plan.to(dev))
         torch.sin(out[: cora.num_nodes]).sum().backward()
         results[dev] = (out.detach().cpu(),
                         [p.grad.detach().cpu() for p in parameters(params)])
@@ -224,7 +265,9 @@ def _model_card_vs_cpu(layer_type, cora):
         raise AssertionError("model output on the card is not finite")
     scale = max(1.0, float(out_p.abs().max()))
     err = float((out_c - out_p).abs().max())
-    print(f"phase 3: Cora {layer_type} forward card vs CPU: max_abs_err "
+    over = "receiver stream" if plan is None else f"band plan (w={plan.w})"
+    print(f"phase 3: Cora {layer_type} over the {over}, forward card vs CPU: "
+          f"max_abs_err "
           f"{err:.3e} (allowed {MODEL_RTOL * scale:.3e})")
     if err > MODEL_RTOL * scale:
         raise AssertionError("model forward on the card disagrees with the CPU")
@@ -304,6 +347,296 @@ def _epoch_ms(cfg, cora):
     return samples, fast
 
 
+def _slot_rows(plan, side):
+    """[E_b] int64 node row of every banded slot, its receiver (``recv``)
+    or its sender (``send``), and N_pad at dead slots: the index of the
+    library calls."""
+    import torch
+
+    from pygat_tpu_torch.ops.banded import banded_senders
+
+    if side == "send":
+        return banded_senders(plan, plan.n_pad)
+    rows = plan.r_chunk.long().repeat_interleave(256) * 128 + plan.r_local.long()
+    return torch.where(plan.r_local < 128, rows, plan.n_pad)
+
+
+def _banded_cases(label, g, plan, heads, feats, gen):
+    """The calls one train step of each model makes over ``plan``, per
+    layer, with inputs of their shapes: the fused forward, and in the
+    backward banded_take of the sender rows (GATv1: wh, L = HF; GATv2:
+    [whj | whi], 2HF), one expand of the receiver operands (GATv1: [f_dst |
+    bound | g_out | g_den], 3H + HF; GATv2: [whi | ub | g_out | g_den],
+    2HF + 2H), stream_scatter per receiver (GATv1: H; GATv2: HF) and
+    banded_sender_sum per sender (GATv1: HF; GATv2: 2HF)."""
+    import torch
+
+    live = (plan.r_local < 128)[:, None]
+    cases = []
+    for path, make in (("v1", _fused_inputs), ("v2", _fused_v2_inputs)):
+        for h, f in zip(heads, feats):
+            hf = h * f
+            base = dict(dataset=label, path=path, H=h, F=f,
+                        n_live=int(live.sum()))
+            cases.append(dict(base, kernel=f"fused_{path}_banded",
+                              args=make(g, h, f, gen, plan)))
+            widths = (dict(banded_take=hf, expand=3 * h + hf,
+                           stream_scatter=h, banded_sender_sum=hf)
+                      if path == "v1" else
+                      dict(banded_take=2 * hf, expand=2 * hf + 2 * h,
+                           stream_scatter=hf, banded_sender_sum=2 * hf))
+            for kname, width in widths.items():
+                rows = plan.n_pad if kname in ("banded_take", "expand") else (
+                    plan.num_slots)
+                data = torch.randn(rows, width, generator=gen, device="cuda")
+                if kname == "stream_scatter":
+                    data = data * live  # the backward's rows are 0 there
+                cases.append(dict(base, kernel=kname, L=width, data=data))
+    return cases
+
+
+def _banded_call(case, plan, plain=False):
+    """One call of ``case``'s kernel (or its plain version) over ``plan``."""
+    from pygat_tpu_torch.ops import banded, large, stream
+
+    k = case["kernel"]
+    if k == "expand":
+        fn = large.expand_plain if plain else large.expand
+        return fn(case["data"], plan.r_local, plan.r_chunk)
+    if k == "stream_scatter":
+        fn = stream.stream_scatter_plain if plain else stream.stream_scatter
+        return fn(case["data"], plan.r_local, plan.r_chunk, plan.n_pad)
+    fn = getattr(banded, k + ("_plain" if plain else ""))
+    if k in ("banded_take", "banded_sender_sum"):
+        return fn(case["data"], plan)
+    return fn(*case["args"])
+
+
+def _check_banded(case, plan):
+    """``case``'s kernel against its plain version: the gathers bit-exact,
+    the segment sums to KERNEL_RTOL of the same sums over |data|, the fused
+    forward to KERNEL_RTOL of its largest output."""
+    import torch
+
+    k = case["kernel"]
+    got = _banded_call(case, plan)
+    want = _banded_call(case, plan, plain=True)
+    torch.cuda.synchronize()
+    if k in ("expand", "banded_take"):
+        err = float((got - want).abs().max())
+        note = "bit-exact" if torch.equal(got, want) else "NOT bit-exact"
+        ok = torch.equal(got, want)
+    elif k in ("stream_scatter", "banded_sender_sum"):
+        mag = _banded_call(dict(case, data=case["data"].abs()), plan,
+                           plain=True)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{k} output is not finite")
+        diff = (got - want).abs()
+        err = float(diff.max())
+        worst = float((diff / (KERNEL_RTOL * mag + 1e-30)).max())
+        note = f"worst element at {worst:.3f} of its allowance"
+        ok = worst <= 1.0
+    else:
+        (out, den), (out_p, den_p) = got, want
+        e1, a1 = _max_err(out, out_p)
+        e2, a2 = _max_err(den, den_p)
+        err = max(e1, e2)
+        note = f"out {e1:.3e} (allowed {a1:.3e}), den {e2:.3e} (allowed {a2:.3e})"
+        ok = e1 <= a1 and e2 <= a2
+    case["max_abs_err"] = err
+    shape = f"H={case['H']} F={case['F']}" + (
+        f" L={case['L']}" if "L" in case else "")
+    print(f"  {k} {case['dataset']} {case['path']} {shape}: max_abs_err "
+          f"{err:.3e}, {note}")
+    if not ok:
+        raise AssertionError(f"{k} disagrees with its plain version")
+
+
+def _time_banded(case, plan, big):
+    """Device ms of ``case``'s kernel, its plain version and, where one
+    PyTorch call computes the same function, that call; and the bound:
+    each input read once (a node table once, the edge data of live slots
+    only), each output written once, over the card's memory rate."""
+    import torch
+
+    kw = dict(calls=BIG_CALLS, replays=BIG_REPLAYS) if big else {}
+    k = case["kernel"]
+    n, e, c = plan.n_pad, plan.num_slots, plan.num_chunks
+    n_live = case["n_live"]
+    case["ms"] = _time_ms(lambda: _banded_call(case, plan), **kw)
+    case["plain_ms"] = _time_ms(lambda: _banded_call(case, plan, plain=True),
+                                **kw)
+    case["library_ms"] = None
+    if k in ("expand", "banded_take"):
+        width = case["L"]
+        # index_select of rows from the table with one zero row appended,
+        # which the dead slots name
+        idx = _slot_rows(plan, "recv" if k == "expand" else "send")
+        padded = torch.cat([case["data"],
+                            torch.zeros(1, width, device="cuda")])
+        case["library_ms"] = _time_ms(
+            lambda: torch.index_select(padded, 0, idx), **kw)
+        n_bytes, n_flops = 4 * (n * width + e + c + e * width), 0
+    elif k in ("stream_scatter", "banded_sender_sum"):
+        width = case["L"]
+        # index_add_ into a zeroed buffer with one scratch row taking the
+        # dead slots
+        idx = _slot_rows(plan, "recv" if k == "stream_scatter" else "send")
+        lib_out = torch.zeros(n + 1, width, device="cuda")
+        case["library_ms"] = _time_ms(
+            lambda: lib_out.index_add_(0, idx, case["data"]), **kw)
+        n_bytes = 4 * (n_live * width + e + c + n * width)
+        n_flops = n_live * width
+    else:
+        h, f = case["H"], case["F"]
+        index_words = 2 * e + 2 * c  # s_loc, r_local; band, r_chunk
+        tables = 1 if k == "fused_v1_banded" else 2
+        narrow = 2 if k == "fused_v1_banded" else 1
+        n_bytes = 4 * (tables * n * h * f + narrow * n * h + h * f
+                       + n_live * h + index_words + n * (h * f + h))
+        n_flops = n_live * ((4 if tables == 1 else 6) * h * f + 6 * h)
+    case["bound_ms"], case["bound_by"] = _bound(n_bytes, n_flops)
+    lib = "" if case["library_ms"] is None else (
+        f", library {case['library_ms']:.4f} ms")
+    shape = f"H={case['H']} F={case['F']}" + (
+        f" L={case['L']}" if "L" in case else "")
+    print(f"  {k} {case['dataset']} {case['path']} {shape}: "
+          f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms{lib}, "
+          f"bound {case['bound_ms']:.5f} ms ({case['bound_by']})")
+
+
+BACKWARD_KERNELS = ("banded_take", "expand", "stream_scatter",
+                    "banded_sender_sum")
+
+
+def _want_banded(fused_name, epochs, fast):
+    """The launches a banded run makes through the wrappers, and those one
+    replay of the fast loop's captured epoch holds: per epoch 2 layers x
+    (train forward + eval forward) fused and one call of each backward
+    kernel per layer; the test forward adds 2 fused. The fast loop's
+    wrappers see the eager warm-up epoch and the captured one."""
+    per_epoch = {fused_name: 4, **dict.fromkeys(BACKWARD_KERNELS, 2)}
+    calls = 2 if fast else epochs
+    wrappers = {k: v * calls for k, v in per_epoch.items()}
+    wrappers[fused_name] += 2
+    return wrappers, (per_epoch if fast else {})
+
+
+def _train_large(label, fit, cfg, data, counters, jsonl, **kw):
+    """One trainer run on the large graph, every launch counter set to 0
+    just before and read just after. Checks that the trainer chose the band
+    plan by itself, finite losses, a falling validation loss, and the
+    launch counts.
+    Returns (launches, train losses, result, replayed launches)."""
+    from pygat_tpu_torch.models.presets import TRAIN_PRESETS
+    from pygat_tpu_torch.train.logging import TrainLogger
+
+    if os.path.exists(jsonl):
+        os.remove(jsonl)
+    logger = TrainLogger(jsonl_path=jsonl, stream=io.StringIO())
+    for fn in counters.values():
+        fn.launches = 0
+    result = fit(cfg, data, **TRAIN_PRESETS["cora"], patience=100,
+                 checkpoint_dir=None, logger=logger, log_every=1, **kw)
+    got = {name: fn.launches for name, fn in counters.items()}
+    logger.close()
+    with open(jsonl) as fh:
+        recs = [json.loads(line) for line in fh]
+    plans = [r for r in recs if r["kind"] == "band_plan"]
+    if len(plans) != 1:
+        raise AssertionError(f"{label}: the trainer chose no band plan")
+    losses = [r["loss_train"] for r in recs if r["kind"] == "epoch"]
+    val = [r["loss_val"] for r in recs if r["kind"] == "epoch"]
+    epochs = kw["epochs"]
+    print(f"phase 4: {label}: train losses {losses}; validation losses "
+          f"{val}", flush=True)
+    if len(losses) != epochs or not all(math.isfinite(v)
+                                        for v in losses + val):
+        raise AssertionError(f"{label}: losses missing or not finite")
+    # the graph's train split (its first tenth of nodes) holds one label,
+    # so under dropout 0.6 the training loss starts near ln 4 at high
+    # training accuracy and moves with the masks for the first epochs; the
+    # eval-mode validation loss is the learning signal that must fall
+    if not val[-1] < val[0]:
+        raise AssertionError(f"{label}: validation loss did not fall")
+    fused_name = "fused_v2_banded" if cfg.is_v2 else "fused_v1_banded"
+    fast = "epoch_chunk" in kw
+    want, want_captured = _want_banded(fused_name, epochs, fast)
+    captured = {k: v for k, v in result.captured_launches.items() if v}
+    replays = result.graph_replays
+    by_replay = {k: replays * v for k, v in captured.items()}
+    print(f"phase 4: {label}: band plan chosen by the trainer: w "
+          f"{plans[0]['w']}, {plans[0]['chunks']} chunks, {plans[0]['slots']} "
+          f"slots, fill {plans[0]['fill']:.4f}; wrapper launches "
+          f"{ {k: v for k, v in got.items() if v} }; {replays} CUDA graph "
+          f"replays, each launching {captured}, so {by_replay} more by "
+          f"replay", flush=True)
+    if {k: v for k, v in got.items() if v} != want:
+        raise AssertionError(f"{label}: wrapper launches {got}, want {want} "
+                             "and no other kernel")
+    if captured != want_captured or replays != (epochs if fast else 0):
+        raise AssertionError(f"{label}: {replays} replays of {captured}")
+    return got, losses, result, by_replay
+
+
+def _cli_band(jsonl, epochs):
+    """``PYGAT_BAND=on python -m pygat_tpu_torch.cli.train --dataset cora
+    --model GAT_sparse`` as a subprocess: the environment knob reaches the
+    banded path. Returns (the launch counts the CLI printed, train losses,
+    the plan line)."""
+    if os.path.exists(jsonl):
+        os.remove(jsonl)
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pygat_tpu_torch.cli.train", "--dataset",
+         "cora", "--model", "GAT_sparse", "--epochs", str(epochs),
+         "--no-checkpoint", "--log-every", "1", "--jsonl", jsonl],
+        cwd=root, env=dict(os.environ, PYGAT_BAND="on"), capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"PYGAT_BAND=on CLI returned {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    counts = re.search(r"Kernel launches: (\{.*\})", proc.stdout)
+    plan = re.search(r"band_plan: (.*)", proc.stdout)
+    if counts is None or plan is None or "start training on cuda" not in proc.stdout:
+        raise AssertionError("the PYGAT_BAND=on CLI did not plan, run on "
+                             "CUDA or print its launches:\n" + proc.stdout[-3000:])
+    with open(jsonl) as fh:
+        recs = [json.loads(line) for line in fh]
+    losses = [r["loss_train"] for r in recs if r["kind"] == "epoch"]
+    if len(losses) != epochs or not all(math.isfinite(v) for v in losses):
+        raise AssertionError("train losses missing or not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("training loss did not fall")
+    return json.loads(counts.group(1)), losses, plan.group(1)
+
+
+def _large_epoch_ms(cfg, data, plan, stream_plan):
+    """Host ms per epoch of the fast loop on the large graph over ``plan``
+    (banded) and ``stream_plan`` (None: the receiver stream), chunks of
+    LARGE_CHUNK epochs run in turns after one warm-up chunk each."""
+    import torch
+
+    from pygat_tpu_torch.tools.profile_epoch import epoch_runners
+
+    chunks = {"banded": epoch_runners(cfg, data, LARGE_CHUNK, plan)[1],
+              "stream": epoch_runners(cfg, data, LARGE_CHUNK, stream_plan)[1]}
+    for chunk in chunks.values():
+        chunk.run()  # warm-up epoch, capture, first replays
+    samples = {k: [] for k in chunks}
+    for i in range(LARGE_TIMED_CHUNKS):
+        for k in (("banded", "stream") if i % 2 == 0 else ("stream", "banded")):
+            t0 = time.perf_counter()
+            chunks[k].run()  # ends in the chunk's one host sync
+            samples[k].append((time.perf_counter() - t0) * 1e3 / LARGE_CHUNK)
+    for k, chunk in chunks.items():
+        if chunk.graph_replays != LARGE_CHUNK * (LARGE_TIMED_CHUNKS + 1):
+            raise AssertionError(f"the {k} fast loop did not replay its graph")
+    del chunks
+    torch.cuda.empty_cache()
+    return {k: sorted(v) for k, v in samples.items()}
+
+
 def main() -> int:
     import torch
 
@@ -314,6 +647,7 @@ def main() -> int:
     from pygat_tpu_torch.data.citation import load_citation
     from pygat_tpu_torch.models.presets import PRESETS
     from pygat_tpu_torch.ops import build
+    from pygat_tpu_torch.ops.banded import BandPlan, maybe_plan_large, set_band
     from pygat_tpu_torch.ops.fused_stream import (
         fused_v1,
         fused_v1_plain,
@@ -321,41 +655,52 @@ def main() -> int:
         fused_v2_plain,
     )
     from pygat_tpu_torch.ops.stream import stream_scatter, stream_scatter_plain
+    from pygat_tpu_torch.tools.profile_epoch import large_config, large_dataset
+    from pygat_tpu_torch.train.loop import fit_transductive, fit_transductive_fast
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     assert torch.cuda.device_count() >= 1
     kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
+
+    def phase_done(n, t0):
+        print(f"phase {n}: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- phase 1: the card and the toolchain ---------------------------------
+    t0 = time.perf_counter()
     card = _card_line()
     print(f"phase 1: card {card!r}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {_nvcc_version(build.nvcc_path())}",
           flush=True)
+    phase_done(1, t0)
 
     # -- phase 2: build --------------------------------------------------------
+    t0 = time.perf_counter()
     secs = build.build_all()
     print(f"phase 2: built {list(build.SOURCES)} in {secs:.2f} s", flush=True)
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    phase_done(2, t0)
 
     # -- phase 3: kernels against their plain versions -------------------------
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(72)
     datasets = {}
     for name in ("cora", "pubmed"):
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         ds = load_citation(name, device="cuda")
         datasets[name] = ds
         g = ds.graph
         print(f"phase 3: {name}: N_pad {g.num_nodes_padded}, E_s "
               f"{g.num_edges_padded}, CSC stream {g.c_slot.shape[0]}, "
               f"features {tuple(ds.features.shape)} "
-              f"({time.perf_counter() - t0:.1f} s to load)", flush=True)
+              f"({time.perf_counter() - t1:.1f} s to load)", flush=True)
 
-    kernel_cases = {"stream_scatter": [], "fused_v1": [], "fused_v2": []}
+    kernel_cases = {name: [] for name in build.SOURCES}
     fused = {"fused_v1": (fused_v1, fused_v1_plain, _fused_inputs),
              "fused_v2": (fused_v2, fused_v2_plain, _fused_v2_inputs)}
     for name, ds in datasets.items():
@@ -395,12 +740,50 @@ def main() -> int:
                     dataset=name, H=h, F=f, args=args, max_abs_err=max(e1, e2),
                     n_live=int((g.r_local < 128).sum())))
 
-    # the whole Cora models, forward and gradients: card vs CPU
+    # the banded kernels: on the large clustered graph with the plan the
+    # JAX package's selection picks by itself (auto, past 300k nodes), and
+    # on Cora with set_band("on"); built once, shared with phases 4 and 5
+    t1 = time.perf_counter()
+    large = large_dataset()
+    t2 = time.perf_counter()
+    large_plan = maybe_plan_large(large.graph)
+    if not isinstance(large_plan, BandPlan):
+        raise AssertionError("maybe_plan_large chose no band plan at 524k nodes")
+    print(f"phase 3: large: N_pad {large.graph.num_nodes_padded}, E_s "
+          f"{large.graph.num_edges_padded}, features "
+          f"{tuple(large.features.shape)} ({t2 - t1:.1f} s to build); band "
+          f"plan chosen by maybe_plan_large: w {large_plan.w}, "
+          f"{large_plan.num_chunks} chunks, {large_plan.num_slots} slots, "
+          f"fill {large_plan.fill:.4f} ({time.perf_counter() - t2:.1f} s)",
+          flush=True)
     cora = datasets["cora"]
+    set_band("on", w=4)
+    cora_plan = maybe_plan_large(cora.graph)
+    set_band("auto")
+    print(f"phase 3: cora with set_band('on'): w {cora_plan.w}, "
+          f"{cora_plan.num_chunks} chunks, fill {cora_plan.fill:.4f}")
+    plans = {"large": large_plan, "cora, band plan": cora_plan}
+    banded_cases = []
+    for label, ds, preset in (("large", large, "cora"),
+                              ("cora, band plan", cora, "cora")):
+        heads = PRESETS[preset]["nheads"]
+        feats = (PRESETS[preset]["nfeats"][1], ds.num_classes)
+        for case in _banded_cases(label, ds.graph, plans[label], heads, feats,
+                                  gen):
+            _check_banded(case, plans[label])
+            kernel_cases[case["kernel"]].append(case)
+            banded_cases.append(case)
+
+    # the whole Cora models, forward and gradients: card vs CPU, over the
+    # receiver stream and over the band plan
     cfgs = {lt: _model_card_vs_cpu(lt, cora)
             for lt in ("GAT_sparse", "GATv2_sparse")}
+    for lt in cfgs:
+        _model_card_vs_cpu(lt, cora, cora_plan)
+    phase_done(3, t0)
 
-    # -- phase 4: the main paths, through the CLI ------------------------------
+    # -- phase 4: the main paths ------------------------------------------------
+    t0 = time.perf_counter()
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     jsonl = os.path.join(build.BUILD_DIR, "chip_smoke_train.jsonl")
     counters = dict(build.WRAPPERS)  # every kernel's wrapper, by name
@@ -437,8 +820,13 @@ def main() -> int:
         other = "fused_v1" if fused_name == "fused_v2" else "fused_v2"
         if got[other] or captured[other]:
             raise AssertionError(f"{other} ran on the {fused_name} path")
+        if any(got[k] or captured[k] for k in counters
+               if k not in (fused_name, other, "stream_scatter")):
+            raise AssertionError(f"a banded kernel ran on the {label} path")
         if "fast loop" in label:
-            want = {fused_name: 4, "stream_scatter": 4, other: 0}
+            want = {fused_name: 4, "stream_scatter": 4,
+                    **{k: 0 for k in counters
+                       if k not in (fused_name, "stream_scatter")}}
             if replays != epochs or captured != want:
                 raise AssertionError(
                     f"{replays} replays of {captured} for {epochs} epochs of "
@@ -453,9 +841,6 @@ def main() -> int:
                 raise AssertionError(f"{fused_name} launches are off")
             if got["stream_scatter"] != 2 * 2 * epochs:
                 raise AssertionError("stream_scatter launches are off")
-        for name in counters:
-            launches[name] += got[name]
-            replayed[name] += by_replay[name]
     slow = path_losses["cora GATv2_sparse, per-epoch loop"]
     fast = path_losses["cora GATv2_sparse, fast loop"]
     worst = max(abs(x - y) / abs(y) for x, y in zip(fast, slow))
@@ -464,7 +849,55 @@ def main() -> int:
     if not worst <= LOOPS_RTOL:
         raise AssertionError("the fast loop's losses differ from the per-epoch loop's")
 
+    # the large graph through the trainers, with no switch: each asks
+    # maybe_plan_large, which picks the band plan past 300k padded nodes
+    large_cfgs = {lt: large_config(lt, large)
+                  for lt in ("GAT_sparse", "GATv2_sparse")}
+    large_runs = [
+        ("large GAT_sparse, per-epoch loop", fit_transductive, "GAT_sparse",
+         dict(epochs=LARGE_EPOCHS)),
+        ("large GAT_sparse, fast loop", fit_transductive_fast, "GAT_sparse",
+         dict(epochs=2 * LARGE_CHUNK, epoch_chunk=LARGE_CHUNK)),
+        ("large GATv2_sparse, fast loop", fit_transductive_fast,
+         "GATv2_sparse", dict(epochs=2 * LARGE_CHUNK, epoch_chunk=LARGE_CHUNK)),
+    ]
+    for label, fit, lt, kw in large_runs:
+        t1 = time.perf_counter()
+        got, losses, _, by_replay = _train_large(label, fit, large_cfgs[lt],
+                                                 large, counters, jsonl, **kw)
+        print(f"  ({time.perf_counter() - t1:.1f} s)", flush=True)
+        path_launches[label], path_losses[label] = got, losses
+        path_replayed[label] = {k: by_replay.get(k, 0) for k in counters}
+    slow = path_losses["large GAT_sparse, per-epoch loop"]
+    fast = path_losses["large GAT_sparse, fast loop"][:LARGE_EPOCHS]
+    worst = max(abs(x - y) / abs(y) for x, y in zip(fast, slow))
+    print(f"phase 4: large GAT_sparse, fast loop vs per-epoch loop over "
+          f"{LARGE_EPOCHS} shared epochs: worst relative difference "
+          f"{worst:.3e} (allowed {LOOPS_RTOL:.0e})")
+    if not worst <= LOOPS_RTOL:
+        raise AssertionError("the large fast loop's losses differ from the "
+                             "per-epoch loop's")
+
+    # the environment knob reaches the banded path through the CLI
+    t1 = time.perf_counter()
+    label = "cora GAT_sparse, PYGAT_BAND=on CLI"
+    got, losses, plan_line = _cli_band(jsonl, V1_EPOCHS)
+    print(f"phase 4: {label} (subprocess, {time.perf_counter() - t1:.1f} s): "
+          f"{plan_line}; launches it counted {got}; train losses {losses}",
+          flush=True)
+    want, _ = _want_banded("fused_v1_banded", V1_EPOCHS, False)
+    if {k: v for k, v in got.items() if v} != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    path_launches[label], path_losses[label] = got, losses
+    path_replayed[label] = dict.fromkeys(counters, 0)
+    for label in path_launches:
+        for name in counters:
+            launches[name] += path_launches[label][name]
+            replayed[name] += path_replayed[label][name]
+    phase_done(4, t0)
+
     # -- phase 5: timing --------------------------------------------------------
+    t0 = time.perf_counter()
     epoch_ms = {}
     for lt, cfg in cfgs.items():
         samples, fast_samples = _epoch_ms(cfg, cora)
@@ -477,8 +910,25 @@ def main() -> int:
               f"{TIMED_CHUNKS} chunks of 10 CUDA graph replays: median "
               f"{fast_samples[len(fast_samples) // 2]:.4f} ms per epoch, min "
               f"{fast_samples[0]:.4f}, max {fast_samples[-1]:.4f}", flush=True)
+    # the large graph's epoch over the band plan and, for comparison, over
+    # the receiver stream: what set_band("off") leaves the trainers
+    set_band("off")
+    stream_plan = maybe_plan_large(large.graph)
+    set_band("auto")
+    for lt, cfg in large_cfgs.items():
+        res = _large_epoch_ms(cfg, large, large_plan, stream_plan)
+        epoch_ms[f"large {lt}"] = {
+            f"fast_loop_{k}_ms": v[len(v) // 2] for k, v in res.items()}
+        print(f"phase 5: large {lt} epoch by the fast loop, host clock, "
+              f"{LARGE_TIMED_CHUNKS} chunks of {LARGE_CHUNK} CUDA graph "
+              f"replays each, in turns: "
+              + "; ".join(f"{k}: median {v[len(v) // 2]:.4f} ms per epoch "
+                          f"(all {[round(x, 4) for x in v]})"
+                          for k, v in res.items()), flush=True)
 
     for case in kernel_cases["stream_scatter"]:
+        if "side" not in case:
+            continue  # a banded width, timed below
         g = datasets[case["dataset"]].graph
         n_pad, width = g.num_nodes_padded, case["L"]
         case["ms"] = _time_ms(lambda: _scatter_call(case, g, stream_scatter))
@@ -533,37 +983,42 @@ def main() -> int:
             print(f"  {kname} {case['dataset']} H={h} F={f}: "
                   f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
                   f"bound {case['bound_ms']:.5f} ms ({case['bound_by']})")
+    for case in banded_cases:
+        _time_banded(case, plans[case["dataset"]], case["dataset"] == "large")
+    phase_done(5, t0)
 
     # -- phase 6: the kernels line ----------------------------------------------
-    replaces = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
-                "fused_v1": "pygat_tpu/ops/fused_stream.py:134",
-                "fused_v2": "pygat_tpu/ops/fused_stream.py:207"}
     entries = []
     for name, cases in kernel_cases.items():
-        # the Cora numbers sum the shapes one train step gives the kernel
-        # (stream_scatter: the 4 backward launches of each model's step; the
-        # fused kernels: one forward's 2 launches); every shape of both
-        # datasets is listed under "cases". "launches" sums the wrapper's
-        # count over the main-path runs of phase 4 (one by one under
+        # the summary numbers sum the shapes one train step gives the kernel
+        # on its path's graph: Cora for the stream kernels (stream_scatter:
+        # the 4 backward launches of each model's step; the fused kernels:
+        # one forward's 2 launches), the large graph for the banded ones
+        # (each of the 4 backward kernels: one launch per layer of each
+        # model's step; the fused kernels: one forward's 2 launches); every
+        # shape is listed under "cases". "launches" sums the wrapper's count
+        # over the main-path runs of phase 4 (one by one under
         # "launches_by_path"); "replayed_launches" are those of the fast
         # loop's CUDA graph replays, replays x launches captured.
-        cora_cases = [c for c in cases if c["dataset"] == "cora"]
-        lib = [c["library_ms"] for c in cora_cases]
+        main_set = "cora" if name in ("stream_scatter", "fused_v1",
+                                      "fused_v2") else "large"
+        main_cases = [c for c in cases if c["dataset"] == main_set]
+        lib = [c["library_ms"] for c in main_cases]
         entries.append({
             "name": name, "route": "cuda",
             "source": f"pygat_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces[name],
+            "replaces": REPLACES[name],
             "launches": launches[name],
             "launches_by_path": {k: v[name] for k, v in path_launches.items()},
             "replayed_launches": replayed[name],
             "replayed_launches_by_path": {
                 k: v[name] for k, v in path_replayed.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": sum(c["ms"] for c in cora_cases),
-            "plain_ms": sum(c["plain_ms"] for c in cora_cases),
-            "bound_ms": sum(c["bound_ms"] for c in cora_cases),
-            "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in cora_cases)
-            else "operations",
+            "ms": sum(c["ms"] for c in main_cases),
+            "plain_ms": sum(c["plain_ms"] for c in main_cases),
+            "bound_ms": sum(c["bound_ms"] for c in main_cases),
+            "bound_by": "bytes" if all(c["bound_by"] == "bytes"
+                                       for c in main_cases) else "operations",
             "library_ms": None if None in lib else sum(lib),
             "cases": [{k: c[k] for k in ("dataset", "path", "side", "L", "H",
                                          "F", "ms", "plain_ms", "library_ms",
@@ -571,6 +1026,9 @@ def main() -> int:
                                          "max_abs_err") if k in c}
                       for c in cases],
         })
+        if not launches[name]:
+            raise AssertionError(f"{name} was not launched on any main path")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries, "epoch_ms": epoch_ms,
                       "card": card}))
     print(card)

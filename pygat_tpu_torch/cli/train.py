@@ -8,7 +8,11 @@ package's own), running on CUDA unless ``--no-cuda`` asks for the CPU:
         --epoch-chunk 50
 
 ``--epoch-chunk K`` with K > 1 runs ``fit_transductive_fast``: K epochs per
-host sync, on CUDA as replays of one captured CUDA graph. Flags whose
+host sync, on CUDA as replays of one captured CUDA graph. As in the JAX
+package, the large-N banded path has no flag: the trainers take it past
+300k padded nodes, or when the environment asks (``PYGAT_BAND=on``; also
+``PYGAT_BAND_N``, ``PYGAT_BAND_W``, ``PYGAT_BAND_MIN_FILL``). On CUDA the
+last line counts the kernel launches made through their wrappers. Flags whose
 machinery is not ported yet (``--mesh``, ``--partition``, ``--corner``,
 ``--reorder``, ``--distributed``, ``--backend xla``, the dense models
 ``GAT`` / ``GATv2``) raise an error naming the ROADMAP item that ports it.
@@ -108,6 +112,7 @@ def main(argv=None) -> int:
     from pygat_tpu_torch.data.citation import dataset_stats, load_citation
     from pygat_tpu_torch.models.gat import GATConfig
     from pygat_tpu_torch.models.presets import PRESETS, TRAIN_PRESETS
+    from pygat_tpu_torch.ops import build
     from pygat_tpu_torch.train.logging import TrainLogger
     from pygat_tpu_torch.train.loop import (
         fit_transductive,
@@ -164,6 +169,8 @@ def main(argv=None) -> int:
     print("Optimization Finished!")
     print("Total time elapsed: {:.4f}s".format(time.time() - t0))
     print("Loading {}th epoch".format(result.best_epoch))
+    if device.type == "cuda":
+        print(f"Kernel launches: {json.dumps(build.launch_counts())}")
     logger.close()
     return 0
 

@@ -11,6 +11,10 @@ deterministically at the right shapes:
   dimensionality, row-normalized like the bag-of-words originals;
 * topology missing -> planted-partition random graphs.
 
+:func:`clustered_citation` makes a whole dataset of any size whose edges
+are local (senders near their receivers), the large graph of the banded
+path.
+
 Everything is keyed by (dataset name, shape) through a sha256 seed, so runs
 are reproducible across processes. Loaders record which parts were
 synthesized in ``synthetic_parts``.
@@ -100,3 +104,58 @@ def planted_partition_graph(
     senders = np.concatenate([u, v])
     receivers = np.concatenate([v, u])
     return senders, receivers, labels
+
+
+def clustered_citation(n_nodes: int, n_feat: int, n_classes: int, name: str,
+                       spread: int, n_pad: int | None = None, *,
+                       device=None):
+    """A citation-like dataset whose senders lie within ``spread`` of their
+    receivers (the counterpart of ``_synthetic_citation(spread=k)`` in the
+    JAX package's ``__graft_entry__.py``): 9 in-edges per node from
+    ``receiver + U[-spread, spread)`` (clipped to the node range) plus a
+    self-loop, noisy class-signature features in the first
+    ``min(n_feat, 64)`` of ``n_feat`` columns, labels by contiguous node
+    band, and 10 % / 10 % / 80 % train / validation / test splits. Seeded
+    from ``name`` through sha256, so every process draws the same graph
+    (the JAX function seeds from ``hash(name)``, which is salted per
+    process; the two generators are not meant to agree). Returns a
+    :class:`~pygat_tpu_torch.data.citation.CitationDataset` on ``device``
+    (CUDA unless the caller names another device; raises without CUDA)."""
+    import torch
+
+    from pygat_tpu_torch.data.citation import CitationDataset
+    from pygat_tpu_torch.graph import build_graph
+    from pygat_tpu_torch.utils.platform import resolve_device
+
+    device = resolve_device(device)
+    rng = _rng(name + ":clustered", n_nodes, spread)
+    deg = 9
+    base = np.repeat(np.arange(n_nodes, dtype=np.int64), deg)
+    s = np.clip(base + rng.integers(-spread, spread, base.shape[0]),
+                0, n_nodes - 1)
+    s = np.concatenate([s, np.arange(n_nodes)])
+    r = np.concatenate([base, np.arange(n_nodes)])
+    labels = (np.arange(n_nodes) * n_classes // n_nodes).astype(np.int32)
+    g = build_graph(s, r, None, n_nodes, n_pad=n_pad, device=device)
+    feats = class_features(labels, min(n_feat, 64), name)
+    x = np.zeros((g.num_nodes_padded, n_feat), np.float32)
+    x[:n_nodes, : feats.shape[1]] = feats
+    lab = np.full(g.num_nodes_padded, -1, np.int32)
+    lab[:n_nodes] = labels
+    n_train = max(32, n_nodes // 10)
+    n_val_end = min(2 * n_train, n_nodes)
+
+    def idx(a, b):
+        return torch.arange(a, b, dtype=torch.int32, device=device)
+
+    return CitationDataset(
+        graph=g,
+        features=torch.from_numpy(x).to(device),
+        labels=torch.from_numpy(lab).to(device),
+        idx_train=idx(0, n_train),
+        idx_val=idx(n_train, n_val_end),
+        idx_test=idx(n_val_end, n_nodes),
+        num_classes=n_classes,
+        num_features=n_feat,
+        synthetic_parts=("all",),
+    )

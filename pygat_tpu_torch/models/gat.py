@@ -27,6 +27,7 @@ from pygat_tpu_torch.models.layers import (
     gat_v1_sparse_heads,
     gat_v2_sparse_heads,
 )
+from pygat_tpu_torch.ops.banded import BandPlan
 from pygat_tpu_torch.utils.platform import resolve_device
 
 LAYER_TYPES = ("GAT", "GAT_sparse", "GATv2", "GATv2_sparse")
@@ -110,11 +111,14 @@ def apply_gat(
     gen: torch.Generator | None,
     *,
     train: bool,
+    plans: BandPlan | None = None,
 ) -> torch.Tensor:
     """Forward pass; returns raw per-node outputs [N_pad, n_classes] (the
     final layer has no activation; the transductive loss head adds ELU +
     log_softmax). ``gen`` draws the dropout masks and is unused unless
-    training with dropout."""
+    training with dropout. ``plans`` (a band plan of ``graph``, see
+    :func:`~pygat_tpu_torch.ops.banded.maybe_plan_large`) runs every layer's
+    attention over the banded order."""
     _check_ported(cfg)
     heads_fn = gat_v2_sparse_heads if cfg.is_v2 else gat_v1_sparse_heads
     h = x
@@ -122,6 +126,6 @@ def apply_gat(
         h = heads_fn(
             layer_params, h, graph, gen,
             alpha=cfg.alpha, drop=cfg.dropout,
-            concat=i < cfg.nlayers - 1, train=train,
+            concat=i < cfg.nlayers - 1, train=train, plan=plans,
         )
     return h

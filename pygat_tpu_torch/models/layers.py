@@ -7,6 +7,11 @@ projection(s), and on the attention numerators, with the softmax denominator
 computed from pre-dropout numerators (reference layers.py:150-160). Masks
 are drawn from an explicit ``torch.Generator``: the same distribution as
 the JAX package's masks, not the same bits.
+
+With a :class:`~pygat_tpu_torch.ops.banded.BandPlan` (``plan=``, the large-N
+path the trainers pick past 300k nodes) the attention runs over the plan's
+banded slots, and its keep mask is drawn over those slots, not the receiver
+stream's: a different draw of the same distribution, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +22,11 @@ import torch
 import torch.nn.functional as F
 
 from pygat_tpu_torch.graph import Graph
+from pygat_tpu_torch.ops.banded import (
+    BandPlan,
+    fused_v1_attention_banded,
+    fused_v2_attention_banded,
+)
 from pygat_tpu_torch.ops.fused_stream import (
     fused_v1_attention,
     fused_v2_attention,
@@ -90,12 +100,20 @@ def _heads_tail(out, params: V1Params | V2Params, h, x_h, concat: bool):
     return out.mean(dim=1)
 
 
-def _att_keepq(gen, keep: float, e_pad: int, n_heads: int, use_drop: bool,
-               device) -> torch.Tensor:
-    """[E, H] attention keep/(1-p) factors (ones in eval)."""
+def _att_keepq(gen, keep: float, n_slots: int, n_heads: int,
+               use_drop: bool, device) -> torch.Tensor:
+    """[E, H] attention keep/(1-p) factors over ``n_slots`` edge slots
+    (ones in eval)."""
     if not use_drop:
-        return torch.ones(e_pad, n_heads, dtype=torch.float32, device=device)
-    return torch.where(_keep(gen, keep, (e_pad, n_heads)), 1.0 / keep, 0.0)
+        return torch.ones(n_slots, n_heads, dtype=torch.float32,
+                          device=device)
+    return torch.where(_keep(gen, keep, (n_slots, n_heads)), 1.0 / keep, 0.0)
+
+
+def _slots(graph: Graph, plan: BandPlan | None) -> int:
+    """The attention's edge slots: the plan's banded ones, else the
+    receiver stream's."""
+    return graph.num_edges_padded if plan is None else plan.num_slots
 
 
 def _need_stream_layout(graph: Graph) -> None:
@@ -116,8 +134,10 @@ def gat_v1_sparse_heads(
     drop: float,
     concat: bool,
     train: bool,
+    plan: BandPlan | None = None,
 ) -> torch.Tensor:
-    """Head-batched sparse GATv1 through the fused attention op.
+    """Head-batched sparse GATv1 through the fused attention op (over the
+    banded order of ``plan`` when one is given).
 
     Heads stay folded into the minor axis (``[N, H*F_out]`` projections,
     ``[E, H]`` per-edge factors). Returns ``[N, H*F_out]`` (ELU'd head
@@ -126,7 +146,6 @@ def gat_v1_sparse_heads(
     _need_stream_layout(graph)
     n_heads, f_in, f_out = params.W.shape
     n = h.shape[0]
-    e_pad = graph.num_edges_padded
     use_drop = train and drop > 0.0
     keep = 1.0 - drop
 
@@ -153,12 +172,17 @@ def gat_v1_sparse_heads(
                             float("-inf")).amax(dim=0)
         m_src = torch.where(torch.isfinite(m_src), m_src, 0.0)
         bound = leaky_relu(f_dst_n + m_src[None, :], alpha)
-    keepq = _att_keepq(gen, keep, e_pad, n_heads, use_drop, wh.device)
-    agg, den = fused_v1_attention(
-        wh, f_dst_n, bound, params.a[:, f_out:], keepq,
-        graph.senders, graph.receivers, graph.r_local, graph.r_chunk,
-        graph.c_slot, graph.c_local, graph.c_chunk, alpha,
-    )
+    keepq = _att_keepq(gen, keep, _slots(graph, plan), n_heads, use_drop,
+                       wh.device)
+    if plan is not None:
+        agg, den = fused_v1_attention_banded(
+            wh, f_dst_n, bound, params.a[:, f_out:], keepq, plan, alpha)
+    else:
+        agg, den = fused_v1_attention(
+            wh, f_dst_n, bound, params.a[:, f_out:], keepq,
+            graph.senders, graph.receivers, graph.r_local, graph.r_chunk,
+            graph.c_slot, graph.c_local, graph.c_chunk, alpha,
+        )
     out = softmax_div(agg.view(n, n_heads, f_out), den)
     return _heads_tail(out, params, h, x_h, concat)
 
@@ -173,8 +197,10 @@ def gat_v2_sparse_heads(
     drop: float,
     concat: bool,
     train: bool,
+    plan: BandPlan | None = None,
 ) -> torch.Tensor:
-    """Head-batched sparse GATv2 through the fused attention op: LeakyReLU
+    """Head-batched sparse GATv2 through the fused attention op (over the
+    banded order of ``plan`` when one is given): LeakyReLU
     before the a-projection (reference layers.py:280-283), aggregation of
     the LEFT projection ``whi`` gathered at senders (layers.py:296); dropout
     on the input, both projections and the attention numerator (drawn in
@@ -228,12 +254,16 @@ def gat_v2_sparse_heads(
             "nhf,hf->nh",
             leaky_relu(whi3 + mq_min.view(1, n_heads, f_out), alpha),
             params.a.clamp(max=0.0))
-    keepq = _att_keepq(gen, keep, graph.num_edges_padded, n_heads, use_drop,
+    keepq = _att_keepq(gen, keep, _slots(graph, plan), n_heads, use_drop,
                        whi.device)
-    agg, den = fused_v2_attention(
-        whi, whj, ub, params.a, keepq,
-        graph.senders, graph.receivers, graph.r_local, graph.r_chunk,
-        graph.c_slot, graph.c_local, graph.c_chunk, alpha,
-    )
+    if plan is not None:
+        agg, den = fused_v2_attention_banded(whi, whj, ub, params.a, keepq,
+                                             plan, alpha)
+    else:
+        agg, den = fused_v2_attention(
+            whi, whj, ub, params.a, keepq,
+            graph.senders, graph.receivers, graph.r_local, graph.r_chunk,
+            graph.c_slot, graph.c_local, graph.c_chunk, alpha,
+        )
     out = softmax_div(agg.view(n, n_heads, f_out), den)
     return _heads_tail(out, params, h, x_h, concat)

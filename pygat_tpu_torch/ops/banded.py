@@ -1,0 +1,591 @@
+"""Banded edge order for graphs past 300k nodes (port of
+``pygat_tpu/ops/banded.py``).
+
+The band plan re-sorts each 128-row receiver tile's edges by sender and
+cuts them into 256-slot chunks whose senders all lie in a window of ``w``
+128-row tiles starting at ``band[c]``: slot ``k`` of chunk ``c`` has the
+sender ``band[c] * 128 + s_loc[k]`` and the receiver ``r_chunk[c] * 128 +
+r_local[k]``, and ``s_loc == w * 128`` (with ``r_local == 128``) marks a
+dead slot. The JAX package built it so that its TPU kernels could fetch
+each chunk's sender rows as ``w`` VMEM tiles; on the GPU it keeps each
+chunk's sender rows within ``w * 128`` rows of the node table, which stays
+in L2 where the whole table (134 MB at 524k nodes and 64 columns) does not.
+
+Three parts:
+
+* the host half, in numpy and identical to the reference's:
+  :class:`BandPlan`, :func:`build_band_plan`, and the selection
+  :func:`set_band` / :func:`maybe_plan_band` / :func:`maybe_plan_large`,
+  which read the JAX package's knobs ``PYGAT_BAND`` (auto/on/off),
+  ``PYGAT_BAND_N``, ``PYGAT_BAND_W`` and ``PYGAT_BAND_MIN_FILL`` at import;
+* the kernels, each a wrapper that on a CUDA tensor launches its
+  hand-written kernel and on a CPU tensor runs its plain PyTorch version
+  (the kernel's oracle): :func:`banded_take` (``csrc/banded_take.cu``,
+  replaces ``_make_banded_kernel``), :func:`banded_sender_sum`
+  (``csrc/banded_sender_sum.cu``, replaces ``_make_sender_sum_kernel``),
+  :func:`fused_v1_banded` and :func:`fused_v2_banded`
+  (``csrc/fused_v1_banded.cu``, ``csrc/fused_v2_banded.cu``, replace
+  ``_make_v1_banded_kernel`` and ``_make_v2_banded_kernel``);
+* the differentiable ops :func:`fused_v1_attention_banded` and
+  :func:`fused_v2_attention_banded`, whose backward is the math of the
+  reference's custom VJPs: :func:`banded_take` recomputes the sender rows,
+  :func:`~pygat_tpu_torch.ops.large.expand` reads the receiver-side
+  operands, :func:`~pygat_tpu_torch.ops.stream.stream_scatter` sums per
+  receiver and :func:`banded_sender_sum` per sender.
+
+The plan's fields that the kernels and plain versions read (``band``,
+``s_loc``, ``r_local``, ``r_chunk``) are tensors on the graph's device; the
+others stay numpy arrays on the host. The reference's band-sorted schedule
+``bs_*`` exists for the TPU's VMEM accumulators and is kept for parity
+only: the sender-sum kernel walks the banded chunks directly. The banded
+SpMM (``spmm_banded``) is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+
+import numpy as np
+import torch
+
+from pygat_tpu_torch.ops import build
+from pygat_tpu_torch.ops.fused_stream import (
+    _block_diag_a,
+    _check_args as _check_fused_args,
+    _expand_bd,
+    _launch,
+    fused_v1_plain,
+    fused_v2_plain,
+    leaky_relu,
+)
+from pygat_tpu_torch.ops.large import expand
+from pygat_tpu_torch.ops.stream import (
+    DEAD,
+    EC,
+    TILE,
+    build_stream_layout,
+    stream_scatter,
+)
+
+# the fields of a BandPlan that live on the device
+_DEVICE_FIELDS = ("band", "s_loc", "r_local", "r_chunk")
+
+
+@dataclasses.dataclass(frozen=True)
+class BandPlan:
+    """Banded edge order and per-chunk window bases (host-built, static).
+
+    The banded order is receiver-tile-major, sender-sorted within each
+    tile; every chunk writes one 128-row output tile (``r_chunk``) and
+    reads sender rows only from tiles ``band[c] .. band[c] + w - 1``.
+    """
+
+    w: int  # window width in 128-row tiles
+    band: torch.Tensor  # [C] int32 window base tile per chunk
+    s_loc: torch.Tensor  # [E_b] int32 sender row within window (w*128 dead)
+    r_local: torch.Tensor  # [E_b] int32 receiver row within tile (DEAD dead)
+    r_chunk: torch.Tensor  # [C] int32 output tile per chunk (non-decreasing)
+    senders: np.ndarray  # [E_b] int32 (dummy N_pad - 1 on dead slots)
+    receivers: np.ndarray  # [E_b] int32 (tile-local dummy row on dead slots)
+    edge_weight: np.ndarray  # [E_b] f32 (0 on dead slots)
+    # CSC stream over the banded order (c_slot maps a stream position to a
+    # banded slot): the reference's fallback sender reduction
+    c_slot: np.ndarray  # [E_s2] int32
+    c_local: np.ndarray  # [E_s2] int32
+    c_chunk: np.ndarray  # [E_s2 / EC] int32
+    # band-sorted chunk schedule of the reference's sender-sum kernel
+    bs_band: np.ndarray  # [C2] int32, non-decreasing window base
+    bs_chunk: np.ndarray  # [C2] int32 source banded chunk (0 on dead)
+    bs_sloc: np.ndarray  # [C2/8, 8, EC] int32 s_loc in bs order (dead w*128)
+    fill: float  # real edges / (C * EC): chunk-packing efficiency
+    perm: np.ndarray  # [E_b] int64 original edge index (-1 dead)
+    n_pad: int  # node rows of the graph the plan was built for
+
+    @property
+    def num_slots(self) -> int:
+        return self.s_loc.shape[0]
+
+    @property
+    def num_chunks(self) -> int:
+        return self.band.shape[0]
+
+    def to(self, device) -> "BandPlan":
+        """The same plan with its device fields on ``device``."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device) for f in _DEVICE_FIELDS})
+
+
+def _host_edges(graph):
+    """(senders, receivers, edge_weight, edge_mask) of ``graph`` as numpy:
+    the host copy kept by ``build_graph``, else one batched device read."""
+    from pygat_tpu_torch.graph import host_edges
+
+    host = host_edges(graph)
+    if host is not None:
+        return host
+    packed = torch.stack([graph.senders, graph.receivers,
+                          graph.edge_weight.view(torch.int32),
+                          graph.edge_mask.to(torch.int32)]).cpu().numpy()
+    return packed[0], packed[1], packed[2].view(np.float32), packed[3] != 0
+
+
+def _cut_chunks(s, rt, tile_lo, tile_hi, n_pad, w):
+    """The reference's greedy chunk cuts, all tiles at once: from its first
+    uncut edge ``i``, a tile's next chunk takes the window base
+    ``min(s[i] >> 7, n_tiles - w)`` and runs to the first edge whose sender
+    leaves the window, or EC edges. Returns (tile, base, lo, hi) per chunk
+    in (tile, cut) order; an empty tile gets one empty chunk."""
+    n_tiles = n_pad // TILE
+    base_cap = n_tiles - w
+    key = rt * (n_pad + 1) + s  # non-decreasing: edges sort by (tile, s)
+    tiles = np.arange(n_tiles, dtype=np.int64)
+    empty = tile_lo == tile_hi
+    parts = [(tiles[empty], np.zeros(int(empty.sum()), np.int64),
+              np.minimum(tiles[empty], base_cap), tile_lo[empty],
+              tile_lo[empty])]
+    t_act, cur, hi = tiles[~empty], tile_lo[~empty], tile_hi[~empty]
+    cut = 0
+    while t_act.size:
+        base = np.minimum(s[cur] >> 7, base_cap)
+        limit = (base + w) * TILE
+        nxt = np.minimum(cur + EC,
+                         np.searchsorted(key, t_act * (n_pad + 1) + limit))
+        parts.append((t_act, np.full(t_act.size, cut, np.int64), base, cur,
+                      nxt))
+        more = nxt < hi
+        t_act, cur, hi = t_act[more], nxt[more], hi[more]
+        cut += 1
+    tile, cut_no, base, lo, hi = (np.concatenate(c) for c in zip(*parts))
+    order = np.lexsort((cut_no, tile))
+    return tile[order], base[order], lo[order], hi[order]
+
+
+def build_band_plan(graph, w: int = 4) -> BandPlan:
+    """Host-side plan: re-sort each receiver tile's edges by sender and cut
+    window-bounded chunks. ``w`` is the window in 128-row tiles (clipped to
+    the table). The device fields go to the graph's device."""
+    senders, receivers, weights, mask = _host_edges(graph)
+    senders = np.asarray(senders, dtype=np.int64)
+    receivers = np.asarray(receivers, dtype=np.int64)
+    weights = np.asarray(weights, dtype=np.float32)
+    mask = np.asarray(mask)
+    n_pad = graph.num_nodes_padded
+    if n_pad % TILE:
+        raise ValueError(f"n_pad={n_pad} must be 128-aligned")
+    n_tiles = n_pad // TILE
+    w = min(int(w), n_tiles)
+    if w < 1:
+        raise ValueError("window must be >= 1 tile")
+
+    eidx = np.nonzero(mask)[0]
+    s, r = senders[eidx], receivers[eidx]
+    rt = r // TILE
+    order = np.lexsort((r, s, rt))
+    s, r, rt, eidx = s[order], r[order], rt[order], eidx[order]
+    tile_lo = np.searchsorted(rt, np.arange(n_tiles))
+    tile_hi = np.searchsorted(rt, np.arange(n_tiles), side="right")
+    tile_a, base_a, lo_a, hi_a = _cut_chunks(s, rt, tile_lo, tile_hi, n_pad,
+                                             w)
+
+    # pad the chunk count to a multiple of 8 with trailing all-dead chunks
+    # on the last tile (keeps r_chunk sorted)
+    base_cap = n_tiles - w
+    c_real = tile_a.shape[0]
+    c = -(-c_real // 8) * 8
+    pad = c - c_real
+    tile_a = np.concatenate([tile_a, np.full(pad, n_tiles - 1, np.int64)])
+    base_a = np.concatenate([base_a, np.full(pad, base_cap, np.int64)])
+    lo_a = np.concatenate([lo_a, np.full(pad, len(eidx), np.int64)])
+    hi_a = np.concatenate([hi_a, np.full(pad, len(eidx), np.int64)])
+    lens = hi_a - lo_a
+    e_b = c * EC
+
+    # scatter the sorted real edges into their banded slots
+    pos_in_chunk = np.arange(int(lens.sum()), dtype=np.int64) - np.repeat(
+        np.concatenate([[0], np.cumsum(lens)[:-1]]), lens)
+    slot_pos = np.repeat(np.arange(c, dtype=np.int64) * EC, lens) + pos_in_chunk
+
+    dummy = n_pad - 1
+    s_loc = np.full(e_b, w * TILE, np.int32)
+    r_local = np.full(e_b, DEAD, np.int32)
+    senders_b = np.full(e_b, dummy, np.int32)
+    receivers_b = (np.repeat(tile_a, EC) * TILE + TILE - 1).astype(np.int32)
+    weight_b = np.zeros(e_b, np.float32)
+    perm = np.full(e_b, -1, np.int64)
+
+    s_loc[slot_pos] = (s - np.repeat(base_a, lens) * TILE).astype(np.int32)
+    r_local[slot_pos] = (r - np.repeat(tile_a, lens) * TILE).astype(np.int32)
+    senders_b[slot_pos] = s.astype(np.int32)
+    receivers_b[slot_pos] = r.astype(np.int32)
+    weight_b[slot_pos] = weights[eidx]
+    perm[slot_pos] = eidx
+    if not ((s_loc[slot_pos] >= 0).all() and (s_loc[slot_pos] < w * TILE).all()):
+        raise AssertionError("a sender fell outside its chunk's window")
+
+    # CSC stream over the banded order
+    ptr = np.zeros(n_pad + 1, np.int64)
+    np.cumsum(np.bincount(senders_b, minlength=n_pad), out=ptr[1:])
+    c_lay = build_stream_layout(ptr, order=np.lexsort((receivers_b, senders_b)))
+
+    # band-sorted chunk schedule: a dead filler chunk for every uncovered
+    # base, sorted stably by base, padded to a multiple of 8
+    covered = np.zeros(base_cap + 1, bool)
+    covered[base_a] = True
+    missing = np.nonzero(~covered)[0]
+    ent_band = np.concatenate([base_a, missing])
+    ent_chunk = np.concatenate(
+        [np.arange(c, dtype=np.int64), np.zeros(len(missing), np.int64)])
+    ent_dead = np.concatenate([np.zeros(c, bool), np.ones(len(missing), bool)])
+    o2 = np.argsort(ent_band, kind="stable")
+    ent_band, ent_chunk, ent_dead = ent_band[o2], ent_chunk[o2], ent_dead[o2]
+    pad2 = (-len(ent_band)) % 8
+    ent_band = np.concatenate([ent_band, np.full(pad2, base_cap, np.int64)])
+    ent_chunk = np.concatenate([ent_chunk, np.zeros(pad2, np.int64)])
+    ent_dead = np.concatenate([ent_dead, np.ones(pad2, bool)])
+    c2 = len(ent_band)
+    sloc2 = s_loc.reshape(c, EC)[ent_chunk].copy()
+    sloc2[ent_dead] = w * TILE
+
+    device = graph.senders.device
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return BandPlan(
+        w=w,
+        band=dev(base_a),
+        s_loc=dev(s_loc),
+        r_local=dev(r_local),
+        r_chunk=dev(tile_a),
+        senders=senders_b,
+        receivers=receivers_b,
+        edge_weight=weight_b,
+        c_slot=np.maximum(c_lay.slot, 0).astype(np.int32),
+        c_local=c_lay.local,
+        c_chunk=c_lay.chunk_tile,
+        bs_band=ent_band.astype(np.int32),
+        bs_chunk=ent_chunk.astype(np.int32),
+        bs_sloc=sloc2.reshape(c2 // 8, 8, EC),
+        fill=float(len(eidx)) / float(e_b),
+        perm=perm,
+        n_pad=n_pad,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Selection (the reference's knobs, read at import)
+# ---------------------------------------------------------------------------
+
+_BAND_MODE = os.environ.get("PYGAT_BAND", "auto")
+# the reference's node count past which 'auto' plans (its measured TPU
+# crossover; the port keeps the same switch so both packages take the same
+# path on the same graph)
+_BAND_N = int(os.environ.get("PYGAT_BAND_N", str(300_000)))
+_BAND_W = int(os.environ.get("PYGAT_BAND_W", "4"))
+# below this fill 'auto' keeps the stream path (poor locality)
+_BAND_MIN_FILL = float(os.environ.get("PYGAT_BAND_MIN_FILL", "0.2"))
+# the reference's corner plan (opt-in), which the port does not have
+_CORNER_MODE = os.environ.get("PYGAT_CORNER", "auto")
+_CORNER_N = int(os.environ.get("PYGAT_CORNER_N", str(2 ** 62)))
+
+
+def set_band(mode: str, *, n: int | None = None, w: int | None = None) -> None:
+    """'auto' (a plan for stream graphs of at least PYGAT_BAND_N padded
+    nodes with adequate locality), 'on', 'off'; ``n`` and ``w`` set the
+    threshold and the window."""
+    global _BAND_MODE, _BAND_N, _BAND_W
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"unknown band mode {mode!r}")
+    _BAND_MODE = mode
+    if n is not None:
+        _BAND_N = int(n)
+    if w is not None:
+        _BAND_W = int(w)
+
+
+def maybe_plan_band(graph) -> BandPlan | None:
+    """A BandPlan when the fused layers should run over the banded order;
+    None keeps the receiver stream."""
+    if graph.r_local is None or _BAND_MODE == "off":
+        return None
+    if _BAND_MODE == "auto" and graph.num_nodes_padded < _BAND_N:
+        return None
+    plan = build_band_plan(graph, w=_BAND_W)
+    if _BAND_MODE == "auto" and plan.fill < _BAND_MIN_FILL:
+        print(f"[pygat_tpu_torch.banded] fill {plan.fill:.2f} < "
+              f"{_BAND_MIN_FILL} (poor locality); keeping the stream path",
+              file=sys.stderr)
+        return None
+    return plan
+
+
+def maybe_plan_large(graph) -> BandPlan | None:
+    """The large-N plan for the fused layers, as the reference picks it:
+    the band plan (auto past PYGAT_BAND_N), else None. The reference's
+    corner plan is not ported: asking for it (``PYGAT_CORNER=on``, or
+    ``PYGAT_CORNER_N`` at or below N_pad) raises."""
+    plan = maybe_plan_band(graph)
+    if plan is not None:
+        return plan
+    if graph.c_slot is not None and (
+            _CORNER_MODE == "on" or (_CORNER_MODE == "auto"
+                                     and graph.num_nodes_padded >= _CORNER_N)):
+        raise NotImplementedError(
+            "the corner plan (PYGAT_CORNER, PYGAT_CORNER_N) is not ported yet "
+            "(ROADMAP Queue 1, item 15: alternative ops)")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Kernels and their plain versions
+# ---------------------------------------------------------------------------
+
+
+def banded_senders(plan: BandPlan, dead_row: int) -> torch.Tensor:
+    """[E_b] int64 sender row of every slot, ``band[k // EC] * 128 +
+    s_loc[k]``, and ``dead_row`` at dead slots (tested before the row is
+    formed: a dead slot on the last band would name row N_pad)."""
+    live = plan.s_loc < plan.w * TILE
+    rows = plan.band.long().repeat_interleave(EC) * TILE + plan.s_loc.long()
+    return torch.where(live, rows, dead_row)
+
+
+def _check_table(what: str, table: torch.Tensor, plan: BandPlan) -> None:
+    if (table.dim() != 2 or table.dtype != torch.float32
+            or table.shape[0] != plan.n_pad):
+        raise ValueError(f"{what}: the table must be [{plan.n_pad}, L] "
+                         f"float32, got {table.dtype} {tuple(table.shape)}")
+
+
+def banded_take_plain(table: torch.Tensor, plan: BandPlan) -> torch.Tensor:
+    """Plain PyTorch version of :func:`banded_take` (a row gather)."""
+    _check_table("banded_take", table, plan)
+    live = (plan.s_loc < plan.w * TILE)[:, None]
+    return torch.where(live, table[banded_senders(plan, 0)], 0.0)
+
+
+@build.counted
+def banded_take(table: torch.Tensor, plan: BandPlan) -> torch.Tensor:
+    """``table`` [N_pad, L] f32 rows at every slot's sender in banded order,
+    [E_b, L], zeros at dead slots, bit-exact. On a CUDA tensor this
+    launches ``csrc/banded_take.cu`` (counted in ``banded_take.launches``);
+    on a CPU tensor it runs :func:`banded_take_plain`. Not
+    differentiable."""
+    if table.device.type == "cpu":
+        return banded_take_plain(table, plan)
+    if table.device.type != "cuda":
+        raise ValueError(f"banded_take: unsupported device {table.device}")
+    _check_table("banded_take", table, plan)
+    out = torch.empty(plan.num_slots, table.shape[1], dtype=torch.float32,
+                      device=table.device)
+    build.launch(banded_take, table, plan.band, plan.s_loc, plan.num_chunks,
+                 plan.w, table.shape[1], out)
+    return out
+
+
+def _check_data(what: str, data: torch.Tensor, plan: BandPlan) -> None:
+    if (data.dim() != 2 or data.dtype != torch.float32
+            or data.shape[0] != plan.num_slots):
+        raise ValueError(f"{what}: data must be [{plan.num_slots}, L] "
+                         f"float32 in banded order, got {data.dtype} "
+                         f"{tuple(data.shape)}")
+
+
+def banded_sender_sum_plain(data: torch.Tensor,
+                            plan: BandPlan) -> torch.Tensor:
+    """Plain PyTorch version of :func:`banded_sender_sum` (``index_add_``;
+    dead slots add into a scratch row past the output)."""
+    _check_data("banded_sender_sum", data, plan)
+    out = torch.zeros(plan.n_pad + 1, data.shape[1], dtype=torch.float32,
+                      device=data.device)
+    return out.index_add_(0, banded_senders(plan, plan.n_pad), data)[:-1]
+
+
+@build.counted
+def banded_sender_sum(data: torch.Tensor, plan: BandPlan) -> torch.Tensor:
+    """Per-sender segment sum of banded-order ``data`` [E_b, L] f32 into
+    [N_pad, L]: row n sums the live slots whose sender is n. On a CUDA
+    tensor this launches ``csrc/banded_sender_sum.cu`` (counted in
+    ``banded_sender_sum.launches``); on a CPU tensor it runs
+    :func:`banded_sender_sum_plain`. Not differentiable."""
+    if data.device.type == "cpu":
+        return banded_sender_sum_plain(data, plan)
+    if data.device.type != "cuda":
+        raise ValueError(f"banded_sender_sum: unsupported device {data.device}")
+    _check_data("banded_sender_sum", data, plan)
+    out = torch.empty(plan.n_pad, data.shape[1], dtype=torch.float32,
+                      device=data.device)
+    build.launch(banded_sender_sum, data, plan.band, plan.s_loc,
+                 plan.num_chunks, plan.n_pad // TILE, plan.w, data.shape[1],
+                 out)
+    return out
+
+
+def fused_v1_banded_plain(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
+                          alpha: float):
+    """Plain PyTorch version of :func:`fused_v1_banded`: the receiver
+    stream's plain version over the banded slots."""
+    _check_table("fused_v1_banded", wh, plan)
+    return fused_v1_plain(wh, f_dst, bound, a_src, keepq,
+                          banded_senders(plan, plan.n_pad - 1).int(),
+                          plan.r_local, plan.r_chunk, alpha)
+
+
+@build.counted
+def fused_v1_banded(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
+                    alpha: float):
+    """(out [N, HF], den [N, H]) of the fused GATv1 forward over the banded
+    slots (``keepq`` [E_b, H]). On a CUDA tensor this launches
+    ``csrc/fused_v1_banded.cu`` (counted in ``fused_v1_banded.launches``),
+    on a CPU tensor it runs :func:`fused_v1_banded_plain`."""
+    if wh.device.type == "cpu":
+        return fused_v1_banded_plain(wh, f_dst, bound, a_src, keepq, plan,
+                                     alpha)
+    if wh.device.type != "cuda":
+        raise ValueError(f"fused_v1_banded: unsupported device {wh.device}")
+    _check_table("fused_v1_banded", wh, plan)
+    _check_fused_args("fused_v1_banded", (wh,), (f_dst, bound), a_src, keepq,
+                      plan.s_loc, plan.r_local, plan.r_chunk)
+    return _launch(fused_v1_banded,
+                   (wh, f_dst, bound, a_src, keepq, plan.band, plan.s_loc,
+                    plan.r_local, plan.r_chunk), a_src, alpha,
+                   window=(plan.w,))
+
+
+def fused_v2_banded_plain(whi, whj, ub, a, keepq, plan: BandPlan,
+                          alpha: float):
+    """Plain PyTorch version of :func:`fused_v2_banded`: the receiver
+    stream's plain version over the banded slots."""
+    _check_table("fused_v2_banded", whi, plan)
+    return fused_v2_plain(whi, whj, ub, a, keepq,
+                          banded_senders(plan, plan.n_pad - 1).int(),
+                          plan.r_local, plan.r_chunk, alpha)
+
+
+@build.counted
+def fused_v2_banded(whi, whj, ub, a, keepq, plan: BandPlan, alpha: float):
+    """(out [N, HF], den [N, H]) of the fused GATv2 forward over the banded
+    slots (``keepq`` [E_b, H]). On a CUDA tensor this launches
+    ``csrc/fused_v2_banded.cu`` (counted in ``fused_v2_banded.launches``),
+    on a CPU tensor it runs :func:`fused_v2_banded_plain`."""
+    if whi.device.type == "cpu":
+        return fused_v2_banded_plain(whi, whj, ub, a, keepq, plan, alpha)
+    if whi.device.type != "cuda":
+        raise ValueError(f"fused_v2_banded: unsupported device {whi.device}")
+    _check_table("fused_v2_banded", whi, plan)
+    _check_fused_args("fused_v2_banded", (whi, whj), (ub,), a, keepq,
+                      plan.s_loc, plan.r_local, plan.r_chunk)
+    return _launch(fused_v2_banded,
+                   (whi, whj, ub, a, keepq, plan.band, plan.s_loc,
+                    plan.r_local, plan.r_chunk), a, alpha, window=(plan.w,))
+
+
+# ---------------------------------------------------------------------------
+# Differentiable fused banded attention
+# ---------------------------------------------------------------------------
+
+
+class _FusedV1AttentionBanded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, wh, f_dst, bound, a_src, keepq, plan, alpha):
+        wh, f_dst, bound, a_src, keepq = (
+            t.contiguous() for t in (wh, f_dst, bound, a_src, keepq))
+        out, den = fused_v1_banded(wh, f_dst, bound, a_src, keepq, plan,
+                                   alpha)
+        ctx.save_for_backward(wh, f_dst, bound, a_src, keepq)
+        ctx.plan, ctx.alpha = plan, alpha
+        return out, den
+
+    @staticmethod
+    def backward(ctx, g_out, g_den):
+        wh, f_dst, bound, a_src, keepq = ctx.saved_tensors
+        plan, alpha = ctx.plan, ctx.alpha
+        h, f = a_src.shape
+        hf = h * f
+
+        # recompute the per-slot pipeline in banded order, lane-minor:
+        # sender rows by the banded take, the four receiver-side operands
+        # by one expand
+        g_w = banded_take(wh, plan)  # [E_b, HF]
+        abd = _block_diag_a(a_src)  # [HF, H]
+        exp_bd = _expand_bd(h, f, device=wh.device)  # [H, HF]
+        eall = expand(torch.cat([f_dst, bound, g_out, g_den], dim=1),
+                      plan.r_local, plan.r_chunk)  # [E_b, 3H + HF]
+        fde, bnd, dmsg, dden = eall.split([h, h, hf, h], dim=1)
+        raw = fde + g_w @ abd
+        live = (plan.r_local < TILE)[:, None]
+        num = torch.where(live, torch.exp(leaky_relu(raw, alpha) - bnd), 0.0)
+        qnum = num * keepq
+
+        dqnum = (dmsg * g_w) @ exp_bd.T  # per-head sums over F
+        draw = (dqnum * keepq + dden) * num * torch.where(raw >= 0, 1.0, alpha)
+        df_dst = stream_scatter(draw, plan.r_local, plan.r_chunk, plan.n_pad)
+        dgathered = dmsg * (qnum @ exp_bd) + draw @ abd.T  # [E_b, HF]
+        dwh = banded_sender_sum(dgathered, plan)
+        da = (g_w * (draw @ exp_bd)).sum(0).reshape(h, f)
+        return dwh, df_dst, None, da, None, None, None
+
+
+def fused_v1_attention_banded(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
+                              alpha: float):
+    """Differentiable fused GATv1 attention over the banded order: (out
+    [N, HF], den [N, H]). ``keepq`` is [plan.num_slots, H], drawn over the
+    banded slots; ``bound`` must be detached. Gradients flow to ``wh``,
+    ``f_dst`` and ``a_src``."""
+    return _FusedV1AttentionBanded.apply(wh, f_dst, bound, a_src, keepq, plan,
+                                         alpha)
+
+
+class _FusedV2AttentionBanded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, whi, whj, ub, a, keepq, plan, alpha):
+        whi, whj, ub, a, keepq = (
+            t.contiguous() for t in (whi, whj, ub, a, keepq))
+        out, den = fused_v2_banded(whi, whj, ub, a, keepq, plan, alpha)
+        ctx.save_for_backward(whi, whj, ub, a, keepq)
+        ctx.plan, ctx.alpha = plan, alpha
+        return out, den
+
+    @staticmethod
+    def backward(ctx, g_out, g_den):
+        whi, whj, ub, a, keepq = ctx.saved_tensors
+        plan, alpha = ctx.plan, ctx.alpha
+        h, f = a.shape
+        hf = h * f
+
+        # one banded take of both sender operands, one expand of the four
+        # receiver-side ones
+        gj, gi = banded_take(torch.cat([whj, whi], dim=1), plan).split(hf, 1)
+        eall = expand(torch.cat([whi, ub, g_out, g_den], dim=1),
+                      plan.r_local, plan.r_chunk)  # [E_b, 2HF + 2H]
+        wi_e, ub_e, dmsg, dden = eall.split([hf, h, hf, h], dim=1)
+        raw = wi_e + gj
+        pre = leaky_relu(raw, alpha)
+        abd = _block_diag_a(a)  # [HF, H]
+        exp_bd = _expand_bd(h, f, device=whi.device)  # [H, HF]
+        live = (plan.r_local < TILE)[:, None]
+        num = torch.where(live, torch.exp(pre @ abd - ub_e), 0.0)
+        qnum = num * keepq
+
+        dqnum = (dmsg * gi) @ exp_bd.T  # per-head sums over F
+        dlogits = (dqnum * keepq + dden) * num  # [E_b, H]
+        dpre = (dlogits @ abd.T) * torch.where(raw >= 0, 1.0, alpha)
+
+        # receiver side: dwhi from the logit path; sender side: one sum for
+        # dwhj (logit path) and the message half of dwhi
+        dwhi_e = stream_scatter(dpre, plan.r_local, plan.r_chunk, plan.n_pad)
+        red = banded_sender_sum(torch.cat([dpre, dmsg * (qnum @ exp_bd)], 1),
+                                plan)
+        da = (pre * (dlogits @ exp_bd)).sum(0).reshape(h, f)
+        return dwhi_e + red[:, hf:], red[:, :hf], None, da, None, None, None
+
+
+def fused_v2_attention_banded(whi, whj, ub, a, keepq, plan: BandPlan,
+                              alpha: float):
+    """Differentiable fused GATv2 attention over the banded order: (out
+    [N, HF], den [N, H]). ``keepq`` is [plan.num_slots, H], drawn over the
+    banded slots; ``ub`` must be detached. Gradients flow to ``whi``,
+    ``whj`` and ``a``."""
+    return _FusedV2AttentionBanded.apply(whi, whj, ub, a, keepq, plan, alpha)

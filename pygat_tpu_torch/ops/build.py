@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, loaded with ``ctypes``. Nothing is
-built when a module is imported: the first CUDA call builds every missing
-library, one ``nvcc`` per source, all started together, into
-``pygat_tpu_torch/_build/``. A library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and a stale one never
+shared library with a plain C interface, loaded with ``ctypes``; sources
+share device code through the headers ``csrc/*.cuh``. Nothing is built when
+a module is imported: the first CUDA call builds every missing library, one
+``nvcc`` per source, all started together, into ``pygat_tpu_torch/_build/``.
+A library's file name carries a hash of its source, the headers and the
+flags, so an edited source or header is rebuilt and a stale library never
 loads. Builds publish by atomic rename, so concurrent processes are safe.
 """
 
@@ -19,6 +20,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
@@ -29,6 +32,14 @@ ENTRY_POINTS = {
     "stream_scatter": ("pygat_stream_scatter", [_P] * 4 + [_I] * 3 + [_P] * 2),
     "fused_v1": ("pygat_fused_v1", [_P] * 8 + [_I] * 4 + [_F] + [_P] * 3),
     "fused_v2": ("pygat_fused_v2", [_P] * 8 + [_I] * 4 + [_F] + [_P] * 3),
+    "expand": ("pygat_expand", [_P] * 3 + [_I] * 2 + [_P] * 2),
+    "banded_take": ("pygat_banded_take", [_P] * 3 + [_I] * 3 + [_P] * 2),
+    "banded_sender_sum": ("pygat_banded_sender_sum",
+                          [_P] * 3 + [_I] * 4 + [_P] * 2),
+    "fused_v1_banded": ("pygat_fused_v1_banded",
+                        [_P] * 9 + [_I] * 5 + [_F] + [_P] * 3),
+    "fused_v2_banded": ("pygat_fused_v2_banded",
+                        [_P] * 9 + [_I] * 5 + [_F] + [_P] * 3),
 }
 SOURCES = tuple(ENTRY_POINTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,8 +83,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -139,3 +153,27 @@ def check(rc: int, what: str) -> None:
     """Raise when a kernel entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def launch(wrapper, *args) -> None:
+    """Launch the kernel of ``wrapper`` (registered with :func:`counted`)
+    on the current stream of its tensors' device and count the launch.
+
+    ``args`` are the C entry point's arguments up to the stream: a tensor
+    goes as its data pointer (every tensor must be contiguous and on one
+    device), None as a null pointer, a number as itself. Raises when the
+    entry point returns a CUDA error."""
+    name = wrapper.__name__
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    device = tensors[0].device
+    for t in tensors:
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous and "
+                             "on the same device")
+    fn = kernel(name)
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    with torch.cuda.device(device):
+        rc = fn(*c_args, torch.cuda.current_stream(device).cuda_stream)
+    check(rc, name)
+    wrapper.launches += 1

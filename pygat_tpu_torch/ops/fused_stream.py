@@ -75,31 +75,21 @@ def _check_args(what, wide, narrow, a, keepq, senders, r_local, r_chunk):
             raise ValueError(f"{what} takes int32 indices, got {t.dtype}")
 
 
-def _launch(wrapper, tensors, a, alpha: float):
+def _launch(wrapper, tensors, a, alpha: float, window=()):
     """Launch the kernel ``csrc/<wrapper.__name__>.cu`` on the current
     stream and count the launch on ``wrapper``. ``tensors`` are the kernel's
-    eight array arguments in its order (the first is an [N, HF] table, the
-    last is ``r_chunk``); returns the new (out [N, HF], den [N, H])."""
-    what = wrapper.__name__
-    first, r_chunk = tensors[0], tensors[-1]
-    for t in tensors:
-        if t.device != first.device or not t.is_contiguous():
-            raise ValueError(f"{what}: every tensor must be contiguous and "
-                             "on the same device")
+    array arguments in its order (the first is an [N, HF] table, the last
+    is ``r_chunk``), ``window`` the band plan's window width for the banded
+    kernels; returns the new (out [N, HF], den [N, H])."""
     h, f = a.shape
     if f > MAX_F:
-        raise ValueError(f"{what}: head width {f} exceeds {MAX_F}")
+        raise ValueError(f"{wrapper.__name__}: head width {f} exceeds {MAX_F}")
+    first, r_chunk = tensors[0], tensors[-1]
     n_pad, hf = first.shape
     out = torch.empty(n_pad, hf, dtype=torch.float32, device=first.device)
     den = torch.empty(n_pad, h, dtype=torch.float32, device=first.device)
-    launch = build.kernel(what)
-    with torch.cuda.device(first.device):
-        rc = launch(*(t.data_ptr() for t in tensors), r_chunk.shape[0],
-                    n_pad // TILE, h, f, float(alpha), out.data_ptr(),
-                    den.data_ptr(),
-                    torch.cuda.current_stream(first.device).cuda_stream)
-    build.check(rc, what)
-    wrapper.launches += 1
+    build.launch(wrapper, *tensors, r_chunk.shape[0], n_pad // TILE, *window,
+                 h, f, float(alpha), out, den)
     return out, den
 
 

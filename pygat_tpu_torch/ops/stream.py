@@ -180,22 +180,10 @@ def stream_scatter(
     if data.device.type != "cuda":
         raise ValueError(f"stream_scatter: unsupported device {data.device}")
     _check_args(data, local, chunk_tile, n_pad, slot)
-    args = [data, local, chunk_tile] + ([slot] if slot is not None else [])
-    for t in args:
-        if t.device != data.device or not t.is_contiguous():
-            raise ValueError("stream_scatter: every tensor must be contiguous "
-                             "and on the same device")
     out = torch.empty(n_pad, data.shape[1], dtype=torch.float32,
                       device=data.device)
-    launch = build.kernel("stream_scatter")
-    with torch.cuda.device(data.device):
-        rc = launch(
-            data.data_ptr(), slot.data_ptr() if slot is not None else None,
-            local.data_ptr(), chunk_tile.data_ptr(), chunk_tile.shape[0],
-            n_pad // TILE, data.shape[1], out.data_ptr(),
-            torch.cuda.current_stream(data.device).cuda_stream)
-    build.check(rc, "stream_scatter")
-    stream_scatter.launches += 1
+    build.launch(stream_scatter, data, slot, local, chunk_tile,
+                 chunk_tile.shape[0], n_pad // TILE, data.shape[1], out)
     return out
 
 

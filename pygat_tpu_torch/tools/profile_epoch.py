@@ -1,15 +1,20 @@
-"""Where the Cora epoch's time goes on the GPU, by ``torch.profiler``.
+"""Where the epoch's time goes on the GPU, by ``torch.profiler``.
 
-    python -m pygat_tpu_torch.tools.profile_epoch [--model GATv2_sparse]
+    python -m pygat_tpu_torch.tools.profile_epoch [--model GATv2_sparse] [--large]
 
 Profiles one chunk of 10 epochs of each loop on the synthetic Cora stand-in
 at the reference preset: the fast loop (replays of one captured CUDA graph)
-and the per-epoch loop (eager, a host sync per epoch). For each it prints
-the wall time per epoch (host clock around a synchronize), the device-busy
-time per epoch (the sum of all kernel and memory-operation durations the
-profiler saw), the idle share between them, and the ten kernels with the
+and the per-epoch loop (eager, a host sync per epoch). ``--large`` profiles
+the fast loop on the 524,288-node clustered graph of the banded path
+(``clustered_citation``, spread 1024, the Cora preset's widths) instead,
+over the band plan ``maybe_plan_large`` picks and over the receiver stream
+(``set_band("off")``). For each it prints the wall time per epoch (host
+clock around a synchronize), traced and untraced, the device-busy time per
+epoch (the sum of all kernel and memory-operation durations the profiler
+saw), the idle share of the traced chunk, and the ten kernels with the
 most device time. Exits non-zero without a GPU, when the profiler reports
-no device time, or when it reports more device time than the wall time.
+no device time, or when it reports more device time than the traced
+chunk's wall time.
 :func:`epoch_runners` is the set-up of both loops, shared with
 ``chip_smoke.py``'s epoch timing.
 """
@@ -24,12 +29,12 @@ import time
 EPOCHS = 10
 
 
-def epoch_runners(cfg, data, n_epochs):
+def epoch_runners(cfg, data, n_epochs, plans=None):
     """(epoch, chunk) on ``data``'s device, each on a fresh state from the
     same seeds: ``epoch()`` is one epoch of the per-epoch loop (train step
     and eval forward, no host sync), ``chunk`` a :class:`ChunkedEpochs` of
     ``n_epochs`` with no epoch budget, whose ``run()`` is the fast loop's
-    chunk."""
+    chunk; both over the banded order of ``plans`` when one is given."""
     from pygat_tpu_torch.models.gat import init_gat
     from pygat_tpu_torch.train.loop import ChunkedEpochs, make_transductive_steps
     from pygat_tpu_torch.train.state import init_state, make_optimizer
@@ -45,7 +50,7 @@ def epoch_runners(cfg, data, n_epochs):
             make_generator(device, 73))
 
     state = fresh_state(False)
-    train_step, eval_step = make_transductive_steps(cfg)
+    train_step, eval_step = make_transductive_steps(cfg, plans)
 
     def epoch():
         train_step(state, *args, data.idx_train)
@@ -53,7 +58,7 @@ def epoch_runners(cfg, data, n_epochs):
 
     chunk = ChunkedEpochs(cfg, fresh_state(device.type == "cuda"), *args,
                           data.idx_train, data.idx_val, n_epochs=n_epochs,
-                          max_epochs=10 ** 6, patience=100)
+                          max_epochs=10 ** 6, patience=100, plans=plans)
     return epoch, chunk
 
 
@@ -83,16 +88,59 @@ def _profile(label, run, n_epochs):
     busy_ms = sum(r[1] for r in rows)
     if busy_ms <= 0:
         raise RuntimeError("the profiler reported no device time")
-    if busy_ms > wall_ms:
+    # busy and idle against the wall time of the chunk the trace covers (a
+    # device-bound chunk runs some tenths of a percent slower traced)
+    if busy_ms > traced_ms:
         raise RuntimeError(f"{label}: device busy {busy_ms:.4f} ms per epoch "
-                           f"exceeds the wall time {wall_ms:.4f} ms: rows of "
-                           "the trace were counted twice")
+                           f"exceeds the traced wall time {traced_ms:.4f} ms: "
+                           "rows of the trace were counted twice")
     print(f"{label}: wall {wall_ms:.4f} ms per epoch ({traced_ms:.4f} ms while "
           f"traced), device busy {busy_ms:.4f} ms per epoch in "
           f"{sum(r[2] for r in rows):.0f} kernels and memory operations, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}")
+          f"idle share {1 - busy_ms / traced_ms:.3f} of the traced chunk")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:10]:
         print(f"    {ms:8.4f} ms  {count:5.1f}x  {key[:100]}")
+
+
+def large_dataset():
+    """The large graph of the banded path on CUDA: 524,288 nodes, 9
+    in-edges per node from within +-1024 of the receiver plus self-loops
+    (the JAX package's ``_synthetic_citation(spread=1024)``), 128 features,
+    4 classes."""
+    from pygat_tpu_torch.data.synthetic import clustered_citation
+
+    return clustered_citation(524_288, 128, 4, "large", spread=1024,
+                              device="cuda")
+
+
+def large_config(model: str, data):
+    """The Cora preset (2 layers, 8 heads of 8, 1 output head, dropout 0.6)
+    at ``data``'s feature and class counts."""
+    from pygat_tpu_torch.models.gat import GATConfig
+    from pygat_tpu_torch.models.presets import PRESETS
+
+    cfg = GATConfig(layer_type=model, **PRESETS["cora"])
+    return cfg._replace(nfeats=(data.num_features, cfg.nfeats[1],
+                                data.num_classes))
+
+
+def _profile_large(model: str) -> None:
+    import torch
+
+    from pygat_tpu_torch.ops.banded import maybe_plan_large, set_band
+
+    data = large_dataset()
+    cfg = large_config(model, data)
+    for mode in ("auto", "off"):
+        set_band(mode)
+        plans = maybe_plan_large(data.graph)
+        over = "receiver stream" if plans is None else (
+            f"band plan (w={plans.w}, fill {plans.fill:.4f})")
+        _, chunk = epoch_runners(cfg, data, EPOCHS, plans)
+        _profile(f"524k {model} over the {over}, fast loop", chunk.run, EPOCHS)
+        del chunk
+        torch.cuda.empty_cache()
+    set_band("auto")
 
 
 def main(argv=None) -> int:
@@ -101,6 +149,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="GATv2_sparse",
                    choices=["GAT_sparse", "GATv2_sparse"])
+    p.add_argument("--large", action="store_true",
+                   help="the 524,288-node clustered graph, fast loop, over "
+                        "the band plan and over the receiver stream")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_epoch: torch.cuda.is_available() is false",
@@ -115,6 +166,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0])
+    if args.large:
+        _profile_large(args.model)
+        return 0
     cora = load_citation("cora", device="cuda")
     cfg = GATConfig(layer_type=args.model, **PRESETS["cora"])
     cfg = cfg._replace(nfeats=(int(cora.features.shape[1]),) + cfg.nfeats[1:])

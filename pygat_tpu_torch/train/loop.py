@@ -10,9 +10,11 @@ validation loss every epoch. :func:`fit_transductive_fast` syncs with the
 host once per chunk of epochs: :class:`ChunkedEpochs` keeps the per-epoch
 metrics and the best model on the device and, on CUDA, captures one epoch
 in a CUDA graph and replays it (what ``lax.scan`` under ``jit`` gives the
-JAX package). There is no mesh and no ring. The JAX package's large-N plan
-(``maybe_plan_large``) returns None below 300k nodes, which covers every
-citation dataset, so the port plans nothing.
+JAX package). There is no mesh and no ring. Both loops ask
+:func:`~pygat_tpu_torch.ops.banded.maybe_plan_large` for a large-N plan, as
+the JAX package's do: past 300k padded nodes (or with ``PYGAT_BAND=on``)
+it returns a band plan, and every layer then runs over the banded order;
+on the citation datasets it returns None.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from pygat_tpu_torch.models.gat import (
     parameters,
 )
 from pygat_tpu_torch.ops import build
+from pygat_tpu_torch.ops.banded import BandPlan, maybe_plan_large
 from pygat_tpu_torch.train import checkpoint as ckpt
 from pygat_tpu_torch.train.logging import TrainLogger
 from pygat_tpu_torch.train.metrics import accuracy, log_logits, nll_loss
@@ -45,12 +48,12 @@ from pygat_tpu_torch.train.state import (
 from pygat_tpu_torch.utils.platform import make_generator
 
 
-def _make_loss(cfg: GATConfig):
+def _make_loss(cfg: GATConfig, plans: BandPlan | None = None):
     """``loss(params, x, graph, labels, idx, gen, train) -> (loss, acc,
     out)``."""
 
     def _loss(params, x, graph, labels, idx, gen, train):
-        out = apply_gat(params, cfg, x, graph, gen, train=train)
+        out = apply_gat(params, cfg, x, graph, gen, train=train, plans=plans)
         lp = log_logits(out)
         loss = nll_loss(lp[idx], labels[idx])
         acc = accuracy(lp[idx], labels[idx])
@@ -59,8 +62,9 @@ def _make_loss(cfg: GATConfig):
     return _loss
 
 
-def make_transductive_steps(cfg: GATConfig):
-    """(train_step, eval_step).
+def make_transductive_steps(cfg: GATConfig, plans: BandPlan | None = None):
+    """(train_step, eval_step), over the banded order of ``plans`` when one
+    is given.
 
     ``train_step(state, x, graph, labels, idx) -> (state, loss, acc, out)``
     runs forward with dropout, backward and one Adam update, in place;
@@ -69,7 +73,7 @@ def make_transductive_steps(cfg: GATConfig):
     tensors on the data's device.
     """
 
-    _loss = _make_loss(cfg)
+    _loss = _make_loss(cfg, plans)
 
     def train_step(state: TrainState, x, graph: Graph, labels, idx):
         state.optimizer.zero_grad(set_to_none=True)
@@ -85,6 +89,16 @@ def make_transductive_steps(cfg: GATConfig):
         return _loss(params, x, graph, labels, idx, None, False)
 
     return train_step, eval_step
+
+
+def _plan_large(data: CitationDataset, logger: TrainLogger):
+    """The trainers' large-N plan for ``data.graph``, logged when there is
+    one."""
+    plans = maybe_plan_large(data.graph)
+    if plans is not None:
+        logger.log("band_plan", w=plans.w, chunks=plans.num_chunks,
+                   slots=plans.num_slots, fill=plans.fill)
+    return plans
 
 
 @dataclass
@@ -152,7 +166,8 @@ def fit_transductive(
             logger.log("resume", epoch=header["epoch"],
                        best=header.get("best"), path=path,
                        from_best=(header["epoch"] == header.get("best_epoch")))
-    train_step, eval_step = make_transductive_steps(cfg)
+    plans = _plan_large(data, logger)
+    train_step, eval_step = make_transductive_steps(cfg, plans)
 
     x, g, labels = data.features, data.graph, data.labels
 
@@ -256,12 +271,13 @@ class ChunkedEpochs:
 
     def __init__(self, cfg: GATConfig, state: TrainState, x, graph: Graph,
                  labels, idx_train, idx_val, *, n_epochs: int, max_epochs: int,
-                 patience: int | None = None, fastmode: bool = False):
+                 patience: int | None = None, fastmode: bool = False,
+                 plans: BandPlan | None = None):
         dev = x.device
         self.state = state
         self.n_epochs = n_epochs
         self._args = (x, graph, labels, idx_train, idx_val)
-        self._loss = _make_loss(cfg)
+        self._loss = _make_loss(cfg, plans)
         self._max_epochs = max_epochs
         self._patience = patience
         self._fastmode = fastmode
@@ -419,10 +435,11 @@ def fit_transductive_fast(
             state, resumed = ckpt.restore(found[1], like=state)
             history = [float(v) for v in resumed.get("history", [])]
     x, g, labels = data.features, data.graph, data.labels
+    plans = _plan_large(data, logger)
     chunk = ChunkedEpochs(cfg, state, x, g, labels, data.idx_train,
                           data.idx_val, n_epochs=epoch_chunk,
                           max_epochs=epochs, patience=patience,
-                          fastmode=fastmode)
+                          fastmode=fastmode, plans=plans)
     if resumed is not None:
         best_val = float(resumed.get("best", np.inf))
         best_epoch = int(resumed.get("best_epoch", -1))
@@ -475,7 +492,7 @@ def fit_transductive_fast(
             p.copy_(best)
     best_epoch = int(chunk.best_epoch)
 
-    _, eval_step = make_transductive_steps(cfg)
+    _, eval_step = make_transductive_steps(cfg, plans)
     test_loss, test_acc, _ = eval_step(state.params, x, g, labels, data.idx_test)
     logger.log("test", loss=float(test_loss), accuracy=float(test_acc))
     return FitResult(

@@ -9,7 +9,10 @@ file imports nothing of JAX, so it runs on a machine without it:
 The shapes are small and odd on purpose: widths that are not multiples of
 4 or 8, more than 128 columns (several column slabs / head groups per
 tile), heads of 64 to 256 features (one head per block above 128), a tile
-without edges, and dead slots whose logits would overflow.
+without edges, and dead slots whose logits would overflow. The banded
+kernels run on band plans with several chunks per tile, a tile without
+edges, all-dead padding chunks (whose dead slots sit on the last band, one
+row short of naming N_pad) and a window clipped to the table.
 chip_smoke.py covers the main path's full-size shapes.
 """
 
@@ -23,7 +26,9 @@ from pygat_tpu_torch.data import synthetic
 from pygat_tpu_torch.data.citation import CitationDataset
 from pygat_tpu_torch.graph import build_graph
 from pygat_tpu_torch.models.gat import GATConfig
+from pygat_tpu_torch.ops import banded as bd
 from pygat_tpu_torch.ops import fused_stream as fs
+from pygat_tpu_torch.ops import large
 from pygat_tpu_torch.ops import stream as st
 from pygat_tpu_torch.train.logging import TrainLogger
 from pygat_tpu_torch.train.loop import fit_transductive, fit_transductive_fast
@@ -292,8 +297,9 @@ def test_fit_fast_on_cuda_replays_a_graph_and_matches_classic(cuda, layer_type,
     b = fit_transductive_fast(cfg, data, epoch_chunk=8, **kw)
     assert b.graph_replays == 24
     other = "fused_v1" if fused is fs.fused_v2 else "fused_v2"
-    assert b.captured_launches == {"stream_scatter": 4, fused.__name__: 4,
-                                   other: 0}
+    assert b.captured_launches[other] == 0
+    assert {k: v for k, v in b.captured_launches.items() if v} == {
+        "stream_scatter": 4, fused.__name__: 4}
     assert fused.launches - before[0] == 4 + 4 + 2
     assert st.stream_scatter.launches - before[1] == 4 + 4
     # atomics reorder every sum, and the capturable Adam rounds its bias
@@ -358,3 +364,260 @@ def test_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
     args[1] = args[1].T.contiguous().T  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         fs.fused_v2(*args)
+
+
+# -- the banded kernels --------------------------------------------------------
+
+
+def _plan(device, kind):
+    """(graph, band plan): ``clustered`` has several chunks per tile,
+    ``empty_tile`` a tile without edges, ``clipped`` asks for a window wider
+    than the table. Each plan ends in all-dead padding chunks on the last
+    band, so a dead slot there would name row N_pad if formed first."""
+    rng = np.random.default_rng(5)
+    if kind == "empty_tile":
+        return _graph(device, True), 2
+    if kind == "clipped":
+        n, deg, spread, w = 100, 3, 100, 64
+    else:
+        n, deg, spread, w = 600, 6, 200, 3
+    base = np.repeat(np.arange(n), deg)
+    s = np.clip(base + rng.integers(-spread, spread, base.shape[0]), 0, n - 1)
+    s = np.concatenate([s, np.arange(n)])
+    r = np.concatenate([base, np.arange(n)])
+    return build_graph(s, r, None, n, device=device), w
+
+
+def _band(device, kind):
+    g, w = _plan(device, kind)
+    plan = bd.build_band_plan(g, w=w)
+    dead_last = (plan.band.repeat_interleave(256) == plan.n_pad // 128 - plan.w) & (
+        plan.s_loc == plan.w * 128)
+    assert bool(dead_last.any())  # a dead slot on the last band
+    if kind == "empty_tile":
+        assert bool((plan.r_chunk == 1).any())  # the empty tile has a chunk
+    if kind == "clipped":
+        assert plan.w == plan.n_pad // 128
+    return g, plan
+
+
+BAND_KINDS = ["clustered", "empty_tile", "clipped"]
+
+
+@pytest.mark.parametrize("kind", BAND_KINDS)
+@pytest.mark.parametrize("width", [4, 7, 10, 33, 144])
+def test_gather_kernels_match_plain_bit_exact(cuda, kind, width):
+    """expand (receiver side) and banded_take (sender side) copy rows: the
+    kernel equals its plain version bit for bit, zeros at dead slots."""
+    _, plan = _band(cuda, kind)
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    table = torch.randn(plan.n_pad, width, generator=gen, device=cuda)
+    before = (large.expand.launches, bd.banded_take.launches)
+    got_e = large.expand(table, plan.r_local, plan.r_chunk)
+    got_t = bd.banded_take(table, plan)
+    torch.cuda.synchronize()
+    assert (large.expand.launches, bd.banded_take.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got_e, large.expand_plain(table, plan.r_local,
+                                                 plan.r_chunk))
+    assert torch.equal(got_t, bd.banded_take_plain(table, plan))
+    dead = plan.s_loc == plan.w * 128
+    assert float(got_t[dead].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kind", BAND_KINDS)
+@pytest.mark.parametrize("width", [4, 7, 10, 33, 144])
+def test_banded_sender_sum_kernel_matches_plain(cuda, kind, width):
+    """Dead slots carry data, which must be ignored; the sums agree to
+    RTOL of the same sums over |data| (f32 in another order)."""
+    _, plan = _band(cuda, kind)
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    data = torch.randn(plan.num_slots, width, generator=gen, device=cuda)
+    before = bd.banded_sender_sum.launches
+    got = bd.banded_sender_sum(data, plan)
+    torch.cuda.synchronize()
+    assert bd.banded_sender_sum.launches == before + 1
+    want = bd.banded_sender_sum_plain(data, plan)
+    mag = bd.banded_sender_sum_plain(data.abs(), plan)
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= RTOL * mag + 1e-30).all())
+    assert float(mag.max()) > 1.0  # the comparison is not idle
+
+
+def _banded_rows(plan):
+    """[E_b] int64 receiver and sender rows of the banded slots (the plan's
+    host copies: dummy rows at dead slots) and the live mask."""
+    dev = plan.s_loc.device
+    rcv = torch.from_numpy(plan.receivers).to(dev).long()
+    snd = torch.from_numpy(plan.senders).to(dev).long()
+    return rcv, snd, plan.r_local < 128
+
+
+def _banded_v1_args(g, plan, h, f, gen, device):
+    args = _fused_args(g, h, f, gen, device)[:5]
+    args[4] = torch.where(torch.rand(plan.num_slots, h, generator=gen,
+                                     device=device) < 0.6, 1.0 / 0.6, 0.0)
+    return args + [plan, 0.2]
+
+
+def _banded_v2_args(g, plan, h, f, gen, device):
+    n, e = g.num_nodes_padded, plan.num_slots
+    whi = torch.randn(n, h * f, generator=gen, device=device) * 0.5
+    whj = torch.randn(n, h * f, generator=gen, device=device) * 0.5
+    a = torch.randn(h, f, generator=gen, device=device) * (2.0 / f) ** 0.5
+    rcv, snd, live = _banded_rows(plan)
+    logits = (fs.leaky_relu(whi[rcv] + whj[snd], 0.2).view(e, h, f) * a).sum(-1)
+    logits = torch.where(live[:, None], logits, float("-inf"))
+    ub = torch.full((n, h), float("-inf"), device=device).scatter_reduce(
+        0, rcv[:, None].expand(e, h), logits, "amax")
+    ub = torch.where(torch.isfinite(ub), ub, 0.0).contiguous()
+    keepq = torch.where(torch.rand(e, h, generator=gen, device=device) < 0.6,
+                        1.0 / 0.6, 0.0)
+    return [whi, whj, ub, a, keepq, plan, 0.2]
+
+
+BANDED_FUSED = [(bd.fused_v1_banded, bd.fused_v1_banded_plain, _banded_v1_args),
+                (bd.fused_v2_banded, bd.fused_v2_banded_plain, _banded_v2_args)]
+
+
+@pytest.mark.parametrize("kind", BAND_KINDS)
+@pytest.mark.parametrize("h,f", [(8, 8), (1, 4), (1, 7), (2, 5), (3, 11),
+                                 (16, 8)])
+@pytest.mark.parametrize("which", [0, 1], ids=["v1", "v2"])
+def test_fused_banded_kernels_match_plain(cuda, kind, h, f, which):
+    kernel, plain, make_args = BANDED_FUSED[which]
+    g, plan = _band(cuda, kind)
+    gen = torch.Generator(device=cuda).manual_seed(10 * h + f)
+    args = make_args(g, plan, h, f, gen, cuda)
+    before = kernel.launches
+    out, den = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    out_p, den_p = plain(*args)
+    assert float(den_p.max()) >= 1.0  # the comparison is not idle
+    _close(out, out_p)
+    _close(den, den_p)
+    if kind == "empty_tile":
+        assert float(out[128:256].abs().max()) == 0.0
+        assert float(den[128:256].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["v1", "v2"])
+def test_banded_attention_gradients_card_vs_cpu(cuda, which):
+    """The banded autograd Function on the card (all five banded kernels
+    and stream_scatter) against the same Function on the CPU."""
+    g, plan = _band(cuda, "clustered")
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    make_args = BANDED_FUSED[which][2]
+    args = make_args(g, plan, 4, 8, gen, cuda)
+    op = (bd.fused_v1_attention_banded, bd.fused_v2_attention_banded)[which]
+    diff = (0, 1, 3)  # the node tables and a; the bound takes none
+    grads = {}
+    for dev, p in (("cuda", plan), ("cpu", plan.to("cpu"))):
+        call = [t.detach().to(dev) for t in args[:5]] + [p, 0.2]
+        for i in diff:
+            call[i].requires_grad_()
+        out, den = op(*call)
+        (out.sin().sum() + den.cos().sum()).backward()
+        grads[dev] = [call[i].grad.cpu() for i in diff]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        scale = max(1e-30, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
+
+
+def _banded_calls(g, plan, gen, device):
+    """One call of each banded kernel's wrapper, with its arguments, at
+    widths above 48 KB of shared memory where the kernel has it."""
+    table = torch.randn(plan.n_pad, 64, generator=gen, device=device)
+    data = torch.randn(plan.num_slots, 64, generator=gen, device=device)
+    return [
+        (large.expand, large.expand_plain, [table, plan.r_local, plan.r_chunk]),
+        (bd.banded_take, bd.banded_take_plain, [table, plan]),
+        (bd.banded_sender_sum, bd.banded_sender_sum_plain, [data, plan]),
+        (bd.fused_v1_banded, bd.fused_v1_banded_plain,
+         _banded_v1_args(g, plan, 16, 8, gen, device)),
+        (bd.fused_v2_banded, bd.fused_v2_banded_plain,
+         _banded_v2_args(g, plan, 16, 8, gen, device)),
+    ]
+
+
+@pytest.mark.parametrize("i", range(5), ids=["expand", "banded_take",
+                                             "banded_sender_sum",
+                                             "fused_v1_banded",
+                                             "fused_v2_banded"])
+def test_banded_launch_is_capturable(cuda, i):
+    """One launch inside CUDA-graph capture replays to the plain version's
+    result on fresh inputs."""
+    g, plan = _band(cuda, "clustered")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    kernel, plain, args = _banded_calls(g, plan, gen, cuda)[i]
+    kernel(*args)  # build and load outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = kernel(*args)
+    fresh = _banded_calls(g, plan, gen, cuda)[i][2]
+    for static, new in zip(args, fresh):
+        if isinstance(static, torch.Tensor) and static.dtype == torch.float32:
+            static.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = plain(*args)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        _close(a, b)
+
+
+def test_banded_wrappers_never_call_plain_on_the_card(cuda, monkeypatch):
+    g, plan = _band(cuda, "empty_tile")
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    calls = _banded_calls(g, plan, gen, cuda)
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for mod, name in ((large, "expand_plain"), (bd, "banded_take_plain"),
+                      (bd, "banded_sender_sum_plain"),
+                      (bd, "fused_v1_banded_plain"),
+                      (bd, "fused_v2_banded_plain"),
+                      (bd, "fused_v1_plain"), (bd, "fused_v2_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    for kernel, _, args in calls:
+        before = kernel.launches
+        kernel(*args)
+        assert kernel.launches == before + 1
+    torch.cuda.synchronize()
+    table = calls[1][2][0].T.contiguous().T  # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        bd.banded_take(table, plan)
+
+
+def test_fit_fast_on_cuda_with_a_plan(cuda, monkeypatch):
+    """Both trainers pick the band plan by themselves past the threshold;
+    the fast loop replays an epoch of the five banded kernels and
+    stream_scatter, never the stream's fused kernels, and its losses equal
+    the per-epoch loop's from the same seeds."""
+    data = synthetic.clustered_citation(600, 64, 3, "banded-cuda", 60,
+                                        device=cuda)
+    for name in ("_BAND_MODE", "_BAND_N", "_BAND_W"):
+        monkeypatch.setattr(bd, name, getattr(bd, name))
+    bd.set_band("auto", n=data.graph.num_nodes_padded, w=2)
+    cfg = GATConfig(nlayers=2, nheads=(2, 1), nfeats=(64, 8, 3), dropout=0.4,
+                    alpha=0.2, layer_type="GAT_sparse")
+    kw = dict(lr=0.01, weight_decay=5e-4, epochs=6, patience=100, seed=7,
+              checkpoint_dir=None, logger=_quiet(), log_every=100)
+    a = fit_transductive(cfg, data, **kw)
+    before = {n: w.launches for n, w in
+              (("fused_v1", fs.fused_v1), ("fused_v1_banded", bd.fused_v1_banded),
+               ("banded_take", bd.banded_take))}
+    b = fit_transductive_fast(cfg, data, epoch_chunk=3, **kw)
+    assert b.graph_replays == 6
+    want = {"fused_v1_banded": 4, "banded_take": 2, "expand": 2,
+            "stream_scatter": 2, "banded_sender_sum": 2}
+    assert {k: v for k, v in b.captured_launches.items() if v} == want
+    # the warm-up epoch, the captured epoch and the test forward
+    assert bd.fused_v1_banded.launches - before["fused_v1_banded"] == 4 + 4 + 2
+    assert bd.banded_take.launches - before["banded_take"] == 2 + 2
+    assert fs.fused_v1.launches == before["fused_v1"]
+    np.testing.assert_allclose(b.history, a.history, rtol=1e-4)
+    assert np.isfinite(b.test_loss)

@@ -142,7 +142,8 @@ def test_chunked_best_tracking_respects_patience_stop(monkeypatch):
     # for p >= 20, so SGD(1.0) walks p down by exactly 1.0 per epoch.
     p0 = 30.0
 
-    def scripted(params, cfg, x, graph, gen, train):
+    def scripted(params, cfg, x, graph, gen, train, plans):
+        assert plans is None  # no band plan below the threshold
         p = params[0].p
         t = (p0 - p.detach()).round().long().clamp(0, z.shape[0] - 1)
         zero = p.new_zeros(())
