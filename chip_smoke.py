@@ -8,17 +8,23 @@ of which prints its seconds:
 
 1. print the card (``nvidia-smi`` name and power limit), CUDA and nvcc
    versions;
-2. build the eight CUDA kernels from ``pygat_tpu_torch/csrc`` and print the
-   build seconds and the compiler's register / shared-memory report;
+2. build the eleven CUDA kernels from ``pygat_tpu_torch/csrc`` and print
+   the build seconds and the compiler's register / shared-memory report;
 3. hold each kernel against its plain PyTorch version on the card, at every
    shape the GAT_sparse and GATv2_sparse paths give it: the stream kernels
    on Cora and Pubmed (the synthetic stand-ins have the real node, edge and
    feature counts), the banded kernels (and ``stream_scatter`` at its
    banded widths) on the 524,288-node clustered graph with the band plan
    that ``maybe_plan_large`` picks by itself, and on Cora with
-   ``set_band("on")``; both Cora models, forward and gradients, on the card
-   against the same model on the CPU, over the receiver stream and over
-   the band plan;
+   ``set_band("on")``; the corner kernels: ``permute_pass`` bit-exact on
+   every pass of both 524k corner plans (built once, their set-up timed) at
+   every width the two models turn (64, 4, 128, 8), the whole pass chain
+   with its fix-ups on a Cora plan with overflow rows (span cap 3) card vs
+   CPU, and the window forwards at the Cora and 524k shapes; both Cora
+   models, forward and gradients, on the card against the same model on
+   the CPU, over the receiver stream, over the band plan and over the
+   corner plans, and over the corner plans against the receiver stream
+   under dropout with one generator seed (the same masks);
 4. train on CUDA, each run with the launch counters set to 0 just before
    and read just after, and check finite, falling training losses and the
    counters: through ``pygat_tpu_torch.cli.train.main``, Cora GAT_sparse
@@ -30,16 +36,23 @@ of which prints its seconds:
    models by ``fit_transductive_fast``, with no launch of the stream's
    fused kernels (there the validation loss must fall: the graph's train
    split holds one label, and its training loss moves with the dropout
-   masks in the first epochs); and ``PYGAT_BAND=on python -m pygat_tpu_torch.cli.train``
-   on Cora as a subprocess, whose own counts it prints. A wrapper's counter
+   masks in the first epochs); both models by ``fit_transductive_fast``
+   under ``set_band("off")`` and ``set_corner("on")``, over the corner
+   plans the trainer builds, with the launch counts ``_want_corner``
+   states and no banded or stream-fused launch; ``--corner on`` through
+   the CLI on Cora, whose printed counts must equal the counters; and
+   ``PYGAT_BAND=on python -m pygat_tpu_torch.cli.train`` on Cora as a
+   subprocess, whose own counts it prints. A wrapper's counter
    counts the wrapper's launches only; what the replays launch is reported
    beside it, as replays times launches captured;
 5. time the Cora epoch of both models by both loops and the 524,288-node
-   epoch of both models by the fast loop, over the band plan and over the
-   receiver stream (``set_band("off")``), in turns (host clock), and each
-   kernel at each shape beside its plain version, its bound and, where one
-   PyTorch call computes the same function, that call (``index_add_`` for
-   the segment sums, ``index_select`` of rows for the gathers): device
+   epoch of both models by the fast loop, over the band plan, over the
+   corner plans and over the receiver stream (``set_band("off")``), in
+   turns, one captured epoch on the card at a time (host clock), and each
+   kernel at each shape beside its plain
+   version, its bound and, where one PyTorch call computes the same
+   function, that call (``index_add_`` for the segment sums,
+   ``index_select`` of rows for the gathers and the corner passes): device
    time per call, calls captured in a CUDA graph, replays timed with CUDA
    events;
 6. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
@@ -88,8 +101,12 @@ GRAPH_REPLAYS = 10
 LARGE_EPOCHS = 3  # per-epoch loop
 LARGE_CHUNK = 5  # fast loop: 2 chunks of 5 epochs
 LARGE_TIMED_CHUNKS = 3
+LARGE_ROUNDS = 2  # visits of each plan in the large epoch timing
 BIG_CALLS, BIG_REPLAYS = 5, 4  # _time_ms at the large graph's shapes
 REPLACES = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
+            "corner_permute": "pygat_tpu/ops/corner.py:216",
+            "fused_v1_window": "pygat_tpu/ops/fused_stream.py:134",
+            "fused_v2_window": "pygat_tpu/ops/fused_stream.py:207",
             "fused_v1": "pygat_tpu/ops/fused_stream.py:134",
             "fused_v2": "pygat_tpu/ops/fused_stream.py:207",
             "expand": "pygat_tpu/ops/large.py:47",
@@ -241,10 +258,11 @@ def _fused_v2_inputs(g, h, f, gen, plan=None):
 def _model_card_vs_cpu(layer_type, cora, plan=None):
     """Forward and gradients of the Cora model on the card against the same
     model on the CPU (kernels against plain versions, end to end), over
-    the band ``plan`` when one is given."""
+    the band plan or the corner plans ``plan`` when one is given."""
     import torch
 
     from pygat_tpu_torch.models.gat import GATConfig, apply_gat, init_gat, parameters
+    from pygat_tpu_torch.ops.banded import BandPlan
     from pygat_tpu_torch.models.presets import PRESETS
     from pygat_tpu_torch.utils.platform import make_generator
 
@@ -265,7 +283,10 @@ def _model_card_vs_cpu(layer_type, cora, plan=None):
         raise AssertionError("model output on the card is not finite")
     scale = max(1.0, float(out_p.abs().max()))
     err = float((out_c - out_p).abs().max())
-    over = "receiver stream" if plan is None else f"band plan (w={plan.w})"
+    over = ("receiver stream" if plan is None else
+            f"band plan (w={plan.w})" if isinstance(plan, BandPlan) else
+            f"corner plans ({len(plan.fwd.passes)} + {len(plan.inv.passes)} "
+            "passes)")
     print(f"phase 3: Cora {layer_type} over the {over}, forward card vs CPU: "
           f"max_abs_err "
           f"{err:.3e} (allowed {MODEL_RTOL * scale:.3e})")
@@ -285,7 +306,7 @@ def _train_cli(argv, epochs, counters, jsonl):
     """One run of the trainer CLI on CUDA with every launch counter set to 0
     just before and read just after. Returns (the wrappers' launch counts,
     train losses, the CUDA graph replays the CLI reported, the launches one
-    replay holds by kernel name)."""
+    replay holds by kernel name, the CLI's standard output)."""
     from pygat_tpu_torch.cli.train import main as train_main
 
     if os.path.exists(jsonl):
@@ -311,8 +332,9 @@ def _train_cli(argv, epochs, counters, jsonl):
     m = re.search(r"CUDA graph replays: (\d+), each launching (\{.*\})",
                   text.getvalue())
     if m is None:
-        return launches, losses, 0, dict.fromkeys(counters, 0)
-    return launches, losses, int(m.group(1)), json.loads(m.group(2))
+        return launches, losses, 0, dict.fromkeys(counters, 0), text.getvalue()
+    return (launches, losses, int(m.group(1)), json.loads(m.group(2)),
+            text.getvalue())
 
 
 def _epoch_ms(cfg, cora):
@@ -505,6 +527,248 @@ def _time_banded(case, plan, big):
           f"bound {case['bound_ms']:.5f} ms ({case['bound_by']})")
 
 
+def _corner_widths(heads, feats):
+    """(path, width) of every turn of one train step: GATv1 turns the
+    sender rows of wh forward and dgathered back, HF wide; GATv2 turns
+    [whj | whi] forward and [dpre | dmsg] back, 2HF wide."""
+    return ([("v1", h * f) for h, f in zip(heads, feats)]
+            + [("v2", 2 * h * f) for h, f in zip(heads, feats)])
+
+
+def _corner_chains(label, plans, widths, seed):
+    """Every pass of both corner plans at every width, each pass fed the
+    kernel's output of the pass before, from a seeded input: yields (case,
+    input, pass) with the case's dataset, path, direction, pass, span,
+    width and row counts."""
+    import torch
+
+    from pygat_tpu_torch.ops.corner import permute_pass
+
+    for d, (direction, plan) in enumerate((("fwd", plans.fwd),
+                                           ("inv", plans.inv))):
+        for path, width in widths:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed + 1000 * d + width)
+            src = torch.randn(plan.n_rows, width, generator=gen, device="cuda")
+            for i, cp in enumerate(plan.passes):
+                case = {"dataset": label, "path": path, "dir": direction,
+                        "pass": i, "p": cp.p, "L": width,
+                        "rows_in": src.shape[0],
+                        "rows_out": cp.lo.shape[0] * 128}
+                yield case, src, cp
+                src = permute_pass(src, cp)
+
+
+def _check_corner(label, plans, widths, seed):
+    """``permute_pass`` against its plain version on every pass of both
+    plans at every width, bit-exact. Returns the cases."""
+    import torch
+
+    from pygat_tpu_torch.ops.corner import permute_pass, permute_pass_plain
+
+    cases = []
+    for case, src, cp in _corner_chains(label, plans, widths, seed):
+        got = permute_pass(src, cp)
+        want = permute_pass_plain(src, cp)
+        torch.cuda.synchronize()
+        case["max_abs_err"] = float((got - want).abs().max())
+        ok = torch.equal(got, want)
+        print(f"  corner_permute {label} {case['path']} {case['dir']} pass "
+              f"{case['pass']} (p {cp.p}) L={case['L']}: {case['rows_in']} -> "
+              f"{case['rows_out']} rows, max_abs_err {case['max_abs_err']:.3e}, "
+              f"{'bit-exact' if ok else 'NOT bit-exact'}")
+        if not ok:
+            raise AssertionError("corner_permute disagrees with its plain version")
+        cases.append(case)
+    return cases
+
+
+def _time_corner(label, plans, widths, seed, cases):
+    """Device ms of every pass in ``cases`` (from :func:`_check_corner`,
+    the same inputs again): the kernel, its plain version, and
+    ``index_select`` of the same rows (one PyTorch call computing the
+    pass); the bound reads the input once and writes the output and the
+    index words (g per row, lo per tile) once."""
+    import torch
+
+    from pygat_tpu_torch.ops.corner import pass_rows, permute_pass, permute_pass_plain
+
+    kw = dict(calls=BIG_CALLS, replays=BIG_REPLAYS)
+    for case, (_, src, cp) in zip(cases,
+                                  _corner_chains(label, plans, widths, seed)):
+        rows = pass_rows(cp)
+        case["ms"] = _time_ms(lambda: permute_pass(src, cp), **kw)
+        case["plain_ms"] = _time_ms(lambda: permute_pass_plain(src, cp), **kw)
+        case["library_ms"] = _time_ms(
+            lambda: torch.index_select(src, 0, rows), **kw)
+        width, e_out = case["L"], case["rows_out"]
+        n_bytes = 4 * (case["rows_in"] * width + e_out * width + e_out
+                       + e_out // 128)
+        case["bound_ms"], case["bound_by"] = _bound(n_bytes, 0)
+        print(f"  corner_permute {label} {case['path']} {case['dir']} pass "
+              f"{case['pass']} (p {case['p']}) L={width}: {case['ms']:.4f} ms, "
+              f"plain {case['plain_ms']:.4f} ms, index_select "
+              f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.5f} ms "
+              f"({case['bound_by']})")
+
+
+def _check_corner_overflow(cora, widths):
+    """A Cora plan with a span cap of 3 tiles, whose passes have overflow
+    rows: the whole chain with its fix-ups on the card against the same
+    chain on the CPU, bit-exact (every row of it is determined by the
+    input and the plan). Returns the cases."""
+    import torch
+
+    from pygat_tpu_torch.ops.corner import corner_permute
+    from pygat_tpu_torch.ops.large import plan_csc_to_csr
+
+    plans = plan_csc_to_csr(cora.graph, p_cap=3)
+    cases = []
+    for direction, plan in (("fwd", plans.fwd), ("inv", plans.inv)):
+        overflow = [cp.n_overflow for cp in plan.passes]
+        if not any(overflow):
+            raise AssertionError("the span-capped Cora plan has no overflow")
+        cpu_plan = plan.to("cpu")
+        for path, width in widths:
+            x = torch.randn(plan.n_rows, width, device="cuda")
+            got = corner_permute(x, plan)
+            want = corner_permute(x.cpu(), cpu_plan)
+            torch.cuda.synchronize()
+            err = float((got.cpu() - want).abs().max())
+            ok = torch.equal(got.cpu(), want)
+            print(f"  corner_permute cora, span cap 3, {path} {direction}: "
+                  f"{len(plan.passes)} passes (p {[cp.p for cp in plan.passes]}"
+                  f", overflow rows {overflow}) L={width}: chain card vs CPU "
+                  f"max_abs_err {err:.3e}, "
+                  f"{'bit-exact' if ok else 'NOT bit-exact'}")
+            if not ok:
+                raise AssertionError("the corner chain with fix-ups disagrees "
+                                     "with its CPU run")
+            cases.append({"dataset": "cora, span cap 3", "path": path,
+                          "dir": direction, "L": width, "max_abs_err": err})
+    return cases
+
+
+def _window_cases(label, g, plans, heads, feats, gen):
+    """The window forwards of one forward of each model, per layer, over
+    windows that ``gather_corner`` builds from node tables and bounds as
+    the layers build them, checked against their plain versions to
+    KERNEL_RTOL of their largest output. Returns the cases."""
+    import torch
+
+    from pygat_tpu_torch.ops import fused_corner as fc
+
+    cases = []
+    n_live = int((g.r_local < 128).sum())
+    for h, f in zip(heads, feats):
+        wh, f_dst, bound, a, keepq = _fused_inputs(g, h, f, gen)[:5]
+        whi, whj, ub, a2, keepq2 = _fused_v2_inputs(g, h, f, gen)[:5]
+        for name, args in (
+                ("fused_v1_window",
+                 (fc.gather_corner(wh, g, plans.fwd), f_dst, bound, a, keepq,
+                  g.r_local, g.r_chunk, 0.2)),
+                ("fused_v2_window",
+                 (whi, fc.gather_corner(torch.cat([whj, whi], 1), g,
+                                        plans.fwd), ub, a2, keepq2,
+                  g.r_local, g.r_chunk, 0.2))):
+            kernel, plain = getattr(fc, name), getattr(fc, name + "_plain")
+            out, den = kernel(*args)
+            out_p, den_p = plain(*args)
+            torch.cuda.synchronize()
+            e1, a1 = _max_err(out, out_p)
+            e2, a2_ = _max_err(den, den_p)
+            print(f"  {name} {label} H={h} F={f}: max_abs_err out {e1:.3e} "
+                  f"(allowed {a1:.3e}), den {e2:.3e} (allowed {a2_:.3e})")
+            if e1 > a1 or e2 > a2_:
+                raise AssertionError(f"{name} disagrees with its plain version")
+            cases.append(dict(dataset=label, kernel=name, H=h, F=f, args=args,
+                              max_abs_err=max(e1, e2), n_live=n_live,
+                              n_pad=g.num_nodes_padded,
+                              n_chunks=g.r_chunk.numel()))
+    return cases
+
+
+def _time_window(case, big):
+    """Device ms of a window forward and its plain version, and the bound:
+    each input read once (the window's live rows, the receiver-side node
+    tables, a live slot's keep factors, the index words), out and den
+    written once."""
+    from pygat_tpu_torch.ops import fused_corner as fc
+
+    kw = dict(calls=BIG_CALLS, replays=BIG_REPLAYS) if big else {}
+    k, args = case["kernel"], case["args"]
+    case["ms"] = _time_ms(lambda: getattr(fc, k)(*args), **kw)
+    case["plain_ms"] = _time_ms(lambda: getattr(fc, k + "_plain")(*args), **kw)
+    case["library_ms"] = None
+    h, f, n, n_live = case["H"], case["F"], case["n_pad"], case["n_live"]
+    index_words = args[5].numel() + case["n_chunks"]
+    if k == "fused_v1_window":
+        n_bytes = 4 * (n_live * h * f + 2 * n * h + h * f + n_live * h
+                       + index_words + n * (h * f + h))
+        n_flops = n_live * (4 * h * f + 6 * h)
+    else:
+        n_bytes = 4 * (n * h * f + n_live * 2 * h * f + n * h + h * f
+                       + n_live * h + index_words + n * (h * f + h))
+        n_flops = n_live * (6 * h * f + 6 * h)
+    case["bound_ms"], case["bound_by"] = _bound(n_bytes, n_flops)
+    print(f"  {k} {case['dataset']} H={h} F={f}: {case['ms']:.4f} ms, plain "
+          f"{case['plain_ms']:.4f} ms, bound {case['bound_ms']:.5f} ms "
+          f"({case['bound_by']})")
+
+
+def _corner_vs_stream(layer_type, cora, plans):
+    """The Cora model in training mode (dropout 0.6) over the corner plans
+    against the same model over the receiver stream, on the card, with
+    generators of one seed: the same masks at the same sites, so forward
+    and gradients agree to MODEL_RTOL."""
+    import torch
+
+    from pygat_tpu_torch.models.gat import GATConfig, apply_gat, init_gat, parameters
+    from pygat_tpu_torch.models.presets import PRESETS
+    from pygat_tpu_torch.utils.platform import make_generator
+
+    cfg = GATConfig(layer_type=layer_type, **PRESETS["cora"])
+    cfg = cfg._replace(nfeats=(int(cora.features.shape[1]),) + cfg.nfeats[1:])
+    results = {}
+    for label, p in (("corner", plans), ("stream", None)):
+        params = init_gat(cfg, make_generator("cpu", 72), device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        out = apply_gat(params, cfg, cora.features, cora.graph, gen,
+                        train=True, plans=p)
+        torch.sin(out[: cora.num_nodes]).sum().backward()
+        results[label] = (out.detach(), [q.grad for q in parameters(params)])
+    (out_c, grads_c), (out_s, grads_s) = results["corner"], results["stream"]
+    scale = max(1.0, float(out_s.abs().max()))
+    err = float((out_c - out_s).abs().max())
+    gerr = max(float((a - b).abs().max()) / max(1e-30, float(b.abs().max()))
+               for a, b in zip(grads_c, grads_s))
+    print(f"phase 3: Cora {layer_type}, dropout 0.6, one generator seed: "
+          f"corner plans vs receiver stream on the card: forward max_abs_err "
+          f"{err:.3e} (allowed {MODEL_RTOL * scale:.3e}), worst gradient "
+          f"error {gerr:.3e} of its largest entry (allowed {MODEL_RTOL:.0e})")
+    if not (err <= MODEL_RTOL * scale and gerr <= MODEL_RTOL):
+        raise AssertionError("the corner model disagrees with the stream model")
+
+
+def _want_corner(fused_name, epochs, fast, k_f, k_i):
+    """The launches a corner run makes through the wrappers, and those one
+    replay of the fast loop's captured epoch holds, for plans of ``k_f``
+    forward and ``k_i`` inverse passes: per epoch 2 layers x (train + eval
+    forward) of one expand, k_f passes and the window forward each, and per
+    layer's backward the window again (expand, k_f passes), one expand of
+    the receiver operands, k_i inverse passes and 2 stream_scatters; the
+    test forward adds one forward per layer. The fast loop's wrappers see
+    the eager warm-up epoch and the captured one."""
+    per_epoch = {fused_name: 4, "expand": 8, "stream_scatter": 4,
+                 "corner_permute": 6 * k_f + 2 * k_i}
+    calls = 2 if fast else epochs
+    wrappers = {k: v * calls for k, v in per_epoch.items()}
+    for k, v in ((fused_name, 2), ("expand", 2), ("corner_permute", 2 * k_f)):
+        wrappers[k] += v
+    return wrappers, (per_epoch if fast else {})
+
+
 BACKWARD_KERNELS = ("banded_take", "expand", "stream_scatter",
                     "banded_sender_sum")
 
@@ -522,11 +786,11 @@ def _want_banded(fused_name, epochs, fast):
     return wrappers, (per_epoch if fast else {})
 
 
-def _train_large(label, fit, cfg, data, counters, jsonl, **kw):
+def _train_large(label, fit, cfg, data, counters, jsonl, corner=False, **kw):
     """One trainer run on the large graph, every launch counter set to 0
     just before and read just after. Checks that the trainer chose the band
-    plan by itself, finite losses, a falling validation loss, and the
-    launch counts.
+    plan (or, with ``corner``, the corner plans) by itself, finite losses,
+    a falling validation loss, and the launch counts.
     Returns (launches, train losses, result, replayed launches)."""
     from pygat_tpu_torch.models.presets import TRAIN_PRESETS
     from pygat_tpu_torch.train.logging import TrainLogger
@@ -542,9 +806,10 @@ def _train_large(label, fit, cfg, data, counters, jsonl, **kw):
     logger.close()
     with open(jsonl) as fh:
         recs = [json.loads(line) for line in fh]
-    plans = [r for r in recs if r["kind"] == "band_plan"]
+    kind = "corner_plan" if corner else "band_plan"
+    plans = [r for r in recs if r["kind"] == kind]
     if len(plans) != 1:
-        raise AssertionError(f"{label}: the trainer chose no band plan")
+        raise AssertionError(f"{label}: the trainer chose no {kind}")
     losses = [r["loss_train"] for r in recs if r["kind"] == "epoch"]
     val = [r["loss_val"] for r in recs if r["kind"] == "epoch"]
     epochs = kw["epochs"]
@@ -559,15 +824,24 @@ def _train_large(label, fit, cfg, data, counters, jsonl, **kw):
     # eval-mode validation loss is the learning signal that must fall
     if not val[-1] < val[0]:
         raise AssertionError(f"{label}: validation loss did not fall")
-    fused_name = "fused_v2_banded" if cfg.is_v2 else "fused_v1_banded"
     fast = "epoch_chunk" in kw
-    want, want_captured = _want_banded(fused_name, epochs, fast)
+    if corner:
+        fused_name = "fused_v2_window" if cfg.is_v2 else "fused_v1_window"
+        k_f, k_i = plans[0]["passes"]
+        want, want_captured = _want_corner(fused_name, epochs, fast, k_f, k_i)
+        chosen = (f"corner plans chosen by the trainer: {plans[0]['rows']} "
+                  f"rows, spans {plans[0]['p']}, overflow rows "
+                  f"{plans[0]['overflow']}")
+    else:
+        fused_name = "fused_v2_banded" if cfg.is_v2 else "fused_v1_banded"
+        want, want_captured = _want_banded(fused_name, epochs, fast)
+        chosen = (f"band plan chosen by the trainer: w {plans[0]['w']}, "
+                  f"{plans[0]['chunks']} chunks, {plans[0]['slots']} slots, "
+                  f"fill {plans[0]['fill']:.4f}")
     captured = {k: v for k, v in result.captured_launches.items() if v}
     replays = result.graph_replays
     by_replay = {k: replays * v for k, v in captured.items()}
-    print(f"phase 4: {label}: band plan chosen by the trainer: w "
-          f"{plans[0]['w']}, {plans[0]['chunks']} chunks, {plans[0]['slots']} "
-          f"slots, fill {plans[0]['fill']:.4f}; wrapper launches "
+    print(f"phase 4: {label}: {chosen}; wrapper launches "
           f"{ {k: v for k, v in got.items() if v} }; {replays} CUDA graph "
           f"replays, each launching {captured}, so {by_replay} more by "
           f"replay", flush=True)
@@ -611,30 +885,39 @@ def _cli_band(jsonl, epochs):
     return json.loads(counts.group(1)), losses, plan.group(1)
 
 
-def _large_epoch_ms(cfg, data, plan, stream_plan):
-    """Host ms per epoch of the fast loop on the large graph over ``plan``
-    (banded) and ``stream_plan`` (None: the receiver stream), chunks of
-    LARGE_CHUNK epochs run in turns after one warm-up chunk each."""
+def _large_epoch_ms(cfg, data, plans):
+    """Host ms per epoch of the fast loop on the large graph over each of
+    ``plans`` (name -> a band plan, corner plans, or None: the receiver
+    stream). One captured epoch lives on the card at a time (two captured
+    GATv2_sparse epochs at 524k with their private pools can take most of
+    the 80 GB): each visit captures its plan's epoch (one warm-up chunk),
+    times LARGE_TIMED_CHUNKS chunks of LARGE_CHUNK epochs and frees it; the
+    plans are visited in LARGE_ROUNDS rounds, the order reversed from round
+    to round. Returns the sorted samples per plan and the most memory
+    allocated on the card during a visit, in GiB."""
     import torch
 
     from pygat_tpu_torch.tools.profile_epoch import epoch_runners
 
-    chunks = {"banded": epoch_runners(cfg, data, LARGE_CHUNK, plan)[1],
-              "stream": epoch_runners(cfg, data, LARGE_CHUNK, stream_plan)[1]}
-    for chunk in chunks.values():
-        chunk.run()  # warm-up epoch, capture, first replays
-    samples = {k: [] for k in chunks}
-    for i in range(LARGE_TIMED_CHUNKS):
-        for k in (("banded", "stream") if i % 2 == 0 else ("stream", "banded")):
-            t0 = time.perf_counter()
-            chunks[k].run()  # ends in the chunk's one host sync
-            samples[k].append((time.perf_counter() - t0) * 1e3 / LARGE_CHUNK)
-    for k, chunk in chunks.items():
-        if chunk.graph_replays != LARGE_CHUNK * (LARGE_TIMED_CHUNKS + 1):
-            raise AssertionError(f"the {k} fast loop did not replay its graph")
-    del chunks
-    torch.cuda.empty_cache()
-    return {k: sorted(v) for k, v in samples.items()}
+    samples = {k: [] for k in plans}
+    peak = 0.0
+    names = list(plans)
+    for r in range(LARGE_ROUNDS):
+        for k in names if r % 2 == 0 else names[::-1]:
+            torch.cuda.reset_peak_memory_stats()
+            chunk = epoch_runners(cfg, data, LARGE_CHUNK, plans[k])[1]
+            chunk.run()  # warm-up epoch, capture, first replays
+            for _ in range(LARGE_TIMED_CHUNKS):
+                t0 = time.perf_counter()
+                chunk.run()  # ends in the chunk's one host sync
+                samples[k].append((time.perf_counter() - t0) * 1e3
+                                  / LARGE_CHUNK)
+            if chunk.graph_replays != LARGE_CHUNK * (LARGE_TIMED_CHUNKS + 1):
+                raise AssertionError(f"the {k} fast loop did not replay its graph")
+            peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+            del chunk
+            torch.cuda.empty_cache()
+    return {k: sorted(v) for k, v in samples.items()}, peak
 
 
 def main() -> int:
@@ -648,6 +931,7 @@ def main() -> int:
     from pygat_tpu_torch.models.presets import PRESETS
     from pygat_tpu_torch.ops import build
     from pygat_tpu_torch.ops.banded import BandPlan, maybe_plan_large, set_band
+    from pygat_tpu_torch.ops.large import CscCsrPlans, plan_csc_to_csr, set_corner
     from pygat_tpu_torch.ops.fused_stream import (
         fused_v1,
         fused_v1_plain,
@@ -774,12 +1058,44 @@ def main() -> int:
             kernel_cases[case["kernel"]].append(case)
             banded_cases.append(case)
 
+    # the corner kernels: every pass of both 524k corner plans (built once
+    # here; the trainers of phase 4 build their own) at every width the
+    # corner path turns, a Cora plan with overflow rows, and the window
+    # forwards at the Cora and 524k shapes
+    t1 = time.perf_counter()
+    large_corner = plan_csc_to_csr(large.graph)
+    corner_plan_s = time.perf_counter() - t1
+    print(f"phase 3: large: corner plans built in {corner_plan_s:.2f} s: "
+          f"{large_corner.fwd.n_rows} rows, forward spans "
+          f"{[cp.p for cp in large_corner.fwd.passes]}, inverse spans "
+          f"{[cp.p for cp in large_corner.inv.passes]}, overflow rows "
+          f"{[cp.n_overflow for cp in large_corner.fwd.passes]} / "
+          f"{[cp.n_overflow for cp in large_corner.inv.passes]}", flush=True)
+    large_heads = PRESETS["cora"]["nheads"]
+    large_feats = (PRESETS["cora"]["nfeats"][1], large.num_classes)
+    cora_feats = (PRESETS["cora"]["nfeats"][1], cora.num_classes)
+    large_widths = _corner_widths(large_heads, large_feats)
+    corner_cases = _check_corner("large", large_corner, large_widths, 7)
+    kernel_cases["corner_permute"] += corner_cases
+    kernel_cases["corner_permute"] += _check_corner_overflow(
+        cora, _corner_widths(large_heads, cora_feats))
+    cora_corner = plan_csc_to_csr(cora.graph)
+    window_cases = (_window_cases("cora", cora.graph, cora_corner, large_heads,
+                                  cora_feats, gen)
+                    + _window_cases("large", large.graph, large_corner,
+                                    large_heads, large_feats, gen))
+    for case in window_cases:
+        kernel_cases[case["kernel"]].append(case)
+
     # the whole Cora models, forward and gradients: card vs CPU, over the
-    # receiver stream and over the band plan
+    # receiver stream, the band plan and the corner plans; and over the
+    # corner plans against the receiver stream with the same masks
     cfgs = {lt: _model_card_vs_cpu(lt, cora)
             for lt in ("GAT_sparse", "GATv2_sparse")}
     for lt in cfgs:
         _model_card_vs_cpu(lt, cora, cora_plan)
+        _model_card_vs_cpu(lt, cora, cora_corner)
+        _corner_vs_stream(lt, cora, cora_corner)
     phase_done(3, t0)
 
     # -- phase 4: the main paths ------------------------------------------------
@@ -809,8 +1125,8 @@ def main() -> int:
     replayed = dict.fromkeys(counters, 0)
     path_launches, path_replayed, path_losses = {}, {}, {}
     for label, fused_name, epochs, argv in runs:
-        got, losses, replays, captured = _train_cli(argv, epochs, counters,
-                                                    jsonl)
+        got, losses, replays, captured, _ = _train_cli(argv, epochs, counters,
+                                                       jsonl)
         by_replay = {name: replays * n for name, n in captured.items()}
         path_launches[label], path_losses[label] = got, losses
         path_replayed[label] = by_replay
@@ -878,6 +1194,45 @@ def main() -> int:
         raise AssertionError("the large fast loop's losses differ from the "
                              "per-epoch loop's")
 
+    # the corner plans through the trainers: under set_band("off") and
+    # set_corner("on") each trainer asks maybe_plan_large, which returns the
+    # corner plans it builds; no banded and no stream-fused kernel runs
+    set_band("off")
+    set_corner("on")
+    for lt in ("GAT_sparse", "GATv2_sparse"):
+        label = f"large {lt}, corner plans, fast loop"
+        t1 = time.perf_counter()
+        got, losses, _, by_replay = _train_large(
+            label, fit_transductive_fast, large_cfgs[lt], large, counters,
+            jsonl, corner=True, epochs=2 * LARGE_CHUNK, epoch_chunk=LARGE_CHUNK)
+        print(f"  ({time.perf_counter() - t1:.1f} s)", flush=True)
+        path_launches[label], path_losses[label] = got, losses
+        path_replayed[label] = {k: by_replay.get(k, 0) for k in counters}
+    set_band("auto")
+    set_corner("auto")
+
+    # --corner on through the CLI on Cora, which prints its own counts
+    label = "cora GAT_sparse, --corner on CLI"
+    got, losses, _, _, text = _train_cli(
+        ["--dataset", "cora", "--model", "GAT_sparse", "--corner", "on"],
+        V1_EPOCHS, counters, jsonl)
+    set_corner("auto")
+    counts = re.search(r"Kernel launches: (\{.*\})", text)
+    plan_line = re.search(r"corner_plan: (.*)", text)
+    if counts is None or plan_line is None:
+        raise AssertionError(f"{label}: no corner plan or no launch counts "
+                             f"printed:\n{text[-3000:]}")
+    print(f"phase 4: {label}: {plan_line.group(1)}; launches it printed "
+          f"{counts.group(1)}; train losses {losses}", flush=True)
+    want, _ = _want_corner("fused_v1_window", V1_EPOCHS, False,
+                           len(cora_corner.fwd.passes),
+                           len(cora_corner.inv.passes))
+    if json.loads(counts.group(1)) != got or {
+            k: v for k, v in got.items() if v} != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    path_launches[label], path_losses[label] = got, losses
+    path_replayed[label] = dict.fromkeys(counters, 0)
+
     # the environment knob reaches the banded path through the CLI
     t1 = time.perf_counter()
     label = "cora GAT_sparse, PYGAT_BAND=on CLI"
@@ -910,22 +1265,6 @@ def main() -> int:
               f"{TIMED_CHUNKS} chunks of 10 CUDA graph replays: median "
               f"{fast_samples[len(fast_samples) // 2]:.4f} ms per epoch, min "
               f"{fast_samples[0]:.4f}, max {fast_samples[-1]:.4f}", flush=True)
-    # the large graph's epoch over the band plan and, for comparison, over
-    # the receiver stream: what set_band("off") leaves the trainers
-    set_band("off")
-    stream_plan = maybe_plan_large(large.graph)
-    set_band("auto")
-    for lt, cfg in large_cfgs.items():
-        res = _large_epoch_ms(cfg, large, large_plan, stream_plan)
-        epoch_ms[f"large {lt}"] = {
-            f"fast_loop_{k}_ms": v[len(v) // 2] for k, v in res.items()}
-        print(f"phase 5: large {lt} epoch by the fast loop, host clock, "
-              f"{LARGE_TIMED_CHUNKS} chunks of {LARGE_CHUNK} CUDA graph "
-              f"replays each, in turns: "
-              + "; ".join(f"{k}: median {v[len(v) // 2]:.4f} ms per epoch "
-                          f"(all {[round(x, 4) for x in v]})"
-                          for k, v in res.items()), flush=True)
-
     for case in kernel_cases["stream_scatter"]:
         if "side" not in case:
             continue  # a banded width, timed below
@@ -985,6 +1324,36 @@ def main() -> int:
                   f"bound {case['bound_ms']:.5f} ms ({case['bound_by']})")
     for case in banded_cases:
         _time_banded(case, plans[case["dataset"]], case["dataset"] == "large")
+    _time_corner("large", large_corner, large_widths, 7, corner_cases)
+    for case in window_cases:
+        _time_window(case, case["dataset"] == "large")
+    # the large graph's epoch over the band plan, over the corner plans
+    # and over the receiver stream (what set_band("off") leaves the
+    # trainers), in turns; the kernels' inputs are freed first
+    for cases in kernel_cases.values():
+        for case in cases:
+            case.pop("args", None)
+            case.pop("data", None)
+    torch.cuda.empty_cache()
+    set_band("off")
+    stream_plan = maybe_plan_large(large.graph)
+    set_band("auto")
+    for lt, cfg in large_cfgs.items():
+        res, peak_gib = _large_epoch_ms(cfg, large, {"banded": large_plan,
+                                                     "corner": large_corner,
+                                                     "stream": stream_plan})
+        epoch_ms[f"large {lt}"] = {
+            f"fast_loop_{k}_ms": v[len(v) // 2] for k, v in res.items()}
+        epoch_ms[f"large {lt}"]["peak_allocated_gib"] = peak_gib
+        print(f"phase 5: large {lt} epoch by the fast loop, host clock, "
+              f"{LARGE_ROUNDS} rounds of {LARGE_TIMED_CHUNKS} chunks of "
+              f"{LARGE_CHUNK} CUDA graph replays each, one captured epoch on "
+              f"the card at a time (peak allocated {peak_gib:.2f} GiB), in "
+              f"turns: "
+              + "; ".join(f"{k}: median {v[len(v) // 2]:.4f} ms per epoch "
+                          f"(all {[round(x, 4) for x in v]})"
+                          for k, v in res.items()), flush=True)
+
     phase_done(5, t0)
 
     # -- phase 6: the kernels line ----------------------------------------------
@@ -995,8 +1364,11 @@ def main() -> int:
         # the 4 backward launches of each model's step; the fused kernels:
         # one forward's 2 launches), the large graph for the banded ones
         # (each of the 4 backward kernels: one launch per layer of each
-        # model's step; the fused kernels: one forward's 2 launches); every
-        # shape is listed under "cases". "launches" sums the wrapper's count
+        # model's step; the fused kernels: one forward's 2 launches), and the
+        # large graph for the corner ones (corner_permute: every pass of
+        # both plans at each of the 4 widths the two models turn, once; the
+        # window forwards: one forward's 2 launches); every shape is listed
+        # under "cases". "launches" sums the wrapper's count
         # over the main-path runs of phase 4 (one by one under
         # "launches_by_path"); "replayed_launches" are those of the fast
         # loop's CUDA graph replays, replays x launches captured.
@@ -1020,8 +1392,9 @@ def main() -> int:
             "bound_by": "bytes" if all(c["bound_by"] == "bytes"
                                        for c in main_cases) else "operations",
             "library_ms": None if None in lib else sum(lib),
-            "cases": [{k: c[k] for k in ("dataset", "path", "side", "L", "H",
-                                         "F", "ms", "plain_ms", "library_ms",
+            "cases": [{k: c[k] for k in ("dataset", "path", "side", "dir",
+                                         "pass", "p", "L", "H", "F", "ms",
+                                         "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
                                          "max_abs_err") if k in c}
                       for c in cases],
@@ -1030,6 +1403,7 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on any main path")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries, "epoch_ms": epoch_ms,
+                      "setup_s": {"large_corner_plans": corner_plan_s},
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,13 @@ package's own), running on CUDA unless ``--no-cuda`` asks for the CPU:
 host sync, on CUDA as replays of one captured CUDA graph. As in the JAX
 package, the large-N banded path has no flag: the trainers take it past
 300k padded nodes, or when the environment asks (``PYGAT_BAND=on``; also
-``PYGAT_BAND_N``, ``PYGAT_BAND_W``, ``PYGAT_BAND_MIN_FILL``). On CUDA the
-last line counts the kernel launches made through their wrappers. Flags whose
-machinery is not ported yet (``--mesh``, ``--partition``, ``--corner``,
-``--reorder``, ``--distributed``, ``--backend xla``, the dense models
-``GAT`` / ``GATv2``) raise an error naming the ROADMAP item that ports it.
+``PYGAT_BAND_N``, ``PYGAT_BAND_W``, ``PYGAT_BAND_MIN_FILL``). ``--corner
+on`` (or ``PYGAT_CORNER=on``) runs the fused layers over the corner plans
+where no band plan is taken. On CUDA the last line counts the kernel
+launches made through their wrappers. Flags whose machinery is not ported
+yet (``--mesh``, ``--partition``, ``--reorder``, ``--distributed``,
+``--backend xla``, the dense models ``GAT`` / ``GATv2``) raise an error
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -52,7 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--corner", type=str, default=None,
                    choices=["auto", "on", "off"],
                    help="gather-free window build for million-node graphs "
-                        "(not ported yet)")
+                        "(CSC expand + corner-turn instead of a row gather by "
+                        "edge index); auto = on at or above PYGAT_CORNER_N "
+                        "padded nodes (by default never)")
     p.add_argument("--platform", type=str, default=None,
                    help="the JAX package's platform switch; the port rejects "
                         "it (its one device switch is --no-cuda)")
@@ -91,8 +95,6 @@ def _reject_unported(args) -> None:
         (args.mesh is not None or args.partition != "gspmd",
          "--mesh/--partition", "Queue 1, item 14: multi-GPU"),
         (args.distributed, "--distributed", "Queue 1, item 14: multi-GPU"),
-        (args.corner is not None, "--corner",
-         "Queue 1, item 15: alternative ops"),
         (args.reorder, "--reorder",
          "Queue 1, item 15: ctypes loader for csrc/graphops.cpp"),
         (args.model in ("GAT", "GATv2"), f"--model {args.model}",
@@ -121,6 +123,10 @@ def main(argv=None) -> int:
     from pygat_tpu_torch.utils.platform import resolve_device
 
     device = resolve_device(cpu=args.no_cuda)
+    if args.corner:
+        from pygat_tpu_torch.ops.large import set_corner
+
+        set_corner(args.corner)
     random.seed(args.seed)
     np.random.seed(args.seed)
 

@@ -1,6 +1,8 @@
 // Fused GATv1 attention forward for Hopper (sm_90a), shared by
-// fused_v1.cu (receiver stream order, senders listed per slot) and
-// fused_v1_banded.cu (banded order, sender = band[c] * 128 + s_loc[k]).
+// fused_v1.cu (receiver stream order, senders listed per slot),
+// fused_v1_banded.cu (banded order, sender = band[c] * 128 + s_loc[k]) and
+// fused_v1_window.cu (receiver stream order, wh replaced by the corner
+// path's pre-built [E_s, HF] sender window, row k for slot k).
 //
 // Same function as the Pallas TPU kernels pygat_tpu/ops/fused_stream.py::
 // _make_v1_kernel and pygat_tpu/ops/banded.py::_make_v1_banded_kernel, per
@@ -44,7 +46,9 @@
 // negligible. At citation sizes wh stays in L2 and the call is
 // launch-bound; at 524k nodes wh (134 MB at HF = 64) exceeds the 50 MB L2,
 // and the banded order keeps each chunk's sender rows within its w-tile
-// window (w * 128 rows), so consecutive slots re-read rows from L2.
+// window (w * 128 rows), so consecutive slots re-read rows from L2. Over
+// the corner path's window each live slot's row is read once, in slot
+// order: [E_s, HF] floats instead of the node table.
 
 #pragma once
 

@@ -18,7 +18,7 @@ extern "C" int pygat_fused_v2(const float* whi, const float* whj,
                               int n_chunks, int n_tiles, int H, int F,
                               float alpha, float* out, float* den,
                               void* stream) {
-  return launch_fused_v2(whi, whj, ub, a, keepq, ListedRows{senders}, local,
-                         chunk_tile, n_chunks, n_tiles, H, F, alpha, out, den,
-                         stream);
+  return launch_fused_v2(whi, whj, whi, H * F, ub, a, keepq,
+                         ListedRows{senders}, local, chunk_tile, n_chunks,
+                         n_tiles, H, F, alpha, out, den, stream);
 }

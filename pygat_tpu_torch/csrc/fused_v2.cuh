@@ -1,23 +1,31 @@
 // Fused GATv2 attention forward for Hopper (sm_90a), shared by
-// fused_v2.cu (receiver stream order, senders listed per slot) and
-// fused_v2_banded.cu (banded order, sender = band[c] * 128 + s_loc[k]).
+// fused_v2.cu (receiver stream order, senders listed per slot),
+// fused_v2_banded.cu (banded order, sender = band[c] * 128 + s_loc[k]) and
+// fused_v2_window.cu (receiver stream order over a pre-built [E_s, 2HF]
+// sender window, row k for slot k).
 //
 // Same function as the Pallas TPU kernels pygat_tpu/ops/fused_stream.py::
 // _make_v2_kernel and pygat_tpu/ops/banded.py::_make_v2_banded_kernel, per
-// live slot k of receiver r = tile*128 + local[k] and sender s, for each
-// head h:
-//   pre[f] = leaky_relu(whi[r, hF+f] + whj[s, hF+f])
+// live slot k of receiver r = tile*128 + local[k] and sender row s, for
+// each head h:
+//   pre[f] = leaky_relu(whi[r, hF+f] + sj[s, hF+f])
 //   logit  = sum_f pre[f] * a[h, f]
-//   num    = exp(logit - ub[r, h])                    (0 at dead slots)
-//   out[r, hF+f] += whi[s, hF+f] * num * keepq[k, h]  (the LEFT projection
-//                                                      at the sender)
-//   den[r, h]    += num                               (pre-dropout)
+//   num    = exp(logit - ub[r, h])                   (0 at dead slots)
+//   out[r, hF+f] += si[s, hF+f] * num * keepq[k, h]  (the LEFT projection
+//                                                     at the sender)
+//   den[r, h]    += num                              (pre-dropout)
+// The sender-side tables sj and si share one row stride: the node tables
+// whj and whi (stride HF) where s is the sender node, or the two column
+// halves of the corner path's window [gj | gi] (stride 2HF) where s is the
+// slot. The receiver-side rows whi[r] and ub[r] are always node rows.
 //
 // The TPU kernels receive whj and whi pre-gathered at the senders in one
 // [E, 2HF] window (or select them from the chunk's w-tile VMEM window) and
 // build the receiver gather, the a-projection, the head broadcast and the
 // scatter from one-hot MXU matmuls, because Mosaic cannot gather rows.
-// Here the kernel gathers whj[s] and whi[s] itself. One thread block per
+// Here the kernel gathers the sender rows itself (over the corner path's
+// window it reads them in slot order, as the TPU kernel does). One thread
+// block per
 // 256-slot chunk and group of heads (at most 128 columns and 16 heads; one
 // head when F > 128), all chunks in parallel, in two phases:
 //   1. logits. Unlike GATv1 the logit is a sum over F of a nonlinear term
@@ -60,7 +68,9 @@
 // 6 HF + 6 H per slot) are negligible. At Cora's shapes the call moves a
 // few MB and is launch-bound. At 524k nodes the tables (134 MB each at
 // HF = 64) exceed the 50 MB L2; the banded order keeps each chunk's sender
-// rows within its w-tile window (w * 128 rows).
+// rows within its w-tile window (w * 128 rows). Over the corner path's
+// window the sender side is no node table but [E_s, 2HF] floats read once,
+// in slot order, which the bound counts instead of whj.
 
 #pragma once
 
@@ -76,7 +86,8 @@ constexpr int MAX_J = MAX_F / 32;  // features per lane at P = 32
 
 template <class Rows>
 __global__ void __launch_bounds__(THREADS)
-fused_v2_kernel(const float* __restrict__ whi, const float* __restrict__ whj,
+fused_v2_kernel(const float* __restrict__ whi, const float* __restrict__ sj,
+                const float* __restrict__ si, int sstride,
                 const float* __restrict__ ub, const float* __restrict__ a,
                 const float* __restrict__ keepq,
                 Rows senders,
@@ -151,7 +162,7 @@ fused_v2_kernel(const float* __restrict__ whi, const float* __restrict__ whj,
           }
           ub_r = __ldg(ub + (row0 + loc) * H + h0 + hl);
         }
-        const float* wj = whj + static_cast<long long>(s_snd[k]) * HF + hcol;
+        const float* wj = sj + static_cast<long long>(s_snd[k]) * sstride + hcol;
         const float* a_h = s_a + hl * F;
 #pragma unroll
         for (int u = 0; u < MAX_J; ++u) {
@@ -197,8 +208,8 @@ fused_v2_kernel(const float* __restrict__ whi, const float* __restrict__ whj,
         cur = loc;
         sum = 0.f;
       }
-      sum = fmaf(__ldg(whi + static_cast<long long>(s_snd[k]) * HF + h0 * F +
-                       col),
+      sum = fmaf(__ldg(si + static_cast<long long>(s_snd[k]) * sstride +
+                       h0 * F + col),
                  s_q[k * hb + hl], sum);
     }
     if (cur >= 0) atomicAdd(&acc[cur * cols + col], sum);
@@ -215,14 +226,16 @@ fused_v2_kernel(const float* __restrict__ whi, const float* __restrict__ whj,
   }
 }
 
-// whi / whj [N, H*F], ub [N, H], a [H, F], keepq [E_s, H] f32;
-// senders names each slot's sender row (slot_rows.cuh); local [E_s] int32;
+// whi [N, H*F], ub [N, H], a [H, F], keepq [E_s, H] f32; sj / si the
+// sender-side tables (rows of sstride floats, H*F read from each);
+// senders names each slot's row in them (slot_rows.cuh); local [E_s] int32;
 // chunk_tile [n_chunks] int32;
 // out [n_tiles * 128, H*F] and den [n_tiles * 128, H] f32. Zeroes out and
 // den and launches on `stream`; returns the first CUDA error, or
 // cudaGetLastError() after the launch (cudaErrorInvalidValue when F > 256).
 template <class Rows>
-int launch_fused_v2(const float* whi, const float* whj, const float* ub,
+int launch_fused_v2(const float* whi, const float* sj, const float* si,
+                    int sstride, const float* ub,
                     const float* a, const float* keepq, Rows senders,
                     const int* local, const int* chunk_tile, int n_chunks,
                     int n_tiles, int H, int F, float alpha, float* out,
@@ -255,8 +268,8 @@ int launch_fused_v2(const float* whi, const float* whj, const float* ub,
   }
   const dim3 grid(n_chunks, (H + hpb - 1) / hpb);
   fused_v2_kernel<Rows><<<grid, THREADS, smem, st>>>(
-      whi, whj, ub, a, keepq, senders, local, chunk_tile, H, F, hpb, P, alpha,
-      out, den);
+      whi, sj, si, sstride, ub, a, keepq, senders, local, chunk_tile, H, F,
+      hpb, P, alpha, out, den);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,7 @@ extern "C" int pygat_fused_v2_banded(const float* whi, const float* whj,
                                      int n_tiles, int w, int H, int F,
                                      float alpha, float* out, float* den,
                                      void* stream) {
-  return launch_fused_v2(whi, whj, ub, a, keepq,
+  return launch_fused_v2(whi, whj, whi, H * F, ub, a, keepq,
                          WindowRows{band, s_loc, w * TILE}, local, chunk_tile,
                          n_chunks, n_tiles, H, F, alpha, out, den, stream);
 }

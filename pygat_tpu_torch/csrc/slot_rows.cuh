@@ -1,6 +1,7 @@
 // How a slot of a chunked edge order finds its node row, and the row
 // gather built on it (shared by expand.cu, banded_take.cu,
-// banded_sender_sum.cu and the fused attention kernels).
+// banded_sender_sum.cu, corner_permute.cu and the fused attention
+// kernels).
 //
 // Every edge order of the port is cut into chunks of EC = 256 slots. A slot
 // names a node row in one of two ways:
@@ -10,12 +11,17 @@
 //     loc[k] outside [0, limit) marks a dead slot. The expand kernel reads
 //     the receiver side this way (base = chunk_tile, loc = local, limit =
 //     128), the banded kernels the sender side (base = band, loc = s_loc,
-//     limit = w * 128). The dead test comes before the row is formed: a
-//     dead slot of a chunk whose window is the last one would name row
-//     N_pad, one past the table.
-// Both return -1 for a dead slot (ListedRows has none: the receiver
-// stream's padding slots name the dummy row N_pad - 1 and are told dead by
-// their local row).
+//     limit = w * 128), and a corner-turn pass its input rows with 128-row
+//     blocks (base = lo, loc = g, limit = p * 128; the plan never marks a
+//     row dead). The dead test comes before the row is formed: a dead slot
+//     of a chunk whose window is the last one would name row N_pad, one
+//     past the table;
+//   * SlotRows: row k itself, for slot k: the fused kernels read a sender
+//     window that holds one row per slot (the corner path).
+// ListedRows and WindowRows return -1 for a dead slot (ListedRows has none:
+// the receiver stream's padding slots name the dummy row N_pad - 1 and are
+// told dead by their local row; the fused kernels skip dead slots by their
+// local row before reading a sender row).
 
 #pragma once
 
@@ -43,25 +49,31 @@ struct WindowRows {
   }
 };
 
-constexpr int GATHER_THREADS = EC;  // one thread stages each slot's row
+struct SlotRows {
+  __device__ int operator()(long long k, int) const {
+    return static_cast<int>(k);
+  }
+};
 
-// out[k, :] = table[rows(k), :], zeros at dead slots; one block per chunk.
-// Each thread writes the elements i, i + 256, ... of the chunk's [EC, L]
-// output block, so the stores are coalesced and a row's L floats are read
-// by neighbouring threads. Offsets are 64-bit: E * L passes 2^31 at 1M
-// nodes.
-template <class Rows>
-__global__ void __launch_bounds__(GATHER_THREADS)
+// out[k, :] = table[rows(k), :], zeros at dead slots; one block of ROWS
+// threads per ROWS output rows (a 256-slot chunk, or a 128-row tile of a
+// corner-turn pass, whose tile count may be odd), block b passing b as the
+// chunk to the row policy. Each thread writes the elements i, i + ROWS, ...
+// of the block's [ROWS, L] output, so the stores are coalesced and a row's
+// L floats are read by neighbouring threads. Offsets are 64-bit: E * L
+// passes 2^31 at 1M nodes.
+template <int ROWS, class Rows>
+__global__ void __launch_bounds__(ROWS)
 gather_rows_kernel(const float* __restrict__ table, Rows rows, int L,
                    float* __restrict__ out) {
-  __shared__ int s_row[EC];
-  const long long k0 = static_cast<long long>(blockIdx.x) * EC;
+  __shared__ int s_row[ROWS];
+  const long long k0 = static_cast<long long>(blockIdx.x) * ROWS;
   s_row[threadIdx.x] = rows(k0 + threadIdx.x, blockIdx.x);
   __syncthreads();
   float* o = out + k0 * L;
-  const int n = EC * L;
+  const int n = ROWS * L;
 #pragma unroll 4
-  for (int i = threadIdx.x; i < n; i += GATHER_THREADS) {
+  for (int i = threadIdx.x; i < n; i += ROWS) {
     const int k = i / L;
     const int r = s_row[k];
     o[i] = r >= 0 ? __ldg(table + static_cast<long long>(r) * L + (i - k * L))
@@ -69,13 +81,14 @@ gather_rows_kernel(const float* __restrict__ table, Rows rows, int L,
   }
 }
 
-template <class Rows>
-int launch_gather_rows(const float* table, Rows rows, int n_chunks, int L,
+// n_blocks blocks of ROWS rows (EC: one per chunk).
+template <int ROWS = EC, class Rows>
+int launch_gather_rows(const float* table, Rows rows, int n_blocks, int L,
                        float* out, void* stream) {
-  if (n_chunks <= 0 || L <= 0) return 0;
-  gather_rows_kernel<Rows><<<n_chunks, GATHER_THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(table, rows,
-                                                                  L, out);
+  if (n_blocks <= 0 || L <= 0) return 0;
+  gather_rows_kernel<ROWS, Rows><<<n_blocks, ROWS, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      table, rows, L, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,6 +28,7 @@ from pygat_tpu_torch.models.layers import (
     gat_v2_sparse_heads,
 )
 from pygat_tpu_torch.ops.banded import BandPlan
+from pygat_tpu_torch.ops.large import CscCsrPlans
 from pygat_tpu_torch.utils.platform import resolve_device
 
 LAYER_TYPES = ("GAT", "GAT_sparse", "GATv2", "GATv2_sparse")
@@ -111,14 +112,15 @@ def apply_gat(
     gen: torch.Generator | None,
     *,
     train: bool,
-    plans: BandPlan | None = None,
+    plans: BandPlan | CscCsrPlans | None = None,
 ) -> torch.Tensor:
     """Forward pass; returns raw per-node outputs [N_pad, n_classes] (the
     final layer has no activation; the transductive loss head adds ELU +
     log_softmax). ``gen`` draws the dropout masks and is unused unless
-    training with dropout. ``plans`` (a band plan of ``graph``, see
+    training with dropout. ``plans`` (a large-N plan of ``graph``, see
     :func:`~pygat_tpu_torch.ops.banded.maybe_plan_large`) runs every layer's
-    attention over the banded order."""
+    attention over the banded order of a band plan, or over the corner
+    plans."""
     _check_ported(cfg)
     heads_fn = gat_v2_sparse_heads if cfg.is_v2 else gat_v1_sparse_heads
     h = x

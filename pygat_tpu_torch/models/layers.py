@@ -12,6 +12,10 @@ With a :class:`~pygat_tpu_torch.ops.banded.BandPlan` (``plan=``, the large-N
 path the trainers pick past 300k nodes) the attention runs over the plan's
 banded slots, and its keep mask is drawn over those slots, not the receiver
 stream's: a different draw of the same distribution, as in the JAX package.
+With :class:`~pygat_tpu_torch.ops.large.CscCsrPlans` (the corner plans,
+opt-in) it runs over the receiver stream's slots with sender windows built
+by expand and corner-turn, and draws the stream path's keep mask at the
+stream path's site: the same generator gives both paths the same masks.
 """
 
 from __future__ import annotations
@@ -27,11 +31,16 @@ from pygat_tpu_torch.ops.banded import (
     fused_v1_attention_banded,
     fused_v2_attention_banded,
 )
+from pygat_tpu_torch.ops.fused_corner import (
+    fused_v1_attention_corner,
+    fused_v2_attention_corner,
+)
 from pygat_tpu_torch.ops.fused_stream import (
     fused_v1_attention,
     fused_v2_attention,
     leaky_relu,
 )
+from pygat_tpu_torch.ops.large import CscCsrPlans
 
 # Softmax-denominator clamp. 1e-18, not 0: with the bound-shifted softmax a
 # row whose incoming logits all sit far under the bound can underflow its
@@ -110,10 +119,10 @@ def _att_keepq(gen, keep: float, n_slots: int, n_heads: int,
     return torch.where(_keep(gen, keep, (n_slots, n_heads)), 1.0 / keep, 0.0)
 
 
-def _slots(graph: Graph, plan: BandPlan | None) -> int:
-    """The attention's edge slots: the plan's banded ones, else the
-    receiver stream's."""
-    return graph.num_edges_padded if plan is None else plan.num_slots
+def _slots(graph: Graph, plan: BandPlan | CscCsrPlans | None) -> int:
+    """The attention's edge slots: a band plan's banded ones, else the
+    receiver stream's (also over the corner plans)."""
+    return plan.num_slots if isinstance(plan, BandPlan) else graph.num_edges_padded
 
 
 def _need_stream_layout(graph: Graph) -> None:
@@ -134,10 +143,10 @@ def gat_v1_sparse_heads(
     drop: float,
     concat: bool,
     train: bool,
-    plan: BandPlan | None = None,
+    plan: BandPlan | CscCsrPlans | None = None,
 ) -> torch.Tensor:
     """Head-batched sparse GATv1 through the fused attention op (over the
-    banded order of ``plan`` when one is given).
+    banded order of a band ``plan``, or over the corner plans).
 
     Heads stay folded into the minor axis (``[N, H*F_out]`` projections,
     ``[E, H]`` per-edge factors). Returns ``[N, H*F_out]`` (ELU'd head
@@ -174,9 +183,12 @@ def gat_v1_sparse_heads(
         bound = leaky_relu(f_dst_n + m_src[None, :], alpha)
     keepq = _att_keepq(gen, keep, _slots(graph, plan), n_heads, use_drop,
                        wh.device)
-    if plan is not None:
+    if isinstance(plan, BandPlan):
         agg, den = fused_v1_attention_banded(
             wh, f_dst_n, bound, params.a[:, f_out:], keepq, plan, alpha)
+    elif plan is not None:
+        agg, den = fused_v1_attention_corner(
+            wh, f_dst_n, bound, params.a[:, f_out:], keepq, graph, plan, alpha)
     else:
         agg, den = fused_v1_attention(
             wh, f_dst_n, bound, params.a[:, f_out:], keepq,
@@ -197,10 +209,10 @@ def gat_v2_sparse_heads(
     drop: float,
     concat: bool,
     train: bool,
-    plan: BandPlan | None = None,
+    plan: BandPlan | CscCsrPlans | None = None,
 ) -> torch.Tensor:
     """Head-batched sparse GATv2 through the fused attention op (over the
-    banded order of ``plan`` when one is given): LeakyReLU
+    banded order of a band ``plan``, or over the corner plans): LeakyReLU
     before the a-projection (reference layers.py:280-283), aggregation of
     the LEFT projection ``whi`` gathered at senders (layers.py:296); dropout
     on the input, both projections and the attention numerator (drawn in
@@ -256,9 +268,12 @@ def gat_v2_sparse_heads(
             params.a.clamp(max=0.0))
     keepq = _att_keepq(gen, keep, _slots(graph, plan), n_heads, use_drop,
                        whi.device)
-    if plan is not None:
+    if isinstance(plan, BandPlan):
         agg, den = fused_v2_attention_banded(whi, whj, ub, params.a, keepq,
                                              plan, alpha)
+    elif plan is not None:
+        agg, den = fused_v2_attention_corner(whi, whj, ub, params.a, keepq,
+                                             graph, plan, alpha)
     else:
         agg, den = fused_v2_attention(
             whi, whj, ub, params.a, keepq,

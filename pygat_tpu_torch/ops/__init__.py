@@ -1,2 +1,3 @@
-"""Sparse attention ops: stream segment sums and the fused GATv1 forward,
-each a hand-written CUDA kernel beside its plain PyTorch version."""
+"""Sparse attention ops: segment sums, row gathers, corner-turn passes and
+the fused attention forwards, each a hand-written CUDA kernel beside its
+plain PyTorch version."""

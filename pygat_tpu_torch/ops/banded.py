@@ -60,7 +60,7 @@ from pygat_tpu_torch.ops.fused_stream import (
     fused_v2_plain,
     leaky_relu,
 )
-from pygat_tpu_torch.ops.large import expand
+from pygat_tpu_torch.ops.large import CscCsrPlans, expand, maybe_plan_corner
 from pygat_tpu_torch.ops.stream import (
     DEAD,
     EC,
@@ -286,9 +286,6 @@ _BAND_N = int(os.environ.get("PYGAT_BAND_N", str(300_000)))
 _BAND_W = int(os.environ.get("PYGAT_BAND_W", "4"))
 # below this fill 'auto' keeps the stream path (poor locality)
 _BAND_MIN_FILL = float(os.environ.get("PYGAT_BAND_MIN_FILL", "0.2"))
-# the reference's corner plan (opt-in), which the port does not have
-_CORNER_MODE = os.environ.get("PYGAT_CORNER", "auto")
-_CORNER_N = int(os.environ.get("PYGAT_CORNER_N", str(2 ** 62)))
 
 
 def set_band(mode: str, *, n: int | None = None, w: int | None = None) -> None:
@@ -321,21 +318,15 @@ def maybe_plan_band(graph) -> BandPlan | None:
     return plan
 
 
-def maybe_plan_large(graph) -> BandPlan | None:
+def maybe_plan_large(graph) -> BandPlan | CscCsrPlans | None:
     """The large-N plan for the fused layers, as the reference picks it:
-    the band plan (auto past PYGAT_BAND_N), else None. The reference's
-    corner plan is not ported: asking for it (``PYGAT_CORNER=on``, or
-    ``PYGAT_CORNER_N`` at or below N_pad) raises."""
+    the band plan (auto past PYGAT_BAND_N), else the corner plans (opt-in:
+    ``PYGAT_CORNER=on`` / ``set_corner("on")``, or N_pad at or above
+    ``PYGAT_CORNER_N``), else None (the receiver stream)."""
     plan = maybe_plan_band(graph)
     if plan is not None:
         return plan
-    if graph.c_slot is not None and (
-            _CORNER_MODE == "on" or (_CORNER_MODE == "auto"
-                                     and graph.num_nodes_padded >= _CORNER_N)):
-        raise NotImplementedError(
-            "the corner plan (PYGAT_CORNER, PYGAT_CORNER_N) is not ported yet "
-            "(ROADMAP Queue 1, item 15: alternative ops)")
-    return None
+    return maybe_plan_corner(graph)
 
 
 # ---------------------------------------------------------------------------

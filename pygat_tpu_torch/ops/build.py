@@ -40,6 +40,11 @@ ENTRY_POINTS = {
                         [_P] * 9 + [_I] * 5 + [_F] + [_P] * 3),
     "fused_v2_banded": ("pygat_fused_v2_banded",
                         [_P] * 9 + [_I] * 5 + [_F] + [_P] * 3),
+    "corner_permute": ("pygat_corner_permute", [_P] * 3 + [_I] * 3 + [_P] * 2),
+    "fused_v1_window": ("pygat_fused_v1_window",
+                        [_P] * 7 + [_I] * 4 + [_F] + [_P] * 3),
+    "fused_v2_window": ("pygat_fused_v2_window",
+                        [_P] * 7 + [_I] * 4 + [_F] + [_P] * 3),
 }
 SOURCES = tuple(ENTRY_POINTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,13 +56,19 @@ _KERNELS: dict[str, ctypes._CFuncPtr] = {}
 WRAPPERS: dict = {}
 
 
-def counted(wrapper):
-    """Register ``wrapper`` as the one that launches the kernel of its name
-    and start its launch count at 0 (the wrapper adds one per launch)."""
-    if wrapper.__name__ not in ENTRY_POINTS:
-        raise KeyError(f"no kernel named {wrapper.__name__}")
+def counted(wrapper=None, *, kernel: str | None = None):
+    """Register ``wrapper`` as the one that launches the kernel ``kernel``
+    (by default the wrapper's own name; ``@counted(kernel=...)`` names
+    another) and start its launch count at 0 (the wrapper adds one per
+    launch)."""
+    if wrapper is None:
+        return lambda w: counted(w, kernel=kernel)
+    name = kernel or wrapper.__name__
+    if name not in ENTRY_POINTS:
+        raise KeyError(f"no kernel named {name}")
+    wrapper.kernel = name
     wrapper.launches = 0
-    WRAPPERS[wrapper.__name__] = wrapper
+    WRAPPERS[name] = wrapper
     return wrapper
 
 
@@ -157,13 +168,14 @@ def check(rc: int, what: str) -> None:
 
 def launch(wrapper, *args) -> None:
     """Launch the kernel of ``wrapper`` (registered with :func:`counted`)
-    on the current stream of its tensors' device and count the launch.
+    on the current stream of its tensors' device and count the launch on
+    the wrapper.
 
     ``args`` are the C entry point's arguments up to the stream: a tensor
     goes as its data pointer (every tensor must be contiguous and on one
     device), None as a null pointer, a number as itself. Raises when the
     entry point returns a CUDA error."""
-    name = wrapper.__name__
+    name = wrapper.kernel
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     device = tensors[0].device
     for t in tensors:

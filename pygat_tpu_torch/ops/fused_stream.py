@@ -53,39 +53,46 @@ def _block_diag_a(a: torch.Tensor) -> torch.Tensor:
 
 
 def _check_args(what, wide, narrow, a, keepq, senders, r_local, r_chunk):
-    """Shapes and types of a fused forward: ``wide`` tensors are [N, HF],
-    ``narrow`` ones [N, H], ``a`` is [H, F], the rest cover the stream."""
-    n_pad, hf = wide[0].shape
+    """Shapes and types of a fused forward: ``wide`` tensors are [N, HF]
+    (none over a sender window), ``narrow`` ones [N, H], ``a`` is [H, F],
+    the rest cover the stream (``senders`` None over a sender window)."""
+    first = (*wide, *narrow)[0]
+    n_pad = first.shape[0]
     h, f = a.shape
-    e = senders.shape[0]
-    if n_pad % TILE or h * f != hf:
-        raise ValueError(f"{what}: node table {tuple(wide[0].shape)} does not "
+    hf = h * f
+    e = r_local.shape[0]
+    if n_pad % TILE or (wide and wide[0].shape[1] != hf):
+        raise ValueError(f"{what}: node table {tuple(first.shape)} does not "
                          f"match a {tuple(a.shape)} on 128-row tiles")
     if any(t.shape != (n_pad, hf) for t in wide):
         raise ValueError(f"{what}: the node tables must be [N, HF]")
     if any(t.shape != (n_pad, h) for t in narrow):
         raise ValueError(f"{what}: the per-node head terms must be [N, H]")
-    if keepq.shape != (e, h) or r_local.shape != (e,) or e != r_chunk.shape[0] * EC:
+    if (keepq.shape != (e, h) or r_local.dim() != 1
+            or e != r_chunk.shape[0] * EC
+            or (senders is not None and senders.shape != (e,))):
         raise ValueError("keepq, senders and r_local must cover the stream")
     for t in (*wide, *narrow, a, keepq):
         if t.dtype != torch.float32:
             raise ValueError(f"{what} takes float32, got {t.dtype}")
     for t in (senders, r_local, r_chunk):
-        if t.dtype != torch.int32:
+        if t is not None and t.dtype != torch.int32:
             raise ValueError(f"{what} takes int32 indices, got {t.dtype}")
 
 
-def _launch(wrapper, tensors, a, alpha: float, window=()):
-    """Launch the kernel ``csrc/<wrapper.__name__>.cu`` on the current
+def _launch(wrapper, tensors, a, alpha: float, window=(), n_pad=None):
+    """Launch the kernel ``csrc/<wrapper.kernel>.cu`` on the current
     stream and count the launch on ``wrapper``. ``tensors`` are the kernel's
-    array arguments in its order (the first is an [N, HF] table, the last
-    is ``r_chunk``), ``window`` the band plan's window width for the banded
-    kernels; returns the new (out [N, HF], den [N, H])."""
+    array arguments in its order (the first is an [N, HF] table unless
+    ``n_pad`` gives N, the last is ``r_chunk``), ``window`` the band plan's
+    window width for the banded kernels; returns the new (out [N, HF],
+    den [N, H])."""
     h, f = a.shape
     if f > MAX_F:
-        raise ValueError(f"{wrapper.__name__}: head width {f} exceeds {MAX_F}")
+        raise ValueError(f"{wrapper.kernel}: head width {f} exceeds {MAX_F}")
     first, r_chunk = tensors[0], tensors[-1]
-    n_pad, hf = first.shape
+    n_pad = first.shape[0] if n_pad is None else n_pad
+    hf = h * f
     out = torch.empty(n_pad, hf, dtype=torch.float32, device=first.device)
     den = torch.empty(n_pad, h, dtype=torch.float32, device=first.device)
     build.launch(wrapper, *tensors, r_chunk.shape[0], n_pad // TILE, *window,
@@ -103,23 +110,31 @@ def stream_receivers(r_local: torch.Tensor,
     return tile * TILE + r_local.long().clamp(max=TILE - 1)
 
 
+def v1_plain_core(g_w, f_dst, bound, a_src, keepq, r_local, r_chunk,
+                  alpha: float):
+    """The fused GATv1 forward in plain PyTorch from the sender rows
+    ``g_w`` [E, HF] of every slot (gathers + ``index_add_``)."""
+    n_pad, h = f_dst.shape
+    f = a_src.shape[1]
+    e = g_w.shape[0]
+    rcv = stream_receivers(r_local, r_chunk)
+    g = g_w.reshape(e, h, f)
+    raw = f_dst[rcv] + (g * a_src).sum(-1)
+    live = (r_local < TILE)[:, None]
+    num = torch.where(live, torch.exp(leaky_relu(raw, alpha) - bound[rcv]), 0.0)
+    msgs = (g * (num * keepq)[:, :, None]).view(e, h * f)
+    out = torch.zeros(n_pad, h * f, dtype=g_w.dtype, device=g_w.device)
+    den = torch.zeros(n_pad, h, dtype=g_w.dtype, device=g_w.device)
+    return out.index_add_(0, rcv, msgs), den.index_add_(0, rcv, num)
+
+
 def fused_v1_plain(wh, f_dst, bound, a_src, keepq, senders, r_local, r_chunk,
                    alpha: float):
     """Plain PyTorch version of :func:`fused_v1` (gathers + ``index_add_``)."""
     _check_args("fused_v1", (wh,), (f_dst, bound), a_src, keepq, senders,
                 r_local, r_chunk)
-    n_pad, hf = wh.shape
-    h, f = a_src.shape
-    e = senders.shape[0]
-    snd, rcv = senders.long(), stream_receivers(r_local, r_chunk)
-    g = wh[snd].view(e, h, f)
-    raw = f_dst[rcv] + (g * a_src).sum(-1)
-    live = (r_local < TILE)[:, None]
-    num = torch.where(live, torch.exp(leaky_relu(raw, alpha) - bound[rcv]), 0.0)
-    msgs = (g * (num * keepq)[:, :, None]).view(e, hf)
-    out = torch.zeros(n_pad, hf, dtype=wh.dtype, device=wh.device)
-    den = torch.zeros(n_pad, h, dtype=wh.dtype, device=wh.device)
-    return out.index_add_(0, rcv, msgs), den.index_add_(0, rcv, num)
+    return v1_plain_core(wh[senders.long()], f_dst, bound, a_src, keepq,
+                         r_local, r_chunk, alpha)
 
 
 @build.counted
@@ -214,23 +229,33 @@ def fused_v1_attention(wh, f_dst, bound, a_src, keepq, senders, receivers,
 # ---------------------------------------------------------------------------
 
 
+def v2_plain_core(gj, gi, whi, ub, a, keepq, r_local, r_chunk,
+                  alpha: float):
+    """The fused GATv2 forward in plain PyTorch from the sender rows of
+    every slot, ``gj`` of whj and ``gi`` of whi, [E, HF] each (gathers +
+    ``index_add_``)."""
+    n_pad, hf = whi.shape
+    h, f = a.shape
+    e = gj.shape[0]
+    rcv = stream_receivers(r_local, r_chunk)
+    pre = leaky_relu(whi[rcv] + gj, alpha).view(e, h, f)
+    logits = (pre * a).sum(-1)
+    live = (r_local < TILE)[:, None]
+    num = torch.where(live, torch.exp(logits - ub[rcv]), 0.0)
+    msgs = (gi.reshape(e, h, f) * (num * keepq)[:, :, None]).view(e, hf)
+    out = torch.zeros(n_pad, hf, dtype=whi.dtype, device=whi.device)
+    den = torch.zeros(n_pad, h, dtype=whi.dtype, device=whi.device)
+    return out.index_add_(0, rcv, msgs), den.index_add_(0, rcv, num)
+
+
 def fused_v2_plain(whi, whj, ub, a, keepq, senders, r_local, r_chunk,
                    alpha: float):
     """Plain PyTorch version of :func:`fused_v2` (gathers + ``index_add_``)."""
     _check_args("fused_v2", (whi, whj), (ub,), a, keepq, senders, r_local,
                 r_chunk)
-    n_pad, hf = whi.shape
-    h, f = a.shape
-    e = senders.shape[0]
-    snd, rcv = senders.long(), stream_receivers(r_local, r_chunk)
-    pre = leaky_relu(whi[rcv] + whj[snd], alpha).view(e, h, f)
-    logits = (pre * a).sum(-1)
-    live = (r_local < TILE)[:, None]
-    num = torch.where(live, torch.exp(logits - ub[rcv]), 0.0)
-    msgs = (whi[snd].view(e, h, f) * (num * keepq)[:, :, None]).view(e, hf)
-    out = torch.zeros(n_pad, hf, dtype=whi.dtype, device=whi.device)
-    den = torch.zeros(n_pad, h, dtype=whi.dtype, device=whi.device)
-    return out.index_add_(0, rcv, msgs), den.index_add_(0, rcv, num)
+    snd = senders.long()
+    return v2_plain_core(whj[snd], whi[snd], whi, ub, a, keepq, r_local,
+                         r_chunk, alpha)
 
 
 @build.counted

@@ -7,7 +7,8 @@ at the reference preset: the fast loop (replays of one captured CUDA graph)
 and the per-epoch loop (eager, a host sync per epoch). ``--large`` profiles
 the fast loop on the 524,288-node clustered graph of the banded path
 (``clustered_citation``, spread 1024, the Cora preset's widths) instead,
-over the band plan ``maybe_plan_large`` picks and over the receiver stream
+over the band plan ``maybe_plan_large`` picks, over the corner plans
+(``set_band("off")``, ``set_corner("on")``) and over the receiver stream
 (``set_band("off")``). For each it prints the wall time per epoch (host
 clock around a synchronize), traced and untraced, the device-busy time per
 epoch (the sum of all kernel and memory-operation durations the profiler
@@ -127,20 +128,28 @@ def large_config(model: str, data):
 def _profile_large(model: str) -> None:
     import torch
 
-    from pygat_tpu_torch.ops.banded import maybe_plan_large, set_band
+    from pygat_tpu_torch.ops.banded import BandPlan, maybe_plan_large, set_band
+    from pygat_tpu_torch.ops.large import set_corner
 
     data = large_dataset()
     cfg = large_config(model, data)
-    for mode in ("auto", "off"):
-        set_band(mode)
+    for band, corner in (("auto", "auto"), ("off", "on"), ("off", "off")):
+        set_band(band)
+        set_corner(corner)
         plans = maybe_plan_large(data.graph)
-        over = "receiver stream" if plans is None else (
-            f"band plan (w={plans.w}, fill {plans.fill:.4f})")
+        if plans is None:
+            over = "receiver stream"
+        elif isinstance(plans, BandPlan):
+            over = f"band plan (w={plans.w}, fill {plans.fill:.4f})"
+        else:
+            over = (f"corner plans (passes {[cp.p for cp in plans.fwd.passes]}"
+                    f" / {[cp.p for cp in plans.inv.passes]})")
         _, chunk = epoch_runners(cfg, data, EPOCHS, plans)
         _profile(f"524k {model} over the {over}, fast loop", chunk.run, EPOCHS)
-        del chunk
+        del chunk, plans
         torch.cuda.empty_cache()
     set_band("auto")
+    set_corner("auto")
 
 
 def main(argv=None) -> int:
@@ -151,7 +160,8 @@ def main(argv=None) -> int:
                    choices=["GAT_sparse", "GATv2_sparse"])
     p.add_argument("--large", action="store_true",
                    help="the 524,288-node clustered graph, fast loop, over "
-                        "the band plan and over the receiver stream")
+                        "the band plan, the corner plans and the receiver "
+                        "stream")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_epoch: torch.cuda.is_available() is false",

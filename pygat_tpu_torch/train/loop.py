@@ -14,7 +14,9 @@ JAX package). There is no mesh and no ring. Both loops ask
 :func:`~pygat_tpu_torch.ops.banded.maybe_plan_large` for a large-N plan, as
 the JAX package's do: past 300k padded nodes (or with ``PYGAT_BAND=on``)
 it returns a band plan, and every layer then runs over the banded order;
-on the citation datasets it returns None.
+with ``PYGAT_CORNER=on`` / ``set_corner("on")`` (and no band plan) it
+returns the corner plans, and every layer builds its sender windows by
+expand and corner-turn; otherwise (the citation datasets) it returns None.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from pygat_tpu_torch.models.gat import (
 )
 from pygat_tpu_torch.ops import build
 from pygat_tpu_torch.ops.banded import BandPlan, maybe_plan_large
+from pygat_tpu_torch.ops.large import CscCsrPlans
 from pygat_tpu_torch.train import checkpoint as ckpt
 from pygat_tpu_torch.train.logging import TrainLogger
 from pygat_tpu_torch.train.metrics import accuracy, log_logits, nll_loss
@@ -48,7 +51,7 @@ from pygat_tpu_torch.train.state import (
 from pygat_tpu_torch.utils.platform import make_generator
 
 
-def _make_loss(cfg: GATConfig, plans: BandPlan | None = None):
+def _make_loss(cfg: GATConfig, plans: BandPlan | CscCsrPlans | None = None):
     """``loss(params, x, graph, labels, idx, gen, train) -> (loss, acc,
     out)``."""
 
@@ -62,9 +65,10 @@ def _make_loss(cfg: GATConfig, plans: BandPlan | None = None):
     return _loss
 
 
-def make_transductive_steps(cfg: GATConfig, plans: BandPlan | None = None):
-    """(train_step, eval_step), over the banded order of ``plans`` when one
-    is given.
+def make_transductive_steps(cfg: GATConfig,
+                            plans: BandPlan | CscCsrPlans | None = None):
+    """(train_step, eval_step), over the large-N plan ``plans`` (a band
+    plan or the corner plans) when one is given.
 
     ``train_step(state, x, graph, labels, idx) -> (state, loss, acc, out)``
     runs forward with dropout, backward and one Adam update, in place;
@@ -95,9 +99,15 @@ def _plan_large(data: CitationDataset, logger: TrainLogger):
     """The trainers' large-N plan for ``data.graph``, logged when there is
     one."""
     plans = maybe_plan_large(data.graph)
-    if plans is not None:
+    if isinstance(plans, BandPlan):
         logger.log("band_plan", w=plans.w, chunks=plans.num_chunks,
                    slots=plans.num_slots, fill=plans.fill)
+    elif plans is not None:
+        fwd, inv = plans
+        logger.log("corner_plan", rows=fwd.n_rows,
+                   passes=[len(fwd.passes), len(inv.passes)],
+                   p=[[cp.p for cp in pl.passes] for pl in plans],
+                   overflow=[fwd.overflow_total, inv.overflow_total])
     return plans
 
 
@@ -272,7 +282,7 @@ class ChunkedEpochs:
     def __init__(self, cfg: GATConfig, state: TrainState, x, graph: Graph,
                  labels, idx_train, idx_val, *, n_epochs: int, max_epochs: int,
                  patience: int | None = None, fastmode: bool = False,
-                 plans: BandPlan | None = None):
+                 plans: BandPlan | CscCsrPlans | None = None):
         dev = x.device
         self.state = state
         self.n_epochs = n_epochs

@@ -16,6 +16,7 @@ from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from pygat_tpu_torch.data.synthetic import clustered_citation
 from pygat_tpu_torch.graph import build_graph as tbuild_graph
 from pygat_tpu_torch.ops import banded as tbd
+from pygat_tpu_torch.ops import large as tlarge
 from pygat_tpu_torch.ops.stream import DEAD, EC, TILE
 
 JAX_FIELDS = ("band", "s_loc", "r_local", "r_chunk", "senders", "receivers",
@@ -101,10 +102,11 @@ def test_band_plan_to_moves_the_device_fields_only():
 
 @pytest.fixture
 def band_knobs(monkeypatch):
-    """Restore the module's knobs after the test, whatever it sets."""
-    for name in ("_BAND_MODE", "_BAND_N", "_BAND_W", "_BAND_MIN_FILL",
-                 "_CORNER_MODE", "_CORNER_N"):
+    """Restore the selection knobs after the test, whatever it sets."""
+    for name in ("_BAND_MODE", "_BAND_N", "_BAND_W", "_BAND_MIN_FILL"):
         monkeypatch.setattr(tbd, name, getattr(tbd, name))
+    for name in ("_CORNER_MODE", "_CORNER_N"):
+        monkeypatch.setattr(tlarge, name, getattr(tlarge, name))
     return monkeypatch
 
 
@@ -131,16 +133,17 @@ def test_maybe_plan_band_gating(band_knobs):
 
 
 def test_maybe_plan_large_never_ignores_a_corner_request(band_knobs):
+    """A corner request (the threshold at N_pad, or 'on') returns the
+    corner plans where no band plan is taken."""
     _, gt = _graphs("tiny")
     tbd.set_band("off")
+    tlarge.set_corner("auto")
     assert tbd.maybe_plan_large(gt) is None  # the corner default is off
-    band_knobs.setattr(tbd, "_CORNER_N", gt.num_nodes_padded)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tbd.maybe_plan_large(gt)
-    band_knobs.setattr(tbd, "_CORNER_N", 2 ** 62)
-    band_knobs.setattr(tbd, "_CORNER_MODE", "on")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tbd.maybe_plan_large(gt)
+    band_knobs.setattr(tlarge, "_CORNER_N", gt.num_nodes_padded)
+    assert isinstance(tbd.maybe_plan_large(gt), tlarge.CscCsrPlans)
+    band_knobs.setattr(tlarge, "_CORNER_N", 2 ** 62)
+    band_knobs.setattr(tlarge, "_CORNER_MODE", "on")
+    assert isinstance(tbd.maybe_plan_large(gt), tlarge.CscCsrPlans)
     tbd.set_band("on")  # a band plan comes first, as in the JAX package
     assert isinstance(tbd.maybe_plan_large(gt), tbd.BandPlan)
 

@@ -12,7 +12,9 @@ tile), heads of 64 to 256 features (one head per block above 128), a tile
 without edges, and dead slots whose logits would overflow. The banded
 kernels run on band plans with several chunks per tile, a tile without
 edges, all-dead padding chunks (whose dead slots sit on the last band, one
-row short of naming N_pad) and a window clipped to the table.
+row short of naming N_pad) and a window clipped to the table. The corner
+kernels run on plans with several passes, an odd tile count, re-windowed
+tiles and overflow rows (a small span cap), at ragged widths.
 chip_smoke.py covers the main path's full-size shapes.
 """
 
@@ -27,6 +29,8 @@ from pygat_tpu_torch.data.citation import CitationDataset
 from pygat_tpu_torch.graph import build_graph
 from pygat_tpu_torch.models.gat import GATConfig
 from pygat_tpu_torch.ops import banded as bd
+from pygat_tpu_torch.ops import corner as cn
+from pygat_tpu_torch.ops import fused_corner as fc
 from pygat_tpu_torch.ops import fused_stream as fs
 from pygat_tpu_torch.ops import large
 from pygat_tpu_torch.ops import stream as st
@@ -619,5 +623,194 @@ def test_fit_fast_on_cuda_with_a_plan(cuda, monkeypatch):
     assert bd.fused_v1_banded.launches - before["fused_v1_banded"] == 4 + 4 + 2
     assert bd.banded_take.launches - before["banded_take"] == 2 + 2
     assert fs.fused_v1.launches == before["fused_v1"]
+    np.testing.assert_allclose(b.history, a.history, rtol=1e-4)
+    assert np.isfinite(b.test_loss)
+
+
+# -- the corner kernels --------------------------------------------------------
+
+
+def _corner(device):
+    """(graph, corner plans with a span cap of 3 tiles: several passes,
+    re-windowed tiles and overflow rows in both directions)."""
+    g = _graph(device, False)
+    plans = large.plan_csc_to_csr(g, p_cap=3)
+    assert len(plans.fwd.passes) >= 3
+    assert plans.fwd.overflow_total > 0 and plans.inv.overflow_total > 0
+    return g, plans
+
+
+@pytest.mark.parametrize("width", [4, 7, 8, 10, 14, 64, 130])
+def test_permute_pass_kernel_matches_plain_bit_exact(cuda, width):
+    """Every pass of a 4-pass plan of an odd tile count (63) and of a
+    graph's corner plans, one by one and chained with the fix-up, equal to
+    the plain versions bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    rng = np.random.default_rng(width)
+    perm = cn.plan_corner_turn(rng.permutation(128 * 63), 3).to(cuda)
+    assert len(perm.passes) == 4 and perm.overflow_total > 0
+    _, plans = _corner(cuda)
+    for plan in (perm, plans.fwd, plans.inv):
+        x = torch.randn(plan.n_rows, width, generator=gen, device=cuda)
+        src = x
+        for cp in plan.passes:
+            before = cn.permute_pass.launches
+            got = cn.permute_pass(src, cp)
+            torch.cuda.synchronize()
+            assert cn.permute_pass.launches == before + 1
+            assert got.shape == (cp.lo.shape[0] * 128, width)
+            assert torch.equal(got, cn.permute_pass_plain(src, cp))
+            src = got
+        got = cn.corner_permute(x, plan)
+        want = cn.corner_permute(x.cpu(), plan.to("cpu"))
+        assert torch.equal(got.cpu(), want)
+    x = torch.randn(perm.n_rows, width, generator=gen, device=cuda)
+    out = cn.corner_permute(x, perm)
+    dest = torch.from_numpy(np.random.default_rng(width).permutation(128 * 63))
+    assert torch.equal(out.cpu()[dest], x.cpu())
+
+
+def _window_args(g, plans, h, f, gen, device, which):
+    """The window forward's arguments, its window built by gather_corner
+    from node tables as the stream forward's test builds them."""
+    if which == 0:
+        wh, f_dst, bound, a_src, keepq = _fused_args(g, h, f, gen, device)[:5]
+        return [fc.gather_corner(wh, g, plans.fwd), f_dst, bound, a_src, keepq,
+                g.r_local, g.r_chunk, 0.2]
+    whi, whj, ub, a, keepq = _fused_v2_args(g, h, f, gen, device)[:5]
+    win = fc.gather_corner(torch.cat([whj, whi], 1), g, plans.fwd)
+    return [whi, win, ub, a, keepq, g.r_local, g.r_chunk, 0.2]
+
+
+WINDOW_FUSED = [(fc.fused_v1_window, fc.fused_v1_window_plain),
+                (fc.fused_v2_window, fc.fused_v2_window_plain)]
+
+
+@pytest.mark.parametrize("h,f", [(8, 8), (1, 4), (1, 7), (3, 5), (20, 8),
+                                 (2, 130)])
+@pytest.mark.parametrize("which", [0, 1], ids=["v1", "v2"])
+def test_window_kernels_match_plain(cuda, h, f, which):
+    kernel, plain = WINDOW_FUSED[which]
+    g, plans = _corner(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(10 * h + f)
+    args = _window_args(g, plans, h, f, gen, cuda, which)
+    before = kernel.launches
+    out, den = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    out_p, den_p = plain(*args)
+    assert float(den_p.max()) >= 1.0  # the comparison is not idle
+    _close(out, out_p)
+    _close(den, den_p)
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["v1", "v2"])
+def test_corner_attention_gradients_card_vs_cpu(cuda, which):
+    """The corner autograd Function on the card (permute_pass, expand, the
+    window forward, stream_scatter) against the same Function on the CPU."""
+    g, plans = _corner(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    make = (_fused_args, _fused_v2_args)[which]
+    args = make(g, 4, 8, gen, cuda)[:5]
+    op = (fc.fused_v1_attention_corner, fc.fused_v2_attention_corner)[which]
+    diff = (0, 1, 3)  # the node tables and a; the bound takes none
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        call = [t.detach().to(dev) for t in args]
+        for i in diff:
+            call[i].requires_grad_()
+        out, den = op(*call, g.to(dev), plans.to(dev), 0.2)
+        (out.sin().sum() + den.cos().sum()).backward()
+        grads[dev] = [call[i].grad.cpu() for i in diff]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        scale = max(1e-30, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["v1", "v2"])
+def test_corner_attention_is_capturable(cuda, which):
+    """Forward and backward of the corner op (passes, fix-ups, window
+    forward) inside CUDA-graph capture, replayed on fresh node tables, give
+    what the op gives eagerly."""
+    g, plans = _corner(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    make = (_fused_args, _fused_v2_args)[which]
+    op = (fc.fused_v1_attention_corner, fc.fused_v2_attention_corner)[which]
+    args = [t.detach() for t in make(g, 16, 8, gen, cuda)[:5]]
+    leaf = args[0].clone().requires_grad_()
+
+    def run():
+        out, den = op(leaf, *args[1:], g, plans, 0.2)
+        (grad,) = torch.autograd.grad(out.sin().sum() + den.cos().sum(), leaf)
+        return out.detach(), grad
+
+    run()  # build and load outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    with torch.no_grad():
+        leaf.copy_(make(g, 16, 8, gen, cuda)[0])
+    graph.replay()
+    torch.cuda.synchronize()
+    want = run()
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def test_corner_wrappers_never_call_plain_on_the_card(cuda, monkeypatch):
+    g, plans = _corner(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    calls = [(fc.fused_v1_window, _window_args(g, plans, 8, 8, gen, cuda, 0)),
+             (fc.fused_v2_window, _window_args(g, plans, 8, 8, gen, cuda, 1))]
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for mod, name in ((cn, "permute_pass_plain"),
+                      (fc, "fused_v1_window_plain"),
+                      (fc, "fused_v2_window_plain"),
+                      (fc, "v1_plain_core"), (fc, "v2_plain_core")):
+        monkeypatch.setattr(mod, name, boom)
+    x = torch.randn(plans.fwd.n_rows, 8, generator=gen, device=cuda)
+    before = cn.permute_pass.launches
+    cn.corner_permute(x, plans.fwd)
+    assert cn.permute_pass.launches == before + len(plans.fwd.passes)
+    for kernel, args in calls:
+        before = kernel.launches
+        kernel(*args)
+        assert kernel.launches == before + 1
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="contiguous"):
+        cn.permute_pass(x.T.contiguous().T, plans.fwd.passes[0])
+
+
+def test_fit_fast_on_cuda_with_corner_plans(cuda, monkeypatch):
+    """Under set_corner("on") both trainers take the corner plans; the fast
+    loop replays an epoch of the corner kernels (per layer: the forward's
+    expand and passes and window kernel twice, the backward's two expands,
+    forward and inverse passes and two stream_scatters), never a stream or
+    banded fused kernel, and its losses equal the per-epoch loop's."""
+    data = synthetic.clustered_citation(600, 64, 3, "corner-cuda", 60,
+                                        device=cuda)
+    monkeypatch.setattr(bd, "_BAND_MODE", "off")
+    monkeypatch.setattr(large, "_CORNER_MODE", "on")
+    cfg = GATConfig(nlayers=2, nheads=(2, 1), nfeats=(64, 8, 3), dropout=0.4,
+                    alpha=0.2, layer_type="GATv2_sparse")
+    kw = dict(lr=0.01, weight_decay=5e-4, epochs=6, patience=100, seed=7,
+              checkpoint_dir=None, logger=_quiet(), log_every=100)
+    a = fit_transductive(cfg, data, **kw)
+    before = {n: w.launches for n, w in (("fused_v2", fs.fused_v2),
+                                         ("fused_v2_window", fc.fused_v2_window))}
+    b = fit_transductive_fast(cfg, data, epoch_chunk=3, **kw)
+    assert b.graph_replays == 6
+    plans = large.plan_csc_to_csr(data.graph)
+    k_f, k_i = len(plans.fwd.passes), len(plans.inv.passes)
+    want = {"fused_v2_window": 4, "expand": 8, "stream_scatter": 4,
+            "corner_permute": 6 * k_f + 2 * k_i}
+    assert {k: v for k, v in b.captured_launches.items() if v} == want
+    # the warm-up epoch, the captured epoch and the test forward
+    assert fc.fused_v2_window.launches - before["fused_v2_window"] == 4 + 4 + 2
+    assert fs.fused_v2.launches == before["fused_v2"]
     np.testing.assert_allclose(b.history, a.history, rtol=1e-4)
     assert np.isfinite(b.test_loss)

@@ -22,6 +22,11 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 from pygat_tpu_torch.ops import build
 assert not build._KERNELS
+assert {"pygat_tpu_torch.ops.corner", "pygat_tpu_torch.ops.fused_corner",
+        "pygat_tpu_torch.ops.large"} <= set(names)
+# every kernel has its wrapper, the corner kernels included
+assert set(build.launch_counts()) >= {"corner_permute", "fused_v1_window",
+                                      "fused_v2_window"}
 print(len(names))
 """
 
@@ -31,4 +36,4 @@ def test_port_and_smoke_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20  # every module was imported
+    assert int(proc.stdout.strip()) >= 22  # every module was imported

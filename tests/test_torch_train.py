@@ -154,7 +154,7 @@ def test_train_cli_two_epochs_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "2,1"], ["--partition", "ring"], ["--distributed"],
-    ["--corner", "on"], ["--reorder"], ["--model", "GATv2"],
+    ["--reorder"], ["--model", "GATv2"],
     ["--backend", "xla"],
 ])
 def test_train_cli_unported_flags_name_the_roadmap(flags):
