@@ -8,7 +8,7 @@ of which prints its seconds:
 
 1. print the card (``nvidia-smi`` name and power limit), CUDA and nvcc
    versions;
-2. build the eleven CUDA kernels from ``pygat_tpu_torch/csrc`` and print
+2. build the thirteen CUDA kernels from ``pygat_tpu_torch/csrc`` and print
    the build seconds and the compiler's register / shared-memory report;
 3. hold each kernel against its plain PyTorch version on the card, at every
    shape the GAT_sparse and GATv2_sparse paths give it: the stream kernels
@@ -55,7 +55,20 @@ of which prints its seconds:
    ``index_select`` of rows for the gathers and the corner passes): device
    time per call, calls captured in a CUDA graph, replays timed with CUDA
    events;
-6. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+6. the SpMM path, after every captured epoch is freed: the op family
+   (``spmm_graph``, ``sddmm_graph``, ``panel_spmm_graph`` with and without
+   ``plans=``, ``spmm_corner_graph``, ``spmm_banded`` fused and two-pass)
+   forward and backward at L = 128 on the Pubmed stand-in and the 524k
+   graph (its band plan and corner plans from phase 3, panel layouts
+   uncapped and capped at 8 panels), with the launch counters set to 0
+   just before and read just after: each op's outputs and gradients held
+   against the plain SpMM (``ops.spmm``, row gathers and ``index_add_``)
+   and against ``spmm_graph``, each call's launches as its route states;
+   then the two SpMM kernels (``spmm_banded``, ``panel_spmm``) against
+   their plain versions and timed beside them, their bounds and
+   ``torch.sparse.mm`` over the same weighted graph; the panel layouts'
+   set-up seconds and the phase's peak device memory;
+7. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 The script imports nothing of JAX or of the JAX package, needs no network
 and starts no process other than ``nvidia-smi``, ``nvcc`` and the one
@@ -103,6 +116,11 @@ LARGE_CHUNK = 5  # fast loop: 2 chunks of 5 epochs
 LARGE_TIMED_CHUNKS = 3
 LARGE_ROUNDS = 2  # visits of each plan in the large epoch timing
 BIG_CALLS, BIG_REPLAYS = 5, 4  # _time_ms at the large graph's shapes
+# the SpMM path: full width (the --f default of benchmarks/bench_kernels.py,
+# and h*f = 4*32 of benchmarks/bench_large.py), and a panel cap at 524k that
+# makes the overflow pass run
+SPMM_L = 128
+SPMM_P_MAX = 8
 REPLACES = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
             "corner_permute": "pygat_tpu/ops/corner.py:216",
             "fused_v1_window": "pygat_tpu/ops/fused_stream.py:134",
@@ -113,7 +131,9 @@ REPLACES = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
             "banded_take": "pygat_tpu/ops/banded.py:314",
             "banded_sender_sum": "pygat_tpu/ops/banded.py:411",
             "fused_v1_banded": "pygat_tpu/ops/banded.py:978",
-            "fused_v2_banded": "pygat_tpu/ops/banded.py:1046"}
+            "fused_v2_banded": "pygat_tpu/ops/banded.py:1046",
+            "spmm_banded": "pygat_tpu/ops/banded.py:744",
+            "panel_spmm": "pygat_tpu/ops/panel.py:141"}
 
 
 def _card_line() -> str:
@@ -920,6 +940,317 @@ def _large_epoch_ms(cfg, data, plans):
     return {k: sorted(v) for k, v in samples.items()}, peak
 
 
+def _spmm_graphs(pubmed, large, band_plan, large_corner):
+    """The graphs of the SpMM path and what each route needs: the Pubmed
+    stand-in with its own corner plans and a panel layout (uniform, so P
+    near its tile count), and the 524k graph with the band plan and corner
+    plans of phase 3 and two panel layouts, uncapped and capped at
+    SPMM_P_MAX panels (overflow slots). Returns them and the set-up
+    seconds of what is built here."""
+    from pygat_tpu_torch.ops.large import plan_csc_to_csr
+    from pygat_tpu_torch.ops.panel import build_panel_layout
+
+    setup, layouts = {}, {}
+    t0 = time.perf_counter()
+    pubmed_corner = plan_csc_to_csr(pubmed.graph)
+    setup["pubmed_corner_plans"] = time.perf_counter() - t0
+    print(f"phase 6: pubmed: corner plans built in "
+          f"{setup['pubmed_corner_plans']:.2f} s: spans "
+          f"{[cp.p for cp in pubmed_corner.fwd.passes]} / "
+          f"{[cp.p for cp in pubmed_corner.inv.passes]}", flush=True)
+    for name, key, g, p_max in (
+            ("pubmed", "pubmed_panel_layout", pubmed.graph, None),
+            ("large", "large_panel_layout", large.graph, None),
+            (f"large, p_max {SPMM_P_MAX}",
+             f"large_panel_layout_p{SPMM_P_MAX}", large.graph, SPMM_P_MAX)):
+        t0 = time.perf_counter()
+        lay = layouts[name] = build_panel_layout(g, p_max=p_max)
+        setup[key] = time.perf_counter() - t0
+        print(f"phase 6: {name}: panel layout P {lay.n_panels}, "
+              f"{lay.n_overflow} overflow slots (fraction "
+              f"{lay.overflow_frac:.4f}), built in {setup[key]:.2f} s",
+              flush=True)
+    specs = {
+        "pubmed": dict(graph=pubmed.graph, band=None, corner=pubmed_corner,
+                       layouts={"pubmed": layouts["pubmed"]}),
+        "large": dict(graph=large.graph, band=band_plan, corner=large_corner,
+                      layouts={k: v for k, v in layouts.items()
+                               if k.startswith("large")}),
+    }
+    return specs, setup
+
+
+def _spmm_inputs(g, seed):
+    """Per-edge values (padding edges too: the ops must ignore them), node
+    rows, a second node table (the SDDMM's), and cotangents, at SPMM_L."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n, e = g.num_nodes_padded, g.num_edges_padded
+    return {"w": torch.randn(e, generator=gen, device="cuda"),
+            "x": torch.randn(n, SPMM_L, generator=gen, device="cuda"),
+            "b": torch.randn(n, SPMM_L, generator=gen, device="cuda"),
+            "ct": torch.randn(n, SPMM_L, generator=gen, device="cuda"),
+            "ct_e": torch.randn(e, generator=gen, device="cuda")}
+
+
+def _vjp(fn, first, second, ct):
+    """(output, gradient of ``first``, gradient of ``second``) for the
+    cotangent ``ct``."""
+    import torch
+
+    a = first.detach().clone().requires_grad_()
+    b = second.detach().clone().requires_grad_()
+    out = fn(a, b)
+    ga, gb = torch.autograd.grad(out, (a, b), ct)
+    return out.detach(), ga, gb
+
+
+def _spmm_routes(label, spec, inp):
+    """(route, op of (values, x), values, launches one forward and backward
+    make) of every SpMM op on graph ``label``: spmm_graph first (the route
+    the others are held against), then the panel layouts with and without
+    the corner backward, the corner plans, and the band plan's fused and
+    two-pass forms (values permuted into banded order)."""
+    import torch
+
+    from pygat_tpu_torch import ops
+
+    g, plans = spec["graph"], spec["corner"]
+    k_f, k_i = len(plans.fwd.passes), len(plans.inv.passes)
+    routes = [("spmm_graph", lambda v, d: ops.spmm_graph(v, d, g), inp["w"],
+               {"stream_scatter": 2})]
+    for name, lay in spec["layouts"].items():
+        routes.append((f"panel_spmm_graph ({name} layout)",
+                       lambda v, d, lay=lay: ops.panel_spmm_graph(v, d, g,
+                                                                  lay),
+                       inp["w"], {"panel_spmm": 1}))
+        if name == label:
+            routes.append((f"panel_spmm_graph ({name} layout, plans=)",
+                           lambda v, d, lay=lay: ops.panel_spmm_graph(
+                               v, d, g, lay, plans=plans), inp["w"],
+                           {"panel_spmm": 1, "expand": 2,
+                            "corner_permute": k_f + k_i,
+                            "stream_scatter": 1}))
+    routes.append(("spmm_corner_graph",
+                   lambda v, d: ops.spmm_corner_graph(v, d, g, plans),
+                   inp["w"], {"expand": 2, "corner_permute": k_f + k_i,
+                              "stream_scatter": 2}))
+    plan = spec["band"]
+    if plan is not None:
+        perm = torch.from_numpy(plan.perm).to("cuda")
+        # the plan's slots hold the real edges only, which the mask keeps
+        vals_b = torch.where(perm >= 0, inp["w"][perm.clamp(min=0)], 0.0)
+        inp["vals_b"], inp["perm"] = vals_b, perm
+        routes += [
+            ("spmm_banded (fused)",
+             lambda v, d: ops.spmm_banded(v, d, plan), vals_b,
+             {"spmm_banded": 1, "banded_take": 1, "expand": 1,
+              "banded_sender_sum": 1}),
+            ("spmm_banded (two-pass)",
+             lambda v, d: ops.spmm_banded(v, d, plan, fused=False), vals_b,
+             {"banded_take": 2, "stream_scatter": 1, "expand": 1,
+              "banded_sender_sum": 1})]
+    return routes
+
+
+def _held(got, want):
+    """(max |got - want|, KERNEL_RTOL * max(1, max |want|), within)."""
+    err, allowed = _max_err(got, want)
+    return err, allowed, err <= allowed
+
+
+def _spmm_path(specs, inputs, counters):
+    """The SpMM path: every op of the family, forward and backward (the
+    gradients of the values and of the node rows), at SPMM_L on each graph,
+    through the entry points a user calls. Each op's outputs and gradients
+    are held against the plain SpMM (``ops.spmm``: row gathers and
+    ``index_add_``, on the card) and against spmm_graph's, to KERNEL_RTOL
+    of max(1, max |want|); each call's launches (forward and backward) must
+    be as the route states. ``sddmm_graph`` is held against ``ops.sddmm``.
+    Returns the route errors for the kernels line."""
+    import torch
+
+    from pygat_tpu_torch import ops
+
+    errors = {}
+    for label, spec in specs.items():
+        g, inp = spec["graph"], inputs[label]
+        w, x, ct = inp["w"], inp["x"], inp["ct"]
+        plain = _vjp(lambda v, d: ops.spmm(v, d, g.senders, g.receivers,
+                                           g.edge_mask), w, x, ct)
+        ref = None
+        for route, fn, vals, want in _spmm_routes(label, spec, inp):
+            before = {k: f.launches for k, f in counters.items()}
+            got = _vjp(fn, vals, x, ct)
+            torch.cuda.synchronize()
+            made = {k: f.launches - before[k] for k, f in counters.items()
+                    if f.launches != before[k]}
+            if vals is not w:  # banded order: the values' gradient to edges
+                live = inp["perm"] >= 0
+                dv = torch.zeros_like(w).index_put_(
+                    (inp["perm"][live],), got[1][live])
+                got = (got[0], dv, got[2])
+            ref = got if ref is None else ref
+            checks = [(what, _held(a, b)) for what, a, b in (
+                ("out vs plain", got[0], plain[0]),
+                ("d values vs plain", got[1], plain[1]),
+                ("d x vs plain", got[2], plain[2]),
+                ("out vs spmm_graph", got[0], ref[0]),
+                ("d values vs spmm_graph", got[1], ref[1]),
+                ("d x vs spmm_graph", got[2], ref[2]))]
+            errors[f"{label} {route}"] = max(c[1][0] for c in checks)
+            print(f"  {label} {route}: launches {made}; " + "; ".join(
+                f"{what} {e:.3e} (allowed {a:.3e})"
+                for what, (e, a, _) in checks), flush=True)
+            if made != want:
+                raise AssertionError(f"{label} {route}: launches {made}, "
+                                     f"want {want}")
+            if not all(ok for _, (_, _, ok) in checks):
+                raise AssertionError(f"{label} {route} disagrees")
+            del got
+        # the SDDMM, held against the plain one
+        before = {k: f.launches for k, f in counters.items()}
+        got = _vjp(lambda p, q: ops.sddmm_graph(p, q, g), x, inp["b"],
+                   inp["ct_e"])
+        torch.cuda.synchronize()
+        made = {k: f.launches - before[k] for k, f in counters.items()
+                if f.launches != before[k]}
+        want = _vjp(lambda p, q: ops.sddmm(p, q, g.senders, g.receivers,
+                                           g.edge_mask), x, inp["b"],
+                    inp["ct_e"])
+        checks = [_held(a, b) for a, b in zip(got, want)]
+        errors[f"{label} sddmm_graph"] = max(c[0] for c in checks)
+        print(f"  {label} sddmm_graph: launches {made}; out, d a, d b vs "
+              f"plain " + ", ".join(f"{e:.3e} (allowed {a:.3e})"
+                                    for e, a, _ in checks), flush=True)
+        if made != {"stream_scatter": 2} or not all(c[2] for c in checks):
+            raise AssertionError(f"{label} sddmm_graph disagrees or launched "
+                                 f"{made}")
+        del plain, ref, got, want
+    return errors
+
+
+def _library_csr(g, w):
+    """``torch.sparse_csr_tensor`` of the graph weighted by ``w`` (its live
+    edges, repeated edges summed, as CSR needs one entry per row and
+    column), built once outside the timing: ``torch.sparse.mm`` of it
+    computes the SpMM."""
+    import torch
+
+    live = g.edge_mask
+    n = g.num_nodes_padded
+    coo = torch.sparse_coo_tensor(
+        torch.stack([g.receivers[live].long(), g.senders[live].long()]),
+        w[live], size=(n, n)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def _spmm_kernel_cases(specs, inputs):
+    """Rows 7 and 9 at the shapes of the SpMM path (the 524k band plan; the
+    Pubmed layout and both 524k layouts), each held against its plain
+    version on the same inputs to KERNEL_RTOL of max(1, max |plain|)."""
+    import torch
+
+    from pygat_tpu_torch import ops
+    from pygat_tpu_torch.ops.banded import (
+        banded_weighted_sum,
+        banded_weighted_sum_plain,
+    )
+    from pygat_tpu_torch.ops.panel import (
+        panel_weighted_sum,
+        panel_weighted_sum_plain,
+    )
+
+    cases = []
+    for label, spec in specs.items():
+        g, inp = spec["graph"], inputs[label]
+        lib = _library_csr(g, inp["w"])
+        plan = spec["band"]
+        if plan is not None:
+            n_live = int((plan.s_loc < plan.w * 128).sum())
+            cases.append(dict(
+                kernel="spmm_banded", dataset=label, L=SPMM_L, n_live=n_live,
+                run=lambda plan=plan, inp=inp: banded_weighted_sum(
+                    inp["vals_b"], inp["x"], plan),
+                plain=lambda plan=plan, inp=inp: banded_weighted_sum_plain(
+                    inp["vals_b"], inp["x"], plan),
+                ops={"op": lambda plan=plan, inp=inp: ops.spmm_banded(
+                         inp["vals_b"], inp["x"], plan),
+                     "two_pass": lambda plan=plan, inp=inp: ops.spmm_banded(
+                         inp["vals_b"], inp["x"], plan, fused=False)},
+                lib=lib, x=inp["x"],
+                n_bytes=4 * (3 * plan.num_slots + 2 * plan.num_chunks
+                             + 2 * plan.n_pad * SPMM_L)))
+        for name, lay in spec["layouts"].items():
+            args = (lay.panel_tiles, lay.g_idx, g.edge_mask, g.r_local,
+                    g.r_chunk)
+            fits = ((lay.g_idx < lay.n_panels * 128) & (g.r_local < 128)
+                    & g.edge_mask)
+            e_s = g.num_edges_padded
+            cases.append(dict(
+                kernel="panel_spmm", dataset=name, L=SPMM_L, P=lay.n_panels,
+                n_live=int(fits.sum()),
+                run=lambda args=args, inp=inp: panel_weighted_sum(
+                    inp["w"], inp["x"], *args),
+                plain=lambda args=args, inp=inp: panel_weighted_sum_plain(
+                    inp["w"], inp["x"], *args),
+                ops={"op": lambda g=g, lay=lay, inp=inp: ops.panel_spmm_graph(
+                         inp["w"], inp["x"], g, lay),
+                     "spmm_graph": lambda g=g, inp=inp: ops.spmm_graph(
+                         inp["w"], inp["x"], g)},
+                lib=lib, x=inp["x"],
+                n_bytes=(4 * (3 * e_s + g.r_chunk.numel()
+                              + lay.panel_tiles.numel()
+                              + 2 * g.num_nodes_padded * SPMM_L) + e_s)))
+    for case in cases:
+        got, want = case["run"](), case["plain"]()
+        torch.cuda.synchronize()
+        err, allowed = _max_err(got, want)
+        case["max_abs_err"] = err
+        shape = f"L={SPMM_L}" + (f" P={case['P']}" if "P" in case else "")
+        print(f"  {case['kernel']} {case['dataset']} {shape}: kernel vs plain "
+              f"max_abs_err {err:.3e} (allowed {allowed:.3e})", flush=True)
+        if err > allowed:
+            raise AssertionError(f"{case['kernel']} disagrees with its plain "
+                                 "version")
+        del got, want
+    return cases
+
+
+def _time_spmm(case):
+    """Device ms of a SpMM kernel, its plain version and ``torch.sparse.mm``
+    of the same weighted graph (CSR, built once), and the bound: each input
+    read once (the values, index words and mask per slot, the node table),
+    the output written once, over the card's memory rate; two FLOPs per
+    live slot and column. Beside them, the forward of the op around the
+    kernel (``op_ms``: with a capped layout, the kernel and the overflow
+    pass) and of the route it is an alternative to (the banded two-pass
+    form, ``two_pass_ms``; the receiver stream, ``spmm_graph_ms``)."""
+    import torch
+
+    big = case["dataset"].startswith("large")
+    kw = dict(calls=BIG_CALLS, replays=BIG_REPLAYS) if big else {}
+    case["ms"] = _time_ms(case["run"], **kw)
+    case["plain_ms"] = _time_ms(case["plain"], **kw)
+    lib, x = case["lib"], case["x"]
+    case["library_ms"] = _time_ms(lambda: torch.sparse.mm(lib, x), **kw)
+    for name, fn in case["ops"].items():
+        case[f"{name}_ms"] = _time_ms(fn, **kw)
+    case["bound_ms"], case["bound_by"] = _bound(
+        case["n_bytes"], 2 * case["n_live"] * case["L"])
+    shape = f"L={case['L']}" + (f" P={case['P']}" if "P" in case else "")
+    print(f"  {case['kernel']} {case['dataset']} {shape}: {case['ms']:.4f} "
+          f"ms, plain {case['plain_ms']:.4f} ms, torch.sparse.mm "
+          f"{case['library_ms']:.4f} ms, bound {case['bound_ms']:.5f} ms "
+          f"({case['bound_by']}); forward of " + ", ".join(
+              f"{name} {case[f'{name}_ms']:.4f} ms" for name in case["ops"]),
+          flush=True)
+    for k in ("run", "plain", "lib", "x", "ops"):
+        case.pop(k)
+
+
 def main() -> int:
     import torch
 
@@ -1031,6 +1362,7 @@ def main() -> int:
     large = large_dataset()
     t2 = time.perf_counter()
     large_plan = maybe_plan_large(large.graph)
+    band_plan_s = time.perf_counter() - t2
     if not isinstance(large_plan, BandPlan):
         raise AssertionError("maybe_plan_large chose no band plan at 524k nodes")
     print(f"phase 3: large: N_pad {large.graph.num_nodes_padded}, E_s "
@@ -1038,7 +1370,7 @@ def main() -> int:
           f"{tuple(large.features.shape)} ({t2 - t1:.1f} s to build); band "
           f"plan chosen by maybe_plan_large: w {large_plan.w}, "
           f"{large_plan.num_chunks} chunks, {large_plan.num_slots} slots, "
-          f"fill {large_plan.fill:.4f} ({time.perf_counter() - t2:.1f} s)",
+          f"fill {large_plan.fill:.4f} ({band_plan_s:.1f} s)",
           flush=True)
     cora = datasets["cora"]
     set_band("on", w=4)
@@ -1121,8 +1453,6 @@ def main() -> int:
          ["--dataset", "cora", "--model", "GATv2_sparse",
           "--epoch-chunk", str(EPOCH_CHUNK)]),
     ]
-    launches = dict.fromkeys(counters, 0)
-    replayed = dict.fromkeys(counters, 0)
     path_launches, path_replayed, path_losses = {}, {}, {}
     for label, fused_name, epochs, argv in runs:
         got, losses, replays, captured, _ = _train_cli(argv, epochs, counters,
@@ -1245,10 +1575,6 @@ def main() -> int:
         raise AssertionError(f"{label}: launches {got}, want {want}")
     path_launches[label], path_losses[label] = got, losses
     path_replayed[label] = dict.fromkeys(counters, 0)
-    for label in path_launches:
-        for name in counters:
-            launches[name] += path_launches[label][name]
-            replayed[name] += path_replayed[label][name]
     phase_done(4, t0)
 
     # -- phase 5: timing --------------------------------------------------------
@@ -1356,7 +1682,43 @@ def main() -> int:
 
     phase_done(5, t0)
 
-    # -- phase 6: the kernels line ----------------------------------------------
+    # -- phase 6: the SpMM path -------------------------------------------------
+    # every op of the family forward and backward at full width, on the
+    # Pubmed stand-in and the 524k graph, after every captured epoch and its
+    # pool are freed; the counters are set to 0 just before the path and
+    # read just after it, and the kernel checks and timings come after
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    spmm_specs, spmm_setup = _spmm_graphs(datasets["pubmed"], large,
+                                          large_plan, large_corner)
+    spmm_inputs = {label: _spmm_inputs(spec["graph"], 17 + i)
+                   for i, (label, spec) in enumerate(spmm_specs.items())}
+    for fn in counters.values():
+        fn.launches = 0
+    route_errors = _spmm_path(spmm_specs, spmm_inputs, counters)
+    path_launches["spmm"] = {name: fn.launches
+                             for name, fn in counters.items()}
+    path_replayed["spmm"] = dict.fromkeys(counters, 0)
+    print(f"phase 6: SpMM path: wrapper launches "
+          f"{ {k: v for k, v in path_launches['spmm'].items() if v} }",
+          flush=True)
+    spmm_cases = _spmm_kernel_cases(spmm_specs, spmm_inputs)
+    for case in spmm_cases:
+        _time_spmm(case)
+        kernel_cases[case["kernel"]].append(case)
+    spmm_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase 6: SpMM phase peak allocated {spmm_peak_gib:.2f} GiB",
+          flush=True)
+    del spmm_specs, spmm_inputs
+    torch.cuda.empty_cache()
+    phase_done(6, t0)
+
+    # -- phase 7: the kernels line ----------------------------------------------
+    launches = {name: sum(v[name] for v in path_launches.values())
+                for name in counters}
+    replayed = {name: sum(v[name] for v in path_replayed.values())
+                for name in counters}
     entries = []
     for name, cases in kernel_cases.items():
         # the summary numbers sum the shapes one train step gives the kernel
@@ -1367,9 +1729,11 @@ def main() -> int:
         # model's step; the fused kernels: one forward's 2 launches), and the
         # large graph for the corner ones (corner_permute: every pass of
         # both plans at each of the 4 widths the two models turn, once; the
-        # window forwards: one forward's 2 launches); every shape is listed
-        # under "cases". "launches" sums the wrapper's count
-        # over the main-path runs of phase 4 (one by one under
+        # window forwards: one forward's 2 launches), and the large graph
+        # for the SpMM ones (one forward at L = 128: spmm_banded over the
+        # band plan, panel_spmm over the uncapped layout); every shape is
+        # listed under "cases". "launches" sums the wrapper's count over the
+        # main-path runs of phases 4 and 6 (one by one under
         # "launches_by_path"); "replayed_launches" are those of the fast
         # loop's CUDA graph replays, replays x launches captured.
         main_set = "cora" if name in ("stream_scatter", "fused_v1",
@@ -1393,7 +1757,9 @@ def main() -> int:
                                        for c in main_cases) else "operations",
             "library_ms": None if None in lib else sum(lib),
             "cases": [{k: c[k] for k in ("dataset", "path", "side", "dir",
-                                         "pass", "p", "L", "H", "F", "ms",
+                                         "pass", "p", "L", "H", "F", "P",
+                                         "ms", "op_ms", "two_pass_ms",
+                                         "spmm_graph_ms",
                                          "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
                                          "max_abs_err") if k in c}
@@ -1403,7 +1769,11 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on any main path")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries, "epoch_ms": epoch_ms,
-                      "setup_s": {"large_corner_plans": corner_plan_s},
+                      "setup_s": {"large_band_plan": band_plan_s,
+                                  "large_corner_plans": corner_plan_s,
+                                  **spmm_setup},
+                      "spmm": {"route_max_abs_err": route_errors,
+                               "peak_allocated_gib": spmm_peak_gib},
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 // How a slot of a chunked edge order finds its node row, and the row
 // gather built on it (shared by expand.cu, banded_take.cu,
-// banded_sender_sum.cu, corner_permute.cu and the fused attention
-// kernels).
+// banded_sender_sum.cu, corner_permute.cu, the fused attention kernels and
+// the segment sums of stream_scatter.cuh).
 //
 // Every edge order of the port is cut into chunks of EC = 256 slots. A slot
-// names a node row in one of two ways:
+// names a node row in one of four ways:
 //   * ListedRows: row rows[k], one index word per slot (the receiver
 //     stream's senders);
 //   * WindowRows: row base[c] * 128 + loc[k] for slot k of chunk c, where
@@ -16,12 +16,17 @@
 //     row dead). The dead test comes before the row is formed: a dead slot
 //     of a chunk whose window is the last one would name row N_pad, one
 //     past the table;
+//   * PanelRows: row panel_tiles[chunk_tile[c] * p + g[k] / 128] * 128 +
+//     g[k] % 128, where g[k] outside [0, p * 128) marks a slot that is dead
+//     or overflows its output tile's p panels (the panel SpMM). g is tested
+//     before a row is formed: the padded columns of panel_tiles hold tile 0;
 //   * SlotRows: row k itself, for slot k: the fused kernels read a sender
-//     window that holds one row per slot (the corner path).
-// ListedRows and WindowRows return -1 for a dead slot (ListedRows has none:
-// the receiver stream's padding slots name the dummy row N_pad - 1 and are
-// told dead by their local row; the fused kernels skip dead slots by their
-// local row before reading a sender row).
+//     window that holds one row per slot (the corner path), and the stream
+//     segment sum reads receiver-stream data.
+// WindowRows and PanelRows return -1 for a dead slot. ListedRows and
+// SlotRows never do: the receiver stream's padding slots name the dummy row
+// N_pad - 1 and are told dead by their local row; the fused kernels skip
+// dead slots by their local row before reading a sender row.
 
 #pragma once
 
@@ -46,6 +51,21 @@ struct WindowRows {
     return static_cast<unsigned>(l) < static_cast<unsigned>(limit)
                ? base[chunk] * TILE + l
                : -1;
+  }
+};
+
+struct PanelRows {
+  const int* panel_tiles;  // [n_tiles, p]
+  const int* chunk_tile;
+  const int* g;
+  int p;
+  __device__ int operator()(long long k, int chunk) const {
+    const int gk = g[k];
+    if (static_cast<unsigned>(gk) >= static_cast<unsigned>(p * TILE))
+      return -1;
+    const long long at = static_cast<long long>(chunk_tile[chunk]) * p +
+                         gk / TILE;
+    return panel_tiles[at] * TILE + gk % TILE;
   }
 };
 

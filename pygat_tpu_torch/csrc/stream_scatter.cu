@@ -2,136 +2,16 @@
 //
 // Replaces the Pallas TPU kernel pygat_tpu/ops/stream.py::_make_kernel
 // (launched by stream_scatter). It computes the same function: rows of
-// stream-ordered edge data [E_s, L] are summed into [N_pad, L], where the
-// stream is cut into chunks of EC = 256 slots, chunk c writes only the
-// 128-row output tile chunk_tile[c] (non-decreasing), slot k adds into row
-// local[k] of that tile, and local == TILE (128) marks a dead slot that
-// contributes nothing. With a slot map (the sender side), slot k reads data
-// row slot[k] instead of row k; dead slots there point at edge 0 and are
-// skipped by local alone.
-//
-// The TPU kernel scatters with a one-hot matmul on the MXU and splits f32
-// into bf16 limbs, because Mosaic cannot gather or scatter rows; its grid
-// walks the chunks in order and keeps a tile resident while consecutive
-// chunks add into it. Here the chunks run in parallel, one thread block per
-// chunk (and per 64 columns), and rows are read natively:
-//   * the block stages the chunk's local rows and source rows in shared
-//     memory with one coalesced load, then all threads copy the chunk's
-//     live data rows into a [256, cols] shared window, several independent
-//     loads in flight per thread (on the sender side these are random rows
-//     of an array that need not fit in L2);
-//   * threads form groups of `cols` (one thread per column); each group
-//     walks a contiguous slice of the window, sums runs of equal local rows
-//     in a register (the stream is sorted by row) and adds each run into an
-//     f32 [128, cols] accumulator in shared memory with one atomic;
-//   * the block adds the rows its chunk touched into the output with one
-//     global atomic per element; the entry point zeroes the output first,
-//     so every row is written, also in a tile with no live slot.
-// One block per chunk, not per tile: tiles own very different chunk counts
-// on the sender side (every padding edge has the dummy sender N_pad - 1, so
-// the last tile owns 23 of Cora's 128 CSC chunks and 86 of Pubmed's 856),
-// and a block per tile left the whole call waiting on that one block.
-// Accumulation is plain f32 (the reference's 'high' contract, no limbs);
-// the atomics make the summation order vary from run to run.
-//
-// Bound on the H100: bytes. Each live slot reads L floats (plus two index
-// words) and there are no FLOPs to speak of; at Cora's shapes the whole
-// call moves a few MB, far below the launch latency, so Cora is
-// launch-bound.
+// stream-ordered edge data [E_s, L] are summed into [N_pad, L], where chunk
+// c of 256 slots writes only the 128-row output tile chunk_tile[c], slot k
+// adds into row local[k] of that tile, and local == 128 marks a dead slot.
+// With a slot map (the sender side), slot k reads data row slot[k] instead
+// of row k; dead slots there point at edge 0 and are skipped by local
+// alone. The device code, its layout and what bounds it are in
+// stream_scatter.cuh; at Cora's shapes the whole call moves a few MB, far
+// below the launch latency, so Cora is launch-bound.
 
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int EC = 256;        // slots per chunk
-constexpr int TILE = 128;      // output rows per chunk / block
-constexpr int THREADS = 512;
-constexpr int MAX_SLAB = 64;   // columns per block
-constexpr int UNROLL = 8;      // independent window loads per thread
-
-__global__ void __launch_bounds__(THREADS)
-stream_scatter_kernel(const float* __restrict__ data,
-                      const int* __restrict__ slot,
-                      const int* __restrict__ local,
-                      const int* __restrict__ chunk_tile, int L,
-                      float* __restrict__ out) {
-  extern __shared__ float sm[];
-  __shared__ int s_loc[EC];
-  __shared__ int s_row[EC];
-  __shared__ int s_lo, s_hi;  // range of local rows this chunk touches
-
-  const long long base = static_cast<long long>(blockIdx.x) * EC;
-  const int c0 = blockIdx.y * MAX_SLAB;
-  const int cols = min(MAX_SLAB, L - c0);
-  float* acc = sm;                // [TILE, cols]
-  float* win = sm + TILE * cols;  // [EC, cols]: the chunk's data rows
-  for (int i = threadIdx.x; i < TILE * cols; i += THREADS) acc[i] = 0.f;
-  if (threadIdx.x == 0) {
-    s_lo = TILE;
-    s_hi = -1;
-  }
-  if (threadIdx.x < EC) {
-    s_loc[threadIdx.x] = local[base + threadIdx.x];
-    s_row[threadIdx.x] = slot ? slot[base + threadIdx.x]
-                              : static_cast<int>(base + threadIdx.x);
-  }
-  __syncthreads();
-  if (threadIdx.x < EC && static_cast<unsigned>(s_loc[threadIdx.x]) < TILE) {
-    atomicMin(&s_lo, s_loc[threadIdx.x]);
-    atomicMax(&s_hi, s_loc[threadIdx.x]);
-  }
-  for (int i0 = threadIdx.x; i0 < EC * cols; i0 += THREADS * UNROLL) {
-    float v[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int i = i0 + u * THREADS;
-      v[u] = 0.f;
-      if (i < EC * cols) {
-        const int k = i / cols;
-        if (static_cast<unsigned>(s_loc[k]) < TILE)
-          v[u] = __ldg(data + static_cast<long long>(s_row[k]) * L + c0 +
-                       (i - k * cols));
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int i = i0 + u * THREADS;
-      if (i < EC * cols) win[i] = v[u];
-    }
-  }
-  __syncthreads();
-
-  const int groups = THREADS / cols;
-  const int grp = threadIdx.x / cols;
-  const int col = threadIdx.x - grp * cols;
-  if (grp < groups) {
-    const int per = (EC + groups - 1) / groups;
-    const int k0 = grp * per;
-    const int k1 = min(k0 + per, EC);
-    int cur = -1;
-    float sum = 0.f;
-    for (int k = k0; k < k1; ++k) {
-      const int loc = s_loc[k];
-      if (static_cast<unsigned>(loc) >= TILE) continue;  // dead slot
-      if (loc != cur) {
-        if (cur >= 0) atomicAdd(&acc[cur * cols + col], sum);
-        cur = loc;
-        sum = 0.f;
-      }
-      sum += win[k * cols + col];
-    }
-    if (cur >= 0) atomicAdd(&acc[cur * cols + col], sum);
-  }
-  __syncthreads();
-
-  float* o = out + static_cast<long long>(chunk_tile[blockIdx.x]) * TILE * L + c0;
-  for (int i = s_lo * cols + threadIdx.x; i < (s_hi + 1) * cols; i += THREADS) {
-    const int r = i / cols;
-    atomicAdd(&o[static_cast<long long>(r) * L + (i - r * cols)], acc[i]);
-  }
-}
-
-}  // namespace
+#include "stream_scatter.cuh"
 
 // data [E, L] f32 (E = E_s, or the edge count when slot is given);
 // slot [E_s] int32 or null; local [E_s] int32; chunk_tile [n_chunks] int32;
@@ -141,24 +21,9 @@ extern "C" int pygat_stream_scatter(const float* data, const int* slot,
                                     const int* local, const int* chunk_tile,
                                     int n_chunks, int n_tiles, int L,
                                     float* out, void* stream) {
-  if (n_tiles <= 0 || L <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(
-      out, 0, sizeof(float) * static_cast<size_t>(n_tiles) * TILE * L, st);
-  if (e != cudaSuccess || n_chunks <= 0) return static_cast<int>(e);
-  const int slab = L < MAX_SLAB ? L : MAX_SLAB;
-  const size_t smem = sizeof(float) * (TILE + EC) * slab;
-  // above 48 KB of shared memory a kernel must opt in. The attribute is
-  // set on the current device only, so it is set at every such launch
-  // (a host-side call of about a microsecond).
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(stream_scatter_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(n_chunks, (L + MAX_SLAB - 1) / MAX_SLAB);
-  stream_scatter_kernel<<<grid, THREADS, smem, st>>>(data, slot, local,
-                                                     chunk_tile, L, out);
-  return static_cast<int>(cudaGetLastError());
+  if (slot)
+    return launch_scatter_rows(data, ListedRows{slot}, Unweighted{}, local,
+                               chunk_tile, n_chunks, n_tiles, L, out, stream);
+  return launch_scatter_rows(data, SlotRows{}, Unweighted{}, local,
+                             chunk_tile, n_chunks, n_tiles, L, out, stream);
 }

@@ -1,3 +1,50 @@
-"""Sparse attention ops: segment sums, row gathers, corner-turn passes and
-the fused attention forwards, each a hand-written CUDA kernel beside its
-plain PyTorch version."""
+"""Sparse attention ops: segment sums, row gathers, corner-turn passes, the
+fused attention forwards and the SpMM family, each kernel a hand-written
+CUDA kernel beside its plain PyTorch version.
+
+Exported as the JAX package's ``pygat_tpu.ops`` exports them, where ported:
+the SpMM ops (the counterparts of the reference's ``SpecialSpmm``,
+``layers.py:70-95``) over the receiver stream (:func:`spmm_graph`), the
+panel layout (:func:`panel_spmm_graph`), a band plan (:func:`spmm_banded`)
+and the corner plans (:func:`spmm_corner_graph`), and the SDDMM."""
+
+from pygat_tpu_torch.ops.segment import (  # noqa: F401
+    gather_receivers,
+    gather_senders,
+    segment_sum,
+    segment_sum_receivers,
+    segment_sum_senders,
+)
+from pygat_tpu_torch.ops.spmm import spmm, spmm_graph  # noqa: F401
+from pygat_tpu_torch.ops.sddmm import sddmm, sddmm_graph  # noqa: F401
+from pygat_tpu_torch.ops.stream import (  # noqa: F401
+    build_stream_layout,
+    stream_scatter,
+    stream_segment_sum,
+)
+from pygat_tpu_torch.ops.fused_stream import (  # noqa: F401
+    fused_v1_attention,
+    fused_v2_attention,
+)
+from pygat_tpu_torch.ops.panel import (  # noqa: F401
+    build_panel_layout,
+    panel_spmm,
+    panel_spmm_graph,
+)
+from pygat_tpu_torch.ops.banded import spmm_banded  # noqa: F401
+from pygat_tpu_torch.ops.corner import (  # noqa: F401
+    corner_permute,
+    permute_rows,
+    plan_corner_turn,
+    plan_pair,
+)
+from pygat_tpu_torch.ops.large import (  # noqa: F401
+    maybe_plan_corner,
+    plan_csc_to_csr,
+    set_corner,
+    spmm_corner_graph,
+)
+from pygat_tpu_torch.ops.fused_corner import (  # noqa: F401
+    fused_v1_attention_corner,
+    fused_v2_attention_corner,
+)

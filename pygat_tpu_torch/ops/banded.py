@@ -23,22 +23,26 @@ Three parts:
   (the kernel's oracle): :func:`banded_take` (``csrc/banded_take.cu``,
   replaces ``_make_banded_kernel``), :func:`banded_sender_sum`
   (``csrc/banded_sender_sum.cu``, replaces ``_make_sender_sum_kernel``),
-  :func:`fused_v1_banded` and :func:`fused_v2_banded`
+  :func:`fused_v1_banded`, :func:`fused_v2_banded`
   (``csrc/fused_v1_banded.cu``, ``csrc/fused_v2_banded.cu``, replace
-  ``_make_v1_banded_kernel`` and ``_make_v2_banded_kernel``);
-* the differentiable ops :func:`fused_v1_attention_banded` and
-  :func:`fused_v2_attention_banded`, whose backward is the math of the
-  reference's custom VJPs: :func:`banded_take` recomputes the sender rows,
-  :func:`~pygat_tpu_torch.ops.large.expand` reads the receiver-side
-  operands, :func:`~pygat_tpu_torch.ops.stream.stream_scatter` sums per
-  receiver and :func:`banded_sender_sum` per sender.
+  ``_make_v1_banded_kernel`` and ``_make_v2_banded_kernel``),
+  and :func:`banded_weighted_sum` (``csrc/spmm_banded.cu``, replaces
+  ``_make_spmm_banded_kernel``);
+* the differentiable ops :func:`fused_v1_attention_banded`,
+  :func:`fused_v2_attention_banded` and :func:`spmm_banded`, whose backward
+  is the math of the reference's custom VJPs: :func:`banded_take`
+  recomputes the sender rows, :func:`~pygat_tpu_torch.ops.large.expand`
+  reads the receiver-side operands,
+  :func:`~pygat_tpu_torch.ops.stream.stream_scatter` sums per receiver and
+  :func:`banded_sender_sum` per sender.
 
 The plan's fields that the kernels and plain versions read (``band``,
 ``s_loc``, ``r_local``, ``r_chunk``) are tensors on the graph's device; the
 others stay numpy arrays on the host. The reference's band-sorted schedule
 ``bs_*`` exists for the TPU's VMEM accumulators and is kept for parity
-only: the sender-sum kernel walks the banded chunks directly. The banded
-SpMM (``spmm_banded``) is not ported.
+only: the sender-sum kernel walks the banded chunks directly. The plan's
+``edge_weight`` is a host array: a caller that weighs the SpMM by it moves
+it to the device.
 """
 
 from __future__ import annotations
@@ -66,7 +70,9 @@ from pygat_tpu_torch.ops.stream import (
     EC,
     TILE,
     build_stream_layout,
+    require_high,
     stream_scatter,
+    stream_scatter_plain,
 )
 
 # the fields of a BandPlan that live on the device
@@ -414,6 +420,49 @@ def banded_sender_sum(data: torch.Tensor, plan: BandPlan) -> torch.Tensor:
     return out
 
 
+def _check_values(what: str, values_b: torch.Tensor, plan: BandPlan) -> None:
+    if (values_b.dtype != torch.float32
+            or tuple(values_b.shape) != (plan.num_slots,)):
+        raise ValueError(f"{what}: values must be [{plan.num_slots}] float32 "
+                         f"in banded order, got {values_b.dtype} "
+                         f"{tuple(values_b.shape)}")
+
+
+def banded_weighted_sum_plain(values_b: torch.Tensor, x: torch.Tensor,
+                              plan: BandPlan) -> torch.Tensor:
+    """Plain PyTorch version of :func:`banded_weighted_sum` (a row gather
+    and ``index_add_``)."""
+    _check_table("spmm_banded", x, plan)
+    _check_values("spmm_banded", values_b, plan)
+    live = (plan.s_loc < plan.w * TILE) & (plan.r_local < TILE)
+    msgs = torch.where(live[:, None],
+                       values_b[:, None] * x[banded_senders(plan, 0)], 0.0)
+    return stream_scatter_plain(msgs, plan.r_local, plan.r_chunk, plan.n_pad)
+
+
+@build.counted(kernel="spmm_banded")
+def banded_weighted_sum(values_b: torch.Tensor, x: torch.Tensor,
+                        plan: BandPlan) -> torch.Tensor:
+    """[N_pad, L] f32: per receiver, the sum of ``values_b[k] *
+    x[sender(k)]`` over the live banded slots ``k`` (``values_b`` [E_b] f32
+    in banded order, ``x`` [N_pad, L] f32); dead slots add nothing. On a
+    CUDA tensor this launches ``csrc/spmm_banded.cu`` (counted in
+    ``banded_weighted_sum.launches``); on a CPU tensor it runs
+    :func:`banded_weighted_sum_plain`. Not differentiable."""
+    if x.device.type == "cpu":
+        return banded_weighted_sum_plain(values_b, x, plan)
+    if x.device.type != "cuda":
+        raise ValueError(f"spmm_banded: unsupported device {x.device}")
+    _check_table("spmm_banded", x, plan)
+    _check_values("spmm_banded", values_b, plan)
+    out = torch.empty(plan.n_pad, x.shape[1], dtype=torch.float32,
+                      device=x.device)
+    build.launch(banded_weighted_sum, values_b, x, plan.band, plan.s_loc,
+                 plan.r_local, plan.r_chunk, plan.num_chunks,
+                 plan.n_pad // TILE, plan.w, x.shape[1], out)
+    return out
+
+
 def fused_v1_banded_plain(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
                           alpha: float):
     """Plain PyTorch version of :func:`fused_v1_banded`: the receiver
@@ -580,3 +629,48 @@ def fused_v2_attention_banded(whi, whj, ub, a, keepq, plan: BandPlan,
     banded slots; ``ub`` must be detached. Gradients flow to ``whi``,
     ``whj`` and ``a``."""
     return _FusedV2AttentionBanded.apply(whi, whj, ub, a, keepq, plan, alpha)
+
+
+# ---------------------------------------------------------------------------
+# SpMM over a band plan
+# ---------------------------------------------------------------------------
+
+
+class _SpmmBanded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values_b, x, plan, fused):
+        values_b, x = values_b.contiguous(), x.contiguous()
+        ctx.save_for_backward(values_b, x)
+        ctx.plan = plan
+        if fused:
+            return banded_weighted_sum(values_b, x, plan)
+        return stream_scatter(values_b[:, None] * banded_take(x, plan),
+                              plan.r_local, plan.r_chunk, plan.n_pad)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        values_b, x = ctx.saved_tensors
+        plan = ctx.plan
+        # dvals[k] = <g_out[recv(k)], x[send(k)]>: both rows are zero at a
+        # dead slot, so dvals vanishes there
+        ge = expand(g_out.contiguous(), plan.r_local, plan.r_chunk)
+        dvals = (banded_take(x, plan) * ge).sum(1)
+        # dx: per-sender sum of vals * g_out[recv]
+        dx = banded_sender_sum(values_b[:, None] * ge, plan)
+        return dvals, dx, None, None
+
+
+def spmm_banded(values_b: torch.Tensor, x: torch.Tensor, plan: BandPlan, *,
+                precision: str = "high", fused: bool = True) -> torch.Tensor:
+    """``out[i] = sum over the banded slots k with receiver i of
+    values_b[k] * x[sender(k)]`` (``values_b`` [E_b] f32 in banded order,
+    dead slots ignored; ``x`` [N_pad, L] f32, any L). ``fused=True`` runs
+    select, scale and scatter in one kernel (:func:`banded_weighted_sum`),
+    so the [E_b, L] messages never reach memory; ``fused=False`` keeps the
+    two-pass form (:func:`banded_take`, then the stream segment sum).
+    Differentiable in ``values_b`` and ``x`` with either form (the
+    reference's VJP: ``banded_take`` and ``expand`` for the values, the
+    banded sender sum for ``x``). ``precision``: 'high' only (the reference
+    defaults to 'fastest', which is not ported: ROADMAP Queue 1, item 9)."""
+    require_high("spmm_banded", precision)
+    return _SpmmBanded.apply(values_b, x, plan, bool(fused))

@@ -45,6 +45,8 @@ ENTRY_POINTS = {
                         [_P] * 7 + [_I] * 4 + [_F] + [_P] * 3),
     "fused_v2_window": ("pygat_fused_v2_window",
                         [_P] * 7 + [_I] * 4 + [_F] + [_P] * 3),
+    "spmm_banded": ("pygat_spmm_banded", [_P] * 6 + [_I] * 4 + [_P] * 2),
+    "panel_spmm": ("pygat_panel_spmm", [_P] * 7 + [_I] * 4 + [_P] * 2),
 }
 SOURCES = tuple(ENTRY_POINTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -11,7 +11,7 @@ kernel over a static layout:
   (sender-sorted) stream, whose chunks each read one 128-row tile of the
   node table, then the forward corner-turn passes
   (:func:`~pygat_tpu_torch.ops.corner.apply_passes`) from CSC to
-  receiver-stream order (:func:`gather_corner`);
+  receiver-stream order (:func:`~pygat_tpu_torch.ops.large.gather_corner`);
 * the fused forward over that pre-built window: :func:`fused_v1_window`
   and :func:`fused_v2_window`, which launch ``csrc/fused_v1_window.cu`` and
   ``csrc/fused_v2_window.cu`` (rows 2 and 3's kernels of
@@ -21,7 +21,7 @@ kernel over a static layout:
 * in the backward, the receiver-side operands by one expand over the
   receiver stream, and the sender-side reductions by the inverse passes
   back to CSC order and the stream segment sum
-  (:func:`scatter_corner`).
+  (:func:`~pygat_tpu_torch.ops.large.scatter_corner`).
 
 The backward recomputes the window, as the reference's does, and is the
 math of its ``_v1_bwd_body`` / ``_v2_bwd_body``.
@@ -30,10 +30,8 @@ math of its ``_v1_bwd_body`` / ``_v2_bwd_body``.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from pygat_tpu_torch.ops import build
-from pygat_tpu_torch.ops.corner import CornerPlan, apply_passes
 from pygat_tpu_torch.ops.fused_stream import (
     _block_diag_a,
     _check_args,
@@ -43,28 +41,13 @@ from pygat_tpu_torch.ops.fused_stream import (
     v1_plain_core,
     v2_plain_core,
 )
-from pygat_tpu_torch.ops.large import CscCsrPlans, expand
+from pygat_tpu_torch.ops.large import (
+    CscCsrPlans,
+    expand,
+    gather_corner,
+    scatter_corner,
+)
 from pygat_tpu_torch.ops.stream import TILE, stream_scatter
-
-
-def gather_corner(x: torch.Tensor, graph, plan_fwd: CornerPlan) -> torch.Tensor:
-    """``x[senders]`` [E_s, L] in receiver-stream order without a row gather
-    by edge index: the CSC expand (one node tile per chunk) and the forward
-    corner-turn passes. A contiguous view of the last pass's first E_s
-    rows."""
-    ex = expand(x, graph.c_local, graph.c_chunk)  # [E_s2, L], CSC order
-    return apply_passes(ex, plan_fwd)[:graph.num_edges_padded]
-
-
-def scatter_corner(g_e: torch.Tensor, graph, plan_inv: CornerPlan) -> torch.Tensor:
-    """Per-sender segment sum [N_pad, L] of receiver-stream-ordered ``g_e``
-    [E_s, L]: padded to E_s2 rows, the inverse passes to CSC order, and the
-    stream segment sum over the CSC stream, whose dead slots drop the rows
-    that land on them."""
-    e_s2 = graph.c_local.shape[0]
-    g_p = F.pad(g_e, (0, 0, 0, e_s2 - g_e.shape[0]))
-    return stream_scatter(apply_passes(g_p, plan_inv), graph.c_local,
-                          graph.c_chunk, graph.num_nodes_padded)
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,16 @@ from its CSC stream slots to its receiver-stream (CSR) slots and back.
 :func:`set_corner` / :func:`maybe_plan_corner` select them with the JAX
 package's knobs ``PYGAT_CORNER`` (auto/on/off) and ``PYGAT_CORNER_N``, read
 at import; 'auto' keeps the reference's threshold of 2^62 padded nodes, so
-only 'on' plans. The panel path's use of expand and the corner SpMM
-(``spmm_corner_graph``) are not ported.
+only 'on' plans.
+
+Over the plans, :func:`gather_corner` gives ``x[senders]`` in receiver-stream
+order (the CSC expand, whose chunks each read one 128-row tile of ``x``,
+then the forward corner-turn passes) and :func:`scatter_corner` sums
+receiver-stream rows per sender (the inverse passes, then the CSC stream
+segment sum), neither with a row gather by edge index. The corner SpMM
+:func:`spmm_corner_graph` is built from them: ``stream_scatter(v *
+gather_corner(x))`` forward, and ``expand`` of the cotangent and
+:func:`scatter_corner` backward.
 """
 
 from __future__ import annotations
@@ -26,10 +34,22 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pygat_tpu_torch.ops import build
-from pygat_tpu_torch.ops.corner import _P_MAX, CornerPlan, plan_corner_turn
-from pygat_tpu_torch.ops.stream import DEAD, EC, TILE
+from pygat_tpu_torch.ops.corner import (
+    _P_MAX,
+    CornerPlan,
+    apply_passes,
+    plan_corner_turn,
+)
+from pygat_tpu_torch.ops.stream import (
+    DEAD,
+    EC,
+    TILE,
+    require_high,
+    stream_scatter,
+)
 
 
 def _check_args(x, local, chunk_tile):
@@ -145,3 +165,78 @@ def maybe_plan_corner(graph) -> CscCsrPlans | None:
     if _CORNER_MODE == "auto" and graph.num_nodes_padded < _CORNER_N:
         return None
     return plan_csc_to_csr(graph)
+
+
+# ---------------------------------------------------------------------------
+# Moves over the corner plans, and the corner SpMM
+# ---------------------------------------------------------------------------
+
+
+def gather_corner(x: torch.Tensor, graph, plan_fwd: CornerPlan) -> torch.Tensor:
+    """``x[senders]`` [E_s, L] in receiver-stream order without a row gather
+    by edge index: the CSC expand (one node tile per chunk) and the forward
+    corner-turn passes. A contiguous view of the last pass's first E_s
+    rows."""
+    ex = expand(x, graph.c_local, graph.c_chunk)  # [E_s2, L], CSC order
+    return apply_passes(ex, plan_fwd)[:graph.num_edges_padded]
+
+
+def scatter_corner(g_e: torch.Tensor, graph, plan_inv: CornerPlan) -> torch.Tensor:
+    """Per-sender segment sum [N_pad, L] of receiver-stream-ordered ``g_e``
+    [E_s, L]: padded to E_s2 rows, the inverse passes to CSC order, and the
+    stream segment sum over the CSC stream, whose dead slots drop the rows
+    that land on them."""
+    e_s2 = graph.c_local.shape[0]
+    g_p = F.pad(g_e, (0, 0, 0, e_s2 - g_e.shape[0]))
+    return stream_scatter(apply_passes(g_p, plan_inv), graph.c_local,
+                          graph.c_chunk, graph.num_nodes_padded)
+
+
+def corner_spmm_backward(g, v, rows, graph, plan_inv: CornerPlan):
+    """(d values, d x) of ``out = stream_scatter(v * rows)`` over the corner
+    plans for the cotangent ``g`` [N_pad, L]: ``rows`` [E_s, L] are the
+    sender rows in receiver-stream order, ``v`` the masked values. The
+    cotangent per edge comes from one expand, the sender sum from
+    :func:`scatter_corner`: no row gather by edge index."""
+    g_e = expand(g.contiguous(), graph.r_local, graph.r_chunk)
+    dvalues = torch.where(graph.edge_mask, (g_e * rows).sum(-1), 0.0)
+    return dvalues, scatter_corner(v[:, None] * g_e, graph, plan_inv)
+
+
+class _SpmmCorner(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, x, graph, plans):
+        turned = gather_corner(x.contiguous(), graph, plans.fwd)
+        v = torch.where(graph.edge_mask, values, 0.0)
+        out = stream_scatter(v[:, None] * turned, graph.r_local,
+                             graph.r_chunk, graph.num_nodes_padded)
+        ctx.save_for_backward(v, turned)
+        ctx.graph, ctx.plans = graph, plans
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        v, turned = ctx.saved_tensors
+        return corner_spmm_backward(g, v, turned, ctx.graph,
+                                    ctx.plans.inv) + (None, None)
+
+
+def spmm_corner_graph(values: torch.Tensor, x: torch.Tensor, graph,
+                      plans: CscCsrPlans, *, mode: str | None = None,
+                      precision: str = "high") -> torch.Tensor:
+    """``out[N_pad, L]``: the receiver segment sum of ``values * x[senders]``
+    (``values`` [E_s] f32 in the graph's edge order, zero where
+    ``edge_mask`` is false) through the CSC expand, the forward corner-turn
+    passes and the stream segment sum; the backward runs ``expand`` of the
+    cotangent, the inverse passes and the CSC stream segment sum, with no
+    row gather by edge index either way. The sender rows are kept for the
+    backward, one [E_s, L] array, as the reference keeps them.
+
+    ``mode`` (the reference's permute select, 'onehot' or 'take') has no
+    counterpart: the kernel copies rows exactly either way. ``precision``
+    is 'high', as the reference's default here; 'fastest' is not ported
+    (ROADMAP Queue 1, item 9)."""
+    require_high("spmm_corner_graph", precision)
+    if mode not in (None, "onehot", "take"):
+        raise ValueError(f"spmm_corner_graph: unknown mode {mode!r}")
+    return _SpmmCorner.apply(values, x, graph, plans)

@@ -17,7 +17,8 @@ Three parts:
   reference's custom VJPs.
 
 The kernel accumulates in f32 (the reference's ``high`` contract). The
-reference's ``fastest`` mode (one bf16 limb) is not ported.
+reference's ``fastest`` mode (one bf16 limb) is not ported: the ops that
+take a ``precision`` check it with :func:`require_high`.
 """
 
 from __future__ import annotations
@@ -111,6 +112,18 @@ def build_stream_layout(
         np.arange(n_tiles, dtype=np.int32), chunks_per_tile
     )
     return StreamLayout(slot=slot, local=local, chunk_tile=chunk_tile)
+
+
+def require_high(what: str, precision: str) -> None:
+    """Raise unless ``precision`` is ``'high'``, the one precision the port
+    has (f32 sums; the reference's two bf16 limbs, about 1e-5)."""
+    if precision == "fastest":
+        raise NotImplementedError(
+            f"{what}: precision='fastest' (one bf16 limb) is not ported yet "
+            "(ROADMAP Queue 1, item 9: the fastest precision mode); use "
+            "'high'")
+    if precision != "high":
+        raise ValueError(f"{what}: unknown precision {precision!r}")
 
 
 # ---------------------------------------------------------------------------

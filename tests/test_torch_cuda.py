@@ -14,8 +14,12 @@ kernels run on band plans with several chunks per tile, a tile without
 edges, all-dead padding chunks (whose dead slots sit on the last band, one
 row short of naming N_pad) and a window clipped to the table. The corner
 kernels run on plans with several passes, an odd tile count, re-windowed
-tiles and overflow rows (a small span cap), at ragged widths.
-chip_smoke.py covers the main path's full-size shapes.
+tiles and overflow rows (a small span cap), at ragged widths. The SpMM
+kernels run on those band plans and on panel layouts with and without a
+panel cap (overflow slots), with a tile without edges, at L = 1, 48, 65 and
+128, over node tables whose next row in memory is NaN (a row formed for a
+dead slot past the table would show), and every SpMM op's backward runs
+card against CPU. chip_smoke.py covers the main path's full-size shapes.
 """
 
 from __future__ import annotations
@@ -28,11 +32,14 @@ from pygat_tpu_torch.data import synthetic
 from pygat_tpu_torch.data.citation import CitationDataset
 from pygat_tpu_torch.graph import build_graph
 from pygat_tpu_torch.models.gat import GATConfig
+from pygat_tpu_torch import ops
 from pygat_tpu_torch.ops import banded as bd
+from pygat_tpu_torch.ops import build
 from pygat_tpu_torch.ops import corner as cn
 from pygat_tpu_torch.ops import fused_corner as fc
 from pygat_tpu_torch.ops import fused_stream as fs
 from pygat_tpu_torch.ops import large
+from pygat_tpu_torch.ops import panel as pn
 from pygat_tpu_torch.ops import stream as st
 from pygat_tpu_torch.train.logging import TrainLogger
 from pygat_tpu_torch.train.loop import fit_transductive, fit_transductive_fast
@@ -814,3 +821,245 @@ def test_fit_fast_on_cuda_with_corner_plans(cuda, monkeypatch):
     assert fs.fused_v2.launches == before["fused_v2"]
     np.testing.assert_allclose(b.history, a.history, rtol=1e-4)
     assert np.isfinite(b.test_loss)
+
+
+# -- the SpMM kernels and ops ----------------------------------------------------
+
+
+def _nan_tail(rows, width, gen, device):
+    """[rows, width] random f32 rows, a contiguous view whose next row in
+    memory is NaN: a row formed for a dead slot past the table would show."""
+    buf = torch.randn(rows + 1, width, generator=gen, device=device)
+    buf[rows] = float("nan")
+    return buf[:rows]
+
+
+def _close_sums(got, want, mag):
+    """f32 sums in another order: RTOL of the same sums over magnitudes."""
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= RTOL * mag + 1e-30).all())
+    assert float(mag.max()) > 1.0  # the comparison is not idle
+
+
+SPMM_WIDTHS = [1, 48, 65, 128]
+
+
+@pytest.mark.parametrize("kind", BAND_KINDS)
+@pytest.mark.parametrize("width", SPMM_WIDTHS)
+def test_spmm_banded_kernel_matches_plain(cuda, kind, width):
+    """Values on dead slots too (ignored), dead slots on the last band."""
+    _, plan = _band(cuda, kind)
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    vals = torch.randn(plan.num_slots, generator=gen, device=cuda)
+    x = _nan_tail(plan.n_pad, width, gen, cuda)
+    before = bd.banded_weighted_sum.launches
+    got = bd.banded_weighted_sum(vals, x, plan)
+    torch.cuda.synchronize()
+    assert bd.banded_weighted_sum.launches == before + 1
+    _close_sums(got, bd.banded_weighted_sum_plain(vals, x, plan),
+                bd.banded_weighted_sum_plain(vals.abs(), x.abs(), plan))
+
+
+def _panel_layout(device, kind):
+    """(graph, layout): ``clustered`` fits every slot in its tile's panels,
+    ``capped`` keeps one panel per tile (most slots overflow), and
+    ``empty_tile`` has an output tile without edges."""
+    if kind == "empty_tile":
+        g = _graph(device, True)
+    else:
+        g, _ = _plan(device, "clustered")
+    layout = pn.build_panel_layout(g, p_max=1 if kind == "capped" else None)
+    assert (layout.n_overflow > 0) == (kind == "capped")
+    return g, layout
+
+
+PANEL_KINDS = ["clustered", "capped", "empty_tile"]
+
+
+@pytest.mark.parametrize("kind", PANEL_KINDS)
+@pytest.mark.parametrize("width", SPMM_WIDTHS)
+def test_panel_spmm_kernel_matches_plain(cuda, kind, width):
+    """Overflow and dead slots add nothing, nor do live slots whose edge
+    mask is false (a fifth of them here); empty tiles give zeros."""
+    g, layout = _panel_layout(cuda, kind)
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    vals = torch.randn(g.num_edges_padded, generator=gen, device=cuda)
+    mask = g.edge_mask & (torch.rand(g.num_edges_padded, generator=gen,
+                                     device=cuda) > 0.2)
+    x = _nan_tail(g.num_nodes_padded, width, gen, cuda)
+    args = (layout.panel_tiles, layout.g_idx, mask, g.r_local, g.r_chunk)
+    before = pn.panel_weighted_sum.launches
+    got = pn.panel_weighted_sum(vals, x, *args)
+    torch.cuda.synchronize()
+    assert pn.panel_weighted_sum.launches == before + 1
+    _close_sums(got, pn.panel_weighted_sum_plain(vals, x, *args),
+                pn.panel_weighted_sum_plain(vals.abs(), x.abs(), *args))
+    if kind == "empty_tile":
+        assert not got[128:256].any()
+
+
+def _spmm_setup(capped=False):
+    """The clustered graph on the CPU, with its band plan (w = 3), a panel
+    layout (one panel per tile if ``capped``) and corner plans with a span
+    cap of 3 tiles (several passes, overflow rows)."""
+    g, w = _plan("cpu", "clustered")
+    layout = pn.build_panel_layout(g, p_max=1 if capped else None)
+    return (g, bd.build_band_plan(g, w=w), layout,
+            large.plan_csc_to_csr(g, p_cap=3))
+
+
+SPMM_ROUTES = {
+    "spmm": lambda v, x, g, p: ops.spmm(v, x, g.senders, g.receivers,
+                                        g.edge_mask),
+    "spmm_graph": lambda v, x, g, p: ops.spmm_graph(v, x, g),
+    "panel": lambda v, x, g, p: ops.panel_spmm_graph(v, x, g, p[1]),
+    "panel_capped": lambda v, x, g, p: ops.panel_spmm_graph(v, x, g, p[1]),
+    "panel_corner": lambda v, x, g, p: ops.panel_spmm_graph(v, x, g, p[1],
+                                                            plans=p[2]),
+    "corner": lambda v, x, g, p: ops.spmm_corner_graph(v, x, g, p[2]),
+    "banded": lambda v, x, g, p: ops.spmm_banded(v, x, p[0]),
+    "banded_two_pass": lambda v, x, g, p: ops.spmm_banded(v, x, p[0],
+                                                          fused=False),
+    "sddmm_graph": lambda a, b, g, p: ops.sddmm_graph(a, b, g),
+}
+
+
+@pytest.mark.parametrize("route", list(SPMM_ROUTES))
+def test_spmm_ops_card_vs_cpu(cuda, route):
+    """Forward and both gradients of every SpMM op (and the SDDMM) on the
+    card against the same op on the CPU, from one seed; the banded ops take
+    their values in banded order."""
+    g, plan, layout, plans = _spmm_setup(capped=route == "panel_capped")
+    rng = np.random.default_rng(7)
+    n_pad, width = g.num_nodes_padded, 48
+    e = plan.num_slots if route.startswith("banded") else g.num_edges_padded
+    first = (rng.standard_normal((n_pad, width)) if route == "sddmm_graph"
+             else rng.standard_normal(e))
+    x = rng.standard_normal((n_pad, width))
+    ct = rng.standard_normal(e if route == "sddmm_graph" else (n_pad, width))
+    if route.startswith("banded"):
+        first = np.where(plan.perm >= 0, first, 0.0)  # 0 on dead slots
+    results = []
+    for dev in ("cpu", cuda):
+        leaves = [torch.tensor(a, dtype=torch.float32, device=dev,
+                               requires_grad=True) for a in (first, x)]
+        parts = (plan.to(dev), layout.to(dev), plans.to(dev))
+        out = SPMM_ROUTES[route](*leaves, g.to(dev), parts)
+        grads = torch.autograd.grad(out, leaves, torch.tensor(
+            ct, dtype=torch.float32, device=dev))
+        results.append([t.detach().cpu() for t in (out, *grads)])
+    for got, want in zip(results[1], results[0]):
+        assert bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        assert err <= RTOL * max(1.0, float(want.abs().max())), (route, err)
+
+
+def test_spmm_routes_agree_on_the_card(cuda):
+    """The panel, banded and corner routes against spmm_graph on the card,
+    forward and gradients, the banded values permuted from edge order."""
+    g, plan, layout, plans = (t.to(cuda) for t in _spmm_setup())
+    g_cap = _spmm_setup(capped=True)[2].to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    w = torch.randn(g.num_edges_padded, generator=gen, device=cuda)
+    w = torch.where(g.edge_mask, w, 0.0)
+    x = torch.randn(g.num_nodes_padded, 48, generator=gen, device=cuda)
+    ct = torch.randn(g.num_nodes_padded, 48, generator=gen, device=cuda)
+    perm = torch.from_numpy(plan.perm).to(cuda)
+    live = perm >= 0
+    w_b = torch.where(live, w[perm.clamp(min=0)], 0.0)
+
+    def run(fn, v):
+        v, xx = v.clone().requires_grad_(), x.clone().requires_grad_()
+        out = fn(v, xx)
+        return (out.detach(), *torch.autograd.grad(out, (v, xx), ct))
+
+    ref = run(lambda v, xx: ops.spmm_graph(v, xx, g), w)
+    for name, fn, v in (
+            ("panel", lambda v, xx: ops.panel_spmm_graph(v, xx, g, layout), w),
+            ("panel capped",
+             lambda v, xx: ops.panel_spmm_graph(v, xx, g, g_cap), w),
+            ("panel corner", lambda v, xx: ops.panel_spmm_graph(
+                v, xx, g, layout, plans=plans), w),
+            ("corner", lambda v, xx: ops.spmm_corner_graph(v, xx, g, plans), w),
+            ("banded", lambda v, xx: ops.spmm_banded(v, xx, plan), w_b)):
+        out, dv, dx = run(fn, v)
+        if name == "banded":
+            dv = torch.zeros_like(w).index_put_((perm[live],), dv[live])
+        for got, want in ((out, ref[0]), (dv, ref[1] * g.edge_mask),
+                          (dx, ref[2])):
+            err = float((got - want).abs().max())
+            assert err <= RTOL * max(1.0, float(want.abs().max())), (name, err)
+
+
+@pytest.mark.parametrize("which", ["banded", "panel"])
+def test_spmm_launch_is_capturable(cuda, which):
+    """One launch inside CUDA-graph capture replays to the plain version's
+    result on fresh inputs."""
+    g, plan, layout, _ = _spmm_setup(capped=True)
+    g, plan, layout = g.to(cuda), plan.to(cuda), layout.to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    if which == "banded":
+        kernel, plain = bd.banded_weighted_sum, bd.banded_weighted_sum_plain
+        vals = torch.randn(plan.num_slots, generator=gen, device=cuda)
+        rest = (plan,)
+    else:
+        kernel, plain = pn.panel_weighted_sum, pn.panel_weighted_sum_plain
+        vals = torch.randn(g.num_edges_padded, generator=gen, device=cuda)
+        rest = (layout.panel_tiles, layout.g_idx, g.edge_mask, g.r_local,
+                g.r_chunk)
+    x = torch.randn(g.num_nodes_padded, 96, generator=gen, device=cuda)
+    kernel(vals, x, *rest)  # build and load outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = kernel(vals, x, *rest)
+    vals.copy_(torch.randn(vals.shape, generator=gen, device=cuda))
+    x.copy_(torch.randn(x.shape, generator=gen, device=cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    _close(got, plain(vals, x, *rest))
+
+
+def test_spmm_wrappers_never_call_plain_on_the_card(cuda, monkeypatch):
+    """The SpMM ops on the card launch their kernels, forward and backward,
+    and never a plain version; the launch counts per call are as stated."""
+    g, plan, layout, plans = (t.to(cuda) for t in _spmm_setup())
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for mod, name in ((bd, "banded_weighted_sum_plain"),
+                      (pn, "panel_weighted_sum_plain"),
+                      (bd, "banded_take_plain"), (large, "expand_plain"),
+                      (bd, "banded_sender_sum_plain"),
+                      (cn, "permute_pass_plain"),
+                      (st, "stream_scatter_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(g.num_nodes_padded, 48, generator=gen, device=cuda,
+                    requires_grad=True)
+    k_f, k_i = len(plans.fwd.passes), len(plans.inv.passes)
+    for fn, e, want in (
+            (lambda v: ops.spmm_banded(v, x, plan), plan.num_slots,
+             {"spmm_banded": 1, "banded_take": 1, "expand": 1,
+              "banded_sender_sum": 1}),
+            (lambda v: ops.panel_spmm_graph(v, x, g, layout, plans=plans),
+             g.num_edges_padded,
+             {"panel_spmm": 1, "expand": 2, "corner_permute": k_f + k_i,
+              "stream_scatter": 1}),
+            (lambda v: ops.spmm_corner_graph(v, x, g, plans),
+             g.num_edges_padded,
+             {"expand": 2, "corner_permute": k_f + k_i,
+              "stream_scatter": 2}),
+            (lambda v: ops.spmm_graph(v, x, g), g.num_edges_padded,
+             {"stream_scatter": 2})):
+        v = torch.randn(e, generator=gen, device=cuda, requires_grad=True)
+        before = build.launch_counts()
+        torch.autograd.grad(fn(v).sum(), (v, x))
+        torch.cuda.synchronize()
+        after = build.launch_counts()
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == want
+    with pytest.raises(ValueError, match="contiguous"):
+        bd.banded_weighted_sum(torch.zeros(plan.num_slots, device=cuda),
+                               x.detach().T.contiguous().T, plan)
