@@ -8,7 +8,7 @@ of which prints its seconds:
 
 1. print the card (``nvidia-smi`` name and power limit), CUDA and nvcc
    versions;
-2. build the thirteen CUDA kernels from ``pygat_tpu_torch/csrc`` and print
+2. build the fourteen CUDA kernels from ``pygat_tpu_torch/csrc`` and print
    the build seconds and the compiler's register / shared-memory report;
 3. hold each kernel against its plain PyTorch version on the card, at every
    shape the GAT_sparse and GATv2_sparse paths give it: the stream kernels
@@ -68,7 +68,20 @@ of which prints its seconds:
    their plain versions and timed beside them, their bounds and
    ``torch.sparse.mm`` over the same weighted graph; the panel layouts'
    set-up seconds and the phase's peak device memory;
-7. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+7. the BCSR path (``pygat_tpu_torch.legacy_bcsr``, which no model
+   reaches): the Cora and Pubmed stand-ins and the 524k graph, each tiled
+   once (its seconds printed); with the launch counters set to 0 just
+   before and read just after, ``gat_attention_v1`` by the fused route
+   (``backend="pallas"``: one ``bcsr_attention`` launch forward, two
+   ``stream_scatter`` launches backward) against the segment-op route
+   (``"xla"``), forward and gradients, at the Cora and Pubmed preset
+   widths, with dropout off and at p = 0.6 (one generator seed per pair,
+   so one mask); then ``bcsr_attention`` against its plain version at
+   those widths and the 524k graph's, with no dropout mask and with one,
+   and timed beside its plain version and its bound; at 524k also the
+   stream and banded fused forwards (``fused_v1``, ``fused_v1_banded``)
+   over the same attention;
+8. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 The script imports nothing of JAX or of the JAX package, needs no network
 and starts no process other than ``nvidia-smi``, ``nvcc`` and the one
@@ -121,6 +134,17 @@ BIG_CALLS, BIG_REPLAYS = 5, 4  # _time_ms at the large graph's shapes
 # makes the overflow pass run
 SPMM_L = 128
 SPMM_P_MAX = 8
+# the BCSR path: the preset widths (heads, features) of each graph's layers
+# (Pubmed's layer 1 and, at the Pubmed preset's 8 output heads, its output
+# layer; the 524k graph has the Cora preset's widths), and the preset's
+# dropout rate
+BCSR_WIDTHS = {"cora": ((8, 8), (1, 7)), "pubmed": ((8, 8), (8, 3)),
+               "large": ((8, 8),)}
+BCSR_P = 0.6
+# route vs route: the fused route's analytic backward (stream sums with
+# atomics, S[i] from the forward's output) against autograd of the segment
+# ops, as tests/test_torch_bcsr.py holds the gradients to the JAX package's
+BCSR_GRAD_RTOL = 5e-5
 REPLACES = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
             "corner_permute": "pygat_tpu/ops/corner.py:216",
             "fused_v1_window": "pygat_tpu/ops/fused_stream.py:134",
@@ -133,7 +157,8 @@ REPLACES = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
             "fused_v1_banded": "pygat_tpu/ops/banded.py:978",
             "fused_v2_banded": "pygat_tpu/ops/banded.py:1046",
             "spmm_banded": "pygat_tpu/ops/banded.py:744",
-            "panel_spmm": "pygat_tpu/ops/panel.py:141"}
+            "panel_spmm": "pygat_tpu/ops/panel.py:141",
+            "bcsr_attention": "tests/legacy_bcsr/fused_attention.py:55"}
 
 
 def _card_line() -> str:
@@ -1251,6 +1276,199 @@ def _time_spmm(case):
         case.pop(k)
 
 
+def _bcsr_tilings(graphs):
+    """Each graph's BCSR tiling, built once; returns the tilings and their
+    set-up seconds."""
+    import torch
+
+    from pygat_tpu_torch.legacy_bcsr.tiles import tile_graph, tile_stats
+
+    tilings, secs = {}, {}
+    for label, g in graphs.items():
+        t0 = time.perf_counter()
+        tilings[label] = tile_graph(g)
+        torch.cuda.synchronize()
+        secs[f"{label}_bcsr_tiling"] = time.perf_counter() - t0
+        st = tile_stats(tilings[label])
+        print(f"phase 7: {label}: BCSR tiling in "
+              f"{secs[f'{label}_bcsr_tiling']:.2f} s: {st['chunks']} chunks, "
+              f"{st['edge_slots']} slots, {st['real_edges']} real edges, "
+              f"utilization {st['utilization']:.4f}", flush=True)
+    return tilings, secs
+
+
+def _bcsr_inputs(g, h, f, seed):
+    """f_dst, f_src [H, N_pad], wh [H, N_pad, F] and a cotangent of the
+    output, from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n = g.num_nodes_padded
+    return (torch.randn(h, n, generator=gen, device="cuda"),
+            torch.randn(h, n, generator=gen, device="cuda"),
+            torch.randn(h, n, f, generator=gen, device="cuda"),
+            torch.randn(h, n, f, generator=gen, device="cuda"))
+
+
+def _bcsr_path(graphs, tilings, counters):
+    """The BCSR path: ``gat_attention_v1`` by the fused route against the
+    segment-op route, forward and the gradients of f_dst, f_src and wh, at
+    the Cora and Pubmed preset widths, with dropout off and at BCSR_P (each
+    pair draws its mask from one generator seed). The forward is held to
+    KERNEL_RTOL of max(1, max |want|), the gradients to BCSR_GRAD_RTOL of
+    max |want|; each call's launches must be as its route states. Returns
+    the worst error of each comparison."""
+    import torch
+
+    from pygat_tpu_torch.legacy_bcsr.sparse_attention import gat_attention_v1
+
+    errors = {}
+    for label in ("cora", "pubmed"):
+        g, tiles = graphs[label], tilings[label]
+        for i, (h, f) in enumerate(BCSR_WIDTHS[label]):
+            fd, fs, wh, ct = _bcsr_inputs(g, h, f, 40 + i)
+            for rate in (0.0, BCSR_P):
+                res = {}
+                for backend, want in (("xla", {}),
+                                      ("pallas", {"bcsr_attention": 1,
+                                                  "stream_scatter": 2})):
+                    leaves = [t.clone().requires_grad_() for t in (fd, fs, wh)]
+                    gen = torch.Generator(device="cuda")
+                    gen.manual_seed(50 + i)
+                    before = {k: c.launches for k, c in counters.items()}
+                    out = gat_attention_v1(
+                        *leaves, g, tiles, alpha=0.2, backend=backend,
+                        dropout_rate=rate, generator=gen, train=rate > 0)
+                    grads = torch.autograd.grad(out, leaves, ct)
+                    torch.cuda.synchronize()
+                    made = {k: c.launches - before[k]
+                            for k, c in counters.items()
+                            if c.launches != before[k]}
+                    if made != want:
+                        raise AssertionError(f"{label} {backend}: launches "
+                                             f"{made}, want {want}")
+                    res[backend] = (out.detach(), *grads)
+                errs = [_max_err(res["pallas"][0], res["xla"][0])]
+                for a, b in zip(res["pallas"][1:], res["xla"][1:]):
+                    err = float((a - b).abs().max())
+                    errs.append((err, BCSR_GRAD_RTOL * float(b.abs().max())))
+                key = f"{label} H={h} F={f} dropout={rate}"
+                errors[key] = max(e for e, _ in errs)
+                print(f"  {key}: pallas vs xla, out {errs[0][0]:.3e} (allowed "
+                      f"{errs[0][1]:.3e}); d f_dst, d f_src, d wh "
+                      + ", ".join(f"{e:.3e} (allowed {a:.3e})"
+                                  for e, a in errs[1:]), flush=True)
+                if not all(e <= a for e, a in errs):
+                    raise AssertionError(f"{key}: the routes disagree")
+                del res
+    return errors
+
+
+def _bcsr_kernel_cases(graphs, tilings):
+    """``bcsr_attention`` at the BCSR path's widths and the 524k graph's,
+    with no mask and with a keep mask at BCSR_P (the keep factors of the
+    graph's edges carried into chunk layout), each output (out, m, den)
+    held against the plain version to KERNEL_RTOL of max(1, max |want|)."""
+    import torch
+
+    from pygat_tpu_torch.legacy_bcsr.fused_attention import (
+        bcsr_attention,
+        bcsr_attention_plain,
+    )
+
+    cases = []
+    for label, widths in BCSR_WIDTHS.items():
+        g, tiles = graphs[label], tilings[label]
+        n_valid = int(tiles.valid.sum())
+        for i, (h, f) in enumerate(widths):
+            fd, fs, wh, _ = _bcsr_inputs(g, h, f, 60 + i)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(70 + i)
+            keep = torch.where(torch.rand(g.num_edges_padded, generator=gen,
+                                          device="cuda") < 1 - BCSR_P,
+                               1 / (1 - BCSR_P), 0.0)
+            masked = keep[tiles.edge_perm.long().clamp(min=0)] * tiles.valid
+            for rate, drop in ((0.0, None), (BCSR_P, masked)):
+                args = (fd, fs, wh, tiles, 0.2, drop)
+                got, want = bcsr_attention(*args), bcsr_attention_plain(*args)
+                torch.cuda.synchronize()
+                errs = [_max_err(a, b) for a, b in zip(got, want)]
+                print(f"  bcsr_attention {label} H={h} F={f} dropout={rate}: "
+                      "max_abs_err out, m, den " + ", ".join(
+                          f"{e:.3e} (allowed {a:.3e})" for e, a in errs),
+                      flush=True)
+                if not all(e <= a for e, a in errs):
+                    raise AssertionError("bcsr_attention disagrees with its "
+                                         "plain version")
+                cases.append(dict(kernel="bcsr_attention", dataset=label, H=h,
+                                  F=f, dropout=rate, args=args,
+                                  n_valid=n_valid,
+                                  max_abs_err=max(e for e, _ in errs)))
+                del got, want
+    return cases
+
+
+def _time_bcsr(case, large=None, band_plan=None):
+    """Device ms of ``bcsr_attention`` at ``case``'s shape and, without a
+    dropout mask, of its plain version; and the bound: f_dst, f_src and wh read once, the slot data of
+    the valid slots (recv_local, send_local, valid; drop when masked),
+    chunk_col and the tile offsets, out, m and den written, over the
+    card's memory rate; about 2F + 10 FLOPs per valid slot and head. With
+    ``large``, also the stream and banded fused forwards (``fused_v1``,
+    ``fused_v1_banded``: numerators and denominators of the same attention,
+    f_src = wh . a_src, no dropout) over the same wh and f_dst."""
+    import torch
+
+    from pygat_tpu_torch.legacy_bcsr.fused_attention import (
+        bcsr_attention,
+        bcsr_attention_plain,
+    )
+    from pygat_tpu_torch.ops.banded import fused_v1_banded
+    from pygat_tpu_torch.ops.fused_stream import fused_v1, leaky_relu
+
+    args = case.pop("args")
+    fd, fs, wh, tiles, _, drop = args
+    h, n, f = wh.shape
+    # the plain version takes 50-80 ms a call at Pubmed and 524k
+    kw = (dict(calls=BIG_CALLS, replays=BIG_REPLAYS)
+          if case["dataset"] != "cora" else {})
+    case["ms"] = _time_ms(lambda: bcsr_attention(*args), **kw)
+    if drop is None:  # with a mask, the kernel is held to it but not timed
+        case["plain_ms"] = _time_ms(lambda: bcsr_attention_plain(*args), **kw)
+    case["library_ms"] = None
+    n_bytes = (4 * (2 * h * n + 2 * h * n * f + 2 * h * n)
+               + (16 if drop is not None else 12) * case["n_valid"]
+               + 4 * (tiles.num_chunks + tiles.n_tiles + 1))
+    case["bound_ms"], case["bound_by"] = _bound(
+        n_bytes, case["n_valid"] * h * (2 * f + 10))
+    extra = ""
+    if large is not None:
+        g = large.graph
+        a_src = torch.randn(h, f, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(80))
+        wh_n = wh.permute(1, 0, 2).reshape(n, h * f).contiguous()
+        fd_n = fd.T.contiguous()
+        f_src = torch.einsum("hnf,hf->nh", wh, a_src)
+        m_src = torch.where(g.node_mask[:, None], f_src, float("-inf")).amax(0)
+        bound = leaky_relu(fd_n + m_src[None], 0.2).contiguous()
+        keepq = torch.ones(g.num_edges_padded, h, device="cuda")
+        case["fused_v1_ms"] = _time_ms(lambda: fused_v1(
+            wh_n, fd_n, bound, a_src, keepq, g.senders, g.r_local, g.r_chunk,
+            0.2), **kw)
+        keepq_b = torch.ones(band_plan.num_slots, h, device="cuda")
+        case["fused_v1_banded_ms"] = _time_ms(lambda: fused_v1_banded(
+            wh_n, fd_n, bound, a_src, keepq_b, band_plan, 0.2), **kw)
+        extra = (f"; same attention: fused_v1 {case['fused_v1_ms']:.4f} ms, "
+                 f"fused_v1_banded {case['fused_v1_banded_ms']:.4f} ms")
+        del wh_n, fd_n, f_src, bound, keepq, keepq_b
+    plain = (f", plain {case['plain_ms']:.4f} ms" if "plain_ms" in case
+             else "")
+    print(f"  bcsr_attention {case['dataset']} H={h} F={f} "
+          f"dropout={case['dropout']}: {case['ms']:.4f} ms{plain}, bound "
+          f"{case['bound_ms']:.5f} ms ({case['bound_by']}){extra}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1714,7 +1932,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done(6, t0)
 
-    # -- phase 7: the kernels line ----------------------------------------------
+    # -- phase 7: the BCSR path -------------------------------------------------
+    # gat_attention_v1's two routes against each other on Cora and Pubmed,
+    # with the counters set to 0 just before and read just after; then the
+    # kernel against its plain version, and timed, there and at 524k
+    t0 = time.perf_counter()
+    bcsr_graphs = {"cora": datasets["cora"].graph,
+                   "pubmed": datasets["pubmed"].graph, "large": large.graph}
+    bcsr_tilings, bcsr_setup = _bcsr_tilings(bcsr_graphs)
+    for fn in counters.values():
+        fn.launches = 0
+    bcsr_errors = _bcsr_path(bcsr_graphs, bcsr_tilings, counters)
+    path_launches["bcsr"] = {name: fn.launches
+                             for name, fn in counters.items()}
+    path_replayed["bcsr"] = dict.fromkeys(counters, 0)
+    print(f"phase 7: BCSR path: wrapper launches "
+          f"{ {k: v for k, v in path_launches['bcsr'].items() if v} }",
+          flush=True)
+    for case in _bcsr_kernel_cases(bcsr_graphs, bcsr_tilings):
+        big = case["dataset"] == "large"
+        _time_bcsr(case, large if big and not case["dropout"] else None,
+                   large_plan)
+        kernel_cases["bcsr_attention"].append(case)
+    del bcsr_tilings
+    torch.cuda.empty_cache()
+    phase_done(7, t0)
+
+    # -- phase 8: the kernels line ----------------------------------------------
     launches = {name: sum(v[name] for v in path_launches.values())
                 for name in counters}
     replayed = {name: sum(v[name] for v in path_replayed.values())
@@ -1731,14 +1975,17 @@ def main() -> int:
         # both plans at each of the 4 widths the two models turn, once; the
         # window forwards: one forward's 2 launches), and the large graph
         # for the SpMM ones (one forward at L = 128: spmm_banded over the
-        # band plan, panel_spmm over the uncapped layout); every shape is
+        # band plan, panel_spmm over the uncapped layout), and the large
+        # graph for bcsr_attention (one forward at H = 8, F = 8, no
+        # dropout mask); every shape is
         # listed under "cases". "launches" sums the wrapper's count over the
-        # main-path runs of phases 4 and 6 (one by one under
+        # main-path runs of phases 4, 6 and 7 (one by one under
         # "launches_by_path"); "replayed_launches" are those of the fast
         # loop's CUDA graph replays, replays x launches captured.
         main_set = "cora" if name in ("stream_scatter", "fused_v1",
                                       "fused_v2") else "large"
-        main_cases = [c for c in cases if c["dataset"] == main_set]
+        main_cases = [c for c in cases if c["dataset"] == main_set
+                      and not c.get("dropout")]
         lib = [c["library_ms"] for c in main_cases]
         entries.append({
             "name": name, "route": "cuda",
@@ -1759,7 +2006,8 @@ def main() -> int:
             "cases": [{k: c[k] for k in ("dataset", "path", "side", "dir",
                                          "pass", "p", "L", "H", "F", "P",
                                          "ms", "op_ms", "two_pass_ms",
-                                         "spmm_graph_ms",
+                                         "spmm_graph_ms", "dropout",
+                                         "fused_v1_ms", "fused_v1_banded_ms",
                                          "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
                                          "max_abs_err") if k in c}
@@ -1771,9 +2019,10 @@ def main() -> int:
     print(json.dumps({"kernels": entries, "epoch_ms": epoch_ms,
                       "setup_s": {"large_band_plan": band_plan_s,
                                   "large_corner_plans": corner_plan_s,
-                                  **spmm_setup},
+                                  **spmm_setup, **bcsr_setup},
                       "spmm": {"route_max_abs_err": route_errors,
                                "peak_allocated_gib": spmm_peak_gib},
+                      "bcsr": {"route_max_abs_err": bcsr_errors},
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,14 +6,25 @@ Exported as the JAX package's ``pygat_tpu.ops`` exports them, where ported:
 the SpMM ops (the counterparts of the reference's ``SpecialSpmm``,
 ``layers.py:70-95``) over the receiver stream (:func:`spmm_graph`), the
 panel layout (:func:`panel_spmm_graph`), a band plan (:func:`spmm_banded`)
-and the corner plans (:func:`spmm_corner_graph`), and the SDDMM."""
+and the corner plans (:func:`spmm_corner_graph`), the SDDMM, and the
+segment reductions and segment softmax of :mod:`.segment`.
+
+Importing the package also imports
+:mod:`pygat_tpu_torch.legacy_bcsr.fused_attention`, which registers the
+``bcsr_attention`` kernel's wrapper, so that :func:`build.launch_counts`
+covers every kernel of ``build.ENTRY_POINTS``."""
 
 from pygat_tpu_torch.ops.segment import (  # noqa: F401
     gather_receivers,
     gather_senders,
+    segment_max,
+    segment_softmax_stable,
     segment_sum,
     segment_sum_receivers,
     segment_sum_senders,
+    sender_segment_sum,
+    sorted_segment_max,
+    sorted_segment_sum,
 )
 from pygat_tpu_torch.ops.spmm import spmm, spmm_graph  # noqa: F401
 from pygat_tpu_torch.ops.sddmm import sddmm, sddmm_graph  # noqa: F401
@@ -48,3 +59,7 @@ from pygat_tpu_torch.ops.fused_corner import (  # noqa: F401
     fused_v1_attention_corner,
     fused_v2_attention_corner,
 )
+
+# registers the bcsr_attention wrapper (a plain import: the module imports
+# this package's build first, so it may be mid-import here)
+import pygat_tpu_torch.legacy_bcsr.fused_attention  # noqa: E402, F401

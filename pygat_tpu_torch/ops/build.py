@@ -47,6 +47,8 @@ ENTRY_POINTS = {
                         [_P] * 7 + [_I] * 4 + [_F] + [_P] * 3),
     "spmm_banded": ("pygat_spmm_banded", [_P] * 6 + [_I] * 4 + [_P] * 2),
     "panel_spmm": ("pygat_panel_spmm", [_P] * 7 + [_I] * 4 + [_P] * 2),
+    "bcsr_attention": ("pygat_bcsr_attention",
+                       [_P] * 9 + [_I] * 3 + [_F] + [_P] * 4),
 }
 SOURCES = tuple(ENTRY_POINTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,8 +1,19 @@
-"""Segment sums and edge gathers over a Graph (port of the part of
-``pygat_tpu/ops/segment.py`` that the SpMM and SDDMM ops use).
+"""Segment reductions, the segment softmax and edge gathers (port of the
+part of ``pygat_tpu/ops/segment.py`` that the SpMM and SDDMM ops and the
+BCSR attention of :mod:`pygat_tpu_torch.legacy_bcsr` use).
 
 * :func:`segment_sum` is the plain scatter-add (``index_add_``), the
-  reference's ``jax.ops.segment_sum``;
+  reference's ``jax.ops.segment_sum``, and :func:`segment_max` the plain
+  scatter-max (``scatter_reduce_("amax")``, ``-inf`` for an empty segment),
+  its ``jax.ops.segment_max``;
+* :func:`sorted_segment_sum`, :func:`sorted_segment_max` and
+  :func:`sender_segment_sum` take the reference's arguments (CSR offsets,
+  the CSC view) and keep its gradient rules: the sums' gradients are
+  gathers, the max stops the gradient and fills empty segments with
+  ``-9e15``. The reference lowers them to segmented scans or XLA
+  scatters; here they are ``index_add_`` and ``scatter_reduce_``;
+* :func:`segment_softmax_stable` returns the reference's ``(numerator,
+  denominator)``, with padding edges at 0;
 * :func:`segment_sum_receivers` / :func:`segment_sum_senders` sum edge data
   per receiver / per sender through the stream segment sum (kernel
   ``csrc/stream_scatter.cu``), the receiver side over the graph's physical
@@ -15,8 +26,9 @@
 Edge data may be [E_pad] or [E_pad, ...]; trailing dimensions are summed
 as columns. A graph without stream layouts (N_pad not a multiple of 128)
 sums with :func:`segment_sum` instead, where the reference runs its sorted
-scans. The reference's ``segment_max``, softmax, scan ops and the impl
-switch are not ported here (ROADMAP item 10).
+scans. The reference's ``take_receivers``, ``take_senders``,
+``gather_receivers_hn`` and the impl switch ``set_segment_impl`` are not
+ported here (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -35,6 +47,92 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
                       dtype=data.dtype, device=data.device)
     return out.index_add_(0, segment_ids.long(), data)
+
+
+NEG_FILL = -9e15  # the reference's fill for masked logits and empty maxima
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, *, sorted_ids: bool = True) -> torch.Tensor:
+    """``out[s] = max of data[e] over segment_ids[e] == s``; ``-inf`` for an
+    empty segment, as ``jax.ops.segment_max`` gives. ``sorted_ids`` is
+    accepted for the reference's signature."""
+    del sorted_ids
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), -torch.inf,
+                     dtype=data.dtype, device=data.device)
+    ids = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1))
+    return out.scatter_reduce(0, ids.expand_as(data), data, "amax",
+                              include_self=False)
+
+
+def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                       row_ptr: torch.Tensor) -> torch.Tensor:
+    """Per-segment sum of ``data`` [E, ...] grouped by sorted
+    ``segment_ids`` -> [N, ...], zeros for empty segments; ``row_ptr``
+    [N + 1] are the CSR offsets (only their length is read). The gradient
+    (``index_add_``'s) is the gather ``g[segment_ids]``."""
+    return segment_sum(data, segment_ids, row_ptr.shape[0] - 1)
+
+
+def sorted_segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                       row_ptr: torch.Tensor, *,
+                       fill: float = NEG_FILL) -> torch.Tensor:
+    """Per-segment max (sorted ids), ``fill`` where the max is not finite
+    (an empty segment). Stops the gradient: its use is softmax
+    stabilisation, where the shift cancels."""
+    out = segment_max(data.detach(), segment_ids, row_ptr.shape[0] - 1)
+    return torch.where(torch.isfinite(out), out, fill)
+
+
+def sender_segment_sum(data: torch.Tensor, senders: torch.Tensor,
+                       col_perm: torch.Tensor,
+                       col_ptr: torch.Tensor) -> torch.Tensor:
+    """Per-sender sum of edge ``data`` [E, ...] -> [N, ...]. ``col_perm`` /
+    ``col_ptr`` are the graph's CSC view, taken for the reference's
+    signature (only ``col_ptr``'s length is read). The gradient
+    (``index_add_``'s) is the gather ``g[senders]``."""
+    del col_perm
+    return segment_sum(data, senders, col_ptr.shape[0] - 1, sorted_ids=False)
+
+
+def segment_softmax_stable(
+    logits: torch.Tensor,  # [E, ...] per-edge attention logits
+    segment_ids: torch.Tensor,  # [E] receiver of each edge (sorted)
+    num_segments: int,
+    edge_mask: torch.Tensor | None = None,  # [E] bool, False on padding
+    *,
+    sorted_ids: bool = True,
+    row_ptr: torch.Tensor | None = None,  # [N + 1] CSR offsets
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Numerically stable segment softmax as ``(numerator [E, ...],
+    denominator [N, ...])``: ``exp(logit - max of its segment)`` and the
+    per-segment sum, kept apart because attention dropout multiplies the
+    numerator after the denominator is taken (reference ``layers.py``
+    :145-160). The max is gradient-stopped (the shift cancels); padding
+    edges get numerator 0, and an empty segment denominator 0. Trailing
+    dimensions of ``logits`` (heads) are batched."""
+    ids = segment_ids.long()
+    mask = None
+    if edge_mask is not None:
+        mask = edge_mask.reshape((-1,) + (1,) * (logits.dim() - 1))
+        logits = torch.where(mask, logits, NEG_FILL)
+    if row_ptr is not None:
+        seg_max = sorted_segment_max(logits, segment_ids, row_ptr)
+    else:
+        seg_max = segment_max(logits.detach(), segment_ids, num_segments,
+                              sorted_ids=sorted_ids)
+    # empty or all-padding segments: a max of -inf or the fill becomes 0,
+    # so the exp below stays finite
+    seg_max = torch.where(torch.isfinite(seg_max) & (seg_max > -8.9e15),
+                          seg_max, 0.0)
+    num = torch.exp(logits - seg_max.detach()[ids])
+    if mask is not None:
+        num = torch.where(mask, num, 0.0)
+    if row_ptr is not None:
+        den = sorted_segment_sum(num, segment_ids, row_ptr)
+    else:
+        den = segment_sum(num, segment_ids, num_segments)
+    return num, den
 
 
 def _receiver_sum(data: torch.Tensor, graph) -> torch.Tensor:

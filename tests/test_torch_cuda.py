@@ -19,7 +19,11 @@ kernels run on those band plans and on panel layouts with and without a
 panel cap (overflow slots), with a tile without edges, at L = 1, 48, 65 and
 128, over node tables whose next row in memory is NaN (a row formed for a
 dead slot past the table would show), and every SpMM op's backward runs
-card against CPU. chip_smoke.py covers the main path's full-size shapes.
+card against CPU. The BCSR attention kernel runs on tilings with a row
+tile without edges and (I, J) pairs of several chunks, at F = 7, 8 and 256
+(four column slabs), with and without a dropout mask, and its autograd
+Function card against CPU. chip_smoke.py covers the main path's full-size
+shapes.
 """
 
 from __future__ import annotations
@@ -31,6 +35,9 @@ import torch
 from pygat_tpu_torch.data import synthetic
 from pygat_tpu_torch.data.citation import CitationDataset
 from pygat_tpu_torch.graph import build_graph
+from pygat_tpu_torch.legacy_bcsr import fused_attention as bfa
+from pygat_tpu_torch.legacy_bcsr import sparse_attention as bsa
+from pygat_tpu_torch.legacy_bcsr.tiles import tile_graph
 from pygat_tpu_torch.models.gat import GATConfig
 from pygat_tpu_torch import ops
 from pygat_tpu_torch.ops import banded as bd
@@ -1063,3 +1070,85 @@ def test_spmm_wrappers_never_call_plain_on_the_card(cuda, monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         bd.banded_weighted_sum(torch.zeros(plan.num_slots, device=cuda),
                                x.detach().T.contiguous().T, plan)
+
+
+def _bcsr_args(g, tiles, h, f, gen, device, dropout):
+    n = g.num_nodes_padded
+    keep = None
+    if dropout:
+        keep = torch.where(torch.rand(g.num_edges_padded, generator=gen,
+                                      device=device) < 0.6, 1.0 / 0.6, 0.0)
+    drop = None if keep is None else (
+        keep[tiles.edge_perm.long().clamp(min=0)] * tiles.valid)
+    return ([torch.randn(h, n, generator=gen, device=device),
+             torch.randn(h, n, generator=gen, device=device),
+             torch.randn(h, n, f, generator=gen, device=device)], keep, drop)
+
+
+@pytest.mark.parametrize("dropout", [False, True], ids=["no_drop", "drop"])
+@pytest.mark.parametrize("empty_tile", [False, True])
+@pytest.mark.parametrize("h,f", [(8, 8), (1, 7), (3, 256)])
+def test_bcsr_attention_kernel_matches_plain(cuda, h, f, empty_tile, dropout):
+    g = _graph(cuda, empty_tile)
+    tiles = tile_graph(g)
+    gen = torch.Generator(device=cuda).manual_seed(10 * h + f)
+    (fd, fs_, wh), _, drop = _bcsr_args(g, tiles, h, f, gen, cuda, dropout)
+    before = bfa.bcsr_attention.launches
+    got = bfa.bcsr_attention(fd, fs_, wh, tiles, 0.2, drop)
+    torch.cuda.synchronize()
+    assert bfa.bcsr_attention.launches == before + 1
+    want = bfa.bcsr_attention_plain(fd, fs_, wh, tiles, 0.2, drop)
+    for a, b in zip(got, want):
+        _close(a, b)
+    if empty_tile:
+        assert not got[0][:, 128:256].any() and not got[2][:, 128:256].any()
+
+
+def test_bcsr_attention_gradients_card_vs_cpu(cuda, monkeypatch):
+    """gat_attention_v1's fused route on the card (one bcsr_attention
+    launch forward, two stream_scatter launches backward, no plain
+    version) against the same route on the CPU, with a dropout mask."""
+    g = _graph(cuda, True)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    args, keep, _ = _bcsr_args(g, tile_graph(g), 4, 8, gen, cuda, True)
+    outs, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        gd = g.to(dev)
+        call = [t.detach().to(dev).requires_grad_() for t in args]
+        if dev == "cuda":
+            def boom(*a, **k):
+                raise AssertionError("plain version called for a CUDA tensor")
+            monkeypatch.setattr(bfa, "bcsr_attention_plain", boom)
+            monkeypatch.setattr(st, "stream_scatter_plain", boom)
+            before = build.launch_counts()
+        out = bsa._gat_attention_v1(*call, gd, tile_graph(gd), alpha=0.2,
+                                    backend="pallas",
+                                    keep_scaled=keep.to(dev))
+        (out.sin().sum()).backward()
+        outs[dev] = out.detach().cpu()
+        grads[dev] = [t.grad.cpu() for t in call]
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"bcsr_attention": 1, "stream_scatter": 2}
+    _close(outs["cuda"], outs["cpu"])
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        scale = max(1e-30, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
+
+
+def test_bcsr_attention_is_capturable(cuda):
+    """After its first call has derived the tile offsets, the wrapper
+    launches inside a CUDA graph capture (chip_smoke.py times it so)."""
+    g = _graph(cuda, False)
+    tiles = tile_graph(g)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    (fd, fs_, wh), _, _ = _bcsr_args(g, tiles, 2, 8, gen, cuda, False)
+    want = bfa.bcsr_attention(fd, fs_, wh, tiles, 0.2)[0]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = bfa.bcsr_attention(fd, fs_, wh, tiles, 0.2)[0]
+    graph.replay()
+    torch.cuda.synchronize()
+    _close(got, want)

@@ -25,18 +25,22 @@ assert not build._KERNELS
 assert {"pygat_tpu_torch.ops.corner", "pygat_tpu_torch.ops.fused_corner",
         "pygat_tpu_torch.ops.large", "pygat_tpu_torch.ops.segment",
         "pygat_tpu_torch.ops.spmm", "pygat_tpu_torch.ops.sddmm",
-        "pygat_tpu_torch.ops.panel"} <= set(names)
-# every kernel has its wrapper, the corner and SpMM kernels included
+        "pygat_tpu_torch.ops.panel", "pygat_tpu_torch.legacy_bcsr.tiles",
+        "pygat_tpu_torch.legacy_bcsr.fused_attention",
+        "pygat_tpu_torch.legacy_bcsr.sparse_attention"} <= set(names)
+# every kernel has its wrapper, the corner, SpMM and BCSR kernels included
 assert set(build.launch_counts()) >= {"corner_permute", "fused_v1_window",
                                       "fused_v2_window", "spmm_banded",
-                                      "panel_spmm"}
+                                      "panel_spmm", "bcsr_attention"}
 # the SpMM family is exported as the JAX package exports it
 from pygat_tpu_torch import ops
 for name in ("spmm", "spmm_graph", "sddmm", "sddmm_graph", "panel_spmm",
              "panel_spmm_graph", "build_panel_layout", "spmm_banded",
              "spmm_corner_graph", "segment_sum", "gather_senders",
              "gather_receivers", "segment_sum_receivers",
-             "segment_sum_senders"):
+             "segment_sum_senders", "segment_max", "sorted_segment_sum",
+             "sorted_segment_max", "sender_segment_sum",
+             "segment_softmax_stable"):
     assert callable(getattr(ops, name)), name
 print(len(names))
 """
@@ -47,4 +51,4 @@ def test_port_and_smoke_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 26  # every module was imported
+    assert int(proc.stdout.strip()) >= 30  # every module was imported
