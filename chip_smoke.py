@@ -65,9 +65,11 @@ of which prints its seconds:
    against the plain SpMM (``ops.spmm``, row gathers and ``index_add_``)
    and against ``spmm_graph``, each call's launches as its route states;
    then the two SpMM kernels (``spmm_banded``, ``panel_spmm``) against
-   their plain versions and timed beside them, their bounds and
-   ``torch.sparse.mm`` over the same weighted graph; the panel layouts'
-   set-up seconds and the phase's peak device memory;
+   their plain versions, there and on a small graph with a hub whose tile
+   the kernels split, each called twice (the two results equal bit for
+   bit), and timed beside them, their bounds and ``torch.sparse.mm`` over
+   the same weighted graph; the panel layouts' set-up seconds and the
+   phase's peak device memory;
 7. the BCSR path (``pygat_tpu_torch.legacy_bcsr``, which no model
    reaches): the Cora and Pubmed stand-ins and the 524k graph, each tiled
    once (its seconds printed); with the launch counters set to 0 just
@@ -965,13 +967,53 @@ def _large_epoch_ms(cfg, data, plans):
     return {k: sorted(v) for k, v in samples.items()}, peak
 
 
+def _hub_graph():
+    """The hub graph (``data.synthetic.hub_edges``) on the card: its hub's
+    tile owns some 38 chunks of the receiver stream and of a w = 4 band
+    plan, more than HEAVY_CHUNKS: the SpMM kernels split it."""
+    from pygat_tpu_torch.data.synthetic import hub_edges
+    from pygat_tpu_torch.graph import build_graph
+
+    s, r, n = hub_edges()
+    return build_graph(s, r, None, n, device="cuda")
+
+
+def _hub_spec():
+    """The hub graph (``_hub_graph``) with its band plan (w = 4) and panel
+    layout, whose hub tile the SpMM kernels split: a case of the two SpMM
+    kernels, not of the SpMM path (its hub row sums 9,000 terms, whose f32
+    reordering between routes passes KERNEL_RTOL of max |out|)."""
+    from pygat_tpu_torch.ops.banded import build_band_plan
+    from pygat_tpu_torch.ops.panel import build_panel_layout
+
+    hub = _hub_graph()
+    plan, layout = build_band_plan(hub, w=4), build_panel_layout(hub)
+    print(f"phase 6: hub: N_pad {hub.num_nodes_padded}; pieces of split "
+          f"tiles past the first: band plan {plan.split_at.numel()} (of "
+          f"{plan.num_chunks} chunks), panel layout "
+          f"{layout.split_at.numel()} (of {hub.r_chunk.numel()}, P "
+          f"{layout.n_panels})", flush=True)
+    if not (plan.split_at.numel() and layout.split_at.numel()):
+        raise AssertionError("the hub graph has no split tile")
+    return dict(graph=hub, band=plan, corner=None, layouts={"hub": layout})
+
+
+def _banded_values(plan, w):
+    """Per-edge values ``w`` in the band plan's slot order (0 on dead
+    slots), and the plan's ``perm`` on the card."""
+    import torch
+
+    perm = torch.from_numpy(plan.perm).to("cuda")
+    return torch.where(perm >= 0, w[perm.clamp(min=0)], 0.0), perm
+
+
 def _spmm_graphs(pubmed, large, band_plan, large_corner):
     """The graphs of the SpMM path and what each route needs: the Pubmed
     stand-in with its own corner plans and a panel layout (uniform, so P
     near its tile count), and the 524k graph with the band plan and corner
     plans of phase 3 and two panel layouts, uncapped and capped at
-    SPMM_P_MAX panels (overflow slots). Returns them and the set-up
-    seconds of what is built here."""
+    SPMM_P_MAX panels (overflow slots). Returns them and the set-up seconds
+    of what is built here."""
     from pygat_tpu_torch.ops.large import plan_csc_to_csr
     from pygat_tpu_torch.ops.panel import build_panel_layout
 
@@ -1064,9 +1106,8 @@ def _spmm_routes(label, spec, inp):
                               "stream_scatter": 2}))
     plan = spec["band"]
     if plan is not None:
-        perm = torch.from_numpy(plan.perm).to("cuda")
         # the plan's slots hold the real edges only, which the mask keeps
-        vals_b = torch.where(perm >= 0, inp["w"][perm.clamp(min=0)], 0.0)
+        vals_b, perm = _banded_values(plan, inp["w"])
         inp["vals_b"], inp["perm"] = vals_b, perm
         routes += [
             ("spmm_banded (fused)",
@@ -1174,8 +1215,13 @@ def _library_csr(g, w):
 
 def _spmm_kernel_cases(specs, inputs):
     """Rows 7 and 9 at the shapes of the SpMM path (the 524k band plan; the
-    Pubmed layout and both 524k layouts), each held against its plain
-    version on the same inputs to KERNEL_RTOL of max(1, max |plain|)."""
+    Pubmed layout and both 524k layouts; the hub graph's band plan and
+    layout), each held against its plain version on the same inputs to
+    KERNEL_RTOL of max(1, max |plain|), and called twice: the two results
+    must agree bit for bit. The hub's row sums 9,000 terms, whose f32
+    reordering moves it by up to some 4e-5 of its value, so the hub is held
+    to KERNEL_RTOL of the same sums over |values| and |x| elementwise (the
+    segment-sum rule of phase 3)."""
     import torch
 
     from pygat_tpu_torch import ops
@@ -1205,12 +1251,14 @@ def _spmm_kernel_cases(specs, inputs):
                          inp["vals_b"], inp["x"], plan),
                      "two_pass": lambda plan=plan, inp=inp: ops.spmm_banded(
                          inp["vals_b"], inp["x"], plan, fused=False)},
-                lib=lib, x=inp["x"],
+                mag=lambda plan=plan, inp=inp: banded_weighted_sum_plain(
+                    inp["vals_b"].abs(), inp["x"].abs(), plan),
+                lib=lib, x=inp["x"], split_at=plan.split_at.numel(),
                 n_bytes=4 * (3 * plan.num_slots + 2 * plan.num_chunks
                              + 2 * plan.n_pad * SPMM_L)))
         for name, lay in spec["layouts"].items():
             args = (lay.panel_tiles, lay.g_idx, g.edge_mask, g.r_local,
-                    g.r_chunk)
+                    g.r_chunk, lay.tile_ptr, lay.split_at)
             fits = ((lay.g_idx < lay.n_panels * 128) & (g.r_local < 128)
                     & g.edge_mask)
             e_s = g.num_edges_padded
@@ -1221,33 +1269,47 @@ def _spmm_kernel_cases(specs, inputs):
                     inp["w"], inp["x"], *args),
                 plain=lambda args=args, inp=inp: panel_weighted_sum_plain(
                     inp["w"], inp["x"], *args),
+                mag=lambda args=args, inp=inp: panel_weighted_sum_plain(
+                    inp["w"].abs(), inp["x"].abs(), *args),
                 ops={"op": lambda g=g, lay=lay, inp=inp: ops.panel_spmm_graph(
                          inp["w"], inp["x"], g, lay),
                      "spmm_graph": lambda g=g, inp=inp: ops.spmm_graph(
                          inp["w"], inp["x"], g)},
-                lib=lib, x=inp["x"],
+                lib=lib, x=inp["x"], split_at=lay.split_at.numel(),
                 n_bytes=(4 * (3 * e_s + g.r_chunk.numel()
                               + lay.panel_tiles.numel()
                               + 2 * g.num_nodes_padded * SPMM_L) + e_s)))
     for case in cases:
-        got, want = case["run"](), case["plain"]()
+        got, again, want = case["run"](), case["run"](), case["plain"]()
+        mag = case.pop("mag")()
         torch.cuda.synchronize()
         err, allowed = _max_err(got, want)
+        worst = float(((got - want).abs()
+                       / (KERNEL_RTOL * mag + 1e-30)).max())
         case["max_abs_err"] = err
+        case["bitwise_repeat"] = bool(torch.equal(got, again))
         shape = f"L={SPMM_L}" + (f" P={case['P']}" if "P" in case else "")
-        print(f"  {case['kernel']} {case['dataset']} {shape}: kernel vs plain "
-              f"max_abs_err {err:.3e} (allowed {allowed:.3e})", flush=True)
-        if err > allowed:
+        print(f"  {case['kernel']} {case['dataset']} {shape} ({case['split_at']} "
+              f"extra pieces of split tiles): kernel vs plain max_abs_err "
+              f"{err:.3e} (allowed {allowed:.3e}), worst element at "
+              f"{worst:.3f} of its segment-sum allowance; two calls equal "
+              f"bit for bit: {case['bitwise_repeat']}", flush=True)
+        held = worst <= 1.0 if case["dataset"] == "hub" else err <= allowed
+        if not held:
             raise AssertionError(f"{case['kernel']} disagrees with its plain "
                                  "version")
-        del got, want
+        if not case["bitwise_repeat"]:
+            raise AssertionError(f"{case['kernel']}: two calls on the same "
+                                 "inputs differ")
+        del got, again, want, mag
     return cases
 
 
 def _time_spmm(case):
     """Device ms of a SpMM kernel, its plain version and ``torch.sparse.mm``
     of the same weighted graph (CSR, built once), and the bound: each input
-    read once (the values, index words and mask per slot, the node table),
+    read once (the values, index words and mask per slot, the tile ranges,
+    the node table),
     the output written once, over the card's memory rate; two FLOPs per
     live slot and column. Beside them, the forward of the op around the
     kernel (``op_ms``: with a capped layout, the kernel and the overflow
@@ -1912,6 +1974,14 @@ def main() -> int:
                                           large_plan, large_corner)
     spmm_inputs = {label: _spmm_inputs(spec["graph"], 17 + i)
                    for i, (label, spec) in enumerate(spmm_specs.items())}
+    for label, spec in spmm_specs.items():  # built at a plan's first SpMM
+        if spec["band"] is not None:
+            t1 = time.perf_counter()
+            walk = spec["band"].spmm_walk
+            torch.cuda.synchronize()
+            print(f"phase 6: {label}: band plan's SpMM walk of "
+                  f"{walk.order.numel()} slots built in "
+                  f"{time.perf_counter() - t1:.4f} s", flush=True)
     for fn in counters.values():
         fn.launches = 0
     route_errors = _spmm_path(spmm_specs, spmm_inputs, counters)
@@ -1921,6 +1991,10 @@ def main() -> int:
     print(f"phase 6: SpMM path: wrapper launches "
           f"{ {k: v for k, v in path_launches['spmm'].items() if v} }",
           flush=True)
+    spmm_specs["hub"] = _hub_spec()
+    spmm_inputs["hub"] = _spmm_inputs(spmm_specs["hub"]["graph"], 19)
+    spmm_inputs["hub"]["vals_b"], _ = _banded_values(
+        spmm_specs["hub"]["band"], spmm_inputs["hub"]["w"])
     spmm_cases = _spmm_kernel_cases(spmm_specs, spmm_inputs)
     for case in spmm_cases:
         _time_spmm(case)
@@ -2010,7 +2084,8 @@ def main() -> int:
                                          "fused_v1_ms", "fused_v1_banded_ms",
                                          "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
-                                         "max_abs_err") if k in c}
+                                         "max_abs_err", "split_at",
+                                         "bitwise_repeat") if k in c}
                       for c in cases],
         })
         if not launches[name]:

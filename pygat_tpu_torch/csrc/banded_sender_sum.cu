@@ -114,10 +114,10 @@ extern "C" int pygat_banded_sender_sum(const float* data, const int* band,
   if (e != cudaSuccess || n_chunks <= 0) return static_cast<int>(e);
   const int slab = L < MAX_SLAB ? L : MAX_SLAB;
   const size_t smem = sizeof(float) * EC * slab;
-  // above 48 KB of shared memory a kernel must opt in. The attribute is
-  // set on the current device only, so it is set at every such launch
-  // (a host-side call of about a microsecond).
-  if (smem > 48 * 1024) {
+  // above 48 KB of shared memory, s_row's included, a kernel must opt in.
+  // The attribute is set on the current device only, so it is set at every
+  // such launch (a host-side call of about a microsecond).
+  if (smem + sizeof(int) * EC > 48 * 1024) {
     e = cudaFuncSetAttribute(banded_sender_sum_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

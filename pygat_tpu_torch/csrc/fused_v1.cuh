@@ -183,10 +183,10 @@ int launch_fused_v1(const float* wh, const float* f_dst, const float* bound,
   if (hpb > H) hpb = H;
   const int cols = hpb * F;
   const size_t smem = sizeof(float) * (TILE * (cols + hpb) + cols);
-  // above 48 KB of shared memory a kernel must opt in. The attribute is
-  // set on the current device only, so it is set at every such launch
-  // (a host-side call of about a microsecond).
-  if (smem > 48 * 1024) {
+  // above 48 KB of shared memory, the static arrays' included, a kernel
+  // must opt in. The attribute is set on the current device only, so it is
+  // set at every such launch (a host-side call of about a microsecond).
+  if (smem + sizeof(int) * (2 * EC + 2) > 48 * 1024) {
     e = cudaFuncSetAttribute(fused_v1_kernel<Rows>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

@@ -257,10 +257,10 @@ int launch_fused_v2(const float* whi, const float* sj, const float* si,
   const int cols = hpb * F;
   const size_t smem =
       sizeof(float) * (TILE * (cols + hpb) + cols + EC * hpb);
-  // above 48 KB of shared memory a kernel must opt in. The attribute is
-  // set on the current device only, so it is set at every such launch
-  // (a host-side call of about a microsecond).
-  if (smem > 48 * 1024) {
+  // above 48 KB of shared memory, the static arrays' included, a kernel
+  // must opt in. The attribute is set on the current device only, so it is
+  // set at every such launch (a host-side call of about a microsecond).
+  if (smem + sizeof(int) * (2 * EC + 2) > 48 * 1024) {
     e = cudaFuncSetAttribute(fused_v2_kernel<Rows>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

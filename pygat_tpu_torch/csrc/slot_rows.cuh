@@ -1,7 +1,8 @@
 // How a slot of a chunked edge order finds its node row, and the row
 // gather built on it (shared by expand.cu, banded_take.cu,
-// banded_sender_sum.cu, corner_permute.cu, the fused attention kernels and
-// the segment sums of stream_scatter.cuh).
+// banded_sender_sum.cu, corner_permute.cu, the fused attention kernels,
+// the segment sums of stream_scatter.cuh and the SpMM body of
+// tile_spmm.cuh).
 //
 // Every edge order of the port is cut into chunks of EC = 256 slots. A slot
 // names a node row in one of four ways:
@@ -37,8 +38,13 @@ namespace {
 constexpr int EC = 256;    // slots per chunk
 constexpr int TILE = 128;  // rows per output tile / window tile
 
+// ListedRows, WindowRows and PanelRows also split the lookup into word(k),
+// the slot's own index word, and row(word, chunk), so that a caller can
+// load the words of a later chunk early.
 struct ListedRows {
   const int* rows;
+  __device__ int word(long long k) const { return rows[k]; }
+  __device__ int row(int r, int) const { return r; }
   __device__ int operator()(long long k, int) const { return rows[k]; }
 };
 
@@ -46,11 +52,14 @@ struct WindowRows {
   const int* base;
   const int* loc;
   int limit;
-  __device__ int operator()(long long k, int chunk) const {
-    const int l = loc[k];
+  __device__ int word(long long k) const { return loc[k]; }
+  __device__ int row(int l, int chunk) const {
     return static_cast<unsigned>(l) < static_cast<unsigned>(limit)
                ? base[chunk] * TILE + l
                : -1;
+  }
+  __device__ int operator()(long long k, int chunk) const {
+    return row(word(k), chunk);
   }
 };
 
@@ -59,13 +68,16 @@ struct PanelRows {
   const int* chunk_tile;
   const int* g;
   int p;
-  __device__ int operator()(long long k, int chunk) const {
-    const int gk = g[k];
+  __device__ int word(long long k) const { return g[k]; }
+  __device__ int row(int gk, int chunk) const {
     if (static_cast<unsigned>(gk) >= static_cast<unsigned>(p * TILE))
       return -1;
     const long long at = static_cast<long long>(chunk_tile[chunk]) * p +
                          gk / TILE;
     return panel_tiles[at] * TILE + gk % TILE;
+  }
+  __device__ int operator()(long long k, int chunk) const {
+    return row(word(k), chunk);
   }
 };
 

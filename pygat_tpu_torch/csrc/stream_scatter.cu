@@ -22,8 +22,8 @@ extern "C" int pygat_stream_scatter(const float* data, const int* slot,
                                     int n_chunks, int n_tiles, int L,
                                     float* out, void* stream) {
   if (slot)
-    return launch_scatter_rows(data, ListedRows{slot}, Unweighted{}, local,
-                               chunk_tile, n_chunks, n_tiles, L, out, stream);
-  return launch_scatter_rows(data, SlotRows{}, Unweighted{}, local,
-                             chunk_tile, n_chunks, n_tiles, L, out, stream);
+    return launch_scatter_rows(data, ListedRows{slot}, local, chunk_tile,
+                                n_chunks, n_tiles, L, out, stream);
+  return launch_scatter_rows(data, SlotRows{}, local, chunk_tile,
+                              n_chunks, n_tiles, L, out, stream);
 }

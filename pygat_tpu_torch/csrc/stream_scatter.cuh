@@ -1,28 +1,23 @@
 // Stream segment sum for Hopper (sm_90a), templated on where a slot's row
-// comes from and on its weight (shared by stream_scatter.cu, spmm_banded.cu
-// and panel_spmm.cu).
+// comes from (the body of stream_scatter.cu).
 //
 // The stream is cut into chunks of EC = 256 slots; chunk c adds only into
 // the 128-row output tile chunk_tile[c] (non-decreasing), slot k adds into
 // row local[k] of that tile, and local == TILE (128) marks a dead slot that
 // contributes nothing. Slot k's data row is data[rows(k, c)] (slot_rows.cuh:
-// SlotRows for row k itself, ListedRows for a slot map, WindowRows and
-// PanelRows for a node row named by a window), scaled by weights(k) when the
-// weight policy is SlotWeights; a row policy that returns -1 marks the slot
-// dead as well. So the SpMM kernels read vals[k] * x[row(k)] straight from
-// the node table x and the [E, L] message array never reaches memory.
+// SlotRows for row k itself, ListedRows for a slot map; a row of -1 marks
+// a dead slot as well).
 //
 // The TPU kernels scatter with a one-hot matmul on the MXU and split f32
 // into bf16 limbs, because Mosaic cannot gather or scatter rows; their grid
 // walks the chunks in order and keeps a tile resident while consecutive
 // chunks add into it. Here the chunks run in parallel, one thread block per
 // chunk (and per 64 columns), and rows are read natively:
-//   * the block stages the chunk's local rows, source rows and weights in
-//     shared memory with one coalesced load, then all threads copy the
-//     chunk's live data rows into a [256, cols] shared window, several
-//     independent loads in flight per thread (on the sender side these are
-//     random rows of an array that need not fit in L2; a banded or panel
-//     chunk reads its rows from a few 128-row tiles, which stay in L2);
+//   * the block stages the chunk's local rows and source rows in shared
+//     memory with one coalesced load, then all threads copy the chunk's
+//     live data rows into a [256, cols] shared window, several independent
+//     loads in flight per thread (on the sender side these are random rows
+//     of an array that need not fit in L2);
 //   * threads form groups of `cols` (one thread per column); each group
 //     walks a contiguous slice of the window, sums runs of equal local rows
 //     in a register (the receiver stream is sorted by row; the banded order
@@ -35,12 +30,15 @@
 // One block per chunk, not per tile: tiles own very different chunk counts
 // on the sender side (every padding edge has the dummy sender N_pad - 1, so
 // the last tile owns 23 of Cora's 128 CSC chunks and 86 of Pubmed's 856),
-// and a block per tile left the whole call waiting on that one block.
+// and a block per tile left the whole call waiting on that one block. (The
+// SpMM kernels, whose receiver-ordered tiles own even chunk counts, left
+// this body for the tile-owner one of tile_spmm.cuh: measured in the
+// comments of spmm_banded.cu and panel_spmm.cu.)
 // Accumulation is plain f32 (the reference's 'high' contract, no limbs);
 // the atomics make the summation order vary from run to run.
 //
 // Bound on the H100: bytes. Each live slot reads L floats (plus its index
-// and weight words) and does two FLOPs per float.
+// words) and does one FLOP per float.
 
 #pragma once
 
@@ -52,32 +50,15 @@ constexpr int SCATTER_THREADS = 512;
 constexpr int MAX_SLAB = 64;  // columns per block
 constexpr int UNROLL = 8;     // independent window loads per thread
 
-struct Unweighted {
-  static constexpr bool kWeighted = false;
-  __device__ float operator()(long long) const { return 1.f; }
-};
-
-// vals[k], or 0 where mask (one bool byte per slot, may be null) is false
-struct SlotWeights {
-  const float* vals;
-  const unsigned char* mask;
-  static constexpr bool kWeighted = true;
-  __device__ float operator()(long long k) const {
-    const float v = __ldg(vals + k);  // not behind the mask's load
-    return mask == nullptr || mask[k] ? v : 0.f;
-  }
-};
-
-template <class Rows, class Weights>
+template <class Rows>
 __global__ void __launch_bounds__(SCATTER_THREADS)
-scatter_rows_kernel(const float* __restrict__ data, Rows rows, Weights weights,
+scatter_rows_kernel(const float* __restrict__ data, Rows rows,
                     const int* __restrict__ local,
                     const int* __restrict__ chunk_tile, int L,
                     float* __restrict__ out) {
   extern __shared__ float sm[];
   __shared__ int s_loc[EC];
   __shared__ int s_row[EC];
-  __shared__ float s_w[Weights::kWeighted ? EC : 1];
   __shared__ int s_lo, s_hi;  // range of local rows this chunk touches
 
   const long long base = static_cast<long long>(blockIdx.x) * EC;
@@ -98,7 +79,6 @@ scatter_rows_kernel(const float* __restrict__ data, Rows rows, Weights weights,
     const int row = rows(k, blockIdx.x);
     s_row[threadIdx.x] = row;
     s_loc[threadIdx.x] = row < 0 ? TILE : loc;
-    if constexpr (Weights::kWeighted) s_w[threadIdx.x] = weights(k);
   }
   __syncthreads();
   if (threadIdx.x < EC && static_cast<unsigned>(s_loc[threadIdx.x]) < TILE) {
@@ -116,7 +96,6 @@ scatter_rows_kernel(const float* __restrict__ data, Rows rows, Weights weights,
         if (static_cast<unsigned>(s_loc[k]) < TILE) {
           v[u] = __ldg(data + static_cast<long long>(s_row[k]) * L + c0 +
                        (i - k * cols));
-          if constexpr (Weights::kWeighted) v[u] *= s_w[k];
         }
       }
     }
@@ -162,8 +141,8 @@ scatter_rows_kernel(const float* __restrict__ data, Rows rows, Weights weights,
 // Zeroes out [n_tiles * 128, L] and launches one block per chunk and per 64
 // columns on `stream`; returns the first CUDA error, or cudaGetLastError()
 // after the launch.
-template <class Rows, class Weights>
-int launch_scatter_rows(const float* data, Rows rows, Weights weights,
+template <class Rows>
+int launch_scatter_rows(const float* data, Rows rows,
                         const int* local, const int* chunk_tile, int n_chunks,
                         int n_tiles, int L, float* out, void* stream) {
   if (n_tiles <= 0 || L <= 0) return 0;
@@ -173,18 +152,18 @@ int launch_scatter_rows(const float* data, Rows rows, Weights weights,
   if (e != cudaSuccess || n_chunks <= 0) return static_cast<int>(e);
   const int slab = L < MAX_SLAB ? L : MAX_SLAB;
   const size_t smem = sizeof(float) * (TILE + EC) * slab;
-  // above 48 KB of shared memory a kernel must opt in. The attribute is
-  // set on the current device only, so it is set at every such launch
-  // (a host-side call of about a microsecond).
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(scatter_rows_kernel<Rows, Weights>,
+  // above 48 KB of shared memory, the static arrays' included, a kernel
+  // must opt in. The attribute is set on the current device only, so it is
+  // set at every such launch (a host-side call of about a microsecond).
+  if (smem + sizeof(int) * (2 * EC + 2) > 48 * 1024) {
+    e = cudaFuncSetAttribute(scatter_rows_kernel<Rows>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(n_chunks, (L + MAX_SLAB - 1) / MAX_SLAB);
-  scatter_rows_kernel<Rows, Weights><<<grid, SCATTER_THREADS, smem, st>>>(
-      data, rows, weights, local, chunk_tile, L, out);
+  scatter_rows_kernel<Rows><<<grid, SCATTER_THREADS, smem, st>>>(
+      data, rows, local, chunk_tile, L, out);
   return static_cast<int>(cudaGetLastError());
 }
 

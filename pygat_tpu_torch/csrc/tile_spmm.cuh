@@ -1,0 +1,446 @@
+// Tile-owner SpMM for Hopper (sm_90a), templated on where a slot's row
+// comes from (shared by spmm_banded.cu and panel_spmm.cu).
+//
+// The edge order is cut into chunks of EC = 256 slots; every chunk writes
+// one 128-row output tile, and the chunks of tile t are the contiguous range
+// [tile_ptr[t], tile_ptr[t + 1]) (the chunk-to-tile map is non-decreasing;
+// the host derives tile_ptr once per layout or plan). The slot at position
+// k of chunk c adds vals[order[k]] * x[rows(k, c)] into row local[k] of its
+// tile (order null: the slot is k itself); local[k] outside [0, 128), a row
+// of -1 (slot_rows.cuh: ListedRows, WindowRows, PanelRows) or a false mask
+// byte marks a dead slot, which adds nothing and reads nothing of x.
+//
+// One block owns one output tile and one slab of at most 128 columns, and
+// walks the tile's chunk range:
+//   * the tile's sum stays on chip: an f32 [128, cols] accumulator in shared
+//     memory (64 KB at 128 columns), zeroed at the start and written once at
+//     the end with coalesced plain stores, every row, zeros included. No
+//     memset of the output, no global atomic;
+//   * warp w of the block's 8 owns the tile rows r with r % 8 == w, and only
+//     it adds into them, in the walk's order, with plain shared-memory
+//     adds: the sum's order is fixed by the data, so the result is bitwise
+//     the same from call to call (a shared-memory float atomic is a
+//     compare-and-swap loop on sm_90, 1.24–1.29x slower here, and its order
+//     would vary). Three blocks fit on an SM (80 registers a thread, 64 KB +
+//     6.5 KB of shared memory a block; two are 1.18–1.22x slower). A grid of
+//     less than one wave of blocks (Pubmed's 155 tiles on 132 SMs) leaves
+//     SMs idle and each block's walk on the critical path: there B = 2 or 4
+//     blocks share each tile, block b owning the rows r with r % 8B in
+//     [8 b, 8 b + 8), each with a [128 / B, cols] accumulator;
+//   * the block stages one chunk at a time in shared memory, thread t
+//     resolving position t once (its local row, its row of x through the
+//     row policy, -1 when dead or another block's, its weight and owning
+//     warp), double-buffered with one barrier per chunk: the next chunk's
+//     index words are loaded while this chunk's rows are read;
+//   * a warp walks the staged chunk 64 slots at a time: two ballots list
+//     the slots whose rows it owns, their positions are taken 8 at a time,
+//     and their staged words and rows of x are read all at once, one slot
+//     row per warp-wide load (a float4 per lane where L % 4 == 0 and the
+//     pointers are 16-byte aligned, else 4 scalar loads per lane), before
+//     the first add. Runs of equal local rows sum in registers and reach
+//     shared memory once per run: the receiver stream is in receiver order,
+//     and the banded SpMM walks each tile's slots with receivers ascending.
+//     No barrier stands between loading and adding;
+//   * a tile whose block would walk too much (more than HEAVY_CHUNKS
+//     chunks, or more than WARP_SLOTS live slots on one warp's rows: a
+//     hub's tile) is cut by the host into pieces at the chunks split_at[]
+//     (ops/stream.py: tile_ranges), one block each: block t walks tile t up
+//     to its first cut, block n_tiles + e the piece from split_at[e] on.
+//     The first piece stores into the output, piece e into part[e], and a
+//     second small kernel adds the pieces into the output in order. Only
+//     split tiles pay for it, and the sum stays reproducible.
+// The first design (every warp resolving every slot itself from memory,
+// eight times over; one block per tile whatever the grid; the banded slots
+// in the plan's sender order) took 1.20–1.69x as long.
+//
+// Bound on the H100: bytes (x once, out once, per slot its index and value
+// words; two FLOPs per live slot and column). The rows of a tile's slots
+// come from a few nearby 128-row tiles of x, so after the first touch they
+// come from L2. What holds the kernel is the L2-to-SM row traffic and the
+// walk's per-slot work: at 524k, L = 128 (pygat_tpu_torch/tools/spmm_ab.py
+// --ablate; NVIDIA H100 80GB HBM3, 700.00 W) skipping the row loads saves
+// 36–38 % of the time, L = 64 in place of 128 saves 8–12 %, and skipping
+// the shared-memory adds 4–5 %.
+
+#pragma once
+
+#include <cstdint>
+
+#include "slot_rows.cuh"
+
+namespace {
+
+constexpr int TS_WARPS = 8;      // warps of a tile-owner block
+constexpr int TS_THREADS = 256;  // threads of the combine kernel
+constexpr int TS_SLAB = 128;   // columns per block: 32 lanes x 4
+constexpr int TS_GROUP = 64;   // slots a warp's two ballots cover
+constexpr int TS_BATCH = 8;    // slot rows a warp has in flight
+constexpr unsigned FULL = 0xffffffffu;
+
+// The value of the slot at position k of the walk, and whether it is kept:
+// the slot is order[k] (order null: k itself), its value vals[slot], kept
+// unless mask[slot] (one bool byte per slot, or null) is false.
+struct SlotValues {
+  const float* vals;
+  const unsigned char* mask;
+  const int* order;
+  __device__ long long slot(long long k) const {
+    return order == nullptr ? k : __ldg(order + k);
+  }
+  __device__ bool keep(long long k) const {
+    return mask == nullptr || mask[slot(k)] != 0;
+  }
+  __device__ float operator()(long long k) const {
+    return __ldg(vals + slot(k));
+  }
+};
+
+// The four columns lane `lane` covers in a slab of `cols` columns: 4 * lane
+// .. 4 * lane + 3 (kVec), or lane + 32 q (scalar).
+template <bool kVec>
+__device__ __forceinline__ void load_row(const float* __restrict__ src,
+                                         int lane, int cols, float v[4]) {
+  if constexpr (kVec) {
+    if (4 * lane < cols) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(src) + lane);
+      v[0] = t.x;
+      v[1] = t.y;
+      v[2] = t.z;
+      v[3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (lane + 32 * q < cols) v[q] = __ldg(src + lane + 32 * q);
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void add_row(float* a, int lane, int cols,
+                                        const float s[4]) {
+  if constexpr (kVec) {
+    if (4 * lane < cols) {
+      float4* p = reinterpret_cast<float4*>(a) + lane;
+      float4 t = *p;
+      t.x += s[0];
+      t.y += s[1];
+      t.z += s[2];
+      t.w += s[3];
+      *p = t;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (lane + 32 * q < cols) a[lane + 32 * q] += s[q];
+  }
+}
+
+// The first i in [0, n) with a[i] >= v, or n; a is non-decreasing.
+__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
+                                           int v) {
+  int lo = 0;
+  while (n > 0) {
+    const int half = n >> 1;
+    if (a[lo + half] < v) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
+  }
+  return lo;
+}
+
+// the shared-memory staging of one chunk's slots: row of x (-1 when dead
+// or another block's), accumulator row, weight, and the warp that adds the
+// slot (-1 when none of the block's does)
+struct Stage {
+  int row[EC];
+  int loc[EC];
+  float w[EC];
+  signed char owner[EC];
+};
+constexpr size_t TS_STAGE_BYTES = 2 * sizeof(Stage);
+
+// Takes up to TS_BATCH of the warp's live slots off the masks m0, m1 (bit j:
+// slot g + j, resp. g + 32 + j, of the staged chunk), in slot order, and
+// issues their row loads; returns how many. The positions come first, so
+// that the staged words and the rows of the batch are all read at once.
+template <bool kVec>
+__device__ __forceinline__ int issue_batch(unsigned& m0, unsigned& m1,
+                                           const Stage& st, int g,
+                                           const float* __restrict__ x,
+                                           int L, int c0, int lane, int cols,
+                                           float (&v)[TS_BATCH][4],
+                                           float (&wu)[TS_BATCH],
+                                           int (&lu)[TS_BATCH]) {
+  const int n = min(__popc(m0) + __popc(m1), TS_BATCH);
+  int at[TS_BATCH];
+#pragma unroll
+  for (int u = 0; u < TS_BATCH; ++u) {
+    const bool lo = m0 != 0;
+    const unsigned m = lo ? m0 : m1;
+    at[u] = g + (lo ? 0 : 32) + __ffs(m) - 1;
+    if (lo)
+      m0 &= m0 - 1;
+    else
+      m1 &= m1 - 1;
+  }
+#pragma unroll
+  for (int u = 0; u < TS_BATCH; ++u) {
+    if (u < n) {  // warp-uniform
+      const int r = st.row[at[u]];
+      wu[u] = st.w[at[u]];
+      lu[u] = st.loc[at[u]];
+      load_row<kVec>(x + static_cast<long long>(r) * L + c0, lane, cols,
+                     v[u]);
+    }
+  }
+  return n;
+}
+
+// Adds the n loaded rows, in slot order: a run of equal local rows sums in
+// `sum`, and reaches the accumulator when the row changes.
+template <bool kVec>
+__device__ __forceinline__ void add_batch(int n, const float (&v)[TS_BATCH][4],
+                                          const float (&wu)[TS_BATCH],
+                                          const int (&lu)[TS_BATCH], int& cur,
+                                          float (&sum)[4], float* acc,
+                                          int lane, int cols) {
+#pragma unroll
+  for (int u = 0; u < TS_BATCH; ++u) {
+    if (u >= n) break;
+    if (lu[u] != cur) {
+      if (cur >= 0) add_row<kVec>(acc + cur * cols, lane, cols, sum);
+      cur = lu[u];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sum[q] = wu[u] * v[u][q];
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sum[q] = fmaf(wu[u], v[u][q], sum[q]);
+    }
+  }
+}
+
+// A slot's index words, loaded ahead of its chunk.
+struct SlotWords {
+  int loc, word;
+  float val;
+  bool keep;
+};
+
+template <class Rows>
+__device__ __forceinline__ SlotWords load_words(Rows rows, SlotValues w,
+                                                const int* __restrict__ local,
+                                                long long k) {
+  return SlotWords{__ldg(local + k), rows.word(k), w(k), w.keep(k)};
+}
+
+// Stages slot t of a chunk for block b of the B = 2^lb that share its
+// tile: the rows r with r % (8 B) in [8 b, 8 b + 8) are the block's, warp
+// r % 8 adding them into accumulator row (r / (8 B)) * 8 + r % 8.
+template <class Rows>
+__device__ __forceinline__ void stage_slot(Stage& st, Rows rows,
+                                           const SlotWords& sw, int chunk,
+                                           int t, int b, int lb) {
+  int row = -1, q = TILE, owner = -1;
+  if (static_cast<unsigned>(sw.loc) < TILE &&
+      ((sw.loc >> 3) & ((1 << lb) - 1)) == b) {
+    const int r = rows.row(sw.word, chunk);
+    if (r >= 0 && sw.keep) {
+      row = r;
+      owner = sw.loc & (TS_WARPS - 1);
+      q = ((sw.loc >> (3 + lb)) << 3) + owner;
+    }
+  }
+  st.row[t] = row;
+  st.loc[t] = q;
+  st.w[t] = sw.val;
+  st.owner[t] = static_cast<signed char>(owner);
+}
+
+// 8 warps a block, three blocks per SM; gridDim.z = B blocks share a
+// tile's rows
+template <bool kVec, class Rows>
+__global__ void __launch_bounds__(TS_WARPS * 32, 3)
+tile_spmm_kernel(const float* __restrict__ x, Rows rows, SlotValues w,
+                 const int* __restrict__ local,
+                 const int* __restrict__ tile_ptr,
+                 const int* __restrict__ split_at, int n_tiles, int n_split,
+                 int L, float* __restrict__ out, float* __restrict__ part) {
+  constexpr int THREADS = TS_WARPS * 32;
+  static_assert(THREADS == EC, "thread t stages slot t of a chunk");
+  extern __shared__ float4 smem4[];
+  float* acc = reinterpret_cast<float*>(smem4);  // [TILE / B, cols]
+  __shared__ Stage stage[2];
+  const int c0 = blockIdx.y * TS_SLAB;
+  const int cols = min(TS_SLAB, L - c0);
+  static_assert(TS_WARPS == 8, "a block's rows are r % 8 per warp");
+  const int b = blockIdx.z, lb = __ffs(gridDim.z) - 1;  // B = 2^lb
+  const int n_rows = TILE >> lb;
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+
+  // the block's tile and chunk range [c_lo, c_hi): block t takes tile t up
+  // to its first split point, block n_tiles + e the piece from split_at[e]
+  // to the next split point or the tile's end
+  int tile, c_lo, c_hi;
+  float* o;
+  if (blockIdx.x < n_tiles) {
+    tile = blockIdx.x;
+    c_lo = tile_ptr[tile];
+    c_hi = tile_ptr[tile + 1];
+    if (n_split > 0) {
+      const int i = lower_bound(split_at, n_split, c_lo + 1);
+      if (i < n_split && split_at[i] < c_hi) c_hi = split_at[i];
+    }
+    o = out + static_cast<long long>(tile) * TILE * L + c0;
+  } else {
+    const int e = blockIdx.x - n_tiles;
+    c_lo = split_at[e];
+    tile = lower_bound(tile_ptr, n_tiles + 1, c_lo + 1) - 1;
+    c_hi = tile_ptr[tile + 1];
+    if (e + 1 < n_split && split_at[e + 1] < c_hi) c_hi = split_at[e + 1];
+    o = part + static_cast<long long>(e) * TILE * L + c0;
+  }
+
+  for (int i = t; i < n_rows * cols; i += THREADS) acc[i] = 0.f;
+  if (c_lo < c_hi)
+    stage_slot(stage[0], rows,
+               load_words(rows, w, local, static_cast<long long>(c_lo) * EC + t),
+               c_lo, t, b, lb);
+  __syncthreads();
+
+  int cur = -1;  // the accumulator row whose run `sum` holds
+  float sum[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int c = c_lo; c < c_hi; ++c) {
+    const Stage& st = stage[(c - c_lo) & 1];
+    const bool more = c + 1 < c_hi;
+    // the next chunk's index words, in flight while this chunk's rows are
+    // read
+    SlotWords next{};
+    if (more)
+      next = load_words(rows, w, local, static_cast<long long>(c + 1) * EC + t);
+    for (int g = 0; g < EC; g += TS_GROUP) {
+      // the warp's live slots of the group: ballots of the staged rows
+      unsigned m0 = __ballot_sync(FULL, st.owner[g + lane] == warp);
+      unsigned m1 = __ballot_sync(FULL, st.owner[g + 32 + lane] == warp);
+      while (m0 | m1) {  // warp-uniform
+        float v[TS_BATCH][4];
+        float wu[TS_BATCH];
+        int lu[TS_BATCH];
+        const int n = issue_batch<kVec>(m0, m1, st, g, x, L, c0, lane, cols,
+                                        v, wu, lu);
+        add_batch<kVec>(n, v, wu, lu, cur, sum, acc, lane, cols);
+      }
+    }
+    // the other buffer was last read before the previous barrier
+    if (more) stage_slot(stage[(c + 1 - c_lo) & 1], rows, next, c + 1, t, b, lb);
+    __syncthreads();
+  }
+  if (cur >= 0) add_row<kVec>(acc + cur * cols, lane, cols, sum);
+  __syncthreads();
+
+  // accumulator row q is tile row (q / 8) * 8 B + 8 b + q % 8
+  if constexpr (kVec) {
+    const int c4 = cols / 4;
+    for (int i = t; i < n_rows * c4; i += THREADS) {
+      const int q = i / c4;
+      const int r = ((q >> 3) << (3 + lb)) + (b << 3) + (q & 7);
+      reinterpret_cast<float4*>(o + static_cast<long long>(r) * L)[i - q * c4] =
+          smem4[i];
+    }
+  } else {
+    for (int i = t; i < n_rows * cols; i += THREADS) {
+      const int q = i / cols;
+      const int r = ((q >> 3) << (3 + lb)) + (b << 3) + (q & 7);
+      o[static_cast<long long>(r) * L + (i - q * cols)] = acc[i];
+    }
+  }
+}
+
+// out[tile] += part[e], part[e + 1], ... for the extra pieces of each split
+// tile, in order; the blocks of a tile's first extra piece do the tile, the
+// others return.
+__global__ void __launch_bounds__(TS_THREADS)
+tile_combine_kernel(const int* __restrict__ tile_ptr, int n_tiles,
+                    const int* __restrict__ split_at, int n_split, int L,
+                    const float* __restrict__ part, float* __restrict__ out) {
+  const int e = blockIdx.x;
+  const int tile = lower_bound(tile_ptr, n_tiles + 1, split_at[e] + 1) - 1;
+  if (e > 0 && split_at[e - 1] > tile_ptr[tile]) return;
+  const int t_end = tile_ptr[tile + 1];
+  const long long n = static_cast<long long>(TILE) * L;
+  const long long i = static_cast<long long>(blockIdx.y) * TS_THREADS +
+                      threadIdx.x;
+  if (i >= n) return;
+  float* o = out + tile * n + i;
+  float s = *o;
+  for (int f = e; f < n_split && split_at[f] < t_end; ++f) s += part[f * n + i];
+  *o = s;
+}
+
+// One block per tile (and per 128 columns), plus one per extra piece of a
+// split tile, on `stream`; then, if any tile is split, the combine. part is
+// [n_split, 128, L] f32 scratch (unused when n_split is 0). Returns the
+// first CUDA error, or cudaGetLastError() after the launches.
+template <class Rows>
+int launch_tile_spmm(const float* x, Rows rows, SlotValues w, const int* local,
+                     const int* tile_ptr, const int* split_at, int n_tiles,
+                     int n_split, int L, float* out, float* part,
+                     void* stream) {
+  if (n_tiles <= 0 || L <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = L % 4 == 0 && aligned(x) && aligned(out) &&
+                   (n_split == 0 || aligned(part));
+  const int slab = L < TS_SLAB ? L : TS_SLAB;
+  const size_t smem = sizeof(float) * TILE * slab;
+  auto kernel = vec ? tile_spmm_kernel<true, Rows>
+                    : tile_spmm_kernel<false, Rows>;
+  cudaError_t e = cudaSuccess;
+  // above 48 KB of shared memory, the static staging's included, a kernel
+  // must opt in. The attribute is set on the current device only, so it is
+  // set at every such launch (a host-side call of about a microsecond).
+  if (smem + TS_STAGE_BYTES > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  // a grid of less than one wave of blocks (Pubmed's 155 tiles on the
+  // H100's 132 SMs, three blocks each) leaves SMs idle and each block's
+  // walk on the critical path: there B = 2 or 4 blocks share each tile's
+  // rows, the largest B whose grid still fits in one wave
+  dim3 grid(n_tiles + n_split, (L + TS_SLAB - 1) / TS_SLAB, 1);
+  int dev = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      TS_WARPS * 32, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long wave = static_cast<long long>(sms) * per_sm;
+  while (grid.z < 4 &&
+         2LL * grid.z * grid.x * grid.y <= wave)
+    grid.z *= 2;
+  kernel<<<grid, TS_WARPS * 32, smem / grid.z, st>>>(
+      x, rows, w, local, tile_ptr, split_at, n_tiles, n_split, L, out, part);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 0) return static_cast<int>(e);
+  const dim3 grid2(n_split, (TILE * L + TS_THREADS - 1) / TS_THREADS);
+  tile_combine_kernel<<<grid2, TS_THREADS, 0, st>>>(
+      tile_ptr, n_tiles, split_at, n_split, L, part, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// TS_WARPS, which the host's tile_ranges assumes when it cuts a hub's tile
+// by its busiest warp (SPMM_WARPS in ops/stream.py); checked when the
+// library loads.
+extern "C" int pygat_tile_spmm_warps() { return TS_WARPS; }

@@ -13,7 +13,8 @@ deterministically at the right shapes:
 
 :func:`clustered_citation` makes a whole dataset of any size whose edges
 are local (senders near their receivers), the large graph of the banded
-path.
+path. :func:`hub_edges`, the port's own, is a small graph with one hub, whose
+output tile the tile-owner SpMM kernels cut into pieces.
 
 Everything is keyed by (dataset name, shape) through a sha256 seed, so runs
 are reproducible across processes. Loaders record which parts were
@@ -159,3 +160,20 @@ def clustered_citation(n_nodes: int, n_feat: int, n_classes: int, name: str,
         num_features=n_feat,
         synthetic_parts=("all",),
     )
+
+
+def hub_edges(rng: np.random.Generator | None = None
+              ) -> tuple[np.ndarray, np.ndarray, int]:
+    """(senders, receivers, num_nodes) of a small graph with a hub: 1500
+    nodes, 3 in-edges each from within +-200 plus self loops, and 9000 more
+    in-edges of node 700 from anywhere, so that node 700's tile owns some 38
+    chunks of the receiver stream and of a w = 4 band plan. Drawn from
+    ``rng`` (default: seed 9), which a caller may go on drawing from."""
+    if rng is None:
+        rng = np.random.default_rng(9)
+    n = 1500
+    base = np.repeat(np.arange(n), 3)
+    s = np.clip(base + rng.integers(-200, 200, base.size), 0, n - 1)
+    s = np.concatenate([s, rng.integers(0, n, 9000), np.arange(n)])
+    r = np.concatenate([base, np.full(9000, 700), np.arange(n)])
+    return s, r, n

@@ -37,10 +37,15 @@ Three parts:
   :func:`banded_sender_sum` per sender.
 
 The plan's fields that the kernels and plain versions read (``band``,
-``s_loc``, ``r_local``, ``r_chunk``) are tensors on the graph's device; the
-others stay numpy arrays on the host. The reference's band-sorted schedule
-``bs_*`` exists for the TPU's VMEM accumulators and is kept for parity
-only: the sender-sum kernel walks the banded chunks directly. The plan's
+``s_loc``, ``r_local``, ``r_chunk``, and the port's own ``tile_ptr`` and
+``split_at``: each tile's chunk range and the cuts of a hub's tile) are
+tensors on the graph's device; the others stay numpy arrays on the host.
+The SpMM kernel's walk of each tile's slots, receivers ascending
+(:attr:`BandPlan.spmm_walk`), is built on the plan's device at its first
+use and kept on the plan, so plans that never run the SpMM do not carry it.
+The reference's band-sorted schedule ``bs_*`` exists for the TPU's VMEM
+accumulators and is kept for parity only: the sender-sum kernel walks the
+banded chunks directly. The plan's
 ``edge_weight`` is a host array: a caller that weighs the SpMM by it moves
 it to the device.
 """
@@ -48,8 +53,10 @@ it to the device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,10 +80,21 @@ from pygat_tpu_torch.ops.stream import (
     require_high,
     stream_scatter,
     stream_scatter_plain,
+    tile_ranges,
 )
 
 # the fields of a BandPlan that live on the device
-_DEVICE_FIELDS = ("band", "s_loc", "r_local", "r_chunk")
+_DEVICE_FIELDS = ("band", "s_loc", "r_local", "r_chunk", "tile_ptr",
+                  "split_at")
+
+
+class SpmmWalk(NamedTuple):
+    """The banded SpMM kernel's walk of each tile's slots, receivers
+    ascending (stable), so that the walk reads its index words in order."""
+
+    order: torch.Tensor  # [E_b] int32 the slot at each position
+    rows: torch.Tensor  # [E_b] int32 its sender row (-1 dead)
+    local: torch.Tensor  # [E_b] int32 its local row (DEAD dead)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +126,10 @@ class BandPlan:
     fill: float  # real edges / (C * EC): chunk-packing efficiency
     perm: np.ndarray  # [E_b] int64 original edge index (-1 dead)
     n_pad: int  # node rows of the graph the plan was built for
+    # the port's own, for the tile-owner SpMM kernel: tile_ranges of r_chunk
+    # and r_local (tile t owns chunks [tile_ptr[t], tile_ptr[t + 1]))
+    tile_ptr: torch.Tensor  # [n_tiles + 1] int32
+    split_at: torch.Tensor  # [n_split] int32 chunks where pieces start
 
     @property
     def num_slots(self) -> int:
@@ -117,8 +139,20 @@ class BandPlan:
     def num_chunks(self) -> int:
         return self.band.shape[0]
 
+    @functools.cached_property
+    def spmm_walk(self) -> SpmmWalk:
+        """The SpMM kernel's walk, built on the plan's device at first use
+        (a stable sort of the slots by tile and local row) and kept."""
+        tile = self.r_chunk.long().repeat_interleave(EC)
+        order = torch.sort(tile * (TILE + 1) + self.r_local.long(),
+                           stable=True).indices
+        return SpmmWalk(order=order.int(),
+                        rows=banded_senders(self, -1)[order].int(),
+                        local=self.r_local[order])
+
     def to(self, device) -> "BandPlan":
-        """The same plan with its device fields on ``device``."""
+        """The same plan with its device fields on ``device`` (its SpMM
+        walk is built anew there at first use)."""
         return dataclasses.replace(
             self, **{f: getattr(self, f).to(device) for f in _DEVICE_FIELDS})
 
@@ -254,6 +288,7 @@ def build_band_plan(graph, w: int = 4) -> BandPlan:
     sloc2 = s_loc.reshape(c, EC)[ent_chunk].copy()
     sloc2[ent_dead] = w * TILE
 
+    tile_ptr, split_at = tile_ranges(tile_a, r_local, n_tiles)
     device = graph.senders.device
 
     def dev(a):
@@ -277,6 +312,8 @@ def build_band_plan(graph, w: int = 4) -> BandPlan:
         fill=float(len(eidx)) / float(e_b),
         perm=perm,
         n_pad=n_pad,
+        tile_ptr=dev(tile_ptr),
+        split_at=dev(split_at),
     )
 
 
@@ -447,19 +484,29 @@ def banded_weighted_sum(values_b: torch.Tensor, x: torch.Tensor,
     x[sender(k)]`` over the live banded slots ``k`` (``values_b`` [E_b] f32
     in banded order, ``x`` [N_pad, L] f32); dead slots add nothing. On a
     CUDA tensor this launches ``csrc/spmm_banded.cu`` (counted in
-    ``banded_weighted_sum.launches``); on a CPU tensor it runs
-    :func:`banded_weighted_sum_plain`. Not differentiable."""
+    ``banded_weighted_sum.launches``), whose result is the same bit for bit
+    from call to call; on a CPU tensor it runs
+    :func:`banded_weighted_sum_plain`. The first CUDA call on a plan builds
+    its walk (:attr:`BandPlan.spmm_walk`), so it must not be inside a
+    CUDA-graph capture. Not differentiable."""
     if x.device.type == "cpu":
         return banded_weighted_sum_plain(values_b, x, plan)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_banded: unsupported device {x.device}")
     _check_table("spmm_banded", x, plan)
     _check_values("spmm_banded", values_b, plan)
-    out = torch.empty(plan.n_pad, x.shape[1], dtype=torch.float32,
-                      device=x.device)
-    build.launch(banded_weighted_sum, values_b, x, plan.band, plan.s_loc,
-                 plan.r_local, plan.r_chunk, plan.num_chunks,
-                 plan.n_pad // TILE, plan.w, x.shape[1], out)
+    if ("spmm_walk" not in plan.__dict__
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError("spmm_banded: the plan's walk is built at its "
+                           "first call, which must not be captured")
+    walk = plan.spmm_walk
+    width, n_split = x.shape[1], plan.split_at.shape[0]
+    out = torch.empty(plan.n_pad, width, dtype=torch.float32, device=x.device)
+    part = (torch.empty(n_split, TILE, width, dtype=torch.float32,
+                        device=x.device) if n_split else None)
+    build.launch(banded_weighted_sum, values_b, x, walk.rows, walk.local,
+                 walk.order, plan.tile_ptr,
+                 plan.split_at, plan.n_pad // TILE, n_split, width, out, part)
     return out
 
 

@@ -45,8 +45,8 @@ ENTRY_POINTS = {
                         [_P] * 7 + [_I] * 4 + [_F] + [_P] * 3),
     "fused_v2_window": ("pygat_fused_v2_window",
                         [_P] * 7 + [_I] * 4 + [_F] + [_P] * 3),
-    "spmm_banded": ("pygat_spmm_banded", [_P] * 6 + [_I] * 4 + [_P] * 2),
-    "panel_spmm": ("pygat_panel_spmm", [_P] * 7 + [_I] * 4 + [_P] * 2),
+    "spmm_banded": ("pygat_spmm_banded", [_P] * 7 + [_I] * 3 + [_P] * 3),
+    "panel_spmm": ("pygat_panel_spmm", [_P] * 9 + [_I] * 4 + [_P] * 3),
     "bcsr_attention": ("pygat_bcsr_attention",
                        [_P] * 9 + [_I] * 3 + [_F] + [_P] * 4),
 }
@@ -157,7 +157,16 @@ def kernel(name: str):
     if fn is None:
         build_all()
         symbol, argtypes = ENTRY_POINTS[name]
-        fn = getattr(ctypes.CDLL(_lib_path(name)), symbol)
+        lib = ctypes.CDLL(_lib_path(name))
+        if hasattr(lib, "pygat_tile_spmm_warps"):  # tile_spmm.cuh's kernels
+            from pygat_tpu_torch.ops.stream import SPMM_WARPS
+
+            if lib.pygat_tile_spmm_warps() != SPMM_WARPS:
+                raise RuntimeError(f"{name}: the kernel's block has "
+                                   f"{lib.pygat_tile_spmm_warps()} warps, "
+                                   f"ops/stream.py's SPMM_WARPS is "
+                                   f"{SPMM_WARPS}")
+        fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _KERNELS[name] = fn

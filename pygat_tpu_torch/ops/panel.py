@@ -14,7 +14,9 @@ second pass.
 Three parts:
 
 * the host half in numpy, field for field the reference's:
-  :class:`PanelLayout`, :func:`build_panel_layout`;
+  :class:`PanelLayout`, :func:`build_panel_layout`, plus each output tile's
+  chunk range and the cuts of a hub's tile (``tile_ptr``, ``split_at``),
+  which the kernel walks;
 * :func:`panel_weighted_sum`, the SpMM over the slots that fit their
   panels: on a CUDA tensor it launches the hand-written kernel
   ``csrc/panel_spmm.cu`` (replaces ``pygat_tpu/ops/panel.py::
@@ -54,6 +56,7 @@ from pygat_tpu_torch.ops.stream import (
     TILE,
     require_high,
     stream_scatter_plain,
+    tile_ranges,
 )
 
 _LANE = 128
@@ -62,13 +65,18 @@ _MODES = ("onehot", "take")
 
 class PanelLayout(NamedTuple):
     """Host-built panel decomposition of a stream-aligned graph's receiver
-    order. The tensors live on the graph's device."""
+    order. The tensors live on the graph's device. The first five fields are
+    the reference's; ``tile_ptr`` and ``split_at`` (:func:`~pygat_tpu_torch.
+    ops.stream.tile_ranges` of the graph's ``r_chunk`` and ``r_local``) are
+    the port's, for its tile-owner kernel."""
 
     panel_tiles: torch.Tensor  # [T, P] int32 sender tile per panel (0 pad)
     g_idx: torch.Tensor  # [E_s] int32: p * 128 + sender % 128; P * 128 = dead
     overflow_edges: torch.Tensor  # [V] int32 edge ids (padded with e_dead)
     n_panels: int  # P
     n_overflow: int  # real overflow edge count
+    tile_ptr: torch.Tensor  # [T + 1] int32: tile t's chunk range
+    split_at: torch.Tensor  # [n_split] int32: chunks where pieces start
 
     @property
     def overflow_frac(self) -> float:
@@ -78,7 +86,8 @@ class PanelLayout(NamedTuple):
         """The same layout with its tensors on ``device``."""
         return self._replace(**{f: getattr(self, f).to(device)
                                 for f in ("panel_tiles", "g_idx",
-                                          "overflow_edges")})
+                                          "overflow_edges", "tile_ptr",
+                                          "split_at")})
 
 
 def build_panel_layout(graph, p_max: int | None = None) -> PanelLayout:
@@ -101,7 +110,7 @@ def build_panel_layout(graph, p_max: int | None = None) -> PanelLayout:
     live = r_local < DEAD
     gtile = senders // TILE
     # chunks [bounds[t], bounds[t + 1]) write tile t
-    bounds = np.searchsorted(chunk_tile, np.arange(n_tiles + 1))
+    bounds, split_at = tile_ranges(chunk_tile, r_local, n_tiles)
     p_slot = np.full(e_s, -1, dtype=np.int64)  # panel index per slot
     panels_per_tile: list[np.ndarray] = []
     for t in range(n_tiles):
@@ -142,6 +151,8 @@ def build_panel_layout(graph, p_max: int | None = None) -> PanelLayout:
         overflow_edges=torch.from_numpy(overflow_p).to(device),
         n_panels=p,
         n_overflow=n_ov,
+        tile_ptr=torch.from_numpy(bounds).to(device),
+        split_at=torch.from_numpy(split_at).to(device),
     )
 
 
@@ -150,7 +161,8 @@ def build_panel_layout(graph, p_max: int | None = None) -> PanelLayout:
 # ---------------------------------------------------------------------------
 
 
-def _check_args(values, x, panel_tiles, g_idx, edge_mask, r_local, r_chunk):
+def _check_args(values, x, panel_tiles, g_idx, edge_mask, r_local, r_chunk,
+                tile_ptr, split_at):
     if x.dim() != 2 or x.dtype != torch.float32 or x.shape[0] % TILE:
         raise ValueError(f"panel_spmm: x must be [N_pad, L] float32 on "
                          f"128-row tiles, got {x.dtype} {tuple(x.shape)}")
@@ -158,6 +170,10 @@ def _check_args(values, x, panel_tiles, g_idx, edge_mask, r_local, r_chunk):
     if panel_tiles.dim() != 2 or panel_tiles.shape[0] != n_pad // TILE:
         raise ValueError(f"panel_spmm: panel_tiles must be [{n_pad // TILE}, "
                          f"P], got {tuple(panel_tiles.shape)}")
+    if tuple(tile_ptr.shape) != (n_pad // TILE + 1,) or split_at.dim() != 1:
+        raise ValueError(f"panel_spmm: tile_ptr must be [{n_pad // TILE + 1}] "
+                         f"and split_at 1-D, got {tuple(tile_ptr.shape)}, "
+                         f"{tuple(split_at.shape)}")
     for name, t in (("g_idx", g_idx), ("r_local", r_local),
                     ("values", values), ("edge_mask", edge_mask)):
         if tuple(t.shape) != (e_s,):
@@ -165,7 +181,8 @@ def _check_args(values, x, panel_tiles, g_idx, edge_mask, r_local, r_chunk):
                              f"chunk of r_chunk ({e_s}), got "
                              f"{tuple(t.shape)}")
     for name, t in (("panel_tiles", panel_tiles), ("g_idx", g_idx),
-                    ("r_local", r_local), ("r_chunk", r_chunk)):
+                    ("r_local", r_local), ("r_chunk", r_chunk),
+                    ("tile_ptr", tile_ptr), ("split_at", split_at)):
         if t.dtype != torch.int32:
             raise ValueError(f"panel_spmm: {name} must be int32, got {t.dtype}")
     if values.dtype != torch.float32 or edge_mask.dtype != torch.bool:
@@ -174,10 +191,13 @@ def _check_args(values, x, panel_tiles, g_idx, edge_mask, r_local, r_chunk):
 
 
 def panel_weighted_sum_plain(values, x, panel_tiles, g_idx, edge_mask,
-                             r_local, r_chunk) -> torch.Tensor:
+                             r_local, r_chunk, tile_ptr,
+                             split_at) -> torch.Tensor:
     """Plain PyTorch version of :func:`panel_weighted_sum`: the panel row
-    of every slot that fits, a row gather, and ``index_add_``."""
-    _check_args(values, x, panel_tiles, g_idx, edge_mask, r_local, r_chunk)
+    of every slot that fits, a row gather, and ``index_add_`` (the tile
+    ranges are checked, not used)."""
+    _check_args(values, x, panel_tiles, g_idx, edge_mask, r_local, r_chunk,
+                tile_ptr, split_at)
     p = panel_tiles.shape[1]
     take = (g_idx >= 0) & (g_idx < p * TILE) & (r_local < TILE)
     gi = torch.where(take, g_idx, 0).long()
@@ -190,25 +210,33 @@ def panel_weighted_sum_plain(values, x, panel_tiles, g_idx, edge_mask,
 
 @build.counted(kernel="panel_spmm")
 def panel_weighted_sum(values, x, panel_tiles, g_idx, edge_mask, r_local,
-                       r_chunk) -> torch.Tensor:
+                       r_chunk, tile_ptr, split_at) -> torch.Tensor:
     """[N_pad, L] f32: over the receiver stream, the sum per receiver of
     ``values[k] * x[panel_tiles[r_chunk[k // EC], g // 128] * 128 + g %
     128]`` for the slots ``k`` whose ``g = g_idx[k]`` is below ``P * 128``
     and whose ``edge_mask`` is true; dead and overflow slots add nothing.
-    On a CUDA tensor this launches ``csrc/panel_spmm.cu`` (counted in
-    ``panel_weighted_sum.launches``); on a CPU tensor it runs
+    ``tile_ptr`` and ``split_at`` are :func:`~pygat_tpu_torch.ops.stream.
+    tile_ranges` of ``r_chunk`` and ``r_local`` (the layout's fields). On a
+    CUDA tensor this launches ``csrc/panel_spmm.cu`` (counted in
+    ``panel_weighted_sum.launches``), whose result is the same bit for bit
+    from call to call; on a CPU tensor it runs
     :func:`panel_weighted_sum_plain`. Not differentiable."""
     if x.device.type == "cpu":
         return panel_weighted_sum_plain(values, x, panel_tiles, g_idx,
-                                        edge_mask, r_local, r_chunk)
+                                        edge_mask, r_local, r_chunk, tile_ptr,
+                                        split_at)
     if x.device.type != "cuda":
         raise ValueError(f"panel_spmm: unsupported device {x.device}")
-    _check_args(values, x, panel_tiles, g_idx, edge_mask, r_local, r_chunk)
+    _check_args(values, x, panel_tiles, g_idx, edge_mask, r_local, r_chunk,
+                tile_ptr, split_at)
     n_pad, width = x.shape
+    n_split = split_at.shape[0]
     out = torch.empty(n_pad, width, dtype=torch.float32, device=x.device)
+    part = (torch.empty(n_split, TILE, width, dtype=torch.float32,
+                        device=x.device) if n_split else None)
     build.launch(panel_weighted_sum, values, edge_mask, x, panel_tiles, g_idx,
-                 r_local, r_chunk, r_chunk.shape[0], n_pad // TILE,
-                 panel_tiles.shape[1], width, out)
+                 r_local, r_chunk, tile_ptr, split_at, n_pad // TILE, n_split,
+                 panel_tiles.shape[1], width, out, part)
     return out
 
 
@@ -218,12 +246,12 @@ def panel_weighted_sum(values, x, panel_tiles, g_idx, edge_mask, r_local,
 
 
 def _panel_fwd(values, dense, panel_tiles, g_idx, overflow_edges, senders,
-               receivers, edge_mask, r_local, r_chunk):
+               receivers, edge_mask, r_local, r_chunk, tile_ptr, split_at):
     """The kernel over the slots that fit their panels, then the overflow
     slots ``overflow_edges`` (entries on a dead slot add zero) by a row
     gather and ``index_add_``; an empty overflow list adds nothing."""
     out = panel_weighted_sum(values, dense, panel_tiles, g_idx, edge_mask,
-                             r_local, r_chunk)
+                             r_local, r_chunk, tile_ptr, split_at)
     if overflow_edges.numel():
         ov = overflow_edges.long()
         w_ov = torch.where(edge_mask[ov], values[ov], 0.0)
@@ -235,15 +263,17 @@ def _panel_fwd(values, dense, panel_tiles, g_idx, overflow_edges, senders,
 class _PanelSpmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, values, dense, panel_tiles, g_idx, overflow_edges,
-                senders, receivers, edge_mask, r_local, r_chunk):
+                senders, receivers, edge_mask, r_local, r_chunk, tile_ptr,
+                split_at):
         values, dense = values.contiguous(), dense.contiguous()
         ctx.save_for_backward(values, dense, senders, receivers, edge_mask)
         return _panel_fwd(values, dense, panel_tiles, g_idx, overflow_edges,
-                          senders, receivers, edge_mask, r_local, r_chunk)
+                          senders, receivers, edge_mask, r_local, r_chunk,
+                          tile_ptr, split_at)
 
     @staticmethod
     def backward(ctx, g):
-        return spmm_backward(g, *ctx.saved_tensors) + (None,) * 8
+        return spmm_backward(g, *ctx.saved_tensors) + (None,) * 10
 
 
 class _PanelSpmmCorner(torch.autograd.Function):
@@ -254,7 +284,8 @@ class _PanelSpmmCorner(torch.autograd.Function):
         ctx.graph, ctx.plans = graph, plans
         return _panel_fwd(values, dense, layout.panel_tiles, layout.g_idx,
                           overflow_edges, graph.senders, graph.receivers,
-                          graph.edge_mask, graph.r_local, graph.r_chunk)
+                          graph.edge_mask, graph.r_local, graph.r_chunk,
+                          layout.tile_ptr, layout.split_at)
 
     @staticmethod
     def backward(ctx, g):
@@ -274,14 +305,17 @@ def _check_options(what: str, precision: str, mode: str) -> None:
 
 def panel_spmm(values, dense, panel_tiles, g_idx, overflow_edges, senders,
                receivers, edge_mask, r_local, r_chunk, p: int | None = None,
-               precision: str = "high", mode: str = "onehot"):
+               precision: str = "high", mode: str = "onehot", *,
+               tile_ptr: torch.Tensor, split_at: torch.Tensor):
     """``out[N_pad, L]``: the receiver segment sum of ``values *
     dense[senders]`` through the panels (``values`` [E_s] f32 in the
     graph's stream edge order; padding edges weigh 0 through
     ``edge_mask``), the overflow slots ``overflow_edges`` added after.
-    Differentiable in ``values`` and ``dense`` (the SpMM backward: row
-    gathers and ``index_add_``). ``p`` must be ``panel_tiles.shape[1]``
-    when given. ``mode`` (the reference's one-hot or take select) has no
+    ``tile_ptr`` and ``split_at`` are the layout's fields of the same names
+    (:func:`~pygat_tpu_torch.ops.stream.tile_ranges` of ``r_chunk`` and
+    ``r_local``), which the reference's signature lacks. Differentiable
+    in ``values`` and ``dense`` (the SpMM backward: row gathers and
+    ``index_add_``). ``p`` must be ``panel_tiles.shape[1]`` when given. ``mode`` (the reference's one-hot or take select) has no
     counterpart: the kernel reads rows natively and computes the same sum
     either way. ``precision``: 'high' only (the reference defaults to
     'fastest', which is not ported: ROADMAP Queue 1, item 9)."""
@@ -290,7 +324,8 @@ def panel_spmm(values, dense, panel_tiles, g_idx, overflow_edges, senders,
         raise ValueError(f"panel_spmm: p={p} but panel_tiles has "
                          f"{panel_tiles.shape[1]} panels")
     return _PanelSpmm.apply(values, dense, panel_tiles, g_idx, overflow_edges,
-                            senders, receivers, edge_mask, r_local, r_chunk)
+                            senders, receivers, edge_mask, r_local, r_chunk,
+                            tile_ptr, split_at)
 
 
 def panel_spmm_graph(values, dense, graph, layout: PanelLayout, *,
@@ -312,4 +347,5 @@ def panel_spmm_graph(values, dense, graph, layout: PanelLayout, *,
                                       plans)
     return _PanelSpmm.apply(values, dense, layout.panel_tiles, layout.g_idx,
                             overflow, graph.senders, graph.receivers,
-                            graph.edge_mask, graph.r_local, graph.r_chunk)
+                            graph.edge_mask, graph.r_local, graph.r_chunk,
+                            layout.tile_ptr, layout.split_at)

@@ -4,7 +4,8 @@ Three parts:
 
 * the host layout (``EC``, ``TILE``, ``DEAD``, ``StreamLayout``,
   ``stream_length``, ``build_stream_layout``), in numpy and identical to the
-  reference's;
+  reference's, and the port's own :func:`tile_ranges` (each output tile's
+  chunk range, for the tile-owner SpMM kernels);
 * :func:`stream_scatter`, the segment sum of stream-ordered edge data into
   128-row output tiles: on a CUDA tensor it launches the hand-written kernel
   ``csrc/stream_scatter.cu`` (which replaces the TPU kernel
@@ -34,6 +35,17 @@ EC = 256  # edges per chunk
 TILE = 128  # output row tile
 DEAD = TILE  # chunk-local row id marking a padding slot
 _ALIGN = 8 * EC  # stream length granularity
+# the tile-owner SpMM kernels (csrc/tile_spmm.cuh): a block of SPMM_WARPS
+# warps walks one output tile's chunks, warp w adding the slots of the tile
+# rows r with r % SPMM_WARPS == w; a tile whose block would walk more than
+# HEAVY_CHUNKS chunks, or whose busiest warp would add more than WARP_SLOTS
+# live slots (a hub's), is cut into pieces walked by a block each. A piece
+# of 256 slots on one warp takes about as long as an unsplit 524k tile's
+# block (1,280 live slots over 8 warps). SPMM_WARPS is the kernels'
+# TS_WARPS, checked when their libraries load (build.kernel).
+SPMM_WARPS = 8
+HEAVY_CHUNKS = 16
+WARP_SLOTS = 256
 
 
 class StreamLayout(NamedTuple):
@@ -112,6 +124,41 @@ def build_stream_layout(
         np.arange(n_tiles, dtype=np.int32), chunks_per_tile
     )
     return StreamLayout(slot=slot, local=local, chunk_tile=chunk_tile)
+
+
+def tile_ranges(chunk_tile: np.ndarray, local: np.ndarray,
+                n_tiles: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(tile_ptr, split_at)`` of a chunked edge order, int32, derived on
+    the host once per layout or plan from its chunk-to-tile map
+    (non-decreasing) and its slots' local rows (``DEAD`` for a dead slot):
+    output tile ``t`` owns the chunks ``tile_ptr[t]`` to ``tile_ptr[t + 1]
+    - 1`` (an empty range if it owns none), and ``split_at`` lists, in
+    order, the chunks at which the tile-owner SpMM kernels cut a tile into
+    pieces: a tile of ``n`` chunks whose busiest warp has ``s`` live slots
+    is cut into ``max(ceil(n / HEAVY_CHUNKS), ceil(s / WARP_SLOTS))``
+    pieces of equal chunk counts (at most ``n``)."""
+    chunk_tile = np.asarray(chunk_tile)
+    local = np.asarray(local)
+    if chunk_tile.size and (np.any(np.diff(chunk_tile) < 0)
+                            or chunk_tile[0] < 0
+                            or chunk_tile[-1] >= n_tiles):
+        raise ValueError(f"chunk tiles must be sorted tiles in [0, {n_tiles})")
+    if local.shape != (chunk_tile.shape[0] * EC,):
+        raise ValueError(f"local must hold {EC} slots per chunk")
+    tile_ptr = np.searchsorted(chunk_tile, np.arange(n_tiles + 1))
+    counts = np.diff(tile_ptr)
+    live = local < TILE
+    owner = (np.repeat(chunk_tile.astype(np.int64), EC)[live] * SPMM_WARPS
+             + local[live] % SPMM_WARPS)
+    busiest = np.bincount(owner, minlength=n_tiles * SPMM_WARPS).reshape(
+        n_tiles, SPMM_WARPS).max(axis=1)
+    pieces = np.maximum(-(-counts // HEAVY_CHUNKS), -(-busiest // WARP_SLOTS))
+    pieces = np.clip(pieces, 1, np.maximum(counts, 1))
+    extra = pieces - 1
+    tile = np.repeat(np.arange(n_tiles), extra)
+    j = np.arange(extra.sum()) - np.repeat(np.cumsum(extra) - extra, extra) + 1
+    split_at = tile_ptr[tile] + j * counts[tile] // pieces[tile]
+    return tile_ptr.astype(np.int32), split_at.astype(np.int32)
 
 
 def require_high(what: str, precision: str) -> None:

@@ -16,14 +16,16 @@ row short of naming N_pad) and a window clipped to the table. The corner
 kernels run on plans with several passes, an odd tile count, re-windowed
 tiles and overflow rows (a small span cap), at ragged widths. The SpMM
 kernels run on those band plans and on panel layouts with and without a
-panel cap (overflow slots), with a tile without edges, at L = 1, 48, 65 and
-128, over node tables whose next row in memory is NaN (a row formed for a
-dead slot past the table would show), and every SpMM op's backward runs
-card against CPU. The BCSR attention kernel runs on tilings with a row
-tile without edges and (I, J) pairs of several chunks, at F = 7, 8 and 256
-(four column slabs), with and without a dropout mask, and its autograd
-Function card against CPU. chip_smoke.py covers the main path's full-size
-shapes.
+panel cap (overflow slots), with a tile without edges, and on a graph with a
+hub whose tile the kernels split over several blocks, at L = 1, 2, 48, 65,
+128 and 130 (widths and a table offset that break 16-byte alignment), over
+node tables whose next row in memory is NaN (a row formed for a dead slot
+past the table would show); two calls agree bit for bit, and every SpMM
+op's backward runs card against CPU. The BCSR attention kernel runs on
+tilings with a row tile without edges and (I, J) pairs of several chunks,
+at F = 7, 8 and 256 (four column slabs), with and without a dropout mask,
+and its autograd Function card against CPU. chip_smoke.py covers the main
+path's full-size shapes.
 """
 
 from __future__ import annotations
@@ -361,6 +363,52 @@ def test_fit_fast_on_cuda_resumes_exactly(cuda, tmp_path):
     assert res.best_epoch == full.best_epoch
 
 
+# In a fresh process, the first launch of each kernel at a size where its
+# static plus dynamic shared memory passes 48 KB and the dynamic part alone
+# does not: stream_scatter at L = 32, banded_sender_sum at L = 48, fused_v1
+# at H 1 F 92 and fused_v2 at H 1 F 90. The opt-in to more than 48 KB stays
+# set on a kernel once a larger launch set it, so only a first launch shows
+# a missing one.
+_FIRST_LAUNCHES = """
+import torch
+from tests.test_torch_cuda import _close, _fused_args, _fused_v2_args, _graph
+from pygat_tpu_torch.ops import banded as bd, fused_stream as fs
+from pygat_tpu_torch.ops import stream as st
+
+dev = torch.device("cuda")
+g = _graph(dev, False)
+gen = torch.Generator(device=dev).manual_seed(0)
+n_pad = g.num_nodes_padded
+data = torch.randn(g.num_edges_padded, 32, generator=gen, device=dev)
+_close(st.stream_scatter(data, g.r_local, g.r_chunk, n_pad),
+       st.stream_scatter_plain(data, g.r_local, g.r_chunk, n_pad))
+plan = bd.build_band_plan(g, w=2)
+data = torch.randn(plan.num_slots, 48, generator=gen, device=dev)
+_close(bd.banded_sender_sum(data, plan), bd.banded_sender_sum_plain(data, plan))
+for kernel, plain, args in (
+        (fs.fused_v1, fs.fused_v1_plain, _fused_args(g, 1, 92, gen, dev)),
+        (fs.fused_v2, fs.fused_v2_plain, _fused_v2_args(g, 1, 90, gen, dev))):
+    for got, want in zip(kernel(*args), plain(*args)):
+        _close(got, want)
+torch.cuda.synchronize()
+print("first launches ok")
+"""
+
+
+def test_first_launch_at_48_kb_of_shared_memory_opts_in(cuda):
+    """Each kernel's first launch in a fresh process at a size whose
+    static and dynamic shared memory together just pass 48 KB."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", _FIRST_LAUNCHES], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "first launches ok" in run.stdout
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
     g = _graph(cuda, False)
 
@@ -387,14 +435,25 @@ def test_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
 # -- the banded kernels --------------------------------------------------------
 
 
+def _hub(device):
+    """The hub graph (``data.synthetic.hub_edges``): its hub's tile owns 38
+    chunks of the receiver stream and of a w = 4 band plan, well over
+    HEAVY_CHUNKS, so the SpMM kernels split it."""
+    s, r, n = synthetic.hub_edges()
+    return build_graph(s, r, None, n, device=device)
+
+
 def _plan(device, kind):
     """(graph, band plan): ``clustered`` has several chunks per tile,
     ``empty_tile`` a tile without edges, ``clipped`` asks for a window wider
-    than the table. Each plan ends in all-dead padding chunks on the last
-    band, so a dead slot there would name row N_pad if formed first."""
+    than the table, ``hub`` a tile of 38 chunks. Each plan ends in all-dead
+    padding chunks on the last band, so a dead slot there would name row
+    N_pad if formed first."""
     rng = np.random.default_rng(5)
     if kind == "empty_tile":
         return _graph(device, True), 2
+    if kind == "hub":
+        return _hub(device), 4
     if kind == "clipped":
         n, deg, spread, w = 100, 3, 100, 64
     else:
@@ -416,6 +475,8 @@ def _band(device, kind):
         assert bool((plan.r_chunk == 1).any())  # the empty tile has a chunk
     if kind == "clipped":
         assert plan.w == plan.n_pad // 128
+    if kind == "hub":  # the SpMM kernel splits the hub's tile
+        assert plan.split_at.numel() >= 2
     return g, plan
 
 
@@ -848,13 +909,15 @@ def _close_sums(got, want, mag):
     assert float(mag.max()) > 1.0  # the comparison is not idle
 
 
-SPMM_WIDTHS = [1, 48, 65, 128]
+# 2 and 130 are not multiples of 4: the kernels read such rows by scalars
+SPMM_WIDTHS = [1, 2, 48, 65, 128, 130]
 
 
-@pytest.mark.parametrize("kind", BAND_KINDS)
+@pytest.mark.parametrize("kind", BAND_KINDS + ["hub"])
 @pytest.mark.parametrize("width", SPMM_WIDTHS)
 def test_spmm_banded_kernel_matches_plain(cuda, kind, width):
-    """Values on dead slots too (ignored), dead slots on the last band."""
+    """Values on dead slots too (ignored), dead slots on the last band; the
+    hub's tile split over three blocks."""
     _, plan = _band(cuda, kind)
     gen = torch.Generator(device=cuda).manual_seed(width)
     vals = torch.randn(plan.num_slots, generator=gen, device=cuda)
@@ -869,32 +932,38 @@ def test_spmm_banded_kernel_matches_plain(cuda, kind, width):
 
 def _panel_layout(device, kind):
     """(graph, layout): ``clustered`` fits every slot in its tile's panels,
-    ``capped`` keeps one panel per tile (most slots overflow), and
-    ``empty_tile`` has an output tile without edges."""
+    ``capped`` keeps one panel per tile (most slots overflow),
+    ``empty_tile`` has an output tile without edges, and ``hub`` a tile of
+    38 chunks, which the kernel splits."""
     if kind == "empty_tile":
         g = _graph(device, True)
+    elif kind == "hub":
+        g = _hub(device)
     else:
         g, _ = _plan(device, "clustered")
     layout = pn.build_panel_layout(g, p_max=1 if kind == "capped" else None)
     assert (layout.n_overflow > 0) == (kind == "capped")
+    assert (layout.split_at.numel() > 0) == (kind == "hub")
     return g, layout
 
 
-PANEL_KINDS = ["clustered", "capped", "empty_tile"]
+PANEL_KINDS = ["clustered", "capped", "empty_tile", "hub"]
 
 
 @pytest.mark.parametrize("kind", PANEL_KINDS)
 @pytest.mark.parametrize("width", SPMM_WIDTHS)
 def test_panel_spmm_kernel_matches_plain(cuda, kind, width):
     """Overflow and dead slots add nothing, nor do live slots whose edge
-    mask is false (a fifth of them here); empty tiles give zeros."""
+    mask is false (a fifth of them here); empty tiles give zeros; the hub's
+    tile is split over three blocks."""
     g, layout = _panel_layout(cuda, kind)
     gen = torch.Generator(device=cuda).manual_seed(width)
     vals = torch.randn(g.num_edges_padded, generator=gen, device=cuda)
     mask = g.edge_mask & (torch.rand(g.num_edges_padded, generator=gen,
                                      device=cuda) > 0.2)
     x = _nan_tail(g.num_nodes_padded, width, gen, cuda)
-    args = (layout.panel_tiles, layout.g_idx, mask, g.r_local, g.r_chunk)
+    args = (layout.panel_tiles, layout.g_idx, mask, g.r_local, g.r_chunk,
+            layout.tile_ptr, layout.split_at)
     before = pn.panel_weighted_sum.launches
     got = pn.panel_weighted_sum(vals, x, *args)
     torch.cuda.synchronize()
@@ -998,22 +1067,37 @@ def test_spmm_routes_agree_on_the_card(cuda):
             assert err <= RTOL * max(1.0, float(want.abs().max())), (name, err)
 
 
-@pytest.mark.parametrize("which", ["banded", "panel"])
+def _spmm_kernel(cuda, which, gen):
+    """(kernel, plain version, values, the arguments after x, graph) of the
+    banded or panel SpMM kernel: over the clustered graph's band plan or
+    capped panel layout, or (``*_hub``) over the hub graph's."""
+    hub = which.endswith("_hub")
+    if hub:
+        g = _hub("cpu")
+        plan, layout = bd.build_band_plan(g, w=4), pn.build_panel_layout(g)
+    else:
+        g, plan, layout, _ = _spmm_setup(capped=True)
+    g, plan, layout = g.to(cuda), plan.to(cuda), layout.to(cuda)
+    if which.startswith("banded"):
+        vals = torch.randn(plan.num_slots, generator=gen, device=cuda)
+        return (bd.banded_weighted_sum, bd.banded_weighted_sum_plain, vals,
+                (plan,), g)
+    vals = torch.randn(g.num_edges_padded, generator=gen, device=cuda)
+    return (pn.panel_weighted_sum, pn.panel_weighted_sum_plain, vals,
+            (layout.panel_tiles, layout.g_idx, g.edge_mask, g.r_local,
+             g.r_chunk, layout.tile_ptr, layout.split_at), g)
+
+
+@pytest.mark.parametrize("which", ["banded", "panel", "banded_hub",
+                                   "panel_hub"])
 def test_spmm_launch_is_capturable(cuda, which):
     """One launch inside CUDA-graph capture replays to the plain version's
-    result on fresh inputs."""
-    g, plan, layout, _ = _spmm_setup(capped=True)
-    g, plan, layout = g.to(cuda), plan.to(cuda), layout.to(cuda)
+    result on fresh inputs; with the hub, the capture holds the split tile's
+    second kernel too. The hub's 9000-term row is held to RTOL of the same
+    sum over magnitudes (its f32 reordering moves it by some 4e-5 of its
+    value)."""
     gen = torch.Generator(device=cuda).manual_seed(3)
-    if which == "banded":
-        kernel, plain = bd.banded_weighted_sum, bd.banded_weighted_sum_plain
-        vals = torch.randn(plan.num_slots, generator=gen, device=cuda)
-        rest = (plan,)
-    else:
-        kernel, plain = pn.panel_weighted_sum, pn.panel_weighted_sum_plain
-        vals = torch.randn(g.num_edges_padded, generator=gen, device=cuda)
-        rest = (layout.panel_tiles, layout.g_idx, g.edge_mask, g.r_local,
-                g.r_chunk)
+    kernel, plain, vals, rest, g = _spmm_kernel(cuda, which, gen)
     x = torch.randn(g.num_nodes_padded, 96, generator=gen, device=cuda)
     kernel(vals, x, *rest)  # build and load outside the capture
     torch.cuda.synchronize()
@@ -1024,7 +1108,49 @@ def test_spmm_launch_is_capturable(cuda, which):
     x.copy_(torch.randn(x.shape, generator=gen, device=cuda))
     graph.replay()
     torch.cuda.synchronize()
-    _close(got, plain(vals, x, *rest))
+    if which.endswith("_hub"):
+        _close_sums(got, plain(vals, x, *rest),
+                    plain(vals.abs(), x.abs(), *rest))
+    else:
+        _close(got, plain(vals, x, *rest))
+
+
+@pytest.mark.parametrize("which", ["banded_hub", "panel_hub"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_spmm_kernels_repeat_bit_for_bit(cuda, which, offset):
+    """Two calls on the same inputs give the same bits (each tile's rows are
+    summed by one warp in slot order, the split tile's pieces added in
+    order), over a table that starts 16-byte aligned (float4 loads) or one
+    float past it (scalar loads), at L = 128; and both agree with the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(offset)
+    kernel, plain, vals, rest, g = _spmm_kernel(cuda, which, gen)
+    n_pad = g.num_nodes_padded
+    buf = torch.randn(n_pad * 128 + offset, generator=gen, device=cuda)
+    x = buf[offset:].view(n_pad, 128)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    a, b = kernel(vals, x, *rest), kernel(vals, x, *rest)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close_sums(a, plain(vals, x, *rest), plain(vals.abs(), x.abs(), *rest))
+
+
+def test_spmm_banded_builds_its_walk_outside_capture(cuda):
+    """A band plan builds its SpMM walk at its first CUDA call, which
+    refuses to run inside a CUDA-graph capture (the walk would hold values
+    that only a replay computes); the walk is built once and kept."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    kernel, _, vals, (plan,), g = _spmm_kernel(cuda, "banded", gen)
+    x = torch.randn(g.num_nodes_padded, 32, generator=gen, device=cuda)
+    assert "spmm_walk" not in plan.__dict__
+    with pytest.raises(RuntimeError, match="must not be captured"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            kernel(vals, x, plan)
+    kernel(vals, x, plan)
+    walk = plan.spmm_walk
+    assert walk.order.device == x.device
+    kernel(vals, x, plan)
+    assert plan.spmm_walk is walk
 
 
 def test_spmm_wrappers_never_call_plain_on_the_card(cuda, monkeypatch):

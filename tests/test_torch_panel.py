@@ -148,7 +148,8 @@ def test_panel_spmm_arrays_and_modes_agree(clustered):
     want = ops.panel_spmm_graph(wt, xt, gt, lt)
     got = ops.panel_spmm(wt, xt, lt.panel_tiles, lt.g_idx, lt.overflow_edges,
                          gt.senders, gt.receivers, gt.edge_mask, gt.r_local,
-                         gt.r_chunk, lt.n_panels)
+                         gt.r_chunk, lt.n_panels, tile_ptr=lt.tile_ptr,
+                         split_at=lt.split_at)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     assert torch.equal(ops.panel_spmm_graph(wt, xt, gt, lt, mode="take"),
                        want)
