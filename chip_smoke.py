@@ -16,7 +16,9 @@ of which prints its seconds:
    feature counts), the banded kernels (and ``stream_scatter`` at its
    banded widths) on the 524,288-node clustered graph with the band plan
    that ``maybe_plan_large`` picks by itself, and on Cora with
-   ``set_band("on")``; the corner kernels: ``permute_pass`` bit-exact on
+   ``set_band("on")``, the fused banded forwards also on the hub graph's
+   band plan (a tile cut into pieces), each of them called twice (the two
+   results equal bit for bit); the corner kernels: ``permute_pass`` bit-exact on
    every pass of both 524k corner plans (built once, their set-up timed) at
    every width the two models turn (64, 4, 128, 8), the whole pass chain
    with its fix-ups on a Cora plan with overflow rows (span cap 3) card vs
@@ -54,7 +56,10 @@ of which prints its seconds:
    function, that call (``index_add_`` for the segment sums,
    ``index_select`` of rows for the gathers and the corner passes): device
    time per call, calls captured in a CUDA graph, replays timed with CUDA
-   events;
+   events; beside the fused banded forwards, the parent's block-per-chunk
+   body over the same slots (``parent_body_ms``: the receiver-stream
+   kernels ``fused_v1`` / ``fused_v2``, which run on that body, given the
+   banded slots' sender rows, local rows and tiles);
 6. the SpMM path, after every captured epoch is freed: the op family
    (``spmm_graph``, ``sddmm_graph``, ``panel_spmm_graph`` with and without
    ``plans=``, ``spmm_corner_graph``, ``spmm_banded`` fused and two-pass)
@@ -484,7 +489,8 @@ def _banded_call(case, plan, plain=False):
 def _check_banded(case, plan):
     """``case``'s kernel against its plain version: the gathers bit-exact,
     the segment sums to KERNEL_RTOL of the same sums over |data|, the fused
-    forward to KERNEL_RTOL of its largest output."""
+    forward to KERNEL_RTOL of its largest output and, called again, equal
+    bit for bit."""
     import torch
 
     k = case["kernel"]
@@ -510,8 +516,14 @@ def _check_banded(case, plan):
         e1, a1 = _max_err(out, out_p)
         e2, a2 = _max_err(den, den_p)
         err = max(e1, e2)
-        note = f"out {e1:.3e} (allowed {a1:.3e}), den {e2:.3e} (allowed {a2:.3e})"
-        ok = e1 <= a1 and e2 <= a2
+        again = _banded_call(case, plan)
+        case["bitwise_repeat"] = (torch.equal(out, again[0])
+                                  and torch.equal(den, again[1]))
+        note = (f"out {e1:.3e} (allowed {a1:.3e}), den {e2:.3e} (allowed "
+                f"{a2:.3e}); a second call "
+                + ("equal bit for bit" if case["bitwise_repeat"]
+                   else "NOT equal bit for bit"))
+        ok = e1 <= a1 and e2 <= a2 and case["bitwise_repeat"]
     case["max_abs_err"] = err
     shape = f"H={case['H']} F={case['F']}" + (
         f" L={case['L']}" if "L" in case else "")
@@ -557,6 +569,18 @@ def _time_banded(case, plan, big):
         n_bytes = 4 * (n_live * width + e + c + n * width)
         n_flops = n_live * width
     else:
+        # the parent's block-per-chunk body over the same slots: the stream
+        # kernels given each banded slot's sender row (the dummy row at dead
+        # slots, which they skip by the local row)
+        from pygat_tpu_torch.ops.banded import banded_senders
+        from pygat_tpu_torch.ops.fused_stream import fused_v1, fused_v2
+
+        body = fused_v1 if k == "fused_v1_banded" else fused_v2
+        snd = banded_senders(plan, n - 1).int()
+        args = (*case["args"][:5], snd, plan.r_local, plan.r_chunk,
+                case["args"][6])
+        case["parent_body_ms"] = _time_ms(lambda: body(*args), **kw)
+        del snd, args
         h, f = case["H"], case["F"]
         index_words = 2 * e + 2 * c  # s_loc, r_local; band, r_chunk
         tables = 1 if k == "fused_v1_banded" else 2
@@ -567,6 +591,8 @@ def _time_banded(case, plan, big):
     case["bound_ms"], case["bound_by"] = _bound(n_bytes, n_flops)
     lib = "" if case["library_ms"] is None else (
         f", library {case['library_ms']:.4f} ms")
+    if "parent_body_ms" in case:
+        lib += f", parent's body {case['parent_body_ms']:.4f} ms"
     shape = f"H={case['H']} F={case['F']}" + (
         f" L={case['L']}" if "L" in case else "")
     print(f"  {k} {case['dataset']} {case['path']} {shape}: "
@@ -1541,7 +1567,12 @@ def main() -> int:
     from pygat_tpu_torch.data.citation import load_citation
     from pygat_tpu_torch.models.presets import PRESETS
     from pygat_tpu_torch.ops import build
-    from pygat_tpu_torch.ops.banded import BandPlan, maybe_plan_large, set_band
+    from pygat_tpu_torch.ops.banded import (
+        BandPlan,
+        build_band_plan,
+        maybe_plan_large,
+        set_band,
+    )
     from pygat_tpu_torch.ops.large import CscCsrPlans, plan_csc_to_csr, set_corner
     from pygat_tpu_torch.ops.fused_stream import (
         fused_v1,
@@ -1658,7 +1689,14 @@ def main() -> int:
     set_band("auto")
     print(f"phase 3: cora with set_band('on'): w {cora_plan.w}, "
           f"{cora_plan.num_chunks} chunks, fill {cora_plan.fill:.4f}")
-    plans = {"large": large_plan, "cora, band plan": cora_plan}
+    hub = _hub_graph()
+    plans = {"large": large_plan, "cora, band plan": cora_plan,
+             "hub": build_band_plan(hub, w=4)}
+    print(f"phase 3: hub: band plan of {plans['hub'].num_chunks} chunks, "
+          f"pieces of split tiles past the first "
+          f"{plans['hub'].split_at.numel()}", flush=True)
+    if not plans["hub"].split_at.numel():
+        raise AssertionError("the hub graph's band plan has no split tile")
     banded_cases = []
     for label, ds, preset in (("large", large, "cora"),
                               ("cora, band plan", cora, "cora")):
@@ -1669,6 +1707,17 @@ def main() -> int:
             _check_banded(case, plans[label])
             kernel_cases[case["kernel"]].append(case)
             banded_cases.append(case)
+    # the fused banded forwards on the hub's cut tile, at the preset's
+    # layer-1 width
+    for path, make in (("v1", _fused_inputs), ("v2", _fused_v2_inputs)):
+        h, f = PRESETS["cora"]["nheads"][0], PRESETS["cora"]["nfeats"][1]
+        case = dict(dataset="hub", path=path, H=h, F=f,
+                    kernel=f"fused_{path}_banded",
+                    n_live=int((plans["hub"].r_local < 128).sum()),
+                    args=make(hub, h, f, gen, plans["hub"]))
+        _check_banded(case, plans["hub"])
+        kernel_cases[case["kernel"]].append(case)
+        banded_cases.append(case)
 
     # the corner kernels: every pass of both 524k corner plans (built once
     # here; the trainers of phase 4 build their own) at every width the
@@ -2077,12 +2126,17 @@ def main() -> int:
             "bound_by": "bytes" if all(c["bound_by"] == "bytes"
                                        for c in main_cases) else "operations",
             "library_ms": None if None in lib else sum(lib),
+            **({"parent_body_ms": sum(c["parent_body_ms"]
+                                      for c in main_cases)}
+               if all("parent_body_ms" in c for c in main_cases)
+               and main_cases else {}),
             "cases": [{k: c[k] for k in ("dataset", "path", "side", "dir",
                                          "pass", "p", "L", "H", "F", "P",
                                          "ms", "op_ms", "two_pass_ms",
                                          "spmm_graph_ms", "dropout",
                                          "fused_v1_ms", "fused_v1_banded_ms",
-                                         "plain_ms", "library_ms",
+                                         "plain_ms", "parent_body_ms",
+                                         "library_ms",
                                          "bound_ms", "bound_by",
                                          "max_abs_err", "split_at",
                                          "bitwise_repeat") if k in c}

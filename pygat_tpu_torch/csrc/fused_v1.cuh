@@ -1,13 +1,12 @@
 // Fused GATv1 attention forward for Hopper (sm_90a), shared by
-// fused_v1.cu (receiver stream order, senders listed per slot),
-// fused_v1_banded.cu (banded order, sender = band[c] * 128 + s_loc[k]) and
+// fused_v1.cu (receiver stream order, senders listed per slot) and
 // fused_v1_window.cu (receiver stream order, wh replaced by the corner
-// path's pre-built [E_s, HF] sender window, row k for slot k).
+// path's pre-built [E_s, HF] sender window, row k for slot k). The banded
+// order runs on the tile-owner body tile_fused.cuh.
 //
-// Same function as the Pallas TPU kernels pygat_tpu/ops/fused_stream.py::
-// _make_v1_kernel and pygat_tpu/ops/banded.py::_make_v1_banded_kernel, per
-// live slot k of receiver r = tile*128 + local[k] and sender s, for each
-// head h:
+// Same function as the Pallas TPU kernel pygat_tpu/ops/fused_stream.py::
+// _make_v1_kernel, per live slot k of receiver r = tile*128 + local[k] and
+// sender s, for each head h:
 //   l_src  = sum_f wh[s, hF+f] * a_src[h, f]
 //   raw    = f_dst[r, h] + l_src
 //   num    = exp(leaky_relu(raw) - bound[r, h])      (0 at dead slots)
@@ -15,8 +14,7 @@
 //   den[r, h]    += num                              (pre-dropout)
 //
 // The TPU kernels receive the sender rows pre-gathered into an [E, HF]
-// window (or select them from the chunk's w-tile VMEM window) and build the
-// receiver gather, the head broadcast and the scatter from one-hot MXU
+// window and build the receiver gather, the head broadcast and the scatter from one-hot MXU
 // matmuls, because Mosaic cannot gather rows. Here the kernel gathers wh[s]
 // itself and works in registers:
 //   * one thread block per 256-slot chunk and group of heads (at most 128
@@ -28,9 +26,7 @@
 //     the gathered row (the F loads hit L1), and sums runs of equal local
 //     rows in registers, adding each run into f32 [128, cols] and [128, hb]
 //     shared accumulators with one atomic. In receiver stream order the
-//     runs are a row's in-edges; in banded order a chunk is sorted by
-//     sender, so the runs are mostly of length 1 and the kernel pays about
-//     one shared-memory atomic per live slot and column;
+//     runs are a row's in-edges;
 //   * the block adds the rows its chunk touched into out and den with
 //     global atomics; the entry point zeroes both first, so every row is
 //     written, also in a tile with no live slot. Atomics make the
@@ -44,11 +40,9 @@
 // Bound on the H100: bytes. Per live slot it reads one HF-float row of wh,
 // H keep factors and the index words; the FLOPs (about 4 HF per slot) are
 // negligible. At citation sizes wh stays in L2 and the call is
-// launch-bound; at 524k nodes wh (134 MB at HF = 64) exceeds the 50 MB L2,
-// and the banded order keeps each chunk's sender rows within its w-tile
-// window (w * 128 rows), so consecutive slots re-read rows from L2. Over
-// the corner path's window each live slot's row is read once, in slot
-// order: [E_s, HF] floats instead of the node table.
+// launch-bound; at 524k nodes wh (134 MB at HF = 64) exceeds the 50 MB L2.
+// Over the corner path's window each live slot's row is read once, in
+// slot order: [E_s, HF] floats instead of the node table.
 
 #pragma once
 

@@ -1,28 +1,39 @@
-// Fused GATv1 attention forward over a band plan's slot order, for Hopper
-// (sm_90a). Replaces the Pallas TPU kernel pygat_tpu/ops/banded.py::
-// _make_v1_banded_kernel (launched by _banded_grid_call); the kernel and
-// what bounds it are described in fused_v1.cuh. Slot k of chunk c has the
-// sender band[c] * 128 + s_loc[k] (s_loc == w * 128 marks a dead slot,
-// whose local row is 128 too), where the TPU kernel selects the sender row
-// from the chunk's w-tile VMEM window with one-hot matmuls.
+// Fused GATv1 attention forward over a band plan, for Hopper (sm_90a).
+// Replaces the Pallas TPU kernel pygat_tpu/ops/banded.py::
+// _make_v1_banded_kernel (launched by _banded_grid_call), which selects
+// each chunk's sender rows from its w-tile VMEM window with one-hot
+// matmuls. Here a block owns a receiver tile and walks its slots in the
+// plan's walk, receivers ascending, summing each receiver's run in
+// registers and storing every row once (tile_fused.cuh, which describes
+// the kernel and what bounds it).
+// One 524k-node forward of the Cora preset (H 8 F 8, then H 1 F 4) takes
+// 0.43 ms against 3.49 ms for the first port's block-per-chunk body
+// (pygat_tpu_torch/tools/banded_ab.py; NVIDIA H100 80GB HBM3, 700.00 W).
 
-#include "fused_v1.cuh"
+#include "tile_fused.cuh"
 
-// wh [N, H*F], f_dst / bound [N, H], a_src [H, F], keepq [E_b, H] f32;
-// band [n_chunks] int32, s_loc / local [E_b] int32, chunk_tile [n_chunks]
-// int32 (the plan's band, s_loc, r_local and r_chunk); out
-// [n_tiles * 128, H*F] and den [n_tiles * 128, H] f32. Zeroes out and den
-// and launches on `stream`; returns the first CUDA error, or
-// cudaGetLastError() after the launch (cudaErrorInvalidValue when F > 256).
-extern "C" int pygat_fused_v1_banded(const float* wh, const float* f_dst,
-                                     const float* bound, const float* a_src,
-                                     const float* keepq, const int* band,
-                                     const int* s_loc, const int* local,
-                                     const int* chunk_tile, int n_chunks,
-                                     int n_tiles, int w, int H, int F,
-                                     float alpha, float* out, float* den,
-                                     void* stream) {
-  return launch_fused_v1(wh, f_dst, bound, a_src, keepq,
-                         WindowRows{band, s_loc, w * TILE}, local, chunk_tile,
-                         n_chunks, n_tiles, H, F, alpha, out, den, stream);
+// wh [N, H*F], f_dst / bound [N, H], a_src [H, F], keepq [E_b, H] f32 (in
+// the plan's banded slot order); rows, order [E_b] int32: the plan's walk
+// by position, the sender row (-1 dead) and the banded slot; row_ptr
+// [n_tiles * 129 + 1] int32: the first position of each (tile, local row)
+// key t * 129 + l; tile_ptr [n_tiles + 1] and split_at [n_split] int32
+// (ops/stream.py tile_ranges); max_run the most live slots of one receiver
+// (the plan's max_run); out [n_tiles * 128, H*F] and den
+// [n_tiles * 128, H] f32, every row written; part_out [n_split, 128, H*F]
+// and part_den [n_split, 128, H] f32 scratch (unused when n_split is 0).
+// Launches on `stream`; returns the first CUDA error, or
+// cudaGetLastError() after the launches (cudaErrorInvalidValue when
+// F > 256).
+extern "C" int pygat_fused_v1_banded(
+    const float* wh, const float* f_dst, const float* bound,
+    const float* a_src, const float* keepq, const int* rows,
+    const int* order, const int* row_ptr, const int* tile_ptr,
+    const int* split_at, int n_tiles, int n_split, int max_run, int H, int F,
+    float alpha, float* out, float* den, float* part_out, float* part_den,
+    void* stream) {
+  return launch_tile_fused<false>(
+      FusedArgs{wh, nullptr, f_dst, bound, a_src, keepq, rows, order,
+                row_ptr, tile_ptr, split_at, n_tiles, n_split, H, F, alpha,
+                out, den, part_out, part_den, 0, 0, 0},
+      max_run, stream);
 }

@@ -1,13 +1,12 @@
 // Fused GATv2 attention forward for Hopper (sm_90a), shared by
-// fused_v2.cu (receiver stream order, senders listed per slot),
-// fused_v2_banded.cu (banded order, sender = band[c] * 128 + s_loc[k]) and
+// fused_v2.cu (receiver stream order, senders listed per slot) and
 // fused_v2_window.cu (receiver stream order over a pre-built [E_s, 2HF]
-// sender window, row k for slot k).
+// sender window, row k for slot k). The banded order runs on the
+// tile-owner body tile_fused.cuh.
 //
-// Same function as the Pallas TPU kernels pygat_tpu/ops/fused_stream.py::
-// _make_v2_kernel and pygat_tpu/ops/banded.py::_make_v2_banded_kernel, per
-// live slot k of receiver r = tile*128 + local[k] and sender row s, for
-// each head h:
+// Same function as the Pallas TPU kernel pygat_tpu/ops/fused_stream.py::
+// _make_v2_kernel, per live slot k of receiver r = tile*128 + local[k] and
+// sender row s, for each head h:
 //   pre[f] = leaky_relu(whi[r, hF+f] + sj[s, hF+f])
 //   logit  = sum_f pre[f] * a[h, f]
 //   num    = exp(logit - ub[r, h])                   (0 at dead slots)
@@ -20,8 +19,7 @@
 // slot. The receiver-side rows whi[r] and ub[r] are always node rows.
 //
 // The TPU kernels receive whj and whi pre-gathered at the senders in one
-// [E, 2HF] window (or select them from the chunk's w-tile VMEM window) and
-// build the receiver gather, the a-projection, the head broadcast and the
+// [E, 2HF] window and build the receiver gather, the a-projection, the head broadcast and the
 // scatter from one-hot MXU matmuls, because Mosaic cannot gather rows.
 // Here the kernel gathers the sender rows itself (over the corner path's
 // window it reads them in slot order, as the TPU kernel does). One thread
@@ -39,9 +37,7 @@
 //      by receiver, so whi[r] and ub[r] are loaded once per run of equal
 //      rows and kept in registers, and the run's denominator is summed in a
 //      register and added to the shared [128, hb] accumulator with one
-//      atomic (in banded order a chunk is sorted by sender, the runs are
-//      mostly of length 1, and whi[r] is reloaded from L1 per item). The
-//      keep-scaled numerator of every item goes to shared memory. The
+//      atomic. The keep-scaled numerator of every item goes to shared memory. The
 //      loop's trip count is the same for every thread and the shuffles
 //      sit outside all data-dependent branches, so the full-warp mask is
 //      safe;
@@ -54,8 +50,7 @@
 // global atomics; the entry point zeroes both first, so every row is
 // written. Atomics make the summation order vary from run to run at f32
 // rounding level. Dead slots (local == 128) are skipped before any load or
-// exp: their sender is the dummy row N_pad - 1 (or none, in banded order),
-// whose content the kernel never reads. No width is assumed to be a
+// exp: their sender is the dummy row N_pad - 1, whose content the kernel never reads. No width is assumed to be a
 // multiple of 4 or 8 (Cora's layer 2 has H = 1, F = 7, Pubmed's H = 8,
 // F = 3): all loads are scalar.
 //
@@ -67,8 +62,7 @@
 // those re-reads are L2 traffic and no part of the bound. The FLOPs (about
 // 6 HF + 6 H per slot) are negligible. At Cora's shapes the call moves a
 // few MB and is launch-bound. At 524k nodes the tables (134 MB each at
-// HF = 64) exceed the 50 MB L2; the banded order keeps each chunk's sender
-// rows within its w-tile window (w * 128 rows). Over the corner path's
+// HF = 64) exceed the 50 MB L2. Over the corner path's
 // window the sender side is no node table but [E_s, 2HF] floats read once,
 // in slot order, which the bound counts instead of whj.
 

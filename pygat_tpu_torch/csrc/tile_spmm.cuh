@@ -43,12 +43,10 @@
 //     No barrier stands between loading and adding;
 //   * a tile whose block would walk too much (more than HEAVY_CHUNKS
 //     chunks, or more than WARP_SLOTS live slots on one warp's rows: a
-//     hub's tile) is cut by the host into pieces at the chunks split_at[]
-//     (ops/stream.py: tile_ranges), one block each: block t walks tile t up
-//     to its first cut, block n_tiles + e the piece from split_at[e] on.
-//     The first piece stores into the output, piece e into part[e], and a
-//     second small kernel adds the pieces into the output in order. Only
-//     split tiles pay for it, and the sum stays reproducible.
+//     hub's tile) is cut by the host into pieces, one block each, and a
+//     second small kernel adds the pieces into the output in order
+//     (tile_pieces.cuh). Only split tiles pay for it, and the sum stays
+//     reproducible.
 // The first design (every warp resolving every slot itself from memory,
 // eight times over; one block per tile whatever the grid; the banded slots
 // in the plan's sender order) took 1.20–1.69x as long.
@@ -66,12 +64,11 @@
 
 #include <cstdint>
 
-#include "slot_rows.cuh"
+#include "tile_pieces.cuh"
 
 namespace {
 
 constexpr int TS_WARPS = 8;      // warps of a tile-owner block
-constexpr int TS_THREADS = 256;  // threads of the combine kernel
 constexpr int TS_SLAB = 128;   // columns per block: 32 lanes x 4
 constexpr int TS_GROUP = 64;   // slots a warp's two ballots cover
 constexpr int TS_BATCH = 8;    // slot rows a warp has in flight
@@ -133,22 +130,6 @@ __device__ __forceinline__ void add_row(float* a, int lane, int cols,
     for (int q = 0; q < 4; ++q)
       if (lane + 32 * q < cols) a[lane + 32 * q] += s[q];
   }
-}
-
-// The first i in [0, n) with a[i] >= v, or n; a is non-decreasing.
-__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
-                                           int v) {
-  int lo = 0;
-  while (n > 0) {
-    const int half = n >> 1;
-    if (a[lo + half] < v) {
-      lo += half + 1;
-      n -= half + 1;
-    } else {
-      n = half;
-    }
-  }
-  return lo;
 }
 
 // the shared-memory staging of one chunk's slots: row of x (-1 when dead
@@ -282,28 +263,13 @@ tile_spmm_kernel(const float* __restrict__ x, Rows rows, SlotValues w,
   const int warp = t >> 5;
   const int lane = t & 31;
 
-  // the block's tile and chunk range [c_lo, c_hi): block t takes tile t up
-  // to its first split point, block n_tiles + e the piece from split_at[e]
-  // to the next split point or the tile's end
-  int tile, c_lo, c_hi;
-  float* o;
-  if (blockIdx.x < n_tiles) {
-    tile = blockIdx.x;
-    c_lo = tile_ptr[tile];
-    c_hi = tile_ptr[tile + 1];
-    if (n_split > 0) {
-      const int i = lower_bound(split_at, n_split, c_lo + 1);
-      if (i < n_split && split_at[i] < c_hi) c_hi = split_at[i];
-    }
-    o = out + static_cast<long long>(tile) * TILE * L + c0;
-  } else {
-    const int e = blockIdx.x - n_tiles;
-    c_lo = split_at[e];
-    tile = lower_bound(tile_ptr, n_tiles + 1, c_lo + 1) - 1;
-    c_hi = tile_ptr[tile + 1];
-    if (e + 1 < n_split && split_at[e + 1] < c_hi) c_hi = split_at[e + 1];
-    o = part + static_cast<long long>(e) * TILE * L + c0;
-  }
+  // the block's tile and chunk range [c_lo, c_hi) (tile_pieces.cuh)
+  const TileRange tr = tile_range(blockIdx.x, tile_ptr, split_at, n_tiles,
+                                  n_split);
+  const int c_lo = tr.c_lo, c_hi = tr.c_hi;
+  float* o = (tr.piece < 0 ? out + static_cast<long long>(tr.tile) * TILE * L
+                           : part + static_cast<long long>(tr.piece) * TILE * L)
+             + c0;
 
   for (int i = t; i < n_rows * cols; i += THREADS) acc[i] = 0.f;
   if (c_lo < c_hi)
@@ -360,27 +326,6 @@ tile_spmm_kernel(const float* __restrict__ x, Rows rows, SlotValues w,
   }
 }
 
-// out[tile] += part[e], part[e + 1], ... for the extra pieces of each split
-// tile, in order; the blocks of a tile's first extra piece do the tile, the
-// others return.
-__global__ void __launch_bounds__(TS_THREADS)
-tile_combine_kernel(const int* __restrict__ tile_ptr, int n_tiles,
-                    const int* __restrict__ split_at, int n_split, int L,
-                    const float* __restrict__ part, float* __restrict__ out) {
-  const int e = blockIdx.x;
-  const int tile = lower_bound(tile_ptr, n_tiles + 1, split_at[e] + 1) - 1;
-  if (e > 0 && split_at[e - 1] > tile_ptr[tile]) return;
-  const int t_end = tile_ptr[tile + 1];
-  const long long n = static_cast<long long>(TILE) * L;
-  const long long i = static_cast<long long>(blockIdx.y) * TS_THREADS +
-                      threadIdx.x;
-  if (i >= n) return;
-  float* o = out + tile * n + i;
-  float s = *o;
-  for (int f = e; f < n_split && split_at[f] < t_end; ++f) s += part[f * n + i];
-  *o = s;
-}
-
 // One block per tile (and per 128 columns), plus one per extra piece of a
 // split tile, on `stream`; then, if any tile is split, the combine. part is
 // [n_split, 128, L] f32 scratch (unused when n_split is 0). Returns the
@@ -431,11 +376,9 @@ int launch_tile_spmm(const float* x, Rows rows, SlotValues w, const int* local,
   kernel<<<grid, TS_WARPS * 32, smem / grid.z, st>>>(
       x, rows, w, local, tile_ptr, split_at, n_tiles, n_split, L, out, part);
   e = cudaGetLastError();
-  if (e != cudaSuccess || n_split == 0) return static_cast<int>(e);
-  const dim3 grid2(n_split, (TILE * L + TS_THREADS - 1) / TS_THREADS);
-  tile_combine_kernel<<<grid2, TS_THREADS, 0, st>>>(
-      tile_ptr, n_tiles, split_at, n_split, L, part, out);
-  return static_cast<int>(cudaGetLastError());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_tile_combine(tile_ptr, n_tiles, split_at, n_split, L, part,
+                             out, st);
 }
 
 }  // namespace

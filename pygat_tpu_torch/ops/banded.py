@@ -24,7 +24,8 @@ Three parts:
   replaces ``_make_banded_kernel``), :func:`banded_sender_sum`
   (``csrc/banded_sender_sum.cu``, replaces ``_make_sender_sum_kernel``),
   :func:`fused_v1_banded`, :func:`fused_v2_banded`
-  (``csrc/fused_v1_banded.cu``, ``csrc/fused_v2_banded.cu``, replace
+  (``csrc/fused_v1_banded.cu``, ``csrc/fused_v2_banded.cu`` on the
+  tile-owner body ``csrc/tile_fused.cuh``, replace
   ``_make_v1_banded_kernel`` and ``_make_v2_banded_kernel``),
   and :func:`banded_weighted_sum` (``csrc/spmm_banded.cu``, replaces
   ``_make_spmm_banded_kernel``);
@@ -40,9 +41,10 @@ The plan's fields that the kernels and plain versions read (``band``,
 ``s_loc``, ``r_local``, ``r_chunk``, and the port's own ``tile_ptr`` and
 ``split_at``: each tile's chunk range and the cuts of a hub's tile) are
 tensors on the graph's device; the others stay numpy arrays on the host.
-The SpMM kernel's walk of each tile's slots, receivers ascending
-(:attr:`BandPlan.spmm_walk`), is built on the plan's device at its first
-use and kept on the plan, so plans that never run the SpMM do not carry it.
+The walk of each tile's slots, receivers ascending, that the SpMM kernel
+and the fused forward kernels read (:attr:`BandPlan.spmm_walk`), is built
+on the plan's device at the first kernel call that reads it and kept on
+the plan; that call must not be inside a CUDA-graph capture.
 The reference's band-sorted schedule ``bs_*`` exists for the TPU's VMEM
 accumulators and is kept for parity only: the sender-sum kernel walks the
 banded chunks directly. The plan's
@@ -63,10 +65,10 @@ import torch
 
 from pygat_tpu_torch.ops import build
 from pygat_tpu_torch.ops.fused_stream import (
+    MAX_F,
     _block_diag_a,
     _check_args as _check_fused_args,
     _expand_bd,
-    _launch,
     fused_v1_plain,
     fused_v2_plain,
     leaky_relu,
@@ -89,12 +91,18 @@ _DEVICE_FIELDS = ("band", "s_loc", "r_local", "r_chunk", "tile_ptr",
 
 
 class SpmmWalk(NamedTuple):
-    """The banded SpMM kernel's walk of each tile's slots, receivers
-    ascending (stable), so that the walk reads its index words in order."""
+    """The walk of each tile's slots, receivers ascending (stable), that
+    the banded SpMM and fused forward kernels read in order: a receiver's
+    slots are one run of positions."""
 
     order: torch.Tensor  # [E_b] int32 the slot at each position
     rows: torch.Tensor  # [E_b] int32 its sender row (-1 dead)
     local: torch.Tensor  # [E_b] int32 its local row (DEAD dead)
+    # [n_tiles * (TILE + 1) + 1] int32: the first position of each key
+    # t * (TILE + 1) + l, so row l of tile t runs over positions
+    # row_ptr[key] .. row_ptr[key + 1] - 1; key t * (TILE + 1) + TILE
+    # starts the tile's dead slots
+    row_ptr: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,10 +134,13 @@ class BandPlan:
     fill: float  # real edges / (C * EC): chunk-packing efficiency
     perm: np.ndarray  # [E_b] int64 original edge index (-1 dead)
     n_pad: int  # node rows of the graph the plan was built for
-    # the port's own, for the tile-owner SpMM kernel: tile_ranges of r_chunk
-    # and r_local (tile t owns chunks [tile_ptr[t], tile_ptr[t + 1]))
+    # the port's own, for the tile-owner kernels: tile_ranges of r_chunk
+    # and r_local (tile t owns chunks [tile_ptr[t], tile_ptr[t + 1])), and
+    # the most live slots of one receiver (its in-degree), past which the
+    # fused forwards cut a receiver's run into segments
     tile_ptr: torch.Tensor  # [n_tiles + 1] int32
     split_at: torch.Tensor  # [n_split] int32 chunks where pieces start
+    max_run: int
 
     @property
     def num_slots(self) -> int:
@@ -141,14 +152,17 @@ class BandPlan:
 
     @functools.cached_property
     def spmm_walk(self) -> SpmmWalk:
-        """The SpMM kernel's walk, built on the plan's device at first use
-        (a stable sort of the slots by tile and local row) and kept."""
+        """The kernels' walk, built on the plan's device at first use (a
+        stable sort of the slots by tile and local row) and kept."""
         tile = self.r_chunk.long().repeat_interleave(EC)
-        order = torch.sort(tile * (TILE + 1) + self.r_local.long(),
-                           stable=True).indices
+        key, order = torch.sort(tile * (TILE + 1) + self.r_local.long(),
+                                stable=True)
+        n_keys = self.n_pad // TILE * (TILE + 1)
+        row_ptr = torch.searchsorted(
+            key, torch.arange(n_keys + 1, device=key.device))
         return SpmmWalk(order=order.int(),
                         rows=banded_senders(self, -1)[order].int(),
-                        local=self.r_local[order])
+                        local=self.r_local[order], row_ptr=row_ptr.int())
 
     def to(self, device) -> "BandPlan":
         """The same plan with its device fields on ``device`` (its SpMM
@@ -314,6 +328,7 @@ def build_band_plan(graph, w: int = 4) -> BandPlan:
         n_pad=n_pad,
         tile_ptr=dev(tile_ptr),
         split_at=dev(split_at),
+        max_run=int(np.bincount(r, minlength=1).max()),
     )
 
 
@@ -465,6 +480,16 @@ def _check_values(what: str, values_b: torch.Tensor, plan: BandPlan) -> None:
                          f"{tuple(values_b.shape)}")
 
 
+def _walk(what: str, plan: BandPlan) -> SpmmWalk:
+    """The plan's walk; raises inside a CUDA-graph capture when it is not
+    built yet (building it syncs and allocates)."""
+    if ("spmm_walk" not in plan.__dict__
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(f"{what}: the plan's walk is built at its first "
+                           "call, which must not be captured")
+    return plan.spmm_walk
+
+
 def banded_weighted_sum_plain(values_b: torch.Tensor, x: torch.Tensor,
                               plan: BandPlan) -> torch.Tensor:
     """Plain PyTorch version of :func:`banded_weighted_sum` (a row gather
@@ -495,11 +520,7 @@ def banded_weighted_sum(values_b: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"spmm_banded: unsupported device {x.device}")
     _check_table("spmm_banded", x, plan)
     _check_values("spmm_banded", values_b, plan)
-    if ("spmm_walk" not in plan.__dict__
-            and torch.cuda.is_current_stream_capturing()):
-        raise RuntimeError("spmm_banded: the plan's walk is built at its "
-                           "first call, which must not be captured")
-    walk = plan.spmm_walk
+    walk = _walk("spmm_banded", plan)
     width, n_split = x.shape[1], plan.split_at.shape[0]
     out = torch.empty(plan.n_pad, width, dtype=torch.float32, device=x.device)
     part = (torch.empty(n_split, TILE, width, dtype=torch.float32,
@@ -520,13 +541,41 @@ def fused_v1_banded_plain(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
                           plan.r_local, plan.r_chunk, alpha)
 
 
+def _launch_banded(wrapper, tensors, a, plan: BandPlan, alpha: float):
+    """Launch ``wrapper``'s tile-owner kernel over the plan's walk on the
+    current stream and count the launch; ``tensors`` are the node tables,
+    the per-node head terms, ``a`` and ``keepq`` in the kernel's order.
+    Returns the new (out [N, HF], den [N, H])."""
+    h, f = a.shape
+    if f > MAX_F:
+        raise ValueError(f"{wrapper.kernel}: head width {f} exceeds {MAX_F}")
+    walk = _walk(wrapper.kernel, plan)
+    dev, n_split = a.device, plan.split_at.shape[0]
+    out = torch.empty(plan.n_pad, h * f, dtype=torch.float32, device=dev)
+    den = torch.empty(plan.n_pad, h, dtype=torch.float32, device=dev)
+    part_out = part_den = None
+    if n_split:
+        part_out = torch.empty(n_split, TILE, h * f, dtype=torch.float32,
+                               device=dev)
+        part_den = torch.empty(n_split, TILE, h, dtype=torch.float32,
+                               device=dev)
+    build.launch(wrapper, *tensors, walk.rows, walk.order, walk.row_ptr,
+                 plan.tile_ptr, plan.split_at, plan.n_pad // TILE, n_split,
+                 plan.max_run, h, f, float(alpha), out, den, part_out,
+                 part_den)
+    return out, den
+
+
 @build.counted
 def fused_v1_banded(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
                     alpha: float):
     """(out [N, HF], den [N, H]) of the fused GATv1 forward over the banded
     slots (``keepq`` [E_b, H]). On a CUDA tensor this launches
     ``csrc/fused_v1_banded.cu`` (counted in ``fused_v1_banded.launches``),
-    on a CPU tensor it runs :func:`fused_v1_banded_plain`."""
+    whose result is the same bit for bit from call to call; on a CPU tensor
+    it runs :func:`fused_v1_banded_plain`. The first CUDA call on a plan
+    builds its walk (:attr:`BandPlan.spmm_walk`), so it must not be inside
+    a CUDA-graph capture."""
     if wh.device.type == "cpu":
         return fused_v1_banded_plain(wh, f_dst, bound, a_src, keepq, plan,
                                      alpha)
@@ -535,10 +584,8 @@ def fused_v1_banded(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
     _check_table("fused_v1_banded", wh, plan)
     _check_fused_args("fused_v1_banded", (wh,), (f_dst, bound), a_src, keepq,
                       plan.s_loc, plan.r_local, plan.r_chunk)
-    return _launch(fused_v1_banded,
-                   (wh, f_dst, bound, a_src, keepq, plan.band, plan.s_loc,
-                    plan.r_local, plan.r_chunk), a_src, alpha,
-                   window=(plan.w,))
+    return _launch_banded(fused_v1_banded, (wh, f_dst, bound, a_src, keepq),
+                          a_src, plan, alpha)
 
 
 def fused_v2_banded_plain(whi, whj, ub, a, keepq, plan: BandPlan,
@@ -556,7 +603,10 @@ def fused_v2_banded(whi, whj, ub, a, keepq, plan: BandPlan, alpha: float):
     """(out [N, HF], den [N, H]) of the fused GATv2 forward over the banded
     slots (``keepq`` [E_b, H]). On a CUDA tensor this launches
     ``csrc/fused_v2_banded.cu`` (counted in ``fused_v2_banded.launches``),
-    on a CPU tensor it runs :func:`fused_v2_banded_plain`."""
+    whose result is the same bit for bit from call to call; on a CPU tensor
+    it runs :func:`fused_v2_banded_plain`. The first CUDA call on a plan
+    builds its walk (:attr:`BandPlan.spmm_walk`), so it must not be inside
+    a CUDA-graph capture."""
     if whi.device.type == "cpu":
         return fused_v2_banded_plain(whi, whj, ub, a, keepq, plan, alpha)
     if whi.device.type != "cuda":
@@ -564,9 +614,8 @@ def fused_v2_banded(whi, whj, ub, a, keepq, plan: BandPlan, alpha: float):
     _check_table("fused_v2_banded", whi, plan)
     _check_fused_args("fused_v2_banded", (whi, whj), (ub,), a, keepq,
                       plan.s_loc, plan.r_local, plan.r_chunk)
-    return _launch(fused_v2_banded,
-                   (whi, whj, ub, a, keepq, plan.band, plan.s_loc,
-                    plan.r_local, plan.r_chunk), a, alpha, window=(plan.w,))
+    return _launch_banded(fused_v2_banded, (whi, whj, ub, a, keepq), a, plan,
+                          alpha)
 
 
 # ---------------------------------------------------------------------------

@@ -37,9 +37,9 @@ ENTRY_POINTS = {
     "banded_sender_sum": ("pygat_banded_sender_sum",
                           [_P] * 3 + [_I] * 4 + [_P] * 2),
     "fused_v1_banded": ("pygat_fused_v1_banded",
-                        [_P] * 9 + [_I] * 5 + [_F] + [_P] * 3),
+                        [_P] * 10 + [_I] * 5 + [_F] + [_P] * 5),
     "fused_v2_banded": ("pygat_fused_v2_banded",
-                        [_P] * 9 + [_I] * 5 + [_F] + [_P] * 3),
+                        [_P] * 10 + [_I] * 5 + [_F] + [_P] * 5),
     "corner_permute": ("pygat_corner_permute", [_P] * 3 + [_I] * 3 + [_P] * 2),
     "fused_v1_window": ("pygat_fused_v1_window",
                         [_P] * 7 + [_I] * 4 + [_F] + [_P] * 3),

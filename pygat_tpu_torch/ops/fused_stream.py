@@ -33,7 +33,7 @@ from pygat_tpu_torch.ops.stream import (
     stream_sender_segment_sum,
 )
 
-MAX_F = 256  # widest head the kernels take (csrc/fused_v1.cu, fused_v2.cu)
+MAX_F = 256  # widest head of the fused kernels (fused_v{1,2}.cuh, tile_fused.cuh)
 
 
 def leaky_relu(x: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -80,13 +80,12 @@ def _check_args(what, wide, narrow, a, keepq, senders, r_local, r_chunk):
             raise ValueError(f"{what} takes int32 indices, got {t.dtype}")
 
 
-def _launch(wrapper, tensors, a, alpha: float, window=(), n_pad=None):
+def _launch(wrapper, tensors, a, alpha: float, n_pad=None):
     """Launch the kernel ``csrc/<wrapper.kernel>.cu`` on the current
     stream and count the launch on ``wrapper``. ``tensors`` are the kernel's
     array arguments in its order (the first is an [N, HF] table unless
-    ``n_pad`` gives N, the last is ``r_chunk``), ``window`` the band plan's
-    window width for the banded kernels; returns the new (out [N, HF],
-    den [N, H])."""
+    ``n_pad`` gives N, the last is ``r_chunk``); returns the new (out
+    [N, HF], den [N, H])."""
     h, f = a.shape
     if f > MAX_F:
         raise ValueError(f"{wrapper.kernel}: head width {f} exceeds {MAX_F}")
@@ -95,8 +94,8 @@ def _launch(wrapper, tensors, a, alpha: float, window=(), n_pad=None):
     hf = h * f
     out = torch.empty(n_pad, hf, dtype=torch.float32, device=first.device)
     den = torch.empty(n_pad, h, dtype=torch.float32, device=first.device)
-    build.launch(wrapper, *tensors, r_chunk.shape[0], n_pad // TILE, *window,
-                 h, f, float(alpha), out, den)
+    build.launch(wrapper, *tensors, r_chunk.shape[0], n_pad // TILE, h, f,
+                 float(alpha), out, den)
     return out, den
 
 

@@ -21,7 +21,11 @@ hub whose tile the kernels split over several blocks, at L = 1, 2, 48, 65,
 128 and 130 (widths and a table offset that break 16-byte alignment), over
 node tables whose next row in memory is NaN (a row formed for a dead slot
 past the table would show); two calls agree bit for bit, and every SpMM
-op's backward runs card against CPU. The BCSR attention kernel runs on
+op's backward runs card against CPU. The fused banded forwards (the
+tile-owner body) run on those band plans, on the hub graph's plan (a cut
+tile) and on Cora's (a grid under one wave), from H 1 F 4 to H 1 F 256;
+two calls agree bit for bit there too, and a first call inside a
+CUDA-graph capture, before the plan's walk is built, raises. The BCSR attention kernel runs on
 tilings with a row tile without edges and (I, J) pairs of several chunks,
 at F = 7, 8 and 256 (four column slabs), with and without a dropout mask,
 and its autograd Function card against CPU. chip_smoke.py covers the main
@@ -368,10 +372,13 @@ def test_fit_fast_on_cuda_resumes_exactly(cuda, tmp_path):
 # does not: stream_scatter at L = 32, banded_sender_sum at L = 48, fused_v1
 # at H 1 F 92 and fused_v2 at H 1 F 90. The opt-in to more than 48 KB stays
 # set on a kernel once a larger launch set it, so only a first launch shows
-# a missing one.
+# a missing one. The fused banded forwards (tile_fused.cuh) hold no shared
+# memory at any width; their first launch is at H 1 F 256, where the
+# block-per-chunk body they replaced held about 130 KiB.
 _FIRST_LAUNCHES = """
 import torch
-from tests.test_torch_cuda import _close, _fused_args, _fused_v2_args, _graph
+from tests.test_torch_cuda import (_banded_v1_args, _banded_v2_args, _close,
+                                   _fused_args, _fused_v2_args, _graph)
 from pygat_tpu_torch.ops import banded as bd, fused_stream as fs
 from pygat_tpu_torch.ops import stream as st
 
@@ -387,7 +394,11 @@ data = torch.randn(plan.num_slots, 48, generator=gen, device=dev)
 _close(bd.banded_sender_sum(data, plan), bd.banded_sender_sum_plain(data, plan))
 for kernel, plain, args in (
         (fs.fused_v1, fs.fused_v1_plain, _fused_args(g, 1, 92, gen, dev)),
-        (fs.fused_v2, fs.fused_v2_plain, _fused_v2_args(g, 1, 90, gen, dev))):
+        (fs.fused_v2, fs.fused_v2_plain, _fused_v2_args(g, 1, 90, gen, dev)),
+        (bd.fused_v1_banded, bd.fused_v1_banded_plain,
+         _banded_v1_args(g, plan, 1, 256, gen, dev)),
+        (bd.fused_v2_banded, bd.fused_v2_banded_plain,
+         _banded_v2_args(g, plan, 1, 256, gen, dev))):
     for got, want in zip(kernel(*args), plain(*args)):
         _close(got, want)
 torch.cuda.synchronize()
@@ -443,17 +454,39 @@ def _hub(device):
     return build_graph(s, r, None, n, device=device)
 
 
+def _cora(device):
+    """The Cora stand-in's graph (``load_citation``): 22 tiles, whose band
+    plan's grid is under one wave of the fused banded kernels."""
+    from pygat_tpu_torch.data.citation import load_citation
+
+    return load_citation("cora", device=device).graph
+
+
 def _plan(device, kind):
     """(graph, band plan): ``clustered`` has several chunks per tile,
     ``empty_tile`` a tile without edges, ``clipped`` asks for a window wider
-    than the table, ``hub`` a tile of 38 chunks. Each plan ends in all-dead
-    padding chunks on the last band, so a dead slot there would name row
-    N_pad if formed first."""
+    than the table, ``hub`` a tile of 38 chunks, ``cora`` the Cora
+    stand-in's 22 tiles, ``heavy`` 67 receivers of 40 to 65 in-edges in
+    uncut tiles (runs the fused forwards cut into segments). Each plan ends in all-dead padding chunks on the
+    last band, so a dead slot there would name row N_pad if formed
+    first."""
     rng = np.random.default_rng(5)
     if kind == "empty_tile":
         return _graph(device, True), 2
     if kind == "hub":
         return _hub(device), 4
+    if kind == "cora":
+        return _cora(device), 4
+    if kind == "heavy":  # 67 receivers with 35-60 more in-edges each
+        n = 600
+        base = np.repeat(np.arange(n), 4)
+        heavy = np.repeat(np.arange(0, n, 9), rng.integers(35, 60, 67))
+        s = np.clip(np.concatenate([base, heavy])
+                    + rng.integers(-150, 150, base.size + heavy.size), 0,
+                    n - 1)
+        s = np.concatenate([s, np.arange(n)])
+        r = np.concatenate([base, heavy, np.arange(n)])
+        return build_graph(s, r, None, n, device=device), 3
     if kind == "clipped":
         n, deg, spread, w = 100, 3, 100, 64
     else:
@@ -477,6 +510,8 @@ def _band(device, kind):
         assert plan.w == plan.n_pad // 128
     if kind == "hub":  # the SpMM kernel splits the hub's tile
         assert plan.split_at.numel() >= 2
+    if kind == "heavy":  # long runs, no cut tile
+        assert plan.max_run > 32 and plan.split_at.numel() == 0
     return g, plan
 
 
@@ -559,11 +594,14 @@ BANDED_FUSED = [(bd.fused_v1_banded, bd.fused_v1_banded_plain, _banded_v1_args),
                 (bd.fused_v2_banded, bd.fused_v2_banded_plain, _banded_v2_args)]
 
 
-@pytest.mark.parametrize("kind", BAND_KINDS)
+@pytest.mark.parametrize("kind", BAND_KINDS + ["hub", "cora", "heavy"])
 @pytest.mark.parametrize("h,f", [(8, 8), (1, 4), (1, 7), (2, 5), (3, 11),
-                                 (16, 8)])
+                                 (16, 8), (8, 3), (1, 256)])
 @pytest.mark.parametrize("which", [0, 1], ids=["v1", "v2"])
 def test_fused_banded_kernels_match_plain(cuda, kind, h, f, which):
+    """On every plan kind, the hub's cut tile, long runs cut into segments
+    and Cora's grid under one wave included, from one-lane units (H 1 F 4)
+    to whole-warp heads (H 1 F 256, shuffled logits)."""
     kernel, plain, make_args = BANDED_FUSED[which]
     g, plan = _band(cuda, kind)
     gen = torch.Generator(device=cuda).manual_seed(10 * h + f)
@@ -579,6 +617,49 @@ def test_fused_banded_kernels_match_plain(cuda, kind, h, f, which):
     if kind == "empty_tile":
         assert float(out[128:256].abs().max()) == 0.0
         assert float(den[128:256].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kind", ["clustered", "hub", "cora", "heavy"])
+@pytest.mark.parametrize("h,f", [(8, 8), (1, 4), (3, 11)])
+@pytest.mark.parametrize("which", [0, 1], ids=["v1", "v2"])
+def test_fused_banded_kernels_repeat_bit_for_bit(cuda, kind, h, f, which):
+    """Two calls on the same inputs give the same bits: a row's run sums in
+    one unit's registers in walk order, a cut tile's pieces add in order,
+    and there is no atomic."""
+    kernel, _, make_args = BANDED_FUSED[which]
+    g, plan = _band(cuda, kind)
+    gen = torch.Generator(device=cuda).manual_seed(h + f)
+    args = make_args(g, plan, h, f, gen, cuda)
+    (o1, d1), (o2, d2) = kernel(*args), kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(d1, d2)
+    assert float(d1.max()) >= 1.0  # the comparison is not idle
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["v1", "v2"])
+def test_fused_banded_builds_its_walk_outside_capture(cuda, which):
+    """The fused banded forwards read the plan's walk, built at the first
+    CUDA call on the plan: a first call inside a CUDA-graph capture raises,
+    and a call after it may be captured."""
+    kernel, plain, make_args = BANDED_FUSED[which]
+    g, plan = _band(cuda, "clustered")
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    args = make_args(g, plan, 8, 8, gen, cuda)
+    assert "spmm_walk" not in plan.__dict__
+    with pytest.raises(RuntimeError, match="must not be captured"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            kernel(*args)
+    kernel(*args)
+    walk = plan.spmm_walk
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, den = kernel(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert plan.spmm_walk is walk
+    out_p, den_p = plain(*args)
+    _close(out, out_p)
+    _close(den, den_p)
 
 
 @pytest.mark.parametrize("which", [0, 1], ids=["v1", "v2"])
