@@ -13,7 +13,10 @@ of which prints its seconds:
 3. hold each kernel against its plain PyTorch version on the card, at every
    shape the GAT_sparse and GATv2_sparse paths give it: the stream kernels
    on Cora and Pubmed (the synthetic stand-ins have the real node, edge and
-   feature counts), the banded kernels (and ``stream_scatter`` at its
+   feature counts) and on the 524,288-node graph's receiver stream (the
+   order ``set_band("off")`` trains over), the fused forwards over each
+   graph's walk, called twice (the two results equal bit for bit), the
+   banded kernels (and ``stream_scatter`` at its
    banded widths) on the 524,288-node clustered graph with the band plan
    that ``maybe_plan_large`` picks by itself, and on Cora with
    ``set_band("on")``, the fused banded forwards also on the hub graph's
@@ -22,7 +25,8 @@ of which prints its seconds:
    every pass of both 524k corner plans (built once, their set-up timed) at
    every width the two models turn (64, 4, 128, 8), the whole pass chain
    with its fix-ups on a Cora plan with overflow rows (span cap 3) card vs
-   CPU, and the window forwards at the Cora and 524k shapes; both Cora
+   CPU, and the window forwards at the Cora and 524k shapes (called twice,
+   equal bit for bit); both Cora
    models, forward and gradients, on the card against the same model on
    the CPU, over the receiver stream, over the band plan and over the
    corner plans, and over the corner plans against the receiver stream
@@ -56,10 +60,7 @@ of which prints its seconds:
    function, that call (``index_add_`` for the segment sums,
    ``index_select`` of rows for the gathers and the corner passes): device
    time per call, calls captured in a CUDA graph, replays timed with CUDA
-   events; beside the fused banded forwards, the parent's block-per-chunk
-   body over the same slots (``parent_body_ms``: the receiver-stream
-   kernels ``fused_v1`` / ``fused_v2``, which run on that body, given the
-   banded slots' sender rows, local rows and tiles);
+   events;
 6. the SpMM path, after every captured epoch is freed: the op family
    (``spmm_graph``, ``sddmm_graph``, ``panel_spmm_graph`` with and without
    ``plans=``, ``spmm_corner_graph``, ``spmm_banded`` fused and two-pass)
@@ -114,8 +115,10 @@ F32_FLOPS = 67e12  # H100 SXM f32 peak outside the tensor cores
 # a small multiple of 6e-8 times the sum of the magnitudes of its terms, so
 # a segment sum is held to 1e-5 of the same segment sum over |data| (the
 # dummy row of the sender side sums some 20k padding edges); the fused
-# forward, whose rows sum at most a few hundred bounded terms, to 1e-5 of
-# its largest output. An indexing or masking fault shows at O(1).
+# forward to 1e-5 of its largest output, against its plain version
+# evaluated in f64 (``f64=True``): the hub graph's row sums 9,000 terms,
+# whose f32 sum by index_add_ alone is off by up to about 1e-5 of it. An
+# indexing or masking fault shows at O(1).
 KERNEL_RTOL = 1e-5
 # Whole model on the card vs the same model on the CPU: two layers of sums
 # in different orders, exp and a softmax in between.
@@ -252,6 +255,56 @@ def _scatter_call(case, g, fn):
         return fn(case["data"], g.r_local, g.r_chunk, g.num_nodes_padded)
     return fn(case["data"], g.c_local, g.c_chunk, g.num_nodes_padded,
               slot=g.c_slot)
+
+
+def _stream_kernel_cases(name, g, heads, feats, gen, fused, kernel_cases):
+    """The receiver stream's kernels at one graph's layer widths against
+    their plain versions: the segment sums of :func:`_scatter_cases` to
+    KERNEL_RTOL of the same sums over |data|, the fused forwards over the
+    graph's walk to KERNEL_RTOL of their largest output (their plain
+    versions in f64) and, called again, equal bit for bit. Appends each
+    case to ``kernel_cases``."""
+    import torch
+
+    from pygat_tpu_torch.ops.stream import stream_scatter, stream_scatter_plain
+
+    for case in _scatter_cases(name, g, heads, feats, gen):
+        got = _scatter_call(case, g, stream_scatter)
+        want = _scatter_call(case, g, stream_scatter_plain)
+        mag = _scatter_call(dict(case, data=case["data"].abs()), g,
+                            stream_scatter_plain)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("kernel output is not finite")
+        diff = (got - want).abs()
+        err = float(diff.max())
+        worst = float((diff / (KERNEL_RTOL * mag + 1e-30)).max())
+        case.update(max_abs_err=err)
+        print(f"  stream_scatter {name} {case['path']} {case['side']} "
+              f"L={case['L']}: max_abs_err {err:.3e}, worst element at "
+              f"{worst:.3f} of its allowance")
+        if worst > 1.0:
+            raise AssertionError("stream_scatter disagrees with its plain version")
+        kernel_cases["stream_scatter"].append(case)
+        del got, want, mag, diff
+    for kname, (kernel, plain, make_inputs) in fused.items():
+        for h, f in zip(heads, feats):
+            args = make_inputs(g, h, f, gen)
+            out, den = kernel(*args, walk=g.stream_walk)
+            out_p, den_p = plain(*args, f64=True)
+            torch.cuda.synchronize()
+            e1, a1 = _max_err(out, out_p)
+            e2, a2 = _max_err(den, den_p)
+            again = kernel(*args, walk=g.stream_walk)
+            repeat = torch.equal(out, again[0]) and torch.equal(den, again[1])
+            print(f"  {kname} {name} H={h} F={f}: max_abs_err out {e1:.3e} "
+                  f"(allowed {a1:.3e}), den {e2:.3e} (allowed {a2:.3e}); a "
+                  f"second call {'' if repeat else 'NOT '}equal bit for bit")
+            if e1 > a1 or e2 > a2 or not repeat:
+                raise AssertionError(f"{kname} disagrees with its plain version")
+            kernel_cases[kname].append(dict(
+                dataset=name, H=h, F=f, args=args, max_abs_err=max(e1, e2),
+                bitwise_repeat=repeat, n_live=int((g.r_local < 128).sum())))
 
 
 def _tail(g, plan, e, h, gen):
@@ -469,8 +522,9 @@ def _banded_cases(label, g, plan, heads, feats, gen):
     return cases
 
 
-def _banded_call(case, plan, plain=False):
-    """One call of ``case``'s kernel (or its plain version) over ``plan``."""
+def _banded_call(case, plan, plain=False, f64=False):
+    """One call of ``case``'s kernel (or its plain version, for a fused
+    forward evaluated in f64 with ``f64``) over ``plan``."""
     from pygat_tpu_torch.ops import banded, large, stream
 
     k = case["kernel"]
@@ -483,19 +537,20 @@ def _banded_call(case, plan, plain=False):
     fn = getattr(banded, k + ("_plain" if plain else ""))
     if k in ("banded_take", "banded_sender_sum"):
         return fn(case["data"], plan)
-    return fn(*case["args"])
+    return fn(*case["args"], **({"f64": True} if f64 else {}))
 
 
 def _check_banded(case, plan):
     """``case``'s kernel against its plain version: the gathers bit-exact,
     the segment sums to KERNEL_RTOL of the same sums over |data|, the fused
-    forward to KERNEL_RTOL of its largest output and, called again, equal
-    bit for bit."""
+    forward to KERNEL_RTOL of its largest output (its plain version in f64)
+    and, called again, equal bit for bit."""
     import torch
 
     k = case["kernel"]
     got = _banded_call(case, plan)
-    want = _banded_call(case, plan, plain=True)
+    want = _banded_call(case, plan, plain=True,
+                        f64=k.startswith("fused_"))
     torch.cuda.synchronize()
     if k in ("expand", "banded_take"):
         err = float((got - want).abs().max())
@@ -569,18 +624,6 @@ def _time_banded(case, plan, big):
         n_bytes = 4 * (n_live * width + e + c + n * width)
         n_flops = n_live * width
     else:
-        # the parent's block-per-chunk body over the same slots: the stream
-        # kernels given each banded slot's sender row (the dummy row at dead
-        # slots, which they skip by the local row)
-        from pygat_tpu_torch.ops.banded import banded_senders
-        from pygat_tpu_torch.ops.fused_stream import fused_v1, fused_v2
-
-        body = fused_v1 if k == "fused_v1_banded" else fused_v2
-        snd = banded_senders(plan, n - 1).int()
-        args = (*case["args"][:5], snd, plan.r_local, plan.r_chunk,
-                case["args"][6])
-        case["parent_body_ms"] = _time_ms(lambda: body(*args), **kw)
-        del snd, args
         h, f = case["H"], case["F"]
         index_words = 2 * e + 2 * c  # s_loc, r_local; band, r_chunk
         tables = 1 if k == "fused_v1_banded" else 2
@@ -591,8 +634,6 @@ def _time_banded(case, plan, big):
     case["bound_ms"], case["bound_by"] = _bound(n_bytes, n_flops)
     lib = "" if case["library_ms"] is None else (
         f", library {case['library_ms']:.4f} ms")
-    if "parent_body_ms" in case:
-        lib += f", parent's body {case['parent_body_ms']:.4f} ms"
     shape = f"H={case['H']} F={case['F']}" + (
         f" L={case['L']}" if "L" in case else "")
     print(f"  {k} {case['dataset']} {case['path']} {shape}: "
@@ -725,8 +766,9 @@ def _check_corner_overflow(cora, widths):
 def _window_cases(label, g, plans, heads, feats, gen):
     """The window forwards of one forward of each model, per layer, over
     windows that ``gather_corner`` builds from node tables and bounds as
-    the layers build them, checked against their plain versions to
-    KERNEL_RTOL of their largest output. Returns the cases."""
+    the layers build them, checked against their plain versions (in f64)
+    to KERNEL_RTOL of their largest output and, called again, to repeat bit
+    for bit. Returns the cases."""
     import torch
 
     from pygat_tpu_torch.ops import fused_corner as fc
@@ -745,19 +787,24 @@ def _window_cases(label, g, plans, heads, feats, gen):
                                         plans.fwd), ub, a2, keepq2,
                   g.r_local, g.r_chunk, 0.2))):
             kernel, plain = getattr(fc, name), getattr(fc, name + "_plain")
-            out, den = kernel(*args)
-            out_p, den_p = plain(*args)
+            out, den = kernel(*args, walk=g.stream_walk)
+            out_p, den_p = plain(*args, f64=True)
             torch.cuda.synchronize()
             e1, a1 = _max_err(out, out_p)
             e2, a2_ = _max_err(den, den_p)
+            again = kernel(*args, walk=g.stream_walk)
+            repeat = torch.equal(out, again[0]) and torch.equal(den, again[1])
             print(f"  {name} {label} H={h} F={f}: max_abs_err out {e1:.3e} "
-                  f"(allowed {a1:.3e}), den {e2:.3e} (allowed {a2_:.3e})")
-            if e1 > a1 or e2 > a2_:
+                  f"(allowed {a1:.3e}), den {e2:.3e} (allowed {a2_:.3e}); a "
+                  f"second call {'' if repeat else 'NOT '}equal bit for bit")
+            if e1 > a1 or e2 > a2_ or not repeat:
                 raise AssertionError(f"{name} disagrees with its plain version")
             cases.append(dict(dataset=label, kernel=name, H=h, F=f, args=args,
-                              max_abs_err=max(e1, e2), n_live=n_live,
-                              n_pad=g.num_nodes_padded,
-                              n_chunks=g.r_chunk.numel()))
+                              max_abs_err=max(e1, e2), bitwise_repeat=repeat,
+                              n_live=n_live, n_pad=g.num_nodes_padded,
+                              n_chunks=g.r_chunk.numel(),
+                              walk=g.stream_walk))
+            del out, den, out_p, den_p, again
     return cases
 
 
@@ -770,7 +817,8 @@ def _time_window(case, big):
 
     kw = dict(calls=BIG_CALLS, replays=BIG_REPLAYS) if big else {}
     k, args = case["kernel"], case["args"]
-    case["ms"] = _time_ms(lambda: getattr(fc, k)(*args), **kw)
+    case["ms"] = _time_ms(lambda: getattr(fc, k)(*args, walk=case["walk"]),
+                          **kw)
     case["plain_ms"] = _time_ms(lambda: getattr(fc, k + "_plain")(*args), **kw)
     case["library_ms"] = None
     h, f, n, n_live = case["H"], case["F"], case["n_pad"], case["n_live"]
@@ -1543,7 +1591,7 @@ def _time_bcsr(case, large=None, band_plan=None):
         keepq = torch.ones(g.num_edges_padded, h, device="cuda")
         case["fused_v1_ms"] = _time_ms(lambda: fused_v1(
             wh_n, fd_n, bound, a_src, keepq, g.senders, g.r_local, g.r_chunk,
-            0.2), **kw)
+            0.2, walk=g.stream_walk), **kw)
         keepq_b = torch.ones(band_plan.num_slots, h, device="cuda")
         case["fused_v1_banded_ms"] = _time_ms(lambda: fused_v1_banded(
             wh_n, fd_n, bound, a_src, keepq_b, band_plan, 0.2), **kw)
@@ -1629,42 +1677,13 @@ def main() -> int:
     kernel_cases = {name: [] for name in build.SOURCES}
     fused = {"fused_v1": (fused_v1, fused_v1_plain, _fused_inputs),
              "fused_v2": (fused_v2, fused_v2_plain, _fused_v2_inputs)}
-    for name, ds in datasets.items():
-        g = ds.graph
-        heads, feats = PRESETS[name]["nheads"], PRESETS[name]["nfeats"][1:]
-        for case in _scatter_cases(name, g, heads, feats, gen):
-            got = _scatter_call(case, g, stream_scatter)
-            want = _scatter_call(case, g, stream_scatter_plain)
-            mag = _scatter_call(dict(case, data=case["data"].abs()), g,
-                                stream_scatter_plain)
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError("kernel output is not finite")
-            diff = (got - want).abs()
-            err = float(diff.max())
-            worst = float((diff / (KERNEL_RTOL * mag + 1e-30)).max())
-            case.update(max_abs_err=err)
-            print(f"  stream_scatter {name} {case['path']} {case['side']} "
-                  f"L={case['L']}: max_abs_err {err:.3e}, worst element at "
-                  f"{worst:.3f} of its allowance")
-            if worst > 1.0:
-                raise AssertionError("stream_scatter disagrees with its plain version")
-            kernel_cases["stream_scatter"].append(case)
-        for kname, (kernel, plain, make_inputs) in fused.items():
-            for h, f in zip(heads, feats):
-                args = make_inputs(g, h, f, gen)
-                out, den = kernel(*args)
-                out_p, den_p = plain(*args)
-                torch.cuda.synchronize()
-                e1, a1 = _max_err(out, out_p)
-                e2, a2 = _max_err(den, den_p)
-                print(f"  {kname} {name} H={h} F={f}: max_abs_err out {e1:.3e} "
-                      f"(allowed {a1:.3e}), den {e2:.3e} (allowed {a2:.3e})")
-                if e1 > a1 or e2 > a2:
-                    raise AssertionError(f"{kname} disagrees with its plain version")
-                kernel_cases[kname].append(dict(
-                    dataset=name, H=h, F=f, args=args, max_abs_err=max(e1, e2),
-                    n_live=int((g.r_local < 128).sum())))
+    # the receiver stream's kernels at each graph's layer widths: Cora's
+    # and Pubmed's here, the 524k graph's (set_band("off")) once it is built
+    stream_graphs = {name: ds.graph for name, ds in datasets.items()}
+    for name, g in stream_graphs.items():
+        _stream_kernel_cases(name, g, PRESETS[name]["nheads"],
+                             PRESETS[name]["nfeats"][1:], gen, fused,
+                             kernel_cases)
 
     # the banded kernels: on the large clustered graph with the plan the
     # JAX package's selection picks by itself (auto, past 300k nodes), and
@@ -1683,6 +1702,10 @@ def main() -> int:
           f"{large_plan.num_chunks} chunks, {large_plan.num_slots} slots, "
           f"fill {large_plan.fill:.4f} ({band_plan_s:.1f} s)",
           flush=True)
+    stream_graphs["large"] = large.graph
+    _stream_kernel_cases("large", large.graph, PRESETS["cora"]["nheads"],
+                         (PRESETS["cora"]["nfeats"][1], large.num_classes),
+                         gen, fused, kernel_cases)
     cora = datasets["cora"]
     set_band("on", w=4)
     cora_plan = maybe_plan_large(cora.graph)
@@ -1697,6 +1720,14 @@ def main() -> int:
           f"{plans['hub'].split_at.numel()}", flush=True)
     if not plans["hub"].split_at.numel():
         raise AssertionError("the hub graph's band plan has no split tile")
+    # the stream kernels on the hub's receiver stream, whose walk cuts the
+    # hub's tile into pieces and its run into segments
+    if not hub.stream_walk.split_at.numel() or hub.stream_walk.max_run <= 32:
+        raise AssertionError("the hub graph's stream walk has no split tile")
+    stream_graphs["hub"] = hub
+    _stream_kernel_cases("hub", hub, PRESETS["cora"]["nheads"][:1],
+                         PRESETS["cora"]["nfeats"][1:2], gen, fused,
+                         kernel_cases)
     banded_cases = []
     for label, ds, preset in (("large", large, "cora"),
                               ("cora, band plan", cora, "cora")):
@@ -1923,11 +1954,14 @@ def main() -> int:
     for case in kernel_cases["stream_scatter"]:
         if "side" not in case:
             continue  # a banded width, timed below
-        g = datasets[case["dataset"]].graph
+        g = stream_graphs[case["dataset"]]
+        kw = (dict(calls=BIG_CALLS, replays=BIG_REPLAYS)
+              if case["dataset"] == "large" else {})
         n_pad, width = g.num_nodes_padded, case["L"]
-        case["ms"] = _time_ms(lambda: _scatter_call(case, g, stream_scatter))
+        case["ms"] = _time_ms(lambda: _scatter_call(case, g, stream_scatter),
+                              **kw)
         case["plain_ms"] = _time_ms(
-            lambda: _scatter_call(case, g, stream_scatter_plain))
+            lambda: _scatter_call(case, g, stream_scatter_plain), **kw)
         # one PyTorch call computing the same sums: index_add_ into a zeroed
         # buffer with one scratch row taking the dead slots
         if case["side"] == "recv":
@@ -1938,7 +1972,8 @@ def main() -> int:
             idx = g.senders.long()
         lib_out = torch.zeros(n_pad + 1, width, device="cuda")
         case["library_ms"] = _time_ms(
-            lambda: lib_out.index_add_(0, idx, case["data"]))
+            lambda: lib_out.index_add_(0, idx, case["data"]), **kw)
+        del idx, lib_out
         idx_words = g.r_local.numel() + g.r_chunk.numel() + (
             g.c_slot.numel() if case["side"] == "send" else 0)
         n_bytes = 4 * (case["n_live"] * width + idx_words + n_pad * width)
@@ -1952,10 +1987,13 @@ def main() -> int:
     for kname, (kernel, plain, _) in fused.items():
         for case in kernel_cases[kname]:
             args = case["args"]
-            g = datasets[case["dataset"]].graph
+            g = stream_graphs[case["dataset"]]
+            kw = (dict(calls=BIG_CALLS, replays=BIG_REPLAYS)
+                  if case["dataset"] == "large" else {})
             n_pad, h, f = g.num_nodes_padded, case["H"], case["F"]
-            case["ms"] = _time_ms(lambda: kernel(*args))
-            case["plain_ms"] = _time_ms(lambda: plain(*args))
+            case["ms"] = _time_ms(
+                lambda: kernel(*args, walk=g.stream_walk), **kw)
+            case["plain_ms"] = _time_ms(lambda: plain(*args), **kw)
             case["library_ms"] = None
             n_live = case["n_live"]
             index_words = 2 * g.num_edges_padded + g.r_chunk.numel()
@@ -1989,6 +2027,7 @@ def main() -> int:
         for case in cases:
             case.pop("args", None)
             case.pop("data", None)
+            case.pop("walk", None)
     torch.cuda.empty_cache()
     set_band("off")
     stream_plan = maybe_plan_large(large.graph)
@@ -2126,17 +2165,12 @@ def main() -> int:
             "bound_by": "bytes" if all(c["bound_by"] == "bytes"
                                        for c in main_cases) else "operations",
             "library_ms": None if None in lib else sum(lib),
-            **({"parent_body_ms": sum(c["parent_body_ms"]
-                                      for c in main_cases)}
-               if all("parent_body_ms" in c for c in main_cases)
-               and main_cases else {}),
             "cases": [{k: c[k] for k in ("dataset", "path", "side", "dir",
                                          "pass", "p", "L", "H", "F", "P",
                                          "ms", "op_ms", "two_pass_ms",
                                          "spmm_graph_ms", "dropout",
                                          "fused_v1_ms", "fused_v1_banded_ms",
-                                         "plain_ms", "parent_body_ms",
-                                         "library_ms",
+                                         "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
                                          "max_abs_err", "split_at",
                                          "bitwise_repeat") if k in c}

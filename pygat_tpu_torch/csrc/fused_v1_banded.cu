@@ -31,9 +31,10 @@ extern "C" int pygat_fused_v1_banded(
     const int* split_at, int n_tiles, int n_split, int max_run, int H, int F,
     float alpha, float* out, float* den, float* part_out, float* part_den,
     void* stream) {
+  const int hf = H * F;
   return launch_tile_fused<false>(
-      FusedArgs{wh, nullptr, f_dst, bound, a_src, keepq, rows, order,
+      FusedArgs{wh, nullptr, hf, nullptr, f_dst, bound, a_src, keepq,
                 row_ptr, tile_ptr, split_at, n_tiles, n_split, H, F, alpha,
                 out, den, part_out, part_den, 0, 0, 0},
-      max_run, stream);
+      BandWalk{rows, order}, max_run, stream);
 }

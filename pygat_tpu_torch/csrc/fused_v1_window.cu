@@ -2,26 +2,35 @@
 // sender window, for Hopper (sm_90a): the corner path's forward. Replaces
 // the Pallas TPU kernel pygat_tpu/ops/fused_stream.py::_make_v1_kernel as
 // pygat_tpu/ops/fused_corner.py launches it (through _grid_call) over the
-// window that the CSC expand and the corner-turn passes built; the kernel
-// and what bounds it are described in fused_v1.cuh. Slot k's sender row is
-// row k of the window (slot_rows.cuh: SlotRows), so the kernel gathers
-// nothing by edge index.
+// window that the CSC expand and the corner-turn passes built. Here a block
+// owns a receiver tile and walks the stream, a unit of lanes summing each
+// receiver's run in registers and storing every row once (tile_fused.cuh,
+// which describes the kernel and what bounds it); slot k's sender row is
+// row k of the window (SlotWalk), so the kernel gathers nothing by edge
+// index.
 
-#include "fused_v1.cuh"
+#include "tile_fused.cuh"
 
 // win [E_s, H*F] (row k: slot k's sender row of wh), f_dst / bound [N, H],
-// a_src [H, F], keepq [E_s, H] f32; local [E_s] int32; chunk_tile
-// [n_chunks] int32; out [n_tiles * 128, H*F] and den [n_tiles * 128, H]
-// f32. Zeroes out and den and launches on `stream`; returns the first CUDA
-// error, or cudaGetLastError() after the launch (cudaErrorInvalidValue when
-// F > 256).
-extern "C" int pygat_fused_v1_window(const float* win, const float* f_dst,
-                                     const float* bound, const float* a_src,
-                                     const float* keepq, const int* local,
-                                     const int* chunk_tile, int n_chunks,
-                                     int n_tiles, int H, int F, float alpha,
-                                     float* out, float* den, void* stream) {
-  return launch_fused_v1(win, f_dst, bound, a_src, keepq, SlotRows{}, local,
-                         chunk_tile, n_chunks, n_tiles, H, F, alpha, out, den,
-                         stream);
+// a_src [H, F], keepq [E_s, H] f32; row_ptr [n_tiles * 129 + 1] int32: the
+// first stream position of each (tile, local row) key t * 129 + l;
+// tile_ptr [n_tiles + 1] and split_at [n_split] int32 (ops/stream.py
+// tile_ranges); max_run the most live slots of one receiver
+// (Graph.stream_walk); out [n_tiles * 128, H*F] and den [n_tiles * 128, H]
+// f32, every row written; part_out [n_split, 128, H*F] and part_den
+// [n_split, 128, H] f32 scratch (unused when n_split is 0). Launches on
+// `stream`; returns the first CUDA error, or cudaGetLastError() after the
+// launches (cudaErrorInvalidValue when F > 256).
+extern "C" int pygat_fused_v1_window(
+    const float* win, const float* f_dst, const float* bound,
+    const float* a_src, const float* keepq, const int* row_ptr,
+    const int* tile_ptr, const int* split_at, int n_tiles, int n_split,
+    int max_run, int H, int F, float alpha, float* out, float* den,
+    float* part_out, float* part_den, void* stream) {
+  const int hf = H * F;
+  return launch_tile_fused<false>(
+      FusedArgs{win, nullptr, hf, nullptr, f_dst, bound, a_src, keepq,
+                row_ptr, tile_ptr, split_at, n_tiles, n_split, H, F, alpha,
+                out, den, part_out, part_den, 0, 0, 0},
+      SlotWalk{}, max_run, stream);
 }

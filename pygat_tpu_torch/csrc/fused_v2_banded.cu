@@ -31,9 +31,10 @@ extern "C" int pygat_fused_v2_banded(
     const int* row_ptr, const int* tile_ptr, const int* split_at,
     int n_tiles, int n_split, int max_run, int H, int F, float alpha,
     float* out, float* den, float* part_out, float* part_den, void* stream) {
+  const int hf = H * F;
   return launch_tile_fused<true>(
-      FusedArgs{whi, whj, nullptr, ub, a, keepq, rows, order, row_ptr,
-                tile_ptr, split_at, n_tiles, n_split, H, F, alpha, out, den,
-                part_out, part_den, 0, 0, 0},
-      max_run, stream);
+      FusedArgs{whj, whi, hf, whi, nullptr, ub, a, keepq, row_ptr, tile_ptr,
+                split_at, n_tiles, n_split, H, F, alpha, out, den, part_out,
+                part_den, 0, 0, 0},
+      BandWalk{rows, order}, max_run, stream);
 }

@@ -2,28 +2,36 @@
 // sender window, for Hopper (sm_90a): the corner path's forward. Replaces
 // the Pallas TPU kernel pygat_tpu/ops/fused_stream.py::_make_v2_kernel as
 // pygat_tpu/ops/fused_corner.py launches it (through _grid_call) over the
-// [gj | gi] windows that the CSC expand and the corner-turn passes built;
-// the kernel and what bounds it are described in fused_v2.cuh. Slot k's
+// [gj | gi] windows that the CSC expand and the corner-turn passes built.
+// Here a block owns a receiver tile and walks the stream, a unit of lanes
+// keeping the receiver's whi row (from the node table) in registers for
+// its run, summing the run in registers and storing every row once
+// (tile_fused.cuh, which describes the kernel and what bounds it). Slot k's
 // sender-side rows are columns [0, HF) (whj) and [HF, 2HF) (whi) of row k
-// of the window (slot_rows.cuh: SlotRows, row stride 2HF); the receiver
-// side reads whi[r] and ub[r] from the node tables.
+// of the window (SlotWalk, row stride 2HF).
 
-#include "fused_v2.cuh"
+#include "tile_fused.cuh"
 
 // whi [N, H*F], win [E_s, 2*H*F] (row k: [whj | whi] at slot k's sender),
-// ub [N, H], a [H, F], keepq [E_s, H] f32; local [E_s] int32; chunk_tile
-// [n_chunks] int32; out [n_tiles * 128, H*F] and den [n_tiles * 128, H]
-// f32. Zeroes out and den and launches on `stream`; returns the first CUDA
-// error, or cudaGetLastError() after the launch (cudaErrorInvalidValue when
-// F > 256).
-extern "C" int pygat_fused_v2_window(const float* whi, const float* win,
-                                     const float* ub, const float* a,
-                                     const float* keepq, const int* local,
-                                     const int* chunk_tile, int n_chunks,
-                                     int n_tiles, int H, int F, float alpha,
-                                     float* out, float* den, void* stream) {
+// ub [N, H], a [H, F], keepq [E_s, H] f32; row_ptr [n_tiles * 129 + 1]
+// int32: the first stream position of each (tile, local row) key
+// t * 129 + l; tile_ptr [n_tiles + 1] and split_at [n_split] int32
+// (ops/stream.py tile_ranges); max_run the most live slots of one receiver
+// (Graph.stream_walk); out [n_tiles * 128, H*F] and den [n_tiles * 128, H]
+// f32, every row written; part_out [n_split, 128, H*F] and part_den
+// [n_split, 128, H] f32 scratch (unused when n_split is 0). Launches on
+// `stream`; returns the first CUDA error, or cudaGetLastError() after the
+// launches (cudaErrorInvalidValue when F > 256).
+extern "C" int pygat_fused_v2_window(
+    const float* whi, const float* win, const float* ub, const float* a,
+    const float* keepq, const int* row_ptr, const int* tile_ptr,
+    const int* split_at, int n_tiles, int n_split, int max_run, int H,
+    int F, float alpha, float* out, float* den, float* part_out,
+    float* part_den, void* stream) {
   const int hf = H * F;
-  return launch_fused_v2(whi, win, win + hf, 2 * hf, ub, a, keepq,
-                         SlotRows{}, local, chunk_tile, n_chunks, n_tiles, H,
-                         F, alpha, out, den, stream);
+  return launch_tile_fused<true>(
+      FusedArgs{win, win + hf, 2 * hf, whi, nullptr, ub, a, keepq, row_ptr,
+                tile_ptr, split_at, n_tiles, n_split, H, F, alpha, out, den,
+                part_out, part_den, 0, 0, 0},
+      SlotWalk{}, max_run, stream);
 }

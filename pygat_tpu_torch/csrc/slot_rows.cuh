@@ -1,13 +1,14 @@
 // How a slot of a chunked edge order finds its node row, and the row
 // gather built on it (shared by expand.cu, banded_take.cu,
-// banded_sender_sum.cu, corner_permute.cu, the fused attention kernels,
-// the segment sums of stream_scatter.cuh and the SpMM body of
-// tile_spmm.cuh).
+// banded_sender_sum.cu, corner_permute.cu, the segment sums of
+// stream_scatter.cuh and the SpMM body of tile_spmm.cuh; the fused
+// attention kernels' tile_fused.cuh takes EC and TILE from here and has
+// walk policies of its own).
 //
 // Every edge order of the port is cut into chunks of EC = 256 slots. A slot
 // names a node row in one of four ways:
-//   * ListedRows: row rows[k], one index word per slot (the receiver
-//     stream's senders);
+//   * ListedRows: row rows[k], one index word per slot (a slot map, a
+//     band plan's walk);
 //   * WindowRows: row base[c] * 128 + loc[k] for slot k of chunk c, where
 //     loc[k] outside [0, limit) marks a dead slot. The expand kernel reads
 //     the receiver side this way (base = chunk_tile, loc = local, limit =
@@ -21,13 +22,11 @@
 //     g[k] % 128, where g[k] outside [0, p * 128) marks a slot that is dead
 //     or overflows its output tile's p panels (the panel SpMM). g is tested
 //     before a row is formed: the padded columns of panel_tiles hold tile 0;
-//   * SlotRows: row k itself, for slot k: the fused kernels read a sender
-//     window that holds one row per slot (the corner path), and the stream
-//     segment sum reads receiver-stream data.
+//   * SlotRows: row k itself, for slot k: the stream segment sum reads
+//     receiver-stream data.
 // WindowRows and PanelRows return -1 for a dead slot. ListedRows and
 // SlotRows never do: the receiver stream's padding slots name the dummy row
-// N_pad - 1 and are told dead by their local row; the fused kernels skip
-// dead slots by their local row before reading a sender row.
+// N_pad - 1 and are told dead by their local row.
 
 #pragma once
 

@@ -1,9 +1,13 @@
-// Tile-owner fused GATv1/GATv2 attention forwards over a band plan, for
-// Hopper (sm_90a), shared by fused_v1_banded.cu and fused_v2_banded.cu.
+// Tile-owner fused GATv1/GATv2 attention forwards for Hopper (sm_90a),
+// shared by the kernels of three edge orders: the receiver stream
+// (fused_v1.cu, fused_v2.cu), the corner path's sender windows over that
+// stream (fused_v1_window.cu, fused_v2_window.cu) and a band plan
+// (fused_v1_banded.cu, fused_v2_banded.cu).
 //
-// Same function as the Pallas TPU kernels pygat_tpu/ops/banded.py::
-// _make_v1_banded_kernel and _make_v2_banded_kernel, per live slot k of
-// receiver r and sender s, for each head h:
+// Same function as the Pallas TPU kernels pygat_tpu/ops/fused_stream.py::
+// _make_v1_kernel and _make_v2_kernel (and their banded forms
+// pygat_tpu/ops/banded.py::_make_v1_banded_kernel, _make_v2_banded_kernel),
+// per live slot k of receiver r and sender s, for each head h:
 //   v1: l_src = sum_f wh[s, hF+f] * a[h, f]
 //       num   = exp(leaky_relu(f_dst[r, h] + l_src) - bound[r, h])
 //   v2: num   = exp(sum_f leaky_relu(whi[r, hF+f] + whj[s, hF+f]) * a[h, f]
@@ -14,13 +18,24 @@
 // (v2). Dead slots read nothing and add nothing; their logits are never
 // formed.
 //
-// The kernel walks the plan's walk (BandPlan.spmm_walk, built on the card
-// at the plan's first use): each tile's slots with receivers ascending, so
-// the slots of one receiver are one contiguous run of positions, and
-// row_ptr gives the run of every (tile, local row) key t * 129 + l (a
-// tile's dead slots sort last, at key t * 129 + 128, and are never read).
-// By position the walk holds the slot's sender row and its banded slot, by
-// which keepq is read.
+// The kernel walks each tile's slots with receivers ascending, so the
+// slots of one receiver are one contiguous run of positions, and row_ptr
+// gives the run of every (tile, local row) key t * 129 + l (a tile's dead
+// slots sort last, at key t * 129 + 128, and are never read). By position
+// a walk policy names the slot's sender-side row and its row of keepq:
+//   * BandWalk: a band plan's walk (BandPlan.spmm_walk, built on the card at
+//     the plan's first use), the sender row rows[k] and the banded slot
+//     order[k], by which keepq is read;
+//   * ListWalk: the receiver stream, which is tile-major and
+//     receiver-sorted with its padding at each tile's end, so it is its own
+//     walk (Graph.stream_walk: row_ptr from the host once per graph); the
+//     sender row senders[k], keepq row k;
+//   * SlotWalk: the same stream over the corner path's window, which holds
+//     slot k's sender-side row in its row k: row k, keepq row k.
+// The sender-side rows come from their own tables and row stride (the node
+// tables, stride HF; or the window, stride HF for v1 and 2HF for v2, whj
+// in columns [0, HF) and whi in [HF, 2HF)); the receiver side (v1: f_dst,
+// bound; v2: whi[r], ub) always from the node tables. In every order:
 //   * A block owns one 128-row receiver tile's chunk range
 //     [tile_ptr[t], tile_ptr[t + 1]) and one group of heads. Within it a
 //     unit of P lanes owns one tile row: it walks that row's run, TF_BATCH
@@ -38,7 +53,7 @@
 //     TF_SPLIT slots, which all the block's units walk, one segment each a
 //     round, each into a partial sum in shared memory that the row's own
 //     unit adds in segment order. This is a second instantiation of the
-//     kernel (kSplit), launched only for a plan whose longest run (max_run,
+//     kernel (kSplit), launched only for a walk whose longest run (max_run,
 //     its largest in-degree) exceeds TF_SPLIT: its shared memory, barriers
 //     and second walk cost registers, and the 524k graph's kernels 1.2x
 //     their time. The hub graph's tile pieces, one unit walking some 250 hub
@@ -61,19 +76,17 @@
 //     pieces, each clipping its rows' runs to its chunk range and storing
 //     into part_out / part_den, then added into out and den in order
 //     (tile_pieces.cuh).
-// The first port ran one block per 256-slot chunk on fused_v1.cuh /
-// fused_v2.cuh (a zeroed shared accumulator, one shared-memory float
-// atomic per slot run and column, which in the plan's sender order is
-// about one per live slot, and the drain of every touched row by global
-// atomics into memset outputs); pygat_tpu_torch/tools/banded_ab.py times
-// the two, and splits the first one's time by altered copies.
+// pygat_tpu_torch/tools/banded_ab.py times these kernels in every order
+// against another checkout's, and their time by altered copies (--ablate).
 //
-// Bound on the H100: bytes of the function (each node table once, the
-// per-node head terms, a live slot's keep factors, the plan's index words,
-// out and den once); about 4 HF (v1) or 6 HF (v2) FLOPs per live slot. The
-// walk's three words a slot and row_ptr are the kernel's own layout and
-// not counted. A slot's sender rows come from a window of w tiles around
-// its tile, so after their first touch they come from L2.
+// Bound on the H100: bytes of the function (each node table once, or over
+// a window its live rows once; the per-node head terms; a live slot's keep
+// factors; the edge order's index words; out and den once); about 4 HF
+// (v1) or 6 HF (v2) FLOPs per live slot. The walk's words and row_ptr are
+// the kernel's own layout and not counted. Sender rows that neighbouring
+// tiles share (a band plan's window of w tiles, a clustered graph's
+// stream) come from L2 after their first touch; a window's rows are read
+// once, in position order.
 
 #pragma once
 
@@ -89,18 +102,20 @@ constexpr int TF_MAX_C = 8;      // columns a lane covers
 constexpr int TF_MAX_F = 256;    // widest head
 constexpr int TF_SPLIT = 32;     // longest run a unit walks alone
 
-// The arguments of both forwards. v1: x = wh, xj unused, fd = f_dst,
-// shift = bound; v2: x = whi (the message's rows at the sender and the
-// logit's at the receiver), xj = whj, fd unused, shift = ub.
+// The arguments of both forwards. v1: sj = the message's rows (wh, or the
+// window), si and xr unused, fd = f_dst, shift = bound; v2: sj = whj and
+// si = whi at the sender (the node tables, or the window's two column
+// halves), xr = whi (the receiver's rows), fd unused, shift = ub. si and
+// s_stride are read over a window only (SlotWalk).
 struct FusedArgs {
-  const float* x;
-  const float* xj;
+  const float* sj;
+  const float* si;
+  int s_stride;        // row stride of sj and si
+  const float* xr;     // [N, HF]
   const float* fd;
   const float* shift;
   const float* a;      // [H, F]
-  const float* keepq;  // [E_b, H], banded slot order
-  const int* rows;     // [E_b] sender row by walk position (-1 dead)
-  const int* order;    // [E_b] banded slot by walk position
+  const float* keepq;  // [E, H], rows named by the walk
   const int* row_ptr;  // [n_tiles * 129 + 1] first position of each key
   const int* tile_ptr;
   const int* split_at;
@@ -150,6 +165,30 @@ __device__ __forceinline__ void store_cols(float* dst, int nf,
   }
 }
 
+// Walk policies: by walk position k, the slot's sender-side row and its
+// row of keepq; kWindow: the sender-side rows are a window's (sj, si,
+// s_stride), else the node tables' (sj, and xr for v2's whi; stride HF).
+struct BandWalk {  // a band plan's walk
+  static constexpr bool kWindow = false;
+  const int* rows;   // [E_b] sender row by position (-1 dead)
+  const int* order;  // [E_b] banded slot by position
+  __device__ int row(int k) const { return __ldg(rows + k); }
+  __device__ int keep(int k) const { return __ldg(order + k); }
+};
+
+struct ListWalk {  // the receiver stream, senders listed by position
+  static constexpr bool kWindow = false;
+  const int* senders;  // [E_s]
+  __device__ int row(int k) const { return __ldg(senders + k); }
+  __device__ int keep(int k) const { return k; }
+};
+
+struct SlotWalk {  // the stream over a window holding row k for slot k
+  static constexpr bool kWindow = true;
+  __device__ int row(int k) const { return k; }
+  __device__ int keep(int k) const { return k; }
+};
+
 // What one lane of a unit covers: head h (on: one of the block's), the C
 // columns col .. col + nf - 1 of the [N, HF] tables, its head's a, and the
 // lanes of its unit, which alone take part in its shuffles.
@@ -164,17 +203,19 @@ struct Lane {
 // Adds the slots at walk positions [lo, hi), all of receiver row r, into
 // acc (the message, this lane's columns) and dsum (the denominator, the
 // lane's head), in position order; the unit's lanes call it together.
-template <int C, bool kVec, bool kV2>
-__device__ __forceinline__ void walk_run(const FusedArgs& p,
+template <int C, bool kVec, bool kV2, class Walk>
+__device__ __forceinline__ void walk_run(const FusedArgs& p, const Walk& w,
                                          const Lane<C>& ln, long long r,
                                          int lo, int hi, float (&acc)[C],
                                          float& dsum) {
   const int H = p.H, HF = p.H * p.F;
+  const int stride = Walk::kWindow ? p.s_stride : HF;
+  const float* const si = Walk::kWindow ? p.si : p.xr;
   // the receiver's operands, once per run
   float rv[kV2 ? C : 1];
   float fd = 0.f;
   if constexpr (kV2)
-    load_cols<C, kVec>(p.x + r * HF + ln.col, ln.nf, rv);
+    load_cols<C, kVec>(p.xr + r * HF + ln.col, ln.nf, rv);
   else
     fd = ln.on ? __ldg(p.fd + r * H + ln.h) : 0.f;
   const float shift = ln.on ? __ldg(p.shift + r * H + ln.h) : 0.f;
@@ -184,18 +225,18 @@ __device__ __forceinline__ void walk_run(const FusedArgs& p,
     int s[TF_BATCH], o[TF_BATCH];
 #pragma unroll
     for (int u = 0; u < TF_BATCH; ++u) {
-      s[u] = u < n ? __ldg(p.rows + k0 + u) : 0;
-      o[u] = u < n ? __ldg(p.order + k0 + u) : 0;
+      s[u] = u < n ? w.row(k0 + u) : 0;
+      o[u] = u < n ? w.keep(k0 + u) : 0;
     }
     float vj[TF_BATCH][C];  // v1: wh[s]; v2: whj[s]
     float vi[kV2 ? TF_BATCH : 1][C];  // v2: whi[s]
     float kq[TF_BATCH];
 #pragma unroll
     for (int u = 0; u < TF_BATCH; ++u) {
-      const long long at = static_cast<long long>(s[u]) * HF + ln.col;
+      const long long at = static_cast<long long>(s[u]) * stride + ln.col;
       const int m = u < n ? ln.nf : 0;
-      load_cols<C, kVec>((kV2 ? p.xj : p.x) + at, m, vj[u]);
-      if constexpr (kV2) load_cols<C, kVec>(p.x + at, m, vi[u]);
+      load_cols<C, kVec>(p.sj + at, m, vj[u]);
+      if constexpr (kV2) load_cols<C, kVec>(si + at, m, vi[u]);
       kq[u] = u < n && ln.on
                   ? __ldg(p.keepq + static_cast<long long>(o[u]) * H + ln.h)
                   : 0.f;
@@ -238,10 +279,10 @@ __device__ __forceinline__ void walk_run(const FusedArgs& p,
 
 // gridDim = (n_tiles + n_split, head groups, B); blockDim = 128 / B units
 // of P lanes. kSplit: runs longer than TF_SPLIT slots may occur (the
-// plan's max_run says so), and are cut into segments.
-template <int C, bool kVec, bool kV2, bool kSplit>
+// walk's max_run says so), and are cut into segments.
+template <int C, bool kVec, bool kV2, bool kSplit, class Walk>
 __global__ void __launch_bounds__(TF_THREADS)
-tile_fused_kernel(const FusedArgs p) {
+tile_fused_kernel(const FusedArgs p, const Walk w) {
   const int P = p.P, H = p.H, F = p.F;
   const int units = blockDim.x / P;
   const int unit = threadIdx.x / P;
@@ -274,7 +315,8 @@ tile_fused_kernel(const FusedArgs p) {
   for (int i = 0; i < C; ++i) acc[i] = 0.f;
   float dsum = 0.f;
   const bool heavy = kSplit && hi - lo > TF_SPLIT;
-  if (lo < hi && !heavy) walk_run<C, kVec, kV2>(p, ln, r, lo, hi, acc, dsum);
+  if (lo < hi && !heavy)
+    walk_run<C, kVec, kV2>(p, w, ln, r, lo, hi, acc, dsum);
 
   if constexpr (kSplit) {
     // the long runs are cut into segments of TF_SPLIT slots, which all the
@@ -312,7 +354,7 @@ tile_fused_kernel(const FusedArgs p) {
           // before it
           const int j = lower_bound(s_first, units + 1, g + 1) - 1;
           const int seg = s_lo[j] + (g - s_first[j]) * TF_SPLIT;
-          walk_run<C, kVec, kV2>(p, ln, r - unit + j, seg,
+          walk_run<C, kVec, kV2>(p, w, ln, r - unit + j, seg,
                                  min(seg + TF_SPLIT, s_hi[j]), pa, pd);
         }
         float* mine = s_part + threadIdx.x * (C + 1);
@@ -344,35 +386,35 @@ tile_fused_kernel(const FusedArgs p) {
     (tr.piece < 0 ? p.den : p.part_den)[row * H + ln.h] = dsum;
 }
 
-template <int C, bool kVec, bool kV2>
-void launch_split(const FusedArgs& p, bool split, dim3 grid, int threads,
-                  cudaStream_t st) {
+template <int C, bool kVec, bool kV2, class Walk>
+void launch_split(const FusedArgs& p, const Walk& w, bool split, dim3 grid,
+                  int threads, cudaStream_t st) {
   if (split)
-    tile_fused_kernel<C, kVec, kV2, true><<<grid, threads, 0, st>>>(p);
+    tile_fused_kernel<C, kVec, kV2, true><<<grid, threads, 0, st>>>(p, w);
   else
-    tile_fused_kernel<C, kVec, kV2, false><<<grid, threads, 0, st>>>(p);
+    tile_fused_kernel<C, kVec, kV2, false><<<grid, threads, 0, st>>>(p, w);
 }
 
-template <int C, bool kV2>
-int launch_c(const FusedArgs& p, bool vec, bool split, dim3 grid,
-             int threads, cudaStream_t st) {
+template <int C, bool kV2, class Walk>
+int launch_c(const FusedArgs& p, const Walk& w, bool vec, bool split,
+             dim3 grid, int threads, cudaStream_t st) {
   if constexpr (C % 4 == 0) {
     if (vec) {
-      launch_split<C, true, kV2>(p, split, grid, threads, st);
+      launch_split<C, true, kV2>(p, w, split, grid, threads, st);
       return static_cast<int>(cudaGetLastError());
     }
   }
-  launch_split<C, false, kV2>(p, split, grid, threads, st);
+  launch_split<C, false, kV2>(p, w, split, grid, threads, st);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the forward on `stream` (cutting runs into segments when the
-// plan's longest run, max_run, exceeds TF_SPLIT), then, if any tile is
-// split, adds the pieces into out and den. Returns the first CUDA error, or
-// cudaGetLastError() after the launches (cudaErrorInvalidValue when F >
-// 256).
-template <bool kV2>
-int launch_tile_fused(FusedArgs p, int max_run, void* stream) {
+// Launches the forward over walk `w` on `stream` (cutting runs into
+// segments when the walk's longest run, max_run, exceeds TF_SPLIT), then,
+// if any tile is split, adds the pieces into out and den. Returns the first
+// CUDA error, or cudaGetLastError() after the launches
+// (cudaErrorInvalidValue when F > 256).
+template <bool kV2, class Walk>
+int launch_tile_fused(FusedArgs p, Walk w, int max_run, void* stream) {
   if (p.n_tiles <= 0 || p.H <= 0) return 0;
   if (p.F <= 0 || p.F > TF_MAX_F)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -386,8 +428,9 @@ int launch_tile_fused(FusedArgs p, int max_run, void* stream) {
   const auto aligned = [](const void* q) {
     return q == nullptr || reinterpret_cast<std::uintptr_t>(q) % 16 == 0;
   };
-  const bool vec = C % 4 == 0 && p.F % 4 == 0 && aligned(p.x) &&
-                   aligned(p.xj) && aligned(p.out) && aligned(p.part_out);
+  const bool vec = C % 4 == 0 && p.F % 4 == 0 && p.s_stride % 4 == 0 &&
+                   aligned(p.sj) && aligned(p.si) && aligned(p.xr) &&
+                   aligned(p.out) && aligned(p.part_out);
 
   dim3 grid(p.n_tiles + p.n_split, (p.H + p.hpb - 1) / p.hpb, 1);
   while (TILE / grid.z * p.P > TF_THREADS) grid.z *= 2;
@@ -405,14 +448,14 @@ int launch_tile_fused(FusedArgs p, int max_run, void* stream) {
 
   int rc = 0;
   switch (C) {
-    case 1: rc = launch_c<1, kV2>(p, vec, split, grid, threads, st); break;
-    case 2: rc = launch_c<2, kV2>(p, vec, split, grid, threads, st); break;
-    case 3: rc = launch_c<3, kV2>(p, vec, split, grid, threads, st); break;
-    case 4: rc = launch_c<4, kV2>(p, vec, split, grid, threads, st); break;
-    case 5: rc = launch_c<5, kV2>(p, vec, split, grid, threads, st); break;
-    case 6: rc = launch_c<6, kV2>(p, vec, split, grid, threads, st); break;
-    case 7: rc = launch_c<7, kV2>(p, vec, split, grid, threads, st); break;
-    default: rc = launch_c<8, kV2>(p, vec, split, grid, threads, st); break;
+    case 1: rc = launch_c<1, kV2>(p, w, vec, split, grid, threads, st); break;
+    case 2: rc = launch_c<2, kV2>(p, w, vec, split, grid, threads, st); break;
+    case 3: rc = launch_c<3, kV2>(p, w, vec, split, grid, threads, st); break;
+    case 4: rc = launch_c<4, kV2>(p, w, vec, split, grid, threads, st); break;
+    case 5: rc = launch_c<5, kV2>(p, w, vec, split, grid, threads, st); break;
+    case 6: rc = launch_c<6, kV2>(p, w, vec, split, grid, threads, st); break;
+    case 7: rc = launch_c<7, kV2>(p, w, vec, split, grid, threads, st); break;
+    default: rc = launch_c<8, kV2>(p, w, vec, split, grid, threads, st); break;
   }
   if (rc != 0) return rc;
   rc = launch_tile_combine(p.tile_ptr, p.n_tiles, p.split_at, p.n_split,

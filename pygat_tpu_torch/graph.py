@@ -11,6 +11,9 @@ fields, dtypes and values as the reference's ``Graph``:
 * edges are sorted by ``(receiver, sender)``;
 * padding edges carry weight 0 and ``edge_mask == False``; node ``N_pad - 1``
   is always a padding (dummy) node.
+
+Beside the fields, :func:`build_graph` derives the receiver stream's walk
+for the fused kernels once (:attr:`Graph.stream_walk`).
 """
 
 from __future__ import annotations
@@ -40,6 +43,20 @@ def host_edges(graph: "Graph") -> tuple | None:
     """(senders, receivers, edge_weight, edge_mask) as host numpy arrays if
     this Graph was built by :func:`build_graph` in this process, else None."""
     return _HOST_EDGES.get(id(graph.senders))
+
+
+# The receiver stream's walk (ops.stream.StreamWalk) of each graph, keyed by
+# its r_local tensor (id + weakref.finalize eviction), on the graph's
+# device: built by build_graph, carried by Graph.to, read through
+# Graph.stream_walk. It lives beside the graph rather than in a field, so
+# the Graph keeps the JAX package's fields.
+_STREAM_WALKS: dict = {}
+
+
+def _remember_walk(r_local, walk) -> None:
+    key = id(r_local)
+    _STREAM_WALKS[key] = walk
+    weakref.finalize(r_local, _STREAM_WALKS.pop, key, None)
 
 
 class Graph(NamedTuple):
@@ -77,13 +94,25 @@ class Graph(NamedTuple):
     def num_edges_padded(self) -> int:
         return self.senders.shape[0]
 
+    @property
+    def stream_walk(self):
+        """The receiver stream's walk (:class:`~pygat_tpu_torch.ops.stream.
+        StreamWalk`, on the graph's device), which the fused stream and
+        window kernels read; built with the graph by :func:`build_graph`,
+        None for a graph without a stream layout or built otherwise."""
+        return (None if self.r_local is None
+                else _STREAM_WALKS.get(id(self.r_local)))
+
     def to(self, device) -> "Graph":
         """The same graph with every tensor on ``device`` (the host edge
-        cache follows)."""
+        cache and the stream walk follow)."""
         g = Graph(*(None if t is None else t.to(device) for t in self))
         host = host_edges(self)
         if host is not None and g.senders is not self.senders:
             _remember_host_edges(g.senders, host)
+        walk = self.stream_walk
+        if walk is not None and g.r_local is not self.r_local:
+            _remember_walk(g.r_local, walk.to(device))
         return g
 
 
@@ -159,6 +188,7 @@ def build_graph(
         from pygat_tpu_torch.ops.stream import (
             EC,
             build_stream_layout,
+            build_stream_walk,
             stream_length,
         )
 
@@ -230,6 +260,9 @@ def build_graph(
                                      np.asarray(receivers_p, np.int64),
                                      np.asarray(weight_p, np.float32),
                                      np.asarray(edge_mask, bool)))
+    if stream_fields:
+        _remember_walk(g.r_local, build_stream_walk(
+            lay.local, lay.chunk_tile, n_pad // 128, device))
     return g
 
 

@@ -194,6 +194,7 @@ def gat_v1_sparse_heads(
             wh, f_dst_n, bound, params.a[:, f_out:], keepq,
             graph.senders, graph.receivers, graph.r_local, graph.r_chunk,
             graph.c_slot, graph.c_local, graph.c_chunk, alpha,
+            graph.stream_walk,
         )
     out = softmax_div(agg.view(n, n_heads, f_out), den)
     return _heads_tail(out, params, h, x_h, concat)
@@ -279,6 +280,7 @@ def gat_v2_sparse_heads(
             whi, whj, ub, params.a, keepq,
             graph.senders, graph.receivers, graph.r_local, graph.r_chunk,
             graph.c_slot, graph.c_local, graph.c_chunk, alpha,
+            graph.stream_walk,
         )
     out = softmax_div(agg.view(n, n_heads, f_out), den)
     return _heads_tail(out, params, h, x_h, concat)

@@ -65,12 +65,12 @@ import torch
 
 from pygat_tpu_torch.ops import build
 from pygat_tpu_torch.ops.fused_stream import (
-    MAX_F,
     _block_diag_a,
     _check_args as _check_fused_args,
     _expand_bd,
     fused_v1_plain,
     fused_v2_plain,
+    launch_tile_fused,
     leaky_relu,
 )
 from pygat_tpu_torch.ops.large import CscCsrPlans, expand, maybe_plan_corner
@@ -532,13 +532,13 @@ def banded_weighted_sum(values_b: torch.Tensor, x: torch.Tensor,
 
 
 def fused_v1_banded_plain(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
-                          alpha: float):
+                          alpha: float, *, f64: bool = False):
     """Plain PyTorch version of :func:`fused_v1_banded`: the receiver
-    stream's plain version over the banded slots."""
+    stream's plain version over the banded slots (``f64`` as there)."""
     _check_table("fused_v1_banded", wh, plan)
     return fused_v1_plain(wh, f_dst, bound, a_src, keepq,
                           banded_senders(plan, plan.n_pad - 1).int(),
-                          plan.r_local, plan.r_chunk, alpha)
+                          plan.r_local, plan.r_chunk, alpha, f64=f64)
 
 
 def _launch_banded(wrapper, tensors, a, plan: BandPlan, alpha: float):
@@ -546,24 +546,10 @@ def _launch_banded(wrapper, tensors, a, plan: BandPlan, alpha: float):
     current stream and count the launch; ``tensors`` are the node tables,
     the per-node head terms, ``a`` and ``keepq`` in the kernel's order.
     Returns the new (out [N, HF], den [N, H])."""
-    h, f = a.shape
-    if f > MAX_F:
-        raise ValueError(f"{wrapper.kernel}: head width {f} exceeds {MAX_F}")
     walk = _walk(wrapper.kernel, plan)
-    dev, n_split = a.device, plan.split_at.shape[0]
-    out = torch.empty(plan.n_pad, h * f, dtype=torch.float32, device=dev)
-    den = torch.empty(plan.n_pad, h, dtype=torch.float32, device=dev)
-    part_out = part_den = None
-    if n_split:
-        part_out = torch.empty(n_split, TILE, h * f, dtype=torch.float32,
-                               device=dev)
-        part_den = torch.empty(n_split, TILE, h, dtype=torch.float32,
-                               device=dev)
-    build.launch(wrapper, *tensors, walk.rows, walk.order, walk.row_ptr,
-                 plan.tile_ptr, plan.split_at, plan.n_pad // TILE, n_split,
-                 plan.max_run, h, f, float(alpha), out, den, part_out,
-                 part_den)
-    return out, den
+    return launch_tile_fused(wrapper, (*tensors, walk.rows, walk.order), a,
+                             plan.n_pad, walk.row_ptr, plan.tile_ptr,
+                             plan.split_at, plan.max_run, alpha)
 
 
 @build.counted
@@ -589,13 +575,13 @@ def fused_v1_banded(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
 
 
 def fused_v2_banded_plain(whi, whj, ub, a, keepq, plan: BandPlan,
-                          alpha: float):
+                          alpha: float, *, f64: bool = False):
     """Plain PyTorch version of :func:`fused_v2_banded`: the receiver
-    stream's plain version over the banded slots."""
+    stream's plain version over the banded slots (``f64`` as there)."""
     _check_table("fused_v2_banded", whi, plan)
     return fused_v2_plain(whi, whj, ub, a, keepq,
                           banded_senders(plan, plan.n_pad - 1).int(),
-                          plan.r_local, plan.r_chunk, alpha)
+                          plan.r_local, plan.r_chunk, alpha, f64=f64)
 
 
 @build.counted

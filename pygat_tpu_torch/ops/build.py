@@ -30,8 +30,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaGetLastError() as an int
 ENTRY_POINTS = {
     "stream_scatter": ("pygat_stream_scatter", [_P] * 4 + [_I] * 3 + [_P] * 2),
-    "fused_v1": ("pygat_fused_v1", [_P] * 8 + [_I] * 4 + [_F] + [_P] * 3),
-    "fused_v2": ("pygat_fused_v2", [_P] * 8 + [_I] * 4 + [_F] + [_P] * 3),
+    "fused_v1": ("pygat_fused_v1", [_P] * 9 + [_I] * 5 + [_F] + [_P] * 5),
+    "fused_v2": ("pygat_fused_v2", [_P] * 9 + [_I] * 5 + [_F] + [_P] * 5),
     "expand": ("pygat_expand", [_P] * 3 + [_I] * 2 + [_P] * 2),
     "banded_take": ("pygat_banded_take", [_P] * 3 + [_I] * 3 + [_P] * 2),
     "banded_sender_sum": ("pygat_banded_sender_sum",
@@ -42,9 +42,9 @@ ENTRY_POINTS = {
                         [_P] * 10 + [_I] * 5 + [_F] + [_P] * 5),
     "corner_permute": ("pygat_corner_permute", [_P] * 3 + [_I] * 3 + [_P] * 2),
     "fused_v1_window": ("pygat_fused_v1_window",
-                        [_P] * 7 + [_I] * 4 + [_F] + [_P] * 3),
+                        [_P] * 8 + [_I] * 5 + [_F] + [_P] * 5),
     "fused_v2_window": ("pygat_fused_v2_window",
-                        [_P] * 7 + [_I] * 4 + [_F] + [_P] * 3),
+                        [_P] * 8 + [_I] * 5 + [_F] + [_P] * 5),
     "spmm_banded": ("pygat_spmm_banded", [_P] * 7 + [_I] * 3 + [_P] * 3),
     "panel_spmm": ("pygat_panel_spmm", [_P] * 9 + [_I] * 4 + [_P] * 3),
     "bcsr_attention": ("pygat_bcsr_attention",

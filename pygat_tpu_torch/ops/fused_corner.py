@@ -16,8 +16,10 @@ kernel over a static layout:
   and :func:`fused_v2_window`, which launch ``csrc/fused_v1_window.cu`` and
   ``csrc/fused_v2_window.cu`` (rows 2 and 3's kernels of
   ``pygat_tpu/ops/fused_stream.py``, ``_make_v1_kernel`` and
-  ``_make_v2_kernel``, reading slot k's sender row from row k of the
-  window) on a CUDA tensor, and their plain versions on a CPU tensor;
+  ``_make_v2_kernel``, on the tile-owner body ``csrc/tile_fused.cuh``
+  walking the receiver stream by the graph's walk and reading slot k's
+  sender row from row k of the window) on a CUDA tensor, and their plain
+  versions on a CPU tensor;
 * in the backward, the receiver-side operands by one expand over the
   receiver stream, and the sender-side reductions by the inverse passes
   back to CSC order and the stream segment sum
@@ -36,8 +38,9 @@ from pygat_tpu_torch.ops.fused_stream import (
     _block_diag_a,
     _check_args,
     _expand_bd,
-    _launch,
+    launch_tile_fused,
     leaky_relu,
+    stream_walk_arg,
     v1_plain_core,
     v2_plain_core,
 )
@@ -47,7 +50,7 @@ from pygat_tpu_torch.ops.large import (
     gather_corner,
     scatter_corner,
 )
-from pygat_tpu_torch.ops.stream import TILE, stream_scatter
+from pygat_tpu_torch.ops.stream import TILE, StreamWalk, stream_scatter
 
 
 # ---------------------------------------------------------------------------
@@ -63,24 +66,26 @@ def _check_window(what: str, win: torch.Tensor, cols: int, r_local) -> None:
 
 
 def fused_v1_window_plain(win, f_dst, bound, a_src, keepq, r_local, r_chunk,
-                          alpha: float):
-    """Plain PyTorch version of :func:`fused_v1_window`."""
+                          alpha: float, *, f64: bool = False):
+    """Plain PyTorch version of :func:`fused_v1_window` (``f64`` as
+    :func:`~pygat_tpu_torch.ops.fused_stream.v1_plain_core`)."""
     _check_args("fused_v1_window", (), (f_dst, bound), a_src, keepq, None,
                 r_local, r_chunk)
     _check_window("fused_v1_window", win, a_src.numel(), r_local)
     return v1_plain_core(win, f_dst, bound, a_src, keepq, r_local, r_chunk,
-                         alpha)
+                         alpha, f64)
 
 
 @build.counted
 def fused_v1_window(win, f_dst, bound, a_src, keepq, r_local, r_chunk,
-                    alpha: float):
+                    alpha: float, *, walk: StreamWalk | None = None):
     """(out [N, HF], den [N, H]) of the fused GATv1 forward over the
     receiver stream, slot k's sender row being row k of ``win`` [E_s, HF]
     (:func:`gather_corner` of wh). Other arguments as
     :func:`~pygat_tpu_torch.ops.fused_stream.fused_v1`. On a CUDA tensor
     this launches ``csrc/fused_v1_window.cu`` (counted in
-    ``fused_v1_window.launches``), on a CPU tensor it runs
+    ``fused_v1_window.launches``), whose result is the same bit for bit
+    from call to call, and raises without a walk; on a CPU tensor it runs
     :func:`fused_v1_window_plain`."""
     if win.device.type == "cpu":
         return fused_v1_window_plain(win, f_dst, bound, a_src, keepq, r_local,
@@ -90,31 +95,36 @@ def fused_v1_window(win, f_dst, bound, a_src, keepq, r_local, r_chunk,
     _check_args("fused_v1_window", (), (f_dst, bound), a_src, keepq, None,
                 r_local, r_chunk)
     _check_window("fused_v1_window", win, a_src.numel(), r_local)
-    return _launch(fused_v1_window, (win, f_dst, bound, a_src, keepq, r_local,
-                                     r_chunk), a_src, alpha,
-                   n_pad=f_dst.shape[0])
+    n_pad = f_dst.shape[0]
+    walk = stream_walk_arg("fused_v1_window", walk, n_pad, r_chunk)
+    return launch_tile_fused(fused_v1_window, (win, f_dst, bound, a_src,
+                                               keepq), a_src, n_pad, *walk,
+                             alpha)
 
 
 def fused_v2_window_plain(whi, win, ub, a, keepq, r_local, r_chunk,
-                          alpha: float):
-    """Plain PyTorch version of :func:`fused_v2_window`."""
+                          alpha: float, *, f64: bool = False):
+    """Plain PyTorch version of :func:`fused_v2_window` (``f64`` as
+    :func:`~pygat_tpu_torch.ops.fused_stream.v1_plain_core`)."""
     _check_args("fused_v2_window", (whi,), (ub,), a, keepq, None, r_local,
                 r_chunk)
     hf = a.numel()
     _check_window("fused_v2_window", win, 2 * hf, r_local)
     return v2_plain_core(win[:, :hf], win[:, hf:], whi, ub, a, keepq, r_local,
-                         r_chunk, alpha)
+                         r_chunk, alpha, f64)
 
 
 @build.counted
-def fused_v2_window(whi, win, ub, a, keepq, r_local, r_chunk, alpha: float):
+def fused_v2_window(whi, win, ub, a, keepq, r_local, r_chunk, alpha: float,
+                    *, walk: StreamWalk | None = None):
     """(out [N, HF], den [N, H]) of the fused GATv2 forward over the
     receiver stream, slot k's sender rows being row k of ``win`` [E_s, 2HF]:
     ``whj`` of the sender in columns [0, HF), ``whi`` in [HF, 2HF)
     (:func:`gather_corner` of ``[whj | whi]``). Other arguments as
     :func:`~pygat_tpu_torch.ops.fused_stream.fused_v2`. On a CUDA tensor
     this launches ``csrc/fused_v2_window.cu`` (counted in
-    ``fused_v2_window.launches``), on a CPU tensor it runs
+    ``fused_v2_window.launches``), whose result is the same bit for bit
+    from call to call, and raises without a walk; on a CPU tensor it runs
     :func:`fused_v2_window_plain`."""
     if win.device.type == "cpu":
         return fused_v2_window_plain(whi, win, ub, a, keepq, r_local, r_chunk,
@@ -124,8 +134,10 @@ def fused_v2_window(whi, win, ub, a, keepq, r_local, r_chunk, alpha: float):
     _check_args("fused_v2_window", (whi,), (ub,), a, keepq, None, r_local,
                 r_chunk)
     _check_window("fused_v2_window", win, 2 * a.numel(), r_local)
-    return _launch(fused_v2_window, (whi, win, ub, a, keepq, r_local,
-                                     r_chunk), a, alpha)
+    n_pad = whi.shape[0]
+    walk = stream_walk_arg("fused_v2_window", walk, n_pad, r_chunk)
+    return launch_tile_fused(fused_v2_window, (whi, win, ub, a, keepq), a,
+                             n_pad, *walk, alpha)
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +152,8 @@ class _FusedV1AttentionCorner(torch.autograd.Function):
             t.contiguous() for t in (wh, f_dst, bound, a_src, keepq))
         win = gather_corner(wh, graph, plans.fwd)
         out, den = fused_v1_window(win, f_dst, bound, a_src, keepq,
-                                   graph.r_local, graph.r_chunk, alpha)
+                                   graph.r_local, graph.r_chunk, alpha,
+                                   walk=graph.stream_walk)
         ctx.save_for_backward(wh, f_dst, bound, a_src, keepq)
         ctx.graph, ctx.plans, ctx.alpha = graph, plans, alpha
         return out, den
@@ -196,7 +209,8 @@ class _FusedV2AttentionCorner(torch.autograd.Function):
         # one expand and one turn for both sender windows (2HF columns)
         win = gather_corner(torch.cat([whj, whi], dim=1), graph, plans.fwd)
         out, den = fused_v2_window(whi, win, ub, a, keepq, graph.r_local,
-                                   graph.r_chunk, alpha)
+                                   graph.r_chunk, alpha,
+                                   walk=graph.stream_walk)
         ctx.save_for_backward(whi, whj, ub, a, keepq)
         ctx.graph, ctx.plans, ctx.alpha = graph, plans, alpha
         return out, den

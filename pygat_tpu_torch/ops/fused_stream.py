@@ -6,10 +6,12 @@ and the message, and scatter the aggregated numerator ``out [N, HF]`` and
 the pre-dropout denominator ``den [N, H]``. On a CUDA tensor they launch the
 hand-written kernels ``csrc/fused_v1.cu`` and ``csrc/fused_v2.cu``, which
 replace the TPU kernels ``pygat_tpu/ops/fused_stream.py::_make_v1_kernel``
-and ``_make_v2_kernel`` (each source notes what bounds it and how it is
-laid out); on a CPU tensor they run :func:`fused_v1_plain` and
-:func:`fused_v2_plain`, the plain PyTorch versions that are also the
-kernels' oracles.
+and ``_make_v2_kernel``: tile-owner kernels (``csrc/tile_fused.cuh``, which
+notes what bounds them and how they are laid out) that walk the stream by
+the graph's walk (:attr:`~pygat_tpu_torch.graph.Graph.stream_walk`, built
+with the graph; a CUDA call without it raises); on a CPU tensor they run
+:func:`fused_v1_plain` and :func:`fused_v2_plain`, the plain PyTorch
+versions that are also the kernels' oracles.
 
 :func:`fused_v1_attention` and :func:`fused_v2_attention` are the
 differentiable ops, the counterparts of the reference's custom VJPs: the
@@ -29,11 +31,12 @@ from pygat_tpu_torch.ops import build
 from pygat_tpu_torch.ops.stream import (
     EC,
     TILE,
+    StreamWalk,
     stream_segment_sum,
     stream_sender_segment_sum,
 )
 
-MAX_F = 256  # widest head of the fused kernels (fused_v{1,2}.cuh, tile_fused.cuh)
+MAX_F = 256  # widest head of the fused kernels (tile_fused.cuh)
 
 
 def leaky_relu(x: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -80,22 +83,47 @@ def _check_args(what, wide, narrow, a, keepq, senders, r_local, r_chunk):
             raise ValueError(f"{what} takes int32 indices, got {t.dtype}")
 
 
-def _launch(wrapper, tensors, a, alpha: float, n_pad=None):
-    """Launch the kernel ``csrc/<wrapper.kernel>.cu`` on the current
-    stream and count the launch on ``wrapper``. ``tensors`` are the kernel's
-    array arguments in its order (the first is an [N, HF] table unless
-    ``n_pad`` gives N, the last is ``r_chunk``); returns the new (out
+def stream_walk_arg(what: str, walk: StreamWalk | None, n_pad: int,
+                    r_chunk) -> StreamWalk:
+    """``walk``, checked to be a receiver stream's walk over ``n_pad``
+    nodes on ``r_chunk``'s device; raises without one (a CUDA call needs
+    the graph's :attr:`~pygat_tpu_torch.graph.Graph.stream_walk`)."""
+    if walk is None:
+        raise ValueError(f"{what}: a CUDA call needs the receiver stream's "
+                         "walk (walk=graph.stream_walk, built with the graph)")
+    n_tiles = n_pad // TILE
+    if (walk.row_ptr.shape != (n_tiles * (TILE + 1) + 1,)
+            or walk.tile_ptr.shape != (n_tiles + 1,)
+            or walk.row_ptr.device != r_chunk.device):
+        raise ValueError(f"{what}: the walk does not match the stream's "
+                         f"{n_tiles} tiles on {r_chunk.device}")
+    return walk
+
+
+def launch_tile_fused(wrapper, tensors, a, n_pad: int, row_ptr, tile_ptr,
+                      split_at, max_run: int, alpha: float):
+    """Launch ``wrapper``'s tile-owner kernel (``csrc/tile_fused.cuh``) on
+    the current stream and count the launch. ``tensors`` are the kernel's
+    array arguments before ``row_ptr`` (the tables, the per-node head terms,
+    ``a``, ``keepq`` and the walk's words by position, if any); ``row_ptr``,
+    ``tile_ptr``, ``split_at`` and ``max_run`` are the walk's (a
+    :class:`StreamWalk` unpacked, or a band plan's). Returns the new (out
     [N, HF], den [N, H])."""
     h, f = a.shape
     if f > MAX_F:
         raise ValueError(f"{wrapper.kernel}: head width {f} exceeds {MAX_F}")
-    first, r_chunk = tensors[0], tensors[-1]
-    n_pad = first.shape[0] if n_pad is None else n_pad
-    hf = h * f
-    out = torch.empty(n_pad, hf, dtype=torch.float32, device=first.device)
-    den = torch.empty(n_pad, h, dtype=torch.float32, device=first.device)
-    build.launch(wrapper, *tensors, r_chunk.shape[0], n_pad // TILE, h, f,
-                 float(alpha), out, den)
+    dev, n_split = a.device, split_at.shape[0]
+    out = torch.empty(n_pad, h * f, dtype=torch.float32, device=dev)
+    den = torch.empty(n_pad, h, dtype=torch.float32, device=dev)
+    part_out = part_den = None
+    if n_split:
+        part_out = torch.empty(n_split, TILE, h * f, dtype=torch.float32,
+                               device=dev)
+        part_den = torch.empty(n_split, TILE, h, dtype=torch.float32,
+                               device=dev)
+    build.launch(wrapper, *tensors, row_ptr, tile_ptr, split_at,
+                 n_pad // TILE, n_split, max_run, h, f, float(alpha), out,
+                 den, part_out, part_den)
     return out, den
 
 
@@ -110,9 +138,16 @@ def stream_receivers(r_local: torch.Tensor,
 
 
 def v1_plain_core(g_w, f_dst, bound, a_src, keepq, r_local, r_chunk,
-                  alpha: float):
+                  alpha: float, f64: bool = False):
     """The fused GATv1 forward in plain PyTorch from the sender rows
-    ``g_w`` [E, HF] of every slot (gathers + ``index_add_``)."""
+    ``g_w`` [E, HF] of every slot (gathers + ``index_add_``). ``f64=True`` evaluates in float64 and returns float32: the kernels'
+    oracle where a row sums thousands of terms, whose float32 sum by
+    ``index_add_`` (atomics on the card, in an order that changes from call
+    to call) is itself off by up to about 1e-5 of the row."""
+    if f64:
+        return tuple(t.float() for t in v1_plain_core(
+            *(t.double() for t in (g_w, f_dst, bound, a_src, keepq)),
+            r_local, r_chunk, alpha))
     n_pad, h = f_dst.shape
     f = a_src.shape[1]
     e = g_w.shape[0]
@@ -128,25 +163,28 @@ def v1_plain_core(g_w, f_dst, bound, a_src, keepq, r_local, r_chunk,
 
 
 def fused_v1_plain(wh, f_dst, bound, a_src, keepq, senders, r_local, r_chunk,
-                   alpha: float):
-    """Plain PyTorch version of :func:`fused_v1` (gathers + ``index_add_``)."""
+                   alpha: float, *, f64: bool = False):
+    """Plain PyTorch version of :func:`fused_v1` (gathers + ``index_add_``;
+    ``f64`` as :func:`v1_plain_core`)."""
     _check_args("fused_v1", (wh,), (f_dst, bound), a_src, keepq, senders,
                 r_local, r_chunk)
     return v1_plain_core(wh[senders.long()], f_dst, bound, a_src, keepq,
-                         r_local, r_chunk, alpha)
+                         r_local, r_chunk, alpha, f64)
 
 
 @build.counted
 def fused_v1(wh, f_dst, bound, a_src, keepq, senders, r_local, r_chunk,
-             alpha: float):
+             alpha: float, *, walk: StreamWalk | None = None):
     """(out [N, HF], den [N, H]) of the fused GATv1 forward.
 
     wh [N, HF], f_dst/bound [N, H], a_src [H, F], keepq [E, H] (keep/(1-p)
     factors, ones when not training); senders/r_local [E] and r_chunk
     [E / EC] int32 in receiver stream order, which give every slot its
-    receiver (:func:`stream_receivers`). On a CUDA tensor this launches
-    ``csrc/fused_v1.cu`` (counted in ``fused_v1.launches``), on a CPU
-    tensor it runs :func:`fused_v1_plain`.
+    receiver (:func:`stream_receivers`); ``walk`` the stream's walk
+    (``graph.stream_walk``). On a CUDA tensor this launches
+    ``csrc/fused_v1.cu`` (counted in ``fused_v1.launches``), whose result
+    is the same bit for bit from call to call, and raises without a walk;
+    on a CPU tensor it runs :func:`fused_v1_plain`.
     """
     if wh.device.type == "cpu":
         return fused_v1_plain(wh, f_dst, bound, a_src, keepq, senders,
@@ -155,18 +193,20 @@ def fused_v1(wh, f_dst, bound, a_src, keepq, senders, r_local, r_chunk,
         raise ValueError(f"fused_v1: unsupported device {wh.device}")
     _check_args("fused_v1", (wh,), (f_dst, bound), a_src, keepq, senders,
                 r_local, r_chunk)
-    return _launch(fused_v1, (wh, f_dst, bound, a_src, keepq, senders,
-                             r_local, r_chunk), a_src, alpha)
+    n_pad = wh.shape[0]
+    walk = stream_walk_arg("fused_v1", walk, n_pad, r_chunk)
+    return launch_tile_fused(fused_v1, (wh, f_dst, bound, a_src, keepq,
+                                        senders), a_src, n_pad, *walk, alpha)
 
 
 class _FusedV1Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, wh, f_dst, bound, a_src, keepq, senders, receivers,
-                r_local, r_chunk, c_slot, c_local, c_chunk, alpha):
+                r_local, r_chunk, c_slot, c_local, c_chunk, alpha, walk):
         wh, f_dst, bound, a_src, keepq = (
             t.contiguous() for t in (wh, f_dst, bound, a_src, keepq))
         out, den = fused_v1(wh, f_dst, bound, a_src, keepq, senders,
-                            r_local, r_chunk, alpha)
+                            r_local, r_chunk, alpha, walk=walk)
         ctx.save_for_backward(wh, f_dst, bound, a_src, keepq, senders,
                               receivers, r_local, r_chunk, c_slot, c_local,
                               c_chunk)
@@ -205,21 +245,22 @@ class _FusedV1Attention(torch.autograd.Function):
         dwh = stream_sender_segment_sum(dgathered, senders, c_slot, c_local,
                                         c_chunk, n_pad)
         da = (g_w * (draw @ exp_bd)).sum(0).reshape(h, f)
-        return (dwh, df_dst, None, da) + (None,) * 9
+        return (dwh, df_dst, None, da) + (None,) * 10
 
 
 def fused_v1_attention(wh, f_dst, bound, a_src, keepq, senders, receivers,
                        r_local, r_chunk, c_slot, c_local, c_chunk,
-                       alpha: float):
+                       alpha: float, walk: StreamWalk | None = None):
     """Differentiable fused GATv1 attention: (out [N, HF], den [N, H]).
 
     ``bound`` must already be detached (its true gradient is zero: the
     softmax is invariant to a per-receiver shift). Gradients flow to ``wh``,
-    ``f_dst`` and ``a_src``.
+    ``f_dst`` and ``a_src``. ``walk`` (``graph.stream_walk``) is the
+    forward kernel's, needed on CUDA tensors.
     """
     return _FusedV1Attention.apply(wh, f_dst, bound, a_src, keepq, senders,
                                    receivers, r_local, r_chunk, c_slot,
-                                   c_local, c_chunk, alpha)
+                                   c_local, c_chunk, alpha, walk)
 
 
 # ---------------------------------------------------------------------------
@@ -229,10 +270,14 @@ def fused_v1_attention(wh, f_dst, bound, a_src, keepq, senders, receivers,
 
 
 def v2_plain_core(gj, gi, whi, ub, a, keepq, r_local, r_chunk,
-                  alpha: float):
+                  alpha: float, f64: bool = False):
     """The fused GATv2 forward in plain PyTorch from the sender rows of
     every slot, ``gj`` of whj and ``gi`` of whi, [E, HF] each (gathers +
-    ``index_add_``)."""
+    ``index_add_``). ``f64`` as :func:`v1_plain_core`."""
+    if f64:
+        return tuple(t.float() for t in v2_plain_core(
+            *(t.double() for t in (gj, gi, whi, ub, a, keepq)), r_local,
+            r_chunk, alpha))
     n_pad, hf = whi.shape
     h, f = a.shape
     e = gj.shape[0]
@@ -248,25 +293,29 @@ def v2_plain_core(gj, gi, whi, ub, a, keepq, r_local, r_chunk,
 
 
 def fused_v2_plain(whi, whj, ub, a, keepq, senders, r_local, r_chunk,
-                   alpha: float):
-    """Plain PyTorch version of :func:`fused_v2` (gathers + ``index_add_``)."""
+                   alpha: float, *, f64: bool = False):
+    """Plain PyTorch version of :func:`fused_v2` (gathers + ``index_add_``;
+    ``f64`` as :func:`v1_plain_core`)."""
     _check_args("fused_v2", (whi, whj), (ub,), a, keepq, senders, r_local,
                 r_chunk)
     snd = senders.long()
     return v2_plain_core(whj[snd], whi[snd], whi, ub, a, keepq, r_local,
-                         r_chunk, alpha)
+                         r_chunk, alpha, f64)
 
 
 @build.counted
-def fused_v2(whi, whj, ub, a, keepq, senders, r_local, r_chunk, alpha: float):
+def fused_v2(whi, whj, ub, a, keepq, senders, r_local, r_chunk, alpha: float,
+             *, walk: StreamWalk | None = None):
     """(out [N, HF], den [N, H]) of the fused GATv2 forward.
 
     whi/whj [N, HF] (left and right projections), ub [N, H] (an upper bound
     of every logit of the row), a [H, F], keepq [E, H] (keep/(1-p) factors,
     ones when not training); senders/r_local [E] and r_chunk [E / EC] int32
-    in receiver stream order. On a CUDA tensor this launches
-    ``csrc/fused_v2.cu`` (counted in ``fused_v2.launches``), on a CPU tensor
-    it runs :func:`fused_v2_plain`.
+    in receiver stream order; ``walk`` the stream's walk
+    (``graph.stream_walk``). On a CUDA tensor this launches
+    ``csrc/fused_v2.cu`` (counted in ``fused_v2.launches``), whose result
+    is the same bit for bit from call to call, and raises without a walk;
+    on a CPU tensor it runs :func:`fused_v2_plain`.
     """
     if whi.device.type == "cpu":
         return fused_v2_plain(whi, whj, ub, a, keepq, senders, r_local,
@@ -275,18 +324,20 @@ def fused_v2(whi, whj, ub, a, keepq, senders, r_local, r_chunk, alpha: float):
         raise ValueError(f"fused_v2: unsupported device {whi.device}")
     _check_args("fused_v2", (whi, whj), (ub,), a, keepq, senders, r_local,
                 r_chunk)
-    return _launch(fused_v2, (whi, whj, ub, a, keepq, senders, r_local,
-                             r_chunk), a, alpha)
+    n_pad = whi.shape[0]
+    walk = stream_walk_arg("fused_v2", walk, n_pad, r_chunk)
+    return launch_tile_fused(fused_v2, (whi, whj, ub, a, keepq, senders), a,
+                             n_pad, *walk, alpha)
 
 
 class _FusedV2Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, whi, whj, ub, a, keepq, senders, receivers, r_local,
-                r_chunk, c_slot, c_local, c_chunk, alpha):
+                r_chunk, c_slot, c_local, c_chunk, alpha, walk):
         whi, whj, ub, a, keepq = (
             t.contiguous() for t in (whi, whj, ub, a, keepq))
         out, den = fused_v2(whi, whj, ub, a, keepq, senders, r_local, r_chunk,
-                            alpha)
+                            alpha, walk=walk)
         ctx.save_for_backward(whi, whj, ub, a, keepq, senders, receivers,
                               r_local, r_chunk, c_slot, c_local, c_chunk)
         ctx.alpha = alpha
@@ -325,17 +376,19 @@ class _FusedV2Attention(torch.autograd.Function):
         red = stream_sender_segment_sum(both, senders, c_slot, c_local,
                                         c_chunk, n_pad)
         da = (pre * (dlogits @ exp_bd)).sum(0).reshape(h, f)
-        return (dwhi_e + red[:, hf:], red[:, :hf], None, da) + (None,) * 9
+        return (dwhi_e + red[:, hf:], red[:, :hf], None, da) + (None,) * 10
 
 
 def fused_v2_attention(whi, whj, ub, a, keepq, senders, receivers, r_local,
-                       r_chunk, c_slot, c_local, c_chunk, alpha: float):
+                       r_chunk, c_slot, c_local, c_chunk, alpha: float,
+                       walk: StreamWalk | None = None):
     """Differentiable fused GATv2 attention: (out [N, HF], den [N, H]).
 
     ``ub`` must already be detached (its true gradient is zero: the softmax
     is invariant to a per-receiver shift). Gradients flow to ``whi``,
-    ``whj`` and ``a``.
+    ``whj`` and ``a``. ``walk`` (``graph.stream_walk``) is the forward
+    kernel's, needed on CUDA tensors.
     """
     return _FusedV2Attention.apply(whi, whj, ub, a, keepq, senders, receivers,
                                    r_local, r_chunk, c_slot, c_local, c_chunk,
-                                   alpha)
+                                   alpha, walk)

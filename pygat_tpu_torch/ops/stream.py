@@ -5,7 +5,8 @@ Three parts:
 * the host layout (``EC``, ``TILE``, ``DEAD``, ``StreamLayout``,
   ``stream_length``, ``build_stream_layout``), in numpy and identical to the
   reference's, and the port's own :func:`tile_ranges` (each output tile's
-  chunk range, for the tile-owner SpMM kernels);
+  chunk range, for the tile-owner kernels) and :func:`build_stream_walk`
+  (the receiver stream's walk for the tile-owner fused kernels);
 * :func:`stream_scatter`, the segment sum of stream-ordered edge data into
   128-row output tiles: on a CUDA tensor it launches the hand-written kernel
   ``csrc/stream_scatter.cu`` (which replaces the TPU kernel
@@ -159,6 +160,55 @@ def tile_ranges(chunk_tile: np.ndarray, local: np.ndarray,
     j = np.arange(extra.sum()) - np.repeat(np.cumsum(extra) - extra, extra) + 1
     split_at = tile_ptr[tile] + j * counts[tile] // pieces[tile]
     return tile_ptr.astype(np.int32), split_at.astype(np.int32)
+
+
+class StreamWalk(NamedTuple):
+    """The receiver stream as the tile-owner fused kernels walk it
+    (``csrc/tile_fused.cuh``). The stream is tile-major and receiver-sorted
+    with its padding at each tile's end, so the key ``t * (TILE + 1) +
+    local`` (``DEAD`` counting as ``TILE``) never decreases along it, and
+    the stream is its own walk: row ``l`` of tile ``t`` runs over positions
+    ``row_ptr[key] .. row_ptr[key + 1] - 1`` with ``key = t * (TILE + 1) +
+    l``, and key ``t * (TILE + 1) + TILE`` starts the tile's dead slots,
+    which are never read. ``tile_ptr`` and ``split_at`` are
+    :func:`tile_ranges` of the chunks up to the last one holding a live
+    slot (the trailing all-dead chunks of alignment and bucketing are left
+    out); ``max_run`` is the most live slots of one receiver (its
+    in-degree), past which the kernels cut a run into segments."""
+
+    row_ptr: torch.Tensor  # [n_tiles * (TILE + 1) + 1] int32
+    tile_ptr: torch.Tensor  # [n_tiles + 1] int32
+    split_at: torch.Tensor  # [n_split] int32
+    max_run: int
+
+    def to(self, device) -> "StreamWalk":
+        return self._replace(row_ptr=self.row_ptr.to(device),
+                             tile_ptr=self.tile_ptr.to(device),
+                             split_at=self.split_at.to(device))
+
+
+def build_stream_walk(local: np.ndarray, chunk_tile: np.ndarray,
+                      n_tiles: int, device=None) -> StreamWalk:
+    """The :class:`StreamWalk` of a receiver stream (its slots' local rows
+    and its chunk-to-tile map, numpy), built on the host once per graph and
+    put on ``device``."""
+    local = np.asarray(local, np.int64)
+    chunk_tile = np.asarray(chunk_tile, np.int64)
+    key = np.repeat(chunk_tile, EC) * (TILE + 1) + np.minimum(local, TILE)
+    if key.size and np.any(np.diff(key) < 0):
+        raise ValueError("the stream is not tile-major and receiver-sorted")
+    live = local < TILE
+    n_chunks = int(np.flatnonzero(live)[-1]) // EC + 1 if live.any() else 0
+    row_ptr = np.searchsorted(key, np.arange(n_tiles * (TILE + 1) + 1))
+    tile_ptr, split_at = tile_ranges(chunk_tile[:n_chunks],
+                                     local[:n_chunks * EC], n_tiles)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return StreamWalk(row_ptr=dev(row_ptr), tile_ptr=dev(tile_ptr),
+                      split_at=dev(split_at),
+                      max_run=int(np.bincount(key[live]).max(initial=0)))
 
 
 def require_high(what: str, precision: str) -> None:

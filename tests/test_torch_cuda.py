@@ -25,7 +25,14 @@ op's backward runs card against CPU. The fused banded forwards (the
 tile-owner body) run on those band plans, on the hub graph's plan (a cut
 tile) and on Cora's (a grid under one wave), from H 1 F 4 to H 1 F 256;
 two calls agree bit for bit there too, and a first call inside a
-CUDA-graph capture, before the plan's walk is built, raises. The BCSR attention kernel runs on
+CUDA-graph capture, before the plan's walk is built, raises. The stream
+and window fused forwards run on the same body over the graph's walk
+(``Graph.stream_walk``): on the hub graph (its tile cut into pieces) and
+a graph with an empty tile, from H 1 F 7 to H 1 F 256, two calls agree bit
+for bit, a launch is capturable, and a CUDA call without the walk raises;
+the tile-owner kernels are held to their plain versions evaluated in f64
+(``f64=True``), since a hub row's 9,000-term f32 sum by index_add_ is
+itself off by up to about 1e-5. The BCSR attention kernel runs on
 tilings with a row tile without edges and (I, J) pairs of several chunks,
 at F = 7, 8 and 256 (four column slabs), with and without a dropout mask,
 and its autograd Function card against CPU. chip_smoke.py covers the main
@@ -126,18 +133,22 @@ def _fused_args(g, h, f, gen, device):
 
 
 @pytest.mark.parametrize("empty_tile", [False, True])
-@pytest.mark.parametrize("h,f", [(8, 8), (1, 7), (3, 5), (20, 8), (2, 130)])
+@pytest.mark.parametrize("h,f", [(8, 8), (1, 7), (3, 5), (20, 8), (2, 130),
+                                 (1, 256)])
 def test_fused_v1_kernel_matches_plain(cuda, h, f, empty_tile):
     g = _graph(cuda, empty_tile)
     gen = torch.Generator(device=cuda).manual_seed(10 * h + f)
     args = _fused_args(g, h, f, gen, cuda)
     before = fs.fused_v1.launches
-    out, den = fs.fused_v1(*args)
+    out, den = fs.fused_v1(*args, walk=g.stream_walk)
     torch.cuda.synchronize()
     assert fs.fused_v1.launches == before + 1
     out_p, den_p = fs.fused_v1_plain(*args)
     _close(out, out_p)
     _close(den, den_p)
+    if empty_tile:
+        assert float(out[128:256].abs().max()) == 0.0
+        assert float(den[128:256].abs().max()) == 0.0
 
 
 def test_fused_v1_kills_dead_slots_on_the_card(cuda):
@@ -146,7 +157,7 @@ def test_fused_v1_kills_dead_slots_on_the_card(cuda):
     args = _fused_args(g, 2, 3, gen, cuda)
     args[0] = args[0].clone()
     args[0][-1] = 1e4  # the dummy row every dead slot points at
-    out, den = fs.fused_v1(*args)
+    out, den = fs.fused_v1(*args, walk=g.stream_walk)
     out_p, den_p = fs.fused_v1_plain(*args)
     _close(out, out_p)
     _close(den, den_p)
@@ -165,7 +176,7 @@ def test_fused_attention_gradients_card_vs_cpu(cuda):
         out, den = fs.fused_v1_attention(
             leaves[0], leaves[1], args[2].to(dev), leaves[2], args[4].to(dev),
             gg.senders, gg.receivers, gg.r_local, gg.r_chunk, gg.c_slot,
-            gg.c_local, gg.c_chunk, 0.2)
+            gg.c_local, gg.c_chunk, 0.2, gg.stream_walk)
         (out.sin().sum() + den.cos().sum()).backward()
         grads[dev] = [t.grad.cpu() for t in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
@@ -200,7 +211,7 @@ def test_fused_v2_kernel_matches_plain(cuda, h, f, empty_tile):
     gen = torch.Generator(device=cuda).manual_seed(10 * h + f)
     args = _fused_v2_args(g, h, f, gen, cuda)
     before = fs.fused_v2.launches
-    out, den = fs.fused_v2(*args)
+    out, den = fs.fused_v2(*args, walk=g.stream_walk)
     torch.cuda.synchronize()
     assert fs.fused_v2.launches == before + 1
     out_p, den_p = fs.fused_v2_plain(*args)
@@ -219,7 +230,7 @@ def test_fused_v2_kills_dead_slots_on_the_card(cuda):
     for i in (0, 1):  # the dummy row every dead slot points at
         args[i] = args[i].clone()
         args[i][-1] = 1e4
-    out, den = fs.fused_v2(*args)
+    out, den = fs.fused_v2(*args, walk=g.stream_walk)
     out_p, den_p = fs.fused_v2_plain(*args)
     _close(out, out_p)
     _close(den, den_p)
@@ -229,7 +240,7 @@ def test_fused_v2_rejects_too_wide_a_head(cuda):
     g = _graph(cuda, False)
     args = _fused_v2_args(g, 1, 257, torch.Generator(device=cuda), cuda)
     with pytest.raises(ValueError, match="exceeds 256"):
-        fs.fused_v2(*args)
+        fs.fused_v2(*args, walk=g.stream_walk)
 
 
 def test_fused_v2_attention_gradients_card_vs_cpu(cuda):
@@ -245,7 +256,7 @@ def test_fused_v2_attention_gradients_card_vs_cpu(cuda):
         out, den = fs.fused_v2_attention(
             leaves[0], leaves[1], args[2].to(dev), leaves[2], args[4].to(dev),
             gg.senders, gg.receivers, gg.r_local, gg.r_chunk, gg.c_slot,
-            gg.c_local, gg.c_chunk, 0.2)
+            gg.c_local, gg.c_chunk, 0.2, gg.stream_walk)
         (out.sin().sum() + den.cos().sum()).backward()
         grads[dev] = [t.grad.cpu() for t in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
@@ -255,17 +266,16 @@ def test_fused_v2_attention_gradients_card_vs_cpu(cuda):
 
 @pytest.mark.parametrize("h,f", [(8, 8), (16, 8)])
 def test_fused_v2_launch_is_capturable(cuda, h, f):
-    """A launch inside CUDA-graph capture (at (16, 8) with more than 48 KB
-    of shared memory, so the attribute call sits inside the capture too)
+    """A launch inside CUDA-graph capture, with the walk the graph built,
     replays to the plain version's result on fresh inputs."""
     g = _graph(cuda, False)
     gen = torch.Generator(device=cuda).manual_seed(2)
     args = _fused_v2_args(g, h, f, gen, cuda)
-    fs.fused_v2(*args)  # build and load outside the capture
+    fs.fused_v2(*args, walk=g.stream_walk)  # build and load outside capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out, den = fs.fused_v2(*args)
+        out, den = fs.fused_v2(*args, walk=g.stream_walk)
     fresh = _fused_v2_args(g, h, f, gen, cuda)
     for static, new in zip(args[:5], fresh[:5]):
         static.copy_(new)
@@ -369,12 +379,13 @@ def test_fit_fast_on_cuda_resumes_exactly(cuda, tmp_path):
 
 # In a fresh process, the first launch of each kernel at a size where its
 # static plus dynamic shared memory passes 48 KB and the dynamic part alone
-# does not: stream_scatter at L = 32, banded_sender_sum at L = 48, fused_v1
-# at H 1 F 92 and fused_v2 at H 1 F 90. The opt-in to more than 48 KB stays
-# set on a kernel once a larger launch set it, so only a first launch shows
-# a missing one. The fused banded forwards (tile_fused.cuh) hold no shared
-# memory at any width; their first launch is at H 1 F 256, where the
-# block-per-chunk body they replaced held about 130 KiB.
+# does not: stream_scatter at L = 32, banded_sender_sum at L = 48. The
+# opt-in to more than 48 KB stays set on a kernel once a larger launch set
+# it, so only a first launch shows a missing one. The fused forwards
+# (tile_fused.cuh) hold under 10 KB of shared memory at any width; their
+# first launches are where the block-per-chunk body they replaced passed
+# 48 KB (fused_v1 at H 1 F 92, fused_v2 at H 1 F 90) or held about 130 KiB
+# (the banded ones at H 1 F 256).
 _FIRST_LAUNCHES = """
 import torch
 from tests.test_torch_cuda import (_banded_v1_args, _banded_v2_args, _close,
@@ -392,14 +403,16 @@ _close(st.stream_scatter(data, g.r_local, g.r_chunk, n_pad),
 plan = bd.build_band_plan(g, w=2)
 data = torch.randn(plan.num_slots, 48, generator=gen, device=dev)
 _close(bd.banded_sender_sum(data, plan), bd.banded_sender_sum_plain(data, plan))
-for kernel, plain, args in (
-        (fs.fused_v1, fs.fused_v1_plain, _fused_args(g, 1, 92, gen, dev)),
-        (fs.fused_v2, fs.fused_v2_plain, _fused_v2_args(g, 1, 90, gen, dev)),
+walk = dict(walk=g.stream_walk)
+for kernel, plain, args, kw in (
+        (fs.fused_v1, fs.fused_v1_plain, _fused_args(g, 1, 92, gen, dev), walk),
+        (fs.fused_v2, fs.fused_v2_plain, _fused_v2_args(g, 1, 90, gen, dev),
+         walk),
         (bd.fused_v1_banded, bd.fused_v1_banded_plain,
-         _banded_v1_args(g, plan, 1, 256, gen, dev)),
+         _banded_v1_args(g, plan, 1, 256, gen, dev), {}),
         (bd.fused_v2_banded, bd.fused_v2_banded_plain,
-         _banded_v2_args(g, plan, 1, 256, gen, dev))):
-    for got, want in zip(kernel(*args), plain(*args)):
+         _banded_v2_args(g, plan, 1, 256, gen, dev), {})):
+    for got, want in zip(kernel(*args, **kw), plain(*args)):
         _close(got, want)
 torch.cuda.synchronize()
 print("first launches ok")
@@ -435,12 +448,12 @@ def test_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
     args = _fused_args(g, 2, 3, torch.Generator(device=cuda), cuda)
     args[0] = args[0].T.contiguous().T  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
-        fs.fused_v1(*args)
+        fs.fused_v1(*args, walk=g.stream_walk)
     args = _fused_v2_args(g, 2, 3, torch.Generator(device=cuda), cuda)
-    fs.fused_v2(*args)  # launches the kernel, never the plain version
+    fs.fused_v2(*args, walk=g.stream_walk)  # the kernel, never the plain
     args[1] = args[1].T.contiguous().T  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
-        fs.fused_v2(*args)
+        fs.fused_v2(*args, walk=g.stream_walk)
 
 
 # -- the banded kernels --------------------------------------------------------
@@ -610,7 +623,9 @@ def test_fused_banded_kernels_match_plain(cuda, kind, h, f, which):
     out, den = kernel(*args)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    out_p, den_p = plain(*args)
+    # the plain version in float64: the hub's rows sum 9,000 terms, whose
+    # float32 sum by index_add_ moves by up to 1e-5 of the row by itself
+    out_p, den_p = plain(*args, f64=True)
     assert float(den_p.max()) >= 1.0  # the comparison is not idle
     _close(out, out_p)
     _close(den, den_p)
@@ -851,7 +866,7 @@ def test_window_kernels_match_plain(cuda, h, f, which):
     gen = torch.Generator(device=cuda).manual_seed(10 * h + f)
     args = _window_args(g, plans, h, f, gen, cuda, which)
     before = kernel.launches
-    out, den = kernel(*args)
+    out, den = kernel(*args, walk=g.stream_walk)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     out_p, den_p = plain(*args)
@@ -934,11 +949,114 @@ def test_corner_wrappers_never_call_plain_on_the_card(cuda, monkeypatch):
     assert cn.permute_pass.launches == before + len(plans.fwd.passes)
     for kernel, args in calls:
         before = kernel.launches
-        kernel(*args)
+        kernel(*args, walk=g.stream_walk)
         assert kernel.launches == before + 1
     torch.cuda.synchronize()
     with pytest.raises(ValueError, match="contiguous"):
         cn.permute_pass(x.T.contiguous().T, plans.fwd.passes[0])
+
+
+# -- the stream and window forwards over the graph's walk ----------------------
+
+STREAM_WINDOW = ["v1", "v2", "v1_window", "v2_window"]
+
+
+def _stream_case(kind, which, h, f, gen, device):
+    """(kernel, plain, args, graph) of a receiver-stream forward (``v1``,
+    ``v2``) or a window forward (``v1_window``, ``v2_window``, over the
+    graph's corner plans) on the graph ``kind``: ``hub`` (its hub's tile
+    cut into pieces, runs past 32 slots), ``empty_tile`` or ``random``."""
+    g = _hub(device) if kind == "hub" else _graph(device, kind == "empty_tile")
+    i = 0 if which.startswith("v1") else 1
+    if which.endswith("window"):
+        kernel, plain = WINDOW_FUSED[i]
+        args = _window_args(g, large.plan_csc_to_csr(g), h, f, gen, device, i)
+    else:
+        kernel, plain = ((fs.fused_v1, fs.fused_v1_plain),
+                         (fs.fused_v2, fs.fused_v2_plain))[i]
+        args = (_fused_args, _fused_v2_args)[i](g, h, f, gen, device)
+    if kind == "hub":
+        assert g.stream_walk.split_at.numel() >= 2
+        assert g.stream_walk.max_run > 32
+    return kernel, plain, args, g
+
+
+@pytest.mark.parametrize("h,f", [(8, 8), (1, 7), (1, 256)])
+@pytest.mark.parametrize("which", STREAM_WINDOW)
+@pytest.mark.parametrize("kind", ["hub", "empty_tile"])
+def test_stream_and_window_kernels_match_plain(cuda, kind, which, h, f):
+    gen = torch.Generator(device=cuda).manual_seed(10 * h + f)
+    kernel, plain, args, g = _stream_case(kind, which, h, f, gen, cuda)
+    before = kernel.launches
+    out, den = kernel(*args, walk=g.stream_walk)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    # the plain version in float64, as for the banded kernels
+    out_p, den_p = plain(*args, f64=True)
+    _close(out, out_p)
+    _close(den, den_p)
+    if kind == "empty_tile":
+        assert float(out[128:256].abs().max()) == 0.0
+        assert float(den[128:256].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("h,f", [(8, 8), (1, 4), (3, 11)])
+@pytest.mark.parametrize("which", STREAM_WINDOW)
+@pytest.mark.parametrize("kind", ["hub", "random"])
+def test_stream_and_window_kernels_repeat_bit_for_bit(cuda, kind, which, h,
+                                                      f):
+    gen = torch.Generator(device=cuda).manual_seed(h + f)
+    kernel, _, args, g = _stream_case(kind, which, h, f, gen, cuda)
+    first = kernel(*args, walk=g.stream_walk)
+    again = kernel(*args, walk=g.stream_walk)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("which", STREAM_WINDOW)
+def test_stream_and_window_launches_are_capturable(cuda, which):
+    """The walk is built with the graph, before any capture: a launch inside
+    CUDA-graph capture replays to the plain version's result on fresh
+    inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    kernel, plain, args, g = _stream_case("hub", which, 8, 8, gen, cuda)
+    kernel(*args, walk=g.stream_walk)  # build and load outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, den = kernel(*args, walk=g.stream_walk)
+    fresh = _stream_case("hub", which, 8, 8, gen, cuda)[2]
+    for static, new in zip(args[:5], fresh[:5]):
+        static.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    out_p, den_p = plain(*args)
+    _close(out, out_p)
+    _close(den, den_p)
+
+
+@pytest.mark.parametrize("which", STREAM_WINDOW)
+def test_stream_and_window_kernels_raise_without_a_walk(cuda, which,
+                                                        monkeypatch):
+    """On a CUDA tensor the wrapper launches over the graph's walk or
+    raises: without one, or with another graph's, never the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    kernel, _, args, g = _stream_case("random", which, 8, 8, gen, cuda)
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for mod, name in ((fs, "fused_v1_plain"), (fs, "fused_v2_plain"),
+                      (fc, "fused_v1_window_plain"),
+                      (fc, "fused_v2_window_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    before = kernel.launches
+    with pytest.raises(ValueError, match="walk"):
+        kernel(*args)
+    with pytest.raises(ValueError, match="walk"):
+        kernel(*args, walk=_graph(cuda, True).stream_walk.to("cpu"))
+    assert kernel.launches == before
 
 
 def test_fit_fast_on_cuda_with_corner_plans(cuda, monkeypatch):
