@@ -14,14 +14,20 @@ of which prints its seconds:
    shape the GAT_sparse and GATv2_sparse paths give it: the stream kernels
    on Cora and Pubmed (the synthetic stand-ins have the real node, edge and
    feature counts) and on the 524,288-node graph's receiver stream (the
-   order ``set_band("off")`` trains over), the fused forwards over each
-   graph's walk, called twice (the two results equal bit for bit), the
-   banded kernels (and ``stream_scatter`` at its
-   banded widths) on the 524,288-node clustered graph with the band plan
+   order ``set_band("off")`` trains over), the segment sums
+   (``stream_scatter``, receiver side over the stream's walk, sender side
+   over the CSC stream's) and the fused forwards over each graph's walk,
+   called twice (the two results equal bit for bit; the plain versions in
+   f64), the banded kernels (and ``stream_scatter`` at its
+   banded widths, over the plan's receiver walk; ``banded_sender_sum``
+   over its sender walk, with data on the dead slots) on the 524,288-node
+   clustered graph with the band plan
    that ``maybe_plan_large`` picks by itself, and on Cora with
    ``set_band("on")``, the fused banded forwards also on the hub graph's
    band plan (a tile cut into pieces), each of them called twice (the two
-   results equal bit for bit); the corner kernels: ``permute_pass`` bit-exact on
+   results equal bit for bit), and the stream kernels on the hub graph's
+   stream (both sides: the hub's run and the dummy sender's cut into
+   segments, their tiles into pieces); the corner kernels: ``permute_pass`` bit-exact on
    every pass of both 524k corner plans (built once, their set-up timed) at
    every width the two models turn (64, 4, 128, 8), the whole pass chain
    with its fix-ups on a Cora plan with overflow rows (span cap 3) card vs
@@ -110,15 +116,16 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32 peak outside the tensor cores
-# Kernel vs plain version on the card: both sum in f32 in orders that vary
-# from run to run (atomics on both sides). Reassociating a sum changes it by
-# a small multiple of 6e-8 times the sum of the magnitudes of its terms, so
-# a segment sum is held to 1e-5 of the same segment sum over |data| (the
+# Kernel vs plain version on the card: the kernels sum in f32 in an order
+# fixed by their walk, the plain versions are evaluated in f64
+# (``f64=True``): the hub graph's row sums 9,000 terms, whose f32 sum by
+# index_add_ alone (atomics, in an order that varies from run to run) is
+# off by up to about 1e-5 of it. Reassociating a sum changes it by a small
+# multiple of 6e-8 times the sum of the magnitudes of its terms, so a
+# segment sum is held to 1e-5 of the same segment sum over |data| (the
 # dummy row of the sender side sums some 20k padding edges); the fused
-# forward to 1e-5 of its largest output, against its plain version
-# evaluated in f64 (``f64=True``): the hub graph's row sums 9,000 terms,
-# whose f32 sum by index_add_ alone is off by up to about 1e-5 of it. An
-# indexing or masking fault shows at O(1).
+# forward to 1e-5 of its largest output. An indexing or masking fault
+# shows at O(1).
 KERNEL_RTOL = 1e-5
 # Whole model on the card vs the same model on the CPU: two layers of sums
 # in different orders, exp and a softmax in between.
@@ -250,43 +257,54 @@ def _scatter_cases(name, g, heads, feats, gen):
     return cases
 
 
-def _scatter_call(case, g, fn):
+def _scatter_call(case, g, fn, **kw):
+    """One call of ``fn`` on ``case``'s side of ``g``: ``stream_scatter``
+    over the side's walk (the receiver stream's, or the CSC stream's by the
+    slot map), or its plain version with ``kw`` (``f64``)."""
+    if fn.__name__ == "stream_scatter":
+        kw = dict(kw, walk=(g.stream_walk if case["side"] == "recv"
+                            else g.sender_walk))
     if case["side"] == "recv":
-        return fn(case["data"], g.r_local, g.r_chunk, g.num_nodes_padded)
+        return fn(case["data"], g.r_local, g.r_chunk, g.num_nodes_padded,
+                  **kw)
     return fn(case["data"], g.c_local, g.c_chunk, g.num_nodes_padded,
-              slot=g.c_slot)
+              slot=g.c_slot, **kw)
 
 
 def _stream_kernel_cases(name, g, heads, feats, gen, fused, kernel_cases):
     """The receiver stream's kernels at one graph's layer widths against
-    their plain versions: the segment sums of :func:`_scatter_cases` to
-    KERNEL_RTOL of the same sums over |data|, the fused forwards over the
-    graph's walk to KERNEL_RTOL of their largest output (their plain
-    versions in f64) and, called again, equal bit for bit. Appends each
-    case to ``kernel_cases``."""
+    their plain versions: the segment sums of :func:`_scatter_cases` over
+    the graph's walks to KERNEL_RTOL of the same sums over |data| (their
+    plain version in f64), the fused forwards over the graph's walk to
+    KERNEL_RTOL of their largest output (their plain versions in f64);
+    each, called again, equal bit for bit. Appends each case to
+    ``kernel_cases``."""
     import torch
 
     from pygat_tpu_torch.ops.stream import stream_scatter, stream_scatter_plain
 
     for case in _scatter_cases(name, g, heads, feats, gen):
         got = _scatter_call(case, g, stream_scatter)
-        want = _scatter_call(case, g, stream_scatter_plain)
+        want = _scatter_call(case, g, stream_scatter_plain, f64=True)
         mag = _scatter_call(dict(case, data=case["data"].abs()), g,
                             stream_scatter_plain)
+        again = _scatter_call(case, g, stream_scatter)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
             raise AssertionError("kernel output is not finite")
         diff = (got - want).abs()
         err = float(diff.max())
         worst = float((diff / (KERNEL_RTOL * mag + 1e-30)).max())
-        case.update(max_abs_err=err)
+        repeat = torch.equal(got, again)
+        case.update(max_abs_err=err, bitwise_repeat=repeat)
         print(f"  stream_scatter {name} {case['path']} {case['side']} "
               f"L={case['L']}: max_abs_err {err:.3e}, worst element at "
-              f"{worst:.3f} of its allowance")
-        if worst > 1.0:
+              f"{worst:.3f} of its allowance; a second call "
+              f"{'' if repeat else 'NOT '}equal bit for bit")
+        if worst > 1.0 or not repeat:
             raise AssertionError("stream_scatter disagrees with its plain version")
         kernel_cases["stream_scatter"].append(case)
-        del got, want, mag, diff
+        del got, want, mag, diff, again
     for kname, (kernel, plain, make_inputs) in fused.items():
         for h, f in zip(heads, feats):
             args = make_inputs(g, h, f, gen)
@@ -524,33 +542,42 @@ def _banded_cases(label, g, plan, heads, feats, gen):
 
 def _banded_call(case, plan, plain=False, f64=False):
     """One call of ``case``'s kernel (or its plain version, for a fused
-    forward evaluated in f64 with ``f64``) over ``plan``."""
+    forward or a segment sum evaluated in f64 with ``f64``) over ``plan``:
+    ``stream_scatter`` over the plan's receiver walk, as the banded
+    backward calls it."""
     from pygat_tpu_torch.ops import banded, large, stream
 
     k = case["kernel"]
+    kw = {"f64": True} if f64 else {}
     if k == "expand":
         fn = large.expand_plain if plain else large.expand
         return fn(case["data"], plan.r_local, plan.r_chunk)
     if k == "stream_scatter":
-        fn = stream.stream_scatter_plain if plain else stream.stream_scatter
-        return fn(case["data"], plan.r_local, plan.r_chunk, plan.n_pad)
+        if not plain:
+            return banded._receiver_sum(case["data"], plan)
+        return stream.stream_scatter_plain(case["data"], plan.r_local,
+                                           plan.r_chunk, plan.n_pad, **kw)
     fn = getattr(banded, k + ("_plain" if plain else ""))
-    if k in ("banded_take", "banded_sender_sum"):
+    if k == "banded_take":
         return fn(case["data"], plan)
-    return fn(*case["args"], **({"f64": True} if f64 else {}))
+    if k == "banded_sender_sum":
+        return fn(case["data"], plan, **kw)
+    return fn(*case["args"], **kw)
 
 
 def _check_banded(case, plan):
     """``case``'s kernel against its plain version: the gathers bit-exact,
-    the segment sums to KERNEL_RTOL of the same sums over |data|, the fused
-    forward to KERNEL_RTOL of its largest output (its plain version in f64)
-    and, called again, equal bit for bit."""
+    the segment sums to KERNEL_RTOL of the same sums over |data| (their
+    plain versions in f64; the sender sum's data on dead slots too), the
+    fused forward to KERNEL_RTOL of its largest output (its plain version
+    in f64); the segment sums and the fused forward, called again, equal
+    bit for bit."""
     import torch
 
     k = case["kernel"]
     got = _banded_call(case, plan)
     want = _banded_call(case, plan, plain=True,
-                        f64=k.startswith("fused_"))
+                        f64=k not in ("expand", "banded_take"))
     torch.cuda.synchronize()
     if k in ("expand", "banded_take"):
         err = float((got - want).abs().max())
@@ -564,8 +591,11 @@ def _check_banded(case, plan):
         diff = (got - want).abs()
         err = float(diff.max())
         worst = float((diff / (KERNEL_RTOL * mag + 1e-30)).max())
-        note = f"worst element at {worst:.3f} of its allowance"
-        ok = worst <= 1.0
+        case["bitwise_repeat"] = torch.equal(got, _banded_call(case, plan))
+        note = (f"worst element at {worst:.3f} of its allowance; a second "
+                "call " + ("equal bit for bit" if case["bitwise_repeat"]
+                           else "NOT equal bit for bit"))
+        ok = worst <= 1.0 and case["bitwise_repeat"]
     else:
         (out, den), (out_p, den_p) = got, want
         e1, a1 = _max_err(out, out_p)

@@ -1,12 +1,11 @@
 // How a slot of a chunked edge order finds its node row, and the row
 // gather built on it (shared by expand.cu, banded_take.cu,
-// banded_sender_sum.cu, corner_permute.cu, the segment sums of
-// stream_scatter.cuh and the SpMM body of tile_spmm.cuh; the fused
-// attention kernels' tile_fused.cuh takes EC and TILE from here and has
-// walk policies of its own).
+// corner_permute.cu and the SpMM body of tile_spmm.cuh; the tile-owner
+// bodies tile_fused.cuh and tile_sum.cuh take EC and TILE from here and
+// walk rows of their own).
 //
 // Every edge order of the port is cut into chunks of EC = 256 slots. A slot
-// names a node row in one of four ways:
+// names a node row in one of three ways:
 //   * ListedRows: row rows[k], one index word per slot (a slot map, a
 //     band plan's walk);
 //   * WindowRows: row base[c] * 128 + loc[k] for slot k of chunk c, where
@@ -21,12 +20,9 @@
 //   * PanelRows: row panel_tiles[chunk_tile[c] * p + g[k] / 128] * 128 +
 //     g[k] % 128, where g[k] outside [0, p * 128) marks a slot that is dead
 //     or overflows its output tile's p panels (the panel SpMM). g is tested
-//     before a row is formed: the padded columns of panel_tiles hold tile 0;
-//   * SlotRows: row k itself, for slot k: the stream segment sum reads
-//     receiver-stream data.
-// WindowRows and PanelRows return -1 for a dead slot. ListedRows and
-// SlotRows never do: the receiver stream's padding slots name the dummy row
-// N_pad - 1 and are told dead by their local row.
+//     before a row is formed: the padded columns of panel_tiles hold tile 0.
+// WindowRows and PanelRows return -1 for a dead slot. ListedRows never
+// does.
 
 #pragma once
 
@@ -77,12 +73,6 @@ struct PanelRows {
   }
   __device__ int operator()(long long k, int chunk) const {
     return row(word(k), chunk);
-  }
-};
-
-struct SlotRows {
-  __device__ int operator()(long long k, int) const {
-    return static_cast<int>(k);
   }
 };
 

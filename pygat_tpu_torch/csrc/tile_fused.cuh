@@ -128,43 +128,6 @@ struct FusedArgs {
   int hpb, Q, P;    // heads a block, lanes a head, lanes a unit
 };
 
-// Columns 0 .. nf - 1 of src into v, zeros past them (nf: 0, or C, or a
-// multiple of 4 under kVec).
-template <int C, bool kVec>
-__device__ __forceinline__ void load_cols(const float* __restrict__ src,
-                                          int nf, float (&v)[C]) {
-  if constexpr (kVec) {
-#pragma unroll
-    for (int j = 0; j < C / 4; ++j) {
-      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (4 * j < nf) t = __ldg(reinterpret_cast<const float4*>(src) + j);
-      v[4 * j] = t.x;
-      v[4 * j + 1] = t.y;
-      v[4 * j + 2] = t.z;
-      v[4 * j + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < C; ++i) v[i] = i < nf ? __ldg(src + i) : 0.f;
-  }
-}
-
-template <int C, bool kVec>
-__device__ __forceinline__ void store_cols(float* dst, int nf,
-                                           const float (&v)[C]) {
-  if constexpr (kVec) {
-#pragma unroll
-    for (int j = 0; j < C / 4; ++j)
-      if (4 * j < nf)
-        reinterpret_cast<float4*>(dst)[j] =
-            make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < C; ++i)
-      if (i < nf) dst[i] = v[i];
-  }
-}
-
 // Walk policies: by walk position k, the slot's sender-side row and its
 // row of keepq; kWindow: the sender-side rows are a window's (sj, si,
 // s_stride), else the node tables' (sj, and xr for v2's whi; stride HF).

@@ -1,5 +1,6 @@
 // The tile ranges and split tiles of the tile-owner kernels (shared by
-// tile_spmm.cuh and tile_fused.cuh).
+// tile_spmm.cuh, tile_fused.cuh and tile_sum.cuh), and the lane column
+// loads and stores of the last two.
 //
 // An edge order is cut into chunks of EC = 256 slots; every chunk writes one
 // 128-row output tile, and the chunks of tile t are the contiguous range
@@ -19,6 +20,7 @@
 namespace {
 
 constexpr int PIECE_THREADS = 256;  // threads of the combine kernel
+constexpr int PIECE_BATCH = 16;     // pieces' loads a thread has in flight
 
 // The first i in [0, n) with a[i] >= v, or n; a is non-decreasing.
 __device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
@@ -67,9 +69,51 @@ __device__ __forceinline__ TileRange tile_range(
   return t;
 }
 
+// A lane's columns of a row, for the tile-owner bodies tile_fused.cuh and
+// tile_sum.cuh (a lane covers C consecutive columns, as float4 under kVec).
+// Columns 0 .. nf - 1 of src into v, zeros past them (nf: 0, or C, or a
+// multiple of 4 under kVec).
+template <int C, bool kVec>
+__device__ __forceinline__ void load_cols(const float* __restrict__ src,
+                                          int nf, float (&v)[C]) {
+  if constexpr (kVec) {
+#pragma unroll
+    for (int j = 0; j < C / 4; ++j) {
+      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (4 * j < nf) t = __ldg(reinterpret_cast<const float4*>(src) + j);
+      v[4 * j] = t.x;
+      v[4 * j + 1] = t.y;
+      v[4 * j + 2] = t.z;
+      v[4 * j + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < C; ++i) v[i] = i < nf ? __ldg(src + i) : 0.f;
+  }
+}
+
+template <int C, bool kVec>
+__device__ __forceinline__ void store_cols(float* dst, int nf,
+                                           const float (&v)[C]) {
+  if constexpr (kVec) {
+#pragma unroll
+    for (int j = 0; j < C / 4; ++j)
+      if (4 * j < nf)
+        reinterpret_cast<float4*>(dst)[j] =
+            make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+      if (i < nf) dst[i] = v[i];
+  }
+}
+
 // out[tile] += part[e], part[e + 1], ... for the extra pieces of each split
 // tile, in order, over [128, L] rows; the blocks of a tile's first extra
-// piece do the tile, the others return.
+// piece do the tile, the others return. A tile's pieces end at the first
+// cut at or past its end; their loads go PIECE_BATCH at a time, so that a
+// tile of many pieces (a hub's: some 35) does not wait one load latency
+// per piece, and the adds keep piece order (the same bits).
 __global__ void __launch_bounds__(PIECE_THREADS)
 tile_combine_kernel(const int* __restrict__ tile_ptr, int n_tiles,
                     const int* __restrict__ split_at, int n_split, int L,
@@ -77,14 +121,23 @@ tile_combine_kernel(const int* __restrict__ tile_ptr, int n_tiles,
   const int e = blockIdx.x;
   const int tile = lower_bound(tile_ptr, n_tiles + 1, split_at[e] + 1) - 1;
   if (e > 0 && split_at[e - 1] > tile_ptr[tile]) return;
-  const int t_end = tile_ptr[tile + 1];
+  const int f_end = lower_bound(split_at, n_split, tile_ptr[tile + 1]);
   const long long n = static_cast<long long>(TILE) * L;
   const long long i = static_cast<long long>(blockIdx.y) * PIECE_THREADS +
                       threadIdx.x;
   if (i >= n) return;
   float* o = out + tile * n + i;
+  const float* src = part + i;
   float s = *o;
-  for (int f = e; f < n_split && split_at[f] < t_end; ++f) s += part[f * n + i];
+  for (int f = e; f < f_end; f += PIECE_BATCH) {
+    float v[PIECE_BATCH];
+#pragma unroll
+    for (int u = 0; u < PIECE_BATCH; ++u)
+      v[u] = f + u < f_end ? src[(f + u) * n] : 0.f;
+#pragma unroll
+    for (int u = 0; u < PIECE_BATCH; ++u)
+      if (f + u < f_end) s += v[u];
+  }
   *o = s;
 }
 

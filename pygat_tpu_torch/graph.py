@@ -12,8 +12,9 @@ fields, dtypes and values as the reference's ``Graph``:
 * padding edges carry weight 0 and ``edge_mask == False``; node ``N_pad - 1``
   is always a padding (dummy) node.
 
-Beside the fields, :func:`build_graph` derives the receiver stream's walk
-for the fused kernels once (:attr:`Graph.stream_walk`).
+Beside the fields, :func:`build_graph` derives the walks of the receiver
+stream and of the CSC stream for the tile-owner kernels once
+(:attr:`Graph.stream_walk`, :attr:`Graph.sender_walk`).
 """
 
 from __future__ import annotations
@@ -45,18 +46,19 @@ def host_edges(graph: "Graph") -> tuple | None:
     return _HOST_EDGES.get(id(graph.senders))
 
 
-# The receiver stream's walk (ops.stream.StreamWalk) of each graph, keyed by
-# its r_local tensor (id + weakref.finalize eviction), on the graph's
-# device: built by build_graph, carried by Graph.to, read through
-# Graph.stream_walk. It lives beside the graph rather than in a field, so
-# the Graph keeps the JAX package's fields.
+# The walks (ops.stream.StreamWalk) of each graph's receiver stream and CSC
+# stream, keyed by its r_local and c_local tensors (id + weakref.finalize
+# eviction), on the graph's device: built by build_graph, carried by
+# Graph.to, read through Graph.stream_walk and Graph.sender_walk. They live
+# beside the graph rather than in fields, so the Graph keeps the JAX
+# package's fields.
 _STREAM_WALKS: dict = {}
 
 
-def _remember_walk(r_local, walk) -> None:
-    key = id(r_local)
+def _remember_walk(local, walk) -> None:
+    key = id(local)
     _STREAM_WALKS[key] = walk
-    weakref.finalize(r_local, _STREAM_WALKS.pop, key, None)
+    weakref.finalize(local, _STREAM_WALKS.pop, key, None)
 
 
 class Graph(NamedTuple):
@@ -103,16 +105,26 @@ class Graph(NamedTuple):
         return (None if self.r_local is None
                 else _STREAM_WALKS.get(id(self.r_local)))
 
+    @property
+    def sender_walk(self):
+        """The CSC stream's walk (``c_local``, ``c_chunk``; on the graph's
+        device), which the sender-side segment sums read; built with the
+        graph by :func:`build_graph`, None otherwise. Its dummy sender's run
+        holds the receiver stream's padding slots."""
+        return (None if self.c_local is None
+                else _STREAM_WALKS.get(id(self.c_local)))
+
     def to(self, device) -> "Graph":
         """The same graph with every tensor on ``device`` (the host edge
-        cache and the stream walk follow)."""
+        cache and the walks follow)."""
         g = Graph(*(None if t is None else t.to(device) for t in self))
         host = host_edges(self)
         if host is not None and g.senders is not self.senders:
             _remember_host_edges(g.senders, host)
-        walk = self.stream_walk
-        if walk is not None and g.r_local is not self.r_local:
-            _remember_walk(g.r_local, walk.to(device))
+        for local, new, walk in ((self.r_local, g.r_local, self.stream_walk),
+                                 (self.c_local, g.c_local, self.sender_walk)):
+            if walk is not None and new is not local:
+                _remember_walk(new, walk.to(device))
         return g
 
 
@@ -263,6 +275,8 @@ def build_graph(
     if stream_fields:
         _remember_walk(g.r_local, build_stream_walk(
             lay.local, lay.chunk_tile, n_pad // 128, device))
+        _remember_walk(g.c_local, build_stream_walk(
+            c_lay.local, c_lay.chunk_tile, n_pad // 128, device))
     return g
 
 

@@ -22,7 +22,8 @@ Three parts:
   hand-written kernel and on a CPU tensor runs its plain PyTorch version
   (the kernel's oracle): :func:`banded_take` (``csrc/banded_take.cu``,
   replaces ``_make_banded_kernel``), :func:`banded_sender_sum`
-  (``csrc/banded_sender_sum.cu``, replaces ``_make_sender_sum_kernel``),
+  (``csrc/banded_sender_sum.cu`` on the tile-owner body
+  ``csrc/tile_sum.cuh``, replaces ``_make_sender_sum_kernel``),
   :func:`fused_v1_banded`, :func:`fused_v2_banded`
   (``csrc/fused_v1_banded.cu``, ``csrc/fused_v2_banded.cu`` on the
   tile-owner body ``csrc/tile_fused.cuh``, replace
@@ -41,13 +42,15 @@ The plan's fields that the kernels and plain versions read (``band``,
 ``s_loc``, ``r_local``, ``r_chunk``, and the port's own ``tile_ptr`` and
 ``split_at``: each tile's chunk range and the cuts of a hub's tile) are
 tensors on the graph's device; the others stay numpy arrays on the host.
-The walk of each tile's slots, receivers ascending, that the SpMM kernel
-and the fused forward kernels read (:attr:`BandPlan.spmm_walk`), is built
-on the plan's device at the first kernel call that reads it and kept on
-the plan; that call must not be inside a CUDA-graph capture.
-The reference's band-sorted schedule ``bs_*`` exists for the TPU's VMEM
-accumulators and is kept for parity only: the sender-sum kernel walks the
-banded chunks directly. The plan's
+The walk of each tile's slots, receivers ascending, that the SpMM kernel,
+the fused forward kernels and the receiver-side segment sum read
+(:attr:`BandPlan.spmm_walk`), is built on the plan's device at the first
+kernel call that reads it and kept on the plan; that call must not be
+inside a CUDA-graph capture. The sender-side sum reads
+:attr:`BandPlan.sender_walk`, a stream of the live slots by sender, built
+on the host with the plan. The reference's band-sorted schedule ``bs_*``
+exists for the TPU's VMEM accumulators and is kept for parity only. The
+plan's
 ``edge_weight`` is a host array: a caller that weighs the SpMM by it moves
 it to the device.
 """
@@ -78,10 +81,14 @@ from pygat_tpu_torch.ops.stream import (
     DEAD,
     EC,
     TILE,
+    StreamWalk,
     build_stream_layout,
+    build_stream_walk,
+    launch_tile_sum,
     require_high,
     stream_scatter,
     stream_scatter_plain,
+    stream_walk_arg,
     tile_ranges,
 )
 
@@ -141,6 +148,11 @@ class BandPlan:
     tile_ptr: torch.Tensor  # [n_tiles + 1] int32
     split_at: torch.Tensor  # [n_split] int32 chunks where pieces start
     max_run: int
+    # the sender-side segment sum's walk: a stream of the live slots only,
+    # sorted by sender (its order: the banded slot at each position), on
+    # the device; the dead slots, which c_slot / c_local count as the dummy
+    # sender's, are in no run
+    sender_walk: StreamWalk | None
 
     @property
     def num_slots(self) -> int:
@@ -165,10 +177,12 @@ class BandPlan:
                         local=self.r_local[order], row_ptr=row_ptr.int())
 
     def to(self, device) -> "BandPlan":
-        """The same plan with its device fields on ``device`` (its SpMM
-        walk is built anew there at first use)."""
+        """The same plan with its device fields and sender walk on
+        ``device`` (its SpMM walk is built anew there at first use)."""
         return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device) for f in _DEVICE_FIELDS})
+            self, **{f: getattr(self, f).to(device) for f in _DEVICE_FIELDS},
+            sender_walk=(None if self.sender_walk is None
+                         else self.sender_walk.to(device)))
 
 
 def _host_edges(graph):
@@ -305,6 +319,15 @@ def build_band_plan(graph, w: int = 4) -> BandPlan:
     tile_ptr, split_at = tile_ranges(tile_a, r_local, n_tiles)
     device = graph.senders.device
 
+    # the sender walk: the live slots laid out as a stream by sender
+    # (stably, so banded order within a sender's run)
+    by_sender = slot_pos[np.argsort(s, kind="stable")]
+    live_ptr = np.zeros(n_pad + 1, np.int64)
+    np.cumsum(np.bincount(s, minlength=n_pad), out=live_ptr[1:])
+    s_lay = build_stream_layout(live_ptr, order=by_sender)
+    sender_walk = build_stream_walk(s_lay.local, s_lay.chunk_tile, n_tiles,
+                                    device, order=np.maximum(s_lay.slot, 0))
+
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
@@ -329,6 +352,7 @@ def build_band_plan(graph, w: int = 4) -> BandPlan:
         tile_ptr=dev(tile_ptr),
         split_at=dev(split_at),
         max_run=int(np.bincount(r, minlength=1).max()),
+        sender_walk=sender_walk,
     )
 
 
@@ -442,34 +466,38 @@ def _check_data(what: str, data: torch.Tensor, plan: BandPlan) -> None:
                          f"{tuple(data.shape)}")
 
 
-def banded_sender_sum_plain(data: torch.Tensor,
-                            plan: BandPlan) -> torch.Tensor:
+def banded_sender_sum_plain(data: torch.Tensor, plan: BandPlan, *,
+                            f64: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`banded_sender_sum` (``index_add_``;
-    dead slots add into a scratch row past the output)."""
+    dead slots add into a scratch row past the output). ``f64=True`` sums
+    in float64 and returns float32 (the kernel's oracle, as
+    :func:`~pygat_tpu_torch.ops.stream.stream_scatter_plain`'s)."""
     _check_data("banded_sender_sum", data, plan)
-    out = torch.zeros(plan.n_pad + 1, data.shape[1], dtype=torch.float32,
+    dtype = torch.float64 if f64 else torch.float32
+    out = torch.zeros(plan.n_pad + 1, data.shape[1], dtype=dtype,
                       device=data.device)
-    return out.index_add_(0, banded_senders(plan, plan.n_pad), data)[:-1]
+    return out.index_add_(0, banded_senders(plan, plan.n_pad),
+                          data.to(dtype))[:-1].float()
 
 
 @build.counted
 def banded_sender_sum(data: torch.Tensor, plan: BandPlan) -> torch.Tensor:
     """Per-sender segment sum of banded-order ``data`` [E_b, L] f32 into
     [N_pad, L]: row n sums the live slots whose sender is n. On a CUDA
-    tensor this launches ``csrc/banded_sender_sum.cu`` (counted in
-    ``banded_sender_sum.launches``); on a CPU tensor it runs
+    tensor this launches ``csrc/banded_sender_sum.cu`` over the plan's
+    sender walk (:attr:`BandPlan.sender_walk`; counted in
+    ``banded_sender_sum.launches``), whose result is the same bit for bit
+    from call to call, and raises without the walk; on a CPU tensor it runs
     :func:`banded_sender_sum_plain`. Not differentiable."""
     if data.device.type == "cpu":
         return banded_sender_sum_plain(data, plan)
     if data.device.type != "cuda":
         raise ValueError(f"banded_sender_sum: unsupported device {data.device}")
     _check_data("banded_sender_sum", data, plan)
-    out = torch.empty(plan.n_pad, data.shape[1], dtype=torch.float32,
-                      device=data.device)
-    build.launch(banded_sender_sum, data, plan.band, plan.s_loc,
-                 plan.num_chunks, plan.n_pad // TILE, plan.w, data.shape[1],
-                 out)
-    return out
+    walk = stream_walk_arg("banded_sender_sum", plan.sender_walk, plan.n_pad,
+                           plan.band)
+    return launch_tile_sum(banded_sender_sum, data, walk.order, walk,
+                           plan.n_pad)
 
 
 def _check_values(what: str, values_b: torch.Tensor, plan: BandPlan) -> None:
@@ -483,11 +511,31 @@ def _check_values(what: str, values_b: torch.Tensor, plan: BandPlan) -> None:
 def _walk(what: str, plan: BandPlan) -> SpmmWalk:
     """The plan's walk; raises inside a CUDA-graph capture when it is not
     built yet (building it syncs and allocates)."""
-    if ("spmm_walk" not in plan.__dict__
+    if ("spmm_walk" not in plan.__dict__ and plan.band.is_cuda
             and torch.cuda.is_current_stream_capturing()):
         raise RuntimeError(f"{what}: the plan's walk is built at its first "
                            "call, which must not be captured")
     return plan.spmm_walk
+
+
+def _receiver_walk(what: str, plan: BandPlan) -> StreamWalk:
+    """The plan's walk in receiver order as the tile-owner fused kernels
+    and the stream segment sum read it: the SpMM walk's ``row_ptr`` and
+    ``order`` with the plan's tile ranges and ``max_run`` (built at the
+    first call, as :func:`_walk`)."""
+    walk = _walk(what, plan)
+    return StreamWalk(row_ptr=walk.row_ptr, tile_ptr=plan.tile_ptr,
+                      split_at=plan.split_at, max_run=plan.max_run,
+                      order=walk.order)
+
+
+def _receiver_sum(data: torch.Tensor, plan: BandPlan) -> torch.Tensor:
+    """The receiver-side segment sum of banded-order ``data`` [E_b, L]
+    (``stream_scatter`` over the plan's receiver walk on CUDA)."""
+    walk = (None if data.device.type == "cpu"
+            else _receiver_walk("stream_scatter", plan))
+    return stream_scatter(data, plan.r_local, plan.r_chunk, plan.n_pad,
+                          walk=walk)
 
 
 def banded_weighted_sum_plain(values_b: torch.Tensor, x: torch.Tensor,
@@ -548,8 +596,8 @@ def _launch_banded(wrapper, tensors, a, plan: BandPlan, alpha: float):
     Returns the new (out [N, HF], den [N, H])."""
     walk = _walk(wrapper.kernel, plan)
     return launch_tile_fused(wrapper, (*tensors, walk.rows, walk.order), a,
-                             plan.n_pad, walk.row_ptr, plan.tile_ptr,
-                             plan.split_at, plan.max_run, alpha)
+                             plan.n_pad, _receiver_walk(wrapper.kernel, plan),
+                             alpha)
 
 
 @build.counted
@@ -643,7 +691,7 @@ class _FusedV1AttentionBanded(torch.autograd.Function):
 
         dqnum = (dmsg * g_w) @ exp_bd.T  # per-head sums over F
         draw = (dqnum * keepq + dden) * num * torch.where(raw >= 0, 1.0, alpha)
-        df_dst = stream_scatter(draw, plan.r_local, plan.r_chunk, plan.n_pad)
+        df_dst = _receiver_sum(draw, plan)
         dgathered = dmsg * (qnum @ exp_bd) + draw @ abd.T  # [E_b, HF]
         dwh = banded_sender_sum(dgathered, plan)
         da = (g_w * (draw @ exp_bd)).sum(0).reshape(h, f)
@@ -697,7 +745,7 @@ class _FusedV2AttentionBanded(torch.autograd.Function):
 
         # receiver side: dwhi from the logit path; sender side: one sum for
         # dwhj (logit path) and the message half of dwhi
-        dwhi_e = stream_scatter(dpre, plan.r_local, plan.r_chunk, plan.n_pad)
+        dwhi_e = _receiver_sum(dpre, plan)
         red = banded_sender_sum(torch.cat([dpre, dmsg * (qnum @ exp_bd)], 1),
                                 plan)
         da = (pre * (dlogits @ exp_bd)).sum(0).reshape(h, f)
@@ -726,8 +774,7 @@ class _SpmmBanded(torch.autograd.Function):
         ctx.plan = plan
         if fused:
             return banded_weighted_sum(values_b, x, plan)
-        return stream_scatter(values_b[:, None] * banded_take(x, plan),
-                              plan.r_local, plan.r_chunk, plan.n_pad)
+        return _receiver_sum(values_b[:, None] * banded_take(x, plan), plan)
 
     @staticmethod
     def backward(ctx, g_out):

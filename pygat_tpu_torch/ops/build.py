@@ -29,13 +29,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # source name -> (C entry point, ctypes argtypes); every entry point returns
 # cudaGetLastError() as an int
 ENTRY_POINTS = {
-    "stream_scatter": ("pygat_stream_scatter", [_P] * 4 + [_I] * 3 + [_P] * 2),
+    "stream_scatter": ("pygat_stream_scatter", [_P] * 5 + [_I] * 4 + [_P] * 2),
     "fused_v1": ("pygat_fused_v1", [_P] * 9 + [_I] * 5 + [_F] + [_P] * 5),
     "fused_v2": ("pygat_fused_v2", [_P] * 9 + [_I] * 5 + [_F] + [_P] * 5),
     "expand": ("pygat_expand", [_P] * 3 + [_I] * 2 + [_P] * 2),
     "banded_take": ("pygat_banded_take", [_P] * 3 + [_I] * 3 + [_P] * 2),
     "banded_sender_sum": ("pygat_banded_sender_sum",
-                          [_P] * 3 + [_I] * 4 + [_P] * 2),
+                          [_P] * 5 + [_I] * 4 + [_P] * 2),
     "fused_v1_banded": ("pygat_fused_v1_banded",
                         [_P] * 10 + [_I] * 5 + [_F] + [_P] * 5),
     "fused_v2_banded": ("pygat_fused_v2_banded",

@@ -40,7 +40,6 @@ from pygat_tpu_torch.ops.fused_stream import (
     _expand_bd,
     launch_tile_fused,
     leaky_relu,
-    stream_walk_arg,
     v1_plain_core,
     v2_plain_core,
 )
@@ -50,7 +49,12 @@ from pygat_tpu_torch.ops.large import (
     gather_corner,
     scatter_corner,
 )
-from pygat_tpu_torch.ops.stream import TILE, StreamWalk, stream_scatter
+from pygat_tpu_torch.ops.stream import (
+    TILE,
+    StreamWalk,
+    stream_scatter,
+    stream_walk_arg,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +102,7 @@ def fused_v1_window(win, f_dst, bound, a_src, keepq, r_local, r_chunk,
     n_pad = f_dst.shape[0]
     walk = stream_walk_arg("fused_v1_window", walk, n_pad, r_chunk)
     return launch_tile_fused(fused_v1_window, (win, f_dst, bound, a_src,
-                                               keepq), a_src, n_pad, *walk,
+                                               keepq), a_src, n_pad, walk,
                              alpha)
 
 
@@ -137,7 +141,7 @@ def fused_v2_window(whi, win, ub, a, keepq, r_local, r_chunk, alpha: float,
     n_pad = whi.shape[0]
     walk = stream_walk_arg("fused_v2_window", walk, n_pad, r_chunk)
     return launch_tile_fused(fused_v2_window, (whi, win, ub, a, keepq), a,
-                             n_pad, *walk, alpha)
+                             n_pad, walk, alpha)
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +186,8 @@ class _FusedV1AttentionCorner(torch.autograd.Function):
         dqnum = (dmsg * g_w) @ exp_bd.T  # per-head sums over F
         draw = (dqnum * keepq + dden) * num * torch.where(raw >= 0, 1.0, alpha)
         df_dst = stream_scatter(draw, graph.r_local, graph.r_chunk,
-                                graph.num_nodes_padded)
+                                graph.num_nodes_padded,
+                                walk=graph.stream_walk)
         dgathered = dmsg * (qnum @ exp_bd) + draw @ abd.T  # [E_s, HF]
         dwh = scatter_corner(dgathered, graph, plans.inv)
         da = (g_w * (draw @ exp_bd)).sum(0).reshape(h, f)
@@ -242,7 +247,8 @@ class _FusedV2AttentionCorner(torch.autograd.Function):
         # receiver side: dwhi from the logit path; sender side: one inverse
         # turn and sum for dwhj (logit path) and the message half of dwhi
         dwhi_e = stream_scatter(dpre, graph.r_local, graph.r_chunk,
-                                graph.num_nodes_padded)
+                                graph.num_nodes_padded,
+                                walk=graph.stream_walk)
         red = scatter_corner(torch.cat([dpre, dmsg * (qnum @ exp_bd)], 1),
                              graph, plans.inv)
         da = (pre * (dlogits @ exp_bd)).sum(0).reshape(h, f)

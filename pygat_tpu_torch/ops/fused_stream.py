@@ -17,10 +17,12 @@ versions that are also the kernels' oracles.
 differentiable ops, the counterparts of the reference's custom VJPs: the
 forward is the kernel, and the backward is the math of ``_v1_bwd`` /
 ``_v2_bwd`` in PyTorch, recomputing the per-edge pipeline lane-minor and
-reducing through the stream segment sums (once per receiver, once per
-sender). The reference's ``combined``/``split`` sender-window switch has no
-counterpart: it exists because Mosaic cannot gather rows, and the CUDA
-kernel gathers ``whj[s]`` and ``whi[s]`` itself.
+reducing through the stream segment sums (once per receiver over the
+graph's walk, once per sender over its CSC walk,
+:attr:`~pygat_tpu_torch.graph.Graph.sender_walk`). The reference's
+``combined``/``split`` sender-window switch has no counterpart: it exists
+because Mosaic cannot gather rows, and the CUDA kernel gathers ``whj[s]``
+and ``whi[s]`` itself.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from pygat_tpu_torch.ops.stream import (
     StreamWalk,
     stream_segment_sum,
     stream_sender_segment_sum,
+    stream_walk_arg,
 )
 
 MAX_F = 256  # widest head of the fused kernels (tile_fused.cuh)
@@ -83,36 +86,19 @@ def _check_args(what, wide, narrow, a, keepq, senders, r_local, r_chunk):
             raise ValueError(f"{what} takes int32 indices, got {t.dtype}")
 
 
-def stream_walk_arg(what: str, walk: StreamWalk | None, n_pad: int,
-                    r_chunk) -> StreamWalk:
-    """``walk``, checked to be a receiver stream's walk over ``n_pad``
-    nodes on ``r_chunk``'s device; raises without one (a CUDA call needs
-    the graph's :attr:`~pygat_tpu_torch.graph.Graph.stream_walk`)."""
-    if walk is None:
-        raise ValueError(f"{what}: a CUDA call needs the receiver stream's "
-                         "walk (walk=graph.stream_walk, built with the graph)")
-    n_tiles = n_pad // TILE
-    if (walk.row_ptr.shape != (n_tiles * (TILE + 1) + 1,)
-            or walk.tile_ptr.shape != (n_tiles + 1,)
-            or walk.row_ptr.device != r_chunk.device):
-        raise ValueError(f"{what}: the walk does not match the stream's "
-                         f"{n_tiles} tiles on {r_chunk.device}")
-    return walk
-
-
-def launch_tile_fused(wrapper, tensors, a, n_pad: int, row_ptr, tile_ptr,
-                      split_at, max_run: int, alpha: float):
+def launch_tile_fused(wrapper, tensors, a, n_pad: int, walk: StreamWalk,
+                      alpha: float):
     """Launch ``wrapper``'s tile-owner kernel (``csrc/tile_fused.cuh``) on
     the current stream and count the launch. ``tensors`` are the kernel's
-    array arguments before ``row_ptr`` (the tables, the per-node head terms,
-    ``a``, ``keepq`` and the walk's words by position, if any); ``row_ptr``,
-    ``tile_ptr``, ``split_at`` and ``max_run`` are the walk's (a
-    :class:`StreamWalk` unpacked, or a band plan's). Returns the new (out
+    array arguments before the walk's ``row_ptr`` (the tables, the per-node
+    head terms, ``a``, ``keepq`` and the walk's words by position, if any);
+    ``walk`` gives ``row_ptr``, ``tile_ptr``, ``split_at`` and ``max_run``
+    (the graph's, or a band plan's receiver walk). Returns the new (out
     [N, HF], den [N, H])."""
     h, f = a.shape
     if f > MAX_F:
         raise ValueError(f"{wrapper.kernel}: head width {f} exceeds {MAX_F}")
-    dev, n_split = a.device, split_at.shape[0]
+    dev, n_split = a.device, walk.split_at.shape[0]
     out = torch.empty(n_pad, h * f, dtype=torch.float32, device=dev)
     den = torch.empty(n_pad, h, dtype=torch.float32, device=dev)
     part_out = part_den = None
@@ -121,9 +107,9 @@ def launch_tile_fused(wrapper, tensors, a, n_pad: int, row_ptr, tile_ptr,
                                device=dev)
         part_den = torch.empty(n_split, TILE, h, dtype=torch.float32,
                                device=dev)
-    build.launch(wrapper, *tensors, row_ptr, tile_ptr, split_at,
-                 n_pad // TILE, n_split, max_run, h, f, float(alpha), out,
-                 den, part_out, part_den)
+    build.launch(wrapper, *tensors, walk.row_ptr, walk.tile_ptr,
+                 walk.split_at, n_pad // TILE, n_split, walk.max_run, h, f,
+                 float(alpha), out, den, part_out, part_den)
     return out, den
 
 
@@ -196,13 +182,14 @@ def fused_v1(wh, f_dst, bound, a_src, keepq, senders, r_local, r_chunk,
     n_pad = wh.shape[0]
     walk = stream_walk_arg("fused_v1", walk, n_pad, r_chunk)
     return launch_tile_fused(fused_v1, (wh, f_dst, bound, a_src, keepq,
-                                        senders), a_src, n_pad, *walk, alpha)
+                                        senders), a_src, n_pad, walk, alpha)
 
 
 class _FusedV1Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, wh, f_dst, bound, a_src, keepq, senders, receivers,
-                r_local, r_chunk, c_slot, c_local, c_chunk, alpha, walk):
+                r_local, r_chunk, c_slot, c_local, c_chunk, alpha, walk,
+                sender_walk):
         wh, f_dst, bound, a_src, keepq = (
             t.contiguous() for t in (wh, f_dst, bound, a_src, keepq))
         out, den = fused_v1(wh, f_dst, bound, a_src, keepq, senders,
@@ -210,7 +197,7 @@ class _FusedV1Attention(torch.autograd.Function):
         ctx.save_for_backward(wh, f_dst, bound, a_src, keepq, senders,
                               receivers, r_local, r_chunk, c_slot, c_local,
                               c_chunk)
-        ctx.alpha = alpha
+        ctx.alpha, ctx.walks = alpha, (walk, sender_walk)
         return out, den
 
     @staticmethod
@@ -239,28 +226,32 @@ class _FusedV1Attention(torch.autograd.Function):
         draw = dnum * num * torch.where(raw >= 0, 1.0, alpha)  # [E, H]
 
         # df_dst: per-receiver reduction (data already in stream order)
-        df_dst = stream_segment_sum(draw, receivers, r_local, r_chunk, n_pad)
+        walk, sender_walk = ctx.walks
+        df_dst = stream_segment_sum(draw, receivers, r_local, r_chunk, n_pad,
+                                    walk)
         # dwh: one per-sender reduction of the message and logit cotangents
         dgathered = dmsg * (qnum @ exp_bd) + draw @ abd.T  # [E, HF]
         dwh = stream_sender_segment_sum(dgathered, senders, c_slot, c_local,
-                                        c_chunk, n_pad)
+                                        c_chunk, n_pad, sender_walk)
         da = (g_w * (draw @ exp_bd)).sum(0).reshape(h, f)
-        return (dwh, df_dst, None, da) + (None,) * 10
+        return (dwh, df_dst, None, da) + (None,) * 11
 
 
 def fused_v1_attention(wh, f_dst, bound, a_src, keepq, senders, receivers,
                        r_local, r_chunk, c_slot, c_local, c_chunk,
-                       alpha: float, walk: StreamWalk | None = None):
+                       alpha: float, walk: StreamWalk | None = None,
+                       sender_walk: StreamWalk | None = None):
     """Differentiable fused GATv1 attention: (out [N, HF], den [N, H]).
 
     ``bound`` must already be detached (its true gradient is zero: the
     softmax is invariant to a per-receiver shift). Gradients flow to ``wh``,
     ``f_dst`` and ``a_src``. ``walk`` (``graph.stream_walk``) is the
-    forward kernel's, needed on CUDA tensors.
+    forward kernel's and the receiver sum's, ``sender_walk``
+    (``graph.sender_walk``) the sender sum's, both needed on CUDA tensors.
     """
     return _FusedV1Attention.apply(wh, f_dst, bound, a_src, keepq, senders,
                                    receivers, r_local, r_chunk, c_slot,
-                                   c_local, c_chunk, alpha, walk)
+                                   c_local, c_chunk, alpha, walk, sender_walk)
 
 
 # ---------------------------------------------------------------------------
@@ -327,20 +318,20 @@ def fused_v2(whi, whj, ub, a, keepq, senders, r_local, r_chunk, alpha: float,
     n_pad = whi.shape[0]
     walk = stream_walk_arg("fused_v2", walk, n_pad, r_chunk)
     return launch_tile_fused(fused_v2, (whi, whj, ub, a, keepq, senders), a,
-                             n_pad, *walk, alpha)
+                             n_pad, walk, alpha)
 
 
 class _FusedV2Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, whi, whj, ub, a, keepq, senders, receivers, r_local,
-                r_chunk, c_slot, c_local, c_chunk, alpha, walk):
+                r_chunk, c_slot, c_local, c_chunk, alpha, walk, sender_walk):
         whi, whj, ub, a, keepq = (
             t.contiguous() for t in (whi, whj, ub, a, keepq))
         out, den = fused_v2(whi, whj, ub, a, keepq, senders, r_local, r_chunk,
                             alpha, walk=walk)
         ctx.save_for_backward(whi, whj, ub, a, keepq, senders, receivers,
                               r_local, r_chunk, c_slot, c_local, c_chunk)
-        ctx.alpha = alpha
+        ctx.alpha, ctx.walks = alpha, (walk, sender_walk)
         return out, den
 
     @staticmethod
@@ -369,26 +360,29 @@ class _FusedV2Attention(torch.autograd.Function):
         dpre = (dlogits @ abd.T) * torch.where(raw >= 0, 1.0, alpha)  # [E, HF]
 
         # receiver side: dwhi from the logit path
-        dwhi_e = stream_segment_sum(dpre, receivers, r_local, r_chunk, n_pad)
+        walk, sender_walk = ctx.walks
+        dwhi_e = stream_segment_sum(dpre, receivers, r_local, r_chunk, n_pad,
+                                    walk)
         # sender side: one reduction for dwhj (logit path) and the message
         # half of dwhi
         both = torch.cat([dpre, dmsg * (qnum @ exp_bd)], dim=1)  # [E, 2HF]
         red = stream_sender_segment_sum(both, senders, c_slot, c_local,
-                                        c_chunk, n_pad)
+                                        c_chunk, n_pad, sender_walk)
         da = (pre * (dlogits @ exp_bd)).sum(0).reshape(h, f)
-        return (dwhi_e + red[:, hf:], red[:, :hf], None, da) + (None,) * 10
+        return (dwhi_e + red[:, hf:], red[:, :hf], None, da) + (None,) * 11
 
 
 def fused_v2_attention(whi, whj, ub, a, keepq, senders, receivers, r_local,
                        r_chunk, c_slot, c_local, c_chunk, alpha: float,
-                       walk: StreamWalk | None = None):
+                       walk: StreamWalk | None = None,
+                       sender_walk: StreamWalk | None = None):
     """Differentiable fused GATv2 attention: (out [N, HF], den [N, H]).
 
     ``ub`` must already be detached (its true gradient is zero: the softmax
     is invariant to a per-receiver shift). Gradients flow to ``whi``,
-    ``whj`` and ``a``. ``walk`` (``graph.stream_walk``) is the forward
-    kernel's, needed on CUDA tensors.
+    ``whj`` and ``a``. ``walk`` and ``sender_walk`` as in
+    :func:`fused_v1_attention`.
     """
     return _FusedV2Attention.apply(whi, whj, ub, a, keepq, senders, receivers,
                                    r_local, r_chunk, c_slot, c_local, c_chunk,
-                                   alpha, walk)
+                                   alpha, walk, sender_walk)

@@ -189,7 +189,8 @@ def scatter_corner(g_e: torch.Tensor, graph, plan_inv: CornerPlan) -> torch.Tens
     e_s2 = graph.c_local.shape[0]
     g_p = F.pad(g_e, (0, 0, 0, e_s2 - g_e.shape[0]))
     return stream_scatter(apply_passes(g_p, plan_inv), graph.c_local,
-                          graph.c_chunk, graph.num_nodes_padded)
+                          graph.c_chunk, graph.num_nodes_padded,
+                          walk=graph.sender_walk)
 
 
 def corner_spmm_backward(g, v, rows, graph, plan_inv: CornerPlan):
@@ -209,7 +210,8 @@ class _SpmmCorner(torch.autograd.Function):
         turned = gather_corner(x.contiguous(), graph, plans.fwd)
         v = torch.where(graph.edge_mask, values, 0.0)
         out = stream_scatter(v[:, None] * turned, graph.r_local,
-                             graph.r_chunk, graph.num_nodes_padded)
+                             graph.r_chunk, graph.num_nodes_padded,
+                             walk=graph.stream_walk)
         ctx.save_for_backward(v, turned)
         ctx.graph, ctx.plans = graph, plans
         return out

@@ -17,8 +17,9 @@ BCSR attention of :mod:`pygat_tpu_torch.legacy_bcsr` use).
 * :func:`segment_sum_receivers` / :func:`segment_sum_senders` sum edge data
   per receiver / per sender through the stream segment sum (kernel
   ``csrc/stream_scatter.cu``), the receiver side over the graph's physical
-  stream order, the sender side through the CSC slot map; their gradient is
-  a row gather;
+  stream order (its walk ``graph.stream_walk``), the sender side through
+  the CSC slot map (its walk ``graph.sender_walk``); their gradient is a
+  row gather;
 * :func:`gather_receivers` / :func:`gather_senders` are the row gathers
   ``x[graph.receivers]`` / ``x[graph.senders]`` whose gradient is the
   opposite-side stream segment sum, as in the reference's custom VJPs.
@@ -140,7 +141,8 @@ def _receiver_sum(data: torch.Tensor, graph) -> torch.Tensor:
     if graph.r_local is None:
         return segment_sum(data, graph.receivers, n_pad)
     flat = data.reshape(data.shape[0], -1).contiguous()
-    out = stream_scatter(flat, graph.r_local, graph.r_chunk, n_pad)
+    out = stream_scatter(flat, graph.r_local, graph.r_chunk, n_pad,
+                         walk=graph.stream_walk)
     return out.reshape((n_pad,) + tuple(data.shape[1:]))
 
 
@@ -150,7 +152,7 @@ def _sender_sum(data: torch.Tensor, graph) -> torch.Tensor:
         return segment_sum(data, graph.senders, n_pad, sorted_ids=False)
     flat = data.reshape(data.shape[0], -1).contiguous()
     out = stream_scatter(flat, graph.c_local, graph.c_chunk, n_pad,
-                         slot=graph.c_slot)
+                         slot=graph.c_slot, walk=graph.sender_walk)
     return out.reshape((n_pad,) + tuple(data.shape[1:]))
 
 

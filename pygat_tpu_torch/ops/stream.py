@@ -6,14 +6,15 @@ Three parts:
   ``stream_length``, ``build_stream_layout``), in numpy and identical to the
   reference's, and the port's own :func:`tile_ranges` (each output tile's
   chunk range, for the tile-owner kernels) and :func:`build_stream_walk`
-  (the receiver stream's walk for the tile-owner fused kernels);
+  (a stream's walk for the tile-owner kernels: the receiver stream's and
+  the CSC stream's, built with the graph, and a band plan's sender walk);
 * :func:`stream_scatter`, the segment sum of stream-ordered edge data into
   128-row output tiles: on a CUDA tensor it launches the hand-written kernel
-  ``csrc/stream_scatter.cu`` (which replaces the TPU kernel
-  ``pygat_tpu/ops/stream.py::_make_kernel``; the source notes what bounds it
-  and how it is laid out), on a CPU tensor it runs
-  :func:`stream_scatter_plain`, the plain PyTorch version that is also the
-  kernel's oracle;
+  ``csrc/stream_scatter.cu`` over the stream's walk (``walk=``; the kernel
+  replaces the TPU kernel ``pygat_tpu/ops/stream.py::_make_kernel``, and
+  its body ``csrc/tile_sum.cuh`` notes what bounds it and how it is laid
+  out), on a CPU tensor it runs :func:`stream_scatter_plain`, the plain
+  PyTorch version that is also the kernel's oracle;
 * the autograd Functions :func:`stream_segment_sum` and
   :func:`stream_sender_segment_sum`, whose backward is a gather, as in the
   reference's custom VJPs.
@@ -163,35 +164,46 @@ def tile_ranges(chunk_tile: np.ndarray, local: np.ndarray,
 
 
 class StreamWalk(NamedTuple):
-    """The receiver stream as the tile-owner fused kernels walk it
-    (``csrc/tile_fused.cuh``). The stream is tile-major and receiver-sorted
-    with its padding at each tile's end, so the key ``t * (TILE + 1) +
-    local`` (``DEAD`` counting as ``TILE``) never decreases along it, and
-    the stream is its own walk: row ``l`` of tile ``t`` runs over positions
-    ``row_ptr[key] .. row_ptr[key + 1] - 1`` with ``key = t * (TILE + 1) +
-    l``, and key ``t * (TILE + 1) + TILE`` starts the tile's dead slots,
-    which are never read. ``tile_ptr`` and ``split_at`` are
-    :func:`tile_ranges` of the chunks up to the last one holding a live
-    slot (the trailing all-dead chunks of alignment and bucketing are left
-    out); ``max_run`` is the most live slots of one receiver (its
-    in-degree), past which the kernels cut a run into segments."""
+    """An edge order as the tile-owner kernels walk it
+    (``csrc/tile_fused.cuh``, ``csrc/tile_sum.cuh``): positions in which
+    each output tile owns a range of whole chunks and its slots are sorted
+    by output row. A stream (the receiver stream, the CSC stream) is
+    tile-major and row-sorted with its padding at each tile's end, so the
+    key ``t * (TILE + 1) + local`` (``DEAD`` counting as ``TILE``) never
+    decreases along it, and the stream is its own walk (``order`` None):
+    row ``l`` of tile ``t`` runs over positions ``row_ptr[key] ..
+    row_ptr[key + 1] - 1`` with ``key = t * (TILE + 1) + l``, and key ``t *
+    (TILE + 1) + TILE`` starts the tile's dead slots, which are never read.
+    A band plan's walks re-sort its slots (the receiver walk,
+    ``BandPlan.spmm_walk``) or lay its live slots out as a stream by sender
+    (``BandPlan.sender_walk``); their ``order`` gives the plan's slot at
+    each position. ``tile_ptr`` and ``split_at`` are :func:`tile_ranges`
+    of the chunks up to the last one holding a live slot (the trailing
+    all-dead chunks of alignment and bucketing are left out); ``max_run``
+    is the most live slots of one row (its degree), past which the kernels
+    cut a run into segments."""
 
     row_ptr: torch.Tensor  # [n_tiles * (TILE + 1) + 1] int32
     tile_ptr: torch.Tensor  # [n_tiles + 1] int32
     split_at: torch.Tensor  # [n_split] int32
     max_run: int
+    order: torch.Tensor | None = None  # [positions] int32 slot by position
 
     def to(self, device) -> "StreamWalk":
-        return self._replace(row_ptr=self.row_ptr.to(device),
-                             tile_ptr=self.tile_ptr.to(device),
-                             split_at=self.split_at.to(device))
+        return self._replace(
+            row_ptr=self.row_ptr.to(device),
+            tile_ptr=self.tile_ptr.to(device),
+            split_at=self.split_at.to(device),
+            order=None if self.order is None else self.order.to(device))
 
 
 def build_stream_walk(local: np.ndarray, chunk_tile: np.ndarray,
-                      n_tiles: int, device=None) -> StreamWalk:
-    """The :class:`StreamWalk` of a receiver stream (its slots' local rows
-    and its chunk-to-tile map, numpy), built on the host once per graph and
-    put on ``device``."""
+                      n_tiles: int, device=None,
+                      order: np.ndarray | None = None) -> StreamWalk:
+    """The :class:`StreamWalk` of a stream (its slots' local rows and its
+    chunk-to-tile map, numpy; ``order``: the slot each position stands
+    for, if the stream is laid out over another order's slots), built on
+    the host once per graph or plan and put on ``device``."""
     local = np.asarray(local, np.int64)
     chunk_tile = np.asarray(chunk_tile, np.int64)
     key = np.repeat(chunk_tile, EC) * (TILE + 1) + np.minimum(local, TILE)
@@ -208,7 +220,43 @@ def build_stream_walk(local: np.ndarray, chunk_tile: np.ndarray,
 
     return StreamWalk(row_ptr=dev(row_ptr), tile_ptr=dev(tile_ptr),
                       split_at=dev(split_at),
-                      max_run=int(np.bincount(key[live]).max(initial=0)))
+                      max_run=int(np.bincount(key[live]).max(initial=0)),
+                      order=None if order is None else dev(order))
+
+
+def stream_walk_arg(what: str, walk: StreamWalk | None, n_pad: int,
+                    on) -> StreamWalk:
+    """``walk``, checked to be a walk over ``n_pad`` nodes on the device of
+    the tensor ``on``; raises without one (a CUDA call needs the graph's
+    :attr:`~pygat_tpu_torch.graph.Graph.stream_walk` or
+    :attr:`~pygat_tpu_torch.graph.Graph.sender_walk`, or a band plan's)."""
+    if walk is None:
+        raise ValueError(f"{what}: a CUDA call needs the edge order's walk "
+                         "(walk=graph.stream_walk or graph.sender_walk, "
+                         "built with the graph)")
+    n_tiles = n_pad // TILE
+    if (walk.row_ptr.shape != (n_tiles * (TILE + 1) + 1,)
+            or walk.tile_ptr.shape != (n_tiles + 1,)
+            or walk.row_ptr.device != on.device):
+        raise ValueError(f"{what}: the walk does not match the stream's "
+                         f"{n_tiles} tiles on {on.device}")
+    return walk
+
+
+def launch_tile_sum(wrapper, data: torch.Tensor, rows, walk: StreamWalk,
+                    n_pad: int) -> torch.Tensor:
+    """Launch ``wrapper``'s tile-owner segment sum (``csrc/tile_sum.cuh``)
+    on the current stream and count the launch: position ``k`` of ``walk``
+    adds ``data[rows[k]]`` (``rows`` None: ``data[k]``) into its row.
+    Returns the new [n_pad, L] sums."""
+    width, n_split = data.shape[1], walk.split_at.shape[0]
+    out = torch.empty(n_pad, width, dtype=torch.float32, device=data.device)
+    part = (torch.empty(n_split, TILE, width, dtype=torch.float32,
+                        device=data.device) if n_split else None)
+    build.launch(wrapper, data, rows, walk.row_ptr, walk.tile_ptr,
+                 walk.split_at, n_pad // TILE, n_split, walk.max_run, width,
+                 out, part)
+    return out
 
 
 def require_high(what: str, precision: str) -> None:
@@ -255,18 +303,24 @@ def stream_scatter_plain(
     n_pad: int,
     *,
     slot: torch.Tensor | None = None,
+    f64: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`stream_scatter` (``index_add_``).
 
     Dead slots add into a scratch row past the output, so the function has
-    no data-dependent shape and runs without a host sync."""
+    no data-dependent shape and runs without a host sync. ``f64=True``
+    sums in float64 and returns float32: the kernel's oracle, since
+    ``index_add_``'s own float32 sum of a hub's row (atomics on the card,
+    in an order that changes from call to call) is off by up to about 1e-5
+    of it."""
     _check_args(data, local, chunk_tile, n_pad, slot)
     rows = chunk_tile.long().repeat_interleave(EC) * TILE + local.long()
     rows = torch.where(local < TILE, rows, n_pad)
     src = data if slot is None else data[slot.long()]
-    out = torch.zeros(n_pad + 1, data.shape[1], dtype=data.dtype,
+    dtype = torch.float64 if f64 else data.dtype
+    out = torch.zeros(n_pad + 1, data.shape[1], dtype=dtype,
                       device=data.device)
-    return out.index_add_(0, rows, src)[:n_pad]
+    return out.index_add_(0, rows, src.to(dtype))[:n_pad].to(data.dtype)
 
 
 @build.counted
@@ -277,24 +331,31 @@ def stream_scatter(
     n_pad: int,
     *,
     slot: torch.Tensor | None = None,  # [E_s] int32 data row per slot
+    walk: StreamWalk | None = None,
 ) -> torch.Tensor:
     """Segment-sum stream-ordered ``data`` into ``[n_pad, L]`` f32.
 
-    On a CUDA tensor this launches ``csrc/stream_scatter.cu`` (and counts
-    the launch in ``stream_scatter.launches``); on a CPU tensor it runs
-    :func:`stream_scatter_plain`. Not differentiable: use the autograd
-    Functions below.
+    ``walk`` is the walk of the order ``local`` and ``chunk_tile`` describe:
+    ``graph.stream_walk`` for the receiver stream, ``graph.sender_walk``
+    for the CSC stream, a band plan's receiver walk for its banded order.
+    On a CUDA tensor this launches ``csrc/stream_scatter.cu`` over the walk
+    (and counts the launch in ``stream_scatter.launches``), whose result is
+    the same bit for bit from call to call, and raises without a walk; on a
+    CPU tensor it runs :func:`stream_scatter_plain`. Not differentiable:
+    use the autograd Functions below.
     """
     if data.device.type == "cpu":
         return stream_scatter_plain(data, local, chunk_tile, n_pad, slot=slot)
     if data.device.type != "cuda":
         raise ValueError(f"stream_scatter: unsupported device {data.device}")
     _check_args(data, local, chunk_tile, n_pad, slot)
-    out = torch.empty(n_pad, data.shape[1], dtype=torch.float32,
-                      device=data.device)
-    build.launch(stream_scatter, data, slot, local, chunk_tile,
-                 chunk_tile.shape[0], n_pad // TILE, data.shape[1], out)
-    return out
+    walk = stream_walk_arg("stream_scatter", walk, n_pad, chunk_tile)
+    if walk.order is not None and slot is not None:
+        raise ValueError("stream_scatter: a walk with its own order takes no "
+                         "slot map")
+    return launch_tile_sum(stream_scatter, data,
+                           slot if walk.order is None else walk.order, walk,
+                           n_pad)
 
 
 # ---------------------------------------------------------------------------
@@ -304,46 +365,52 @@ def stream_scatter(
 
 class _StreamSegmentSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, segment_ids, local, chunk_tile, n_pad):
+    def forward(ctx, data, segment_ids, local, chunk_tile, n_pad, walk):
         ctx.save_for_backward(segment_ids)
-        return stream_scatter(data.contiguous(), local, chunk_tile, n_pad)
+        return stream_scatter(data.contiguous(), local, chunk_tile, n_pad,
+                              walk=walk)
 
     @staticmethod
     def backward(ctx, g):
         (segment_ids,) = ctx.saved_tensors
-        return g[segment_ids.long()], None, None, None, None
+        return g[segment_ids.long()], None, None, None, None, None
 
 
-def stream_segment_sum(data, segment_ids, local, chunk_tile, n_pad: int):
+def stream_segment_sum(data, segment_ids, local, chunk_tile, n_pad: int,
+                       walk: StreamWalk | None = None):
     """Receiver-side segment sum of stream-ordered ``data`` [E_s, L].
 
     ``segment_ids`` (the padded receivers) are used only by the backward
-    gather; the forward trusts the stream layout.
+    gather; the forward trusts the stream layout. ``walk``
+    (``graph.stream_walk``) is the kernel's, needed on CUDA tensors.
     """
-    return _StreamSegmentSum.apply(data, segment_ids, local, chunk_tile, n_pad)
+    return _StreamSegmentSum.apply(data, segment_ids, local, chunk_tile, n_pad,
+                                   walk)
 
 
 class _StreamSenderSegmentSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, senders, c_slot, c_local, c_chunk_tile, n_pad):
+    def forward(ctx, data, senders, c_slot, c_local, c_chunk_tile, n_pad,
+                walk):
         ctx.save_for_backward(senders)
         return stream_scatter(data.contiguous(), c_local, c_chunk_tile, n_pad,
-                              slot=c_slot)
+                              slot=c_slot, walk=walk)
 
     @staticmethod
     def backward(ctx, g):
         (senders,) = ctx.saved_tensors
-        return g[senders.long()], None, None, None, None, None
+        return g[senders.long()], None, None, None, None, None, None
 
 
 def stream_sender_segment_sum(data, senders, c_slot, c_local, c_chunk_tile,
-                              n_pad: int):
+                              n_pad: int, walk: StreamWalk | None = None):
     """Per-sender segment sum of edge ``data`` [E_pad, L].
 
     ``c_slot`` maps sender-sorted stream positions to edge indices (clipped
     to >= 0; dead slots are killed by ``c_local == DEAD``). The kernel reads
-    ``data[c_slot[k]]`` itself, so no stream-ordered copy is made. The
-    gradient with respect to ``data`` is ``g[senders]``.
+    ``data[c_slot[k]]`` itself, so no stream-ordered copy is made. ``walk``
+    (``graph.sender_walk``, the CSC stream's) is the kernel's, needed on
+    CUDA tensors. The gradient with respect to ``data`` is ``g[senders]``.
     """
     return _StreamSenderSegmentSum.apply(data, senders, c_slot, c_local,
-                                         c_chunk_tile, n_pad)
+                                         c_chunk_tile, n_pad, walk)

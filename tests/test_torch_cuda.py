@@ -29,8 +29,13 @@ CUDA-graph capture, before the plan's walk is built, raises. The stream
 and window fused forwards run on the same body over the graph's walk
 (``Graph.stream_walk``): on the hub graph (its tile cut into pieces) and
 a graph with an empty tile, from H 1 F 7 to H 1 F 256, two calls agree bit
-for bit, a launch is capturable, and a CUDA call without the walk raises;
-the tile-owner kernels are held to their plain versions evaluated in f64
+for bit, a launch is capturable, and a CUDA call without the walk raises.
+The segment sums (tile_sum.cuh) run over the receiver stream's walk, the
+CSC stream's (``Graph.sender_walk``, by slot map and in CSC order) and a
+band plan's two walks, on the hub graph (both sides' long runs cut into
+segments, their tiles into pieces); two calls agree bit for bit, a launch
+is capturable, and a CUDA call without a walk raises. The tile-owner
+kernels are held to their plain versions evaluated in f64
 (``f64=True``), since a hub row's 9,000-term f32 sum by index_add_ is
 itself off by up to about 1e-5. The BCSR attention kernel runs on
 tilings with a row tile without edges and (I, J) pairs of several chunks,
@@ -40,6 +45,8 @@ path's full-size shapes.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -97,23 +104,140 @@ def _close(got, want):
     torch.testing.assert_close(got, want, rtol=0, atol=RTOL * scale)
 
 
+def _scatter_calls(g, data, data_c):
+    """(kernel call, plain version in f64) of stream_scatter in each of the
+    graph's orders: the receiver stream over its walk, the CSC stream by
+    its slot map and in CSC order (the corner path's) over the sender
+    walk."""
+    n_pad = g.num_nodes_padded
+    recv = (g.r_local, g.r_chunk, n_pad)
+    send = (g.c_local, g.c_chunk, n_pad)
+    return [
+        (lambda: st.stream_scatter(data, *recv, walk=g.stream_walk),
+         lambda: st.stream_scatter_plain(data, *recv, f64=True)),
+        (lambda: st.stream_scatter(data, *send, slot=g.c_slot,
+                                   walk=g.sender_walk),
+         lambda: st.stream_scatter_plain(data, *send, slot=g.c_slot,
+                                         f64=True)),
+        (lambda: st.stream_scatter(data_c, *send, walk=g.sender_walk),
+         lambda: st.stream_scatter_plain(data_c, *send, f64=True)),
+    ]
+
+
 @pytest.mark.parametrize("empty_tile", [False, True])
 @pytest.mark.parametrize("width", [1, 7, 8, 64, 130, 300])
 def test_stream_scatter_kernel_matches_plain(cuda, width, empty_tile):
+    """The receiver and sender sides over the graph's walks, held to the
+    plain version evaluated in f64."""
     g = _graph(cuda, empty_tile)
     gen = torch.Generator(device=cuda).manual_seed(width)
-    n_pad = g.num_nodes_padded
     data = torch.randn(g.num_edges_padded, width, generator=gen, device=cuda)
+    data_c = torch.randn(g.c_local.numel(), width, generator=gen, device=cuda)
     before = st.stream_scatter.launches
-    got = st.stream_scatter(data, g.r_local, g.r_chunk, n_pad)
-    got_s = st.stream_scatter(data, g.c_local, g.c_chunk, n_pad, slot=g.c_slot)
+    calls = _scatter_calls(g, data, data_c)
+    got = [run() for run, _ in calls]
     torch.cuda.synchronize()
-    assert st.stream_scatter.launches == before + 2
-    _close(got, st.stream_scatter_plain(data, g.r_local, g.r_chunk, n_pad))
-    _close(got_s, st.stream_scatter_plain(data, g.c_local, g.c_chunk, n_pad,
-                                          slot=g.c_slot))
+    assert st.stream_scatter.launches == before + 3
+    for out, (_, plain) in zip(got, calls):
+        _close(out, plain())
     if empty_tile:
-        assert float(got[128:256].abs().max()) == 0.0
+        assert float(got[0][128:256].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kind", ["graph", "empty_tile", "hub"])
+def test_stream_scatter_repeats_bit_for_bit(cuda, kind):
+    """Every row is stored once by the unit that owns it, so two calls give
+    the same bits (the hub graph: its receiver run cut into segments, its
+    dummy sender's run too, both tiles cut into pieces)."""
+    g = _hub(cuda) if kind == "hub" else _graph(cuda, kind == "empty_tile")
+    if kind == "hub":
+        assert g.stream_walk.max_run > 32 and g.sender_walk.max_run > 32
+        assert g.stream_walk.split_at.numel() and g.sender_walk.split_at.numel()
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    data = torch.randn(g.num_edges_padded, 64, generator=gen, device=cuda)
+    data_c = torch.randn(g.c_local.numel(), 64, generator=gen, device=cuda)
+    for run, plain in _scatter_calls(g, data, data_c):
+        first, again = run(), run()
+        assert torch.equal(first, again)
+        _close(first, plain())
+
+
+@pytest.mark.parametrize("width", [1, 4, 64])
+def test_stream_scatter_hub_sender_side(cuda, width):
+    """The hub graph's sender side: the dummy sender's run holds every
+    padding slot of the receiver stream (live in the JAX kernel's sum) and
+    its tile is cut into pieces; held to the f64 plain version
+    elementwise, to RTOL of the same sums over |data|."""
+    g = _hub(cuda)
+    n_pad = g.num_nodes_padded
+    dummy = n_pad - 1
+    assert int((g.senders == dummy).sum()) > 32
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    data = torch.randn(g.num_edges_padded, width, generator=gen, device=cuda)
+    send = (g.c_local, g.c_chunk, n_pad)
+    got = st.stream_scatter(data, *send, slot=g.c_slot, walk=g.sender_walk)
+    want = st.stream_scatter_plain(data, *send, slot=g.c_slot, f64=True)
+    mag = st.stream_scatter_plain(data.abs(), *send, slot=g.c_slot)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= RTOL * mag + 1e-30).all())
+    assert float(mag[dummy].max()) > 10.0  # the padding run is summed
+
+
+def test_stream_scatter_launch_is_capturable(cuda):
+    """A launch inside CUDA-graph capture, over the walks the graph built,
+    replays to the plain version's result on fresh inputs."""
+    g = _graph(cuda, False)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    data = torch.randn(g.num_edges_padded, 8, generator=gen, device=cuda)
+    data_c = torch.randn(g.c_local.numel(), 8, generator=gen, device=cuda)
+    calls = _scatter_calls(g, data, data_c)
+    for run, _ in calls:
+        run()  # build and load outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = [run() for run, _ in calls]
+    data.copy_(torch.randn(data.shape, generator=gen, device=cuda))
+    data_c.copy_(torch.randn(data_c.shape, generator=gen, device=cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    for out, (_, plain) in zip(got, calls):
+        _close(out, plain())
+
+
+def test_segment_sums_raise_without_a_walk(cuda, monkeypatch):
+    """On a CUDA tensor the segment sums launch over a walk or raise:
+    without one, or with a walk of another order or device, never the
+    plain version."""
+    g = _graph(cuda, False)
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(st, "stream_scatter_plain", boom)
+    monkeypatch.setattr(bd, "banded_sender_sum_plain", boom)
+    n_pad = g.num_nodes_padded
+    data = torch.zeros(g.num_edges_padded, 3, device=cuda)
+    other = _graph(cuda, True)
+    for call in (
+            lambda: st.stream_scatter(data, g.r_local, g.r_chunk, n_pad),
+            lambda: st.stream_scatter(data, g.r_local, g.r_chunk, n_pad,
+                                      walk=g.stream_walk.to("cpu")),
+            lambda: st.stream_scatter(data, g.c_local, g.c_chunk, n_pad,
+                                      slot=g.c_slot),
+            lambda: st.stream_segment_sum(data, g.receivers, g.r_local,
+                                          g.r_chunk, n_pad),
+            lambda: st.stream_sender_segment_sum(
+                data, g.senders, g.c_slot, g.c_local, g.c_chunk, n_pad,
+                walk=other.sender_walk)):
+        with pytest.raises(ValueError, match="walk"):
+            call()
+    _, plan = _band(cuda, "clustered")
+    no_walk = dataclasses.replace(plan, sender_walk=None)
+    with pytest.raises(ValueError, match="walk"):
+        bd.banded_sender_sum(torch.zeros(plan.num_slots, 3, device=cuda),
+                             no_walk)
 
 
 def _fused_args(g, h, f, gen, device):
@@ -176,7 +300,7 @@ def test_fused_attention_gradients_card_vs_cpu(cuda):
         out, den = fs.fused_v1_attention(
             leaves[0], leaves[1], args[2].to(dev), leaves[2], args[4].to(dev),
             gg.senders, gg.receivers, gg.r_local, gg.r_chunk, gg.c_slot,
-            gg.c_local, gg.c_chunk, 0.2, gg.stream_walk)
+            gg.c_local, gg.c_chunk, 0.2, gg.stream_walk, gg.sender_walk)
         (out.sin().sum() + den.cos().sum()).backward()
         grads[dev] = [t.grad.cpu() for t in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
@@ -256,7 +380,7 @@ def test_fused_v2_attention_gradients_card_vs_cpu(cuda):
         out, den = fs.fused_v2_attention(
             leaves[0], leaves[1], args[2].to(dev), leaves[2], args[4].to(dev),
             gg.senders, gg.receivers, gg.r_local, gg.r_chunk, gg.c_slot,
-            gg.c_local, gg.c_chunk, 0.2, gg.stream_walk)
+            gg.c_local, gg.c_chunk, 0.2, gg.stream_walk, gg.sender_walk)
         (out.sin().sum() + den.cos().sum()).backward()
         grads[dev] = [t.grad.cpu() for t in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
@@ -377,15 +501,18 @@ def test_fit_fast_on_cuda_resumes_exactly(cuda, tmp_path):
     assert res.best_epoch == full.best_epoch
 
 
-# In a fresh process, the first launch of each kernel at a size where its
-# static plus dynamic shared memory passes 48 KB and the dynamic part alone
-# does not: stream_scatter at L = 32, banded_sender_sum at L = 48. The
-# opt-in to more than 48 KB stays set on a kernel once a larger launch set
-# it, so only a first launch shows a missing one. The fused forwards
-# (tile_fused.cuh) hold under 10 KB of shared memory at any width; their
-# first launches are where the block-per-chunk body they replaced passed
-# 48 KB (fused_v1 at H 1 F 92, fused_v2 at H 1 F 90) or held about 130 KiB
-# (the banded ones at H 1 F 256).
+# In a fresh process, the first launch of each kernel at a size where the
+# block-per-chunk bodies the tile-owner ones replaced had static plus
+# dynamic shared memory past 48 KB and the dynamic part alone not:
+# stream_scatter from L = 32, banded_sender_sum at L = 48. The opt-in to more
+# than 48 KB stays set on a kernel once a larger launch set it, so only a
+# first launch shows a missing one. The tile-owner bodies (tile_sum.cuh,
+# tile_fused.cuh) hold under 10 KB of shared memory at any width, in their
+# instantiation that cuts long runs (the segment sums' first launches here
+# are the sender side's, whose dummy sender's run takes it); the fused
+# forwards' first launches are where the block-per-chunk body they replaced
+# passed 48 KB (fused_v1 at H 1 F 92, fused_v2 at H 1 F 90) or held about
+# 130 KiB (the banded ones at H 1 F 256).
 _FIRST_LAUNCHES = """
 import torch
 from tests.test_torch_cuda import (_banded_v1_args, _banded_v2_args, _close,
@@ -397,12 +524,19 @@ dev = torch.device("cuda")
 g = _graph(dev, False)
 gen = torch.Generator(device=dev).manual_seed(0)
 n_pad = g.num_nodes_padded
-data = torch.randn(g.num_edges_padded, 32, generator=gen, device=dev)
-_close(st.stream_scatter(data, g.r_local, g.r_chunk, n_pad),
-       st.stream_scatter_plain(data, g.r_local, g.r_chunk, n_pad))
+data = torch.randn(g.num_edges_padded, 48, generator=gen, device=dev)
+assert g.sender_walk.max_run > 32
+_close(st.stream_scatter(data, g.c_local, g.c_chunk, n_pad, slot=g.c_slot,
+                         walk=g.sender_walk),
+       st.stream_scatter_plain(data, g.c_local, g.c_chunk, n_pad,
+                               slot=g.c_slot, f64=True))
+_close(st.stream_scatter(data, g.r_local, g.r_chunk, n_pad,
+                         walk=g.stream_walk),
+       st.stream_scatter_plain(data, g.r_local, g.r_chunk, n_pad, f64=True))
 plan = bd.build_band_plan(g, w=2)
 data = torch.randn(plan.num_slots, 48, generator=gen, device=dev)
-_close(bd.banded_sender_sum(data, plan), bd.banded_sender_sum_plain(data, plan))
+_close(bd.banded_sender_sum(data, plan),
+       bd.banded_sender_sum_plain(data, plan, f64=True))
 walk = dict(walk=g.stream_walk)
 for kernel, plain, args, kw in (
         (fs.fused_v1, fs.fused_v1_plain, _fused_args(g, 1, 92, gen, dev), walk),
@@ -444,7 +578,8 @@ def test_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
     monkeypatch.setattr(fs, "fused_v2_plain", boom)
     data = torch.zeros(4, g.num_edges_padded, device=cuda).T  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
-        st.stream_scatter(data, g.r_local, g.r_chunk, g.num_nodes_padded)
+        st.stream_scatter(data, g.r_local, g.r_chunk, g.num_nodes_padded,
+                          walk=g.stream_walk)
     args = _fused_args(g, 2, 3, torch.Generator(device=cuda), cuda)
     args[0] = args[0].T.contiguous().T  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
@@ -555,8 +690,11 @@ def test_gather_kernels_match_plain_bit_exact(cuda, kind, width):
 @pytest.mark.parametrize("kind", BAND_KINDS)
 @pytest.mark.parametrize("width", [4, 7, 10, 33, 144])
 def test_banded_sender_sum_kernel_matches_plain(cuda, kind, width):
-    """Dead slots carry data, which must be ignored; the sums agree to
-    RTOL of the same sums over |data| (f32 in another order)."""
+    """Dead slots carry data, which must be ignored; the sums over the
+    plan's sender walk agree to RTOL of the same sums over |data| with the
+    plain version evaluated in f64, and a second call gives the same bits.
+    The receiver side of the same data (stream_scatter over the plan's
+    receiver walk) is held the same way."""
     _, plan = _band(cuda, kind)
     gen = torch.Generator(device=cuda).manual_seed(width)
     data = torch.randn(plan.num_slots, width, generator=gen, device=cuda)
@@ -564,11 +702,18 @@ def test_banded_sender_sum_kernel_matches_plain(cuda, kind, width):
     got = bd.banded_sender_sum(data, plan)
     torch.cuda.synchronize()
     assert bd.banded_sender_sum.launches == before + 1
-    want = bd.banded_sender_sum_plain(data, plan)
+    want = bd.banded_sender_sum_plain(data, plan, f64=True)
     mag = bd.banded_sender_sum_plain(data.abs(), plan)
     assert bool(torch.isfinite(got).all())
     assert bool(((got - want).abs() <= RTOL * mag + 1e-30).all())
     assert float(mag.max()) > 1.0  # the comparison is not idle
+    assert torch.equal(got, bd.banded_sender_sum(data, plan))
+    recv = (plan.r_local, plan.r_chunk, plan.n_pad)
+    got_r = bd._receiver_sum(data, plan)
+    want_r = st.stream_scatter_plain(data, *recv, f64=True)
+    mag_r = st.stream_scatter_plain(data.abs(), *recv)
+    assert bool(((got_r - want_r).abs() <= RTOL * mag_r + 1e-30).all())
+    assert torch.equal(got_r, bd._receiver_sum(data, plan))
 
 
 def _banded_rows(plan):
