@@ -83,18 +83,22 @@ of which prints its seconds:
    the same weighted graph; the panel layouts' set-up seconds and the
    phase's peak device memory;
 7. the BCSR path (``pygat_tpu_torch.legacy_bcsr``, which no model
-   reaches): the Cora and Pubmed stand-ins and the 524k graph, each tiled
-   once (its seconds printed); with the launch counters set to 0 just
-   before and read just after, ``gat_attention_v1`` by the fused route
+   reaches): the Cora and Pubmed stand-ins, the 524k graph and the hub
+   graph, each tiled once (its seconds printed, and its walk's: the
+   kernel's walk over the valid slots, built with the tiling and timed
+   again alone); with the launch counters set to 0 just before and read
+   just after, ``gat_attention_v1`` by the fused route
    (``backend="pallas"``: one ``bcsr_attention`` launch forward, two
    ``stream_scatter`` launches backward) against the segment-op route
    (``"xla"``), forward and gradients, at the Cora and Pubmed preset
    widths, with dropout off and at p = 0.6 (one generator seed per pair,
-   so one mask); then ``bcsr_attention`` against its plain version at
-   those widths and the 524k graph's, with no dropout mask and with one,
-   and timed beside its plain version and its bound; at 524k also the
-   stream and banded fused forwards (``fused_v1``, ``fused_v1_banded``)
-   over the same attention;
+   so one mask); then ``bcsr_attention`` against its plain version in f64
+   at those widths, the 524k graph's and the hub graph's (its tile cut
+   into pieces, the hub's run into segments), with no dropout mask and
+   with one, called twice (the two results equal bit for bit), and timed
+   beside its plain version and its bound; at 524k also the stream and
+   banded fused forwards (``fused_v1``, ``fused_v1_banded``) over the same
+   attention;
 8. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 The script imports nothing of JAX or of the JAX package, needs no network
@@ -153,10 +157,10 @@ SPMM_L = 128
 SPMM_P_MAX = 8
 # the BCSR path: the preset widths (heads, features) of each graph's layers
 # (Pubmed's layer 1 and, at the Pubmed preset's 8 output heads, its output
-# layer; the 524k graph has the Cora preset's widths), and the preset's
-# dropout rate
+# layer; the 524k graph and the hub graph have the Cora preset's layer 1),
+# and the preset's dropout rate
 BCSR_WIDTHS = {"cora": ((8, 8), (1, 7)), "pubmed": ((8, 8), (8, 3)),
-               "large": ((8, 8),)}
+               "large": ((8, 8),), "hub": ((8, 8),)}
 BCSR_P = 0.6
 # route vs route: the fused route's analytic backward (stream sums with
 # atomics, S[i] from the forward's output) against autograd of the segment
@@ -1443,23 +1447,35 @@ def _time_spmm(case):
 
 
 def _bcsr_tilings(graphs):
-    """Each graph's BCSR tiling, built once; returns the tilings and their
-    set-up seconds."""
+    """Each graph's BCSR tiling, built once with its walk; returns the
+    tilings and their set-up seconds: the tiling's (the walk included),
+    and the walk's alone, built again from the tiling's tensors."""
     import torch
 
-    from pygat_tpu_torch.legacy_bcsr.tiles import tile_graph, tile_stats
+    from pygat_tpu_torch.legacy_bcsr.tiles import (
+        attach_walk,
+        tile_graph,
+        tile_stats,
+    )
 
     tilings, secs = {}, {}
     for label, g in graphs.items():
         t0 = time.perf_counter()
         tilings[label] = tile_graph(g)
         torch.cuda.synchronize()
-        secs[f"{label}_bcsr_tiling"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        walk = attach_walk(tilings[label])
+        torch.cuda.synchronize()
+        secs[f"{label}_bcsr_tiling"] = t1 - t0
+        secs[f"{label}_bcsr_walk"] = time.perf_counter() - t1
         st = tile_stats(tilings[label])
         print(f"phase 7: {label}: BCSR tiling in "
               f"{secs[f'{label}_bcsr_tiling']:.2f} s: {st['chunks']} chunks, "
               f"{st['edge_slots']} slots, {st['real_edges']} real edges, "
-              f"utilization {st['utilization']:.4f}", flush=True)
+              f"utilization {st['utilization']:.4f}; its walk alone "
+              f"{secs[f'{label}_bcsr_walk']:.2f} s: {walk.rows.numel()} "
+              f"positions, {walk.stream.split_at.numel()} extra pieces, "
+              f"longest run {walk.stream.max_run}", flush=True)
     return tilings, secs
 
 
@@ -1532,10 +1548,12 @@ def _bcsr_path(graphs, tilings, counters):
 
 
 def _bcsr_kernel_cases(graphs, tilings):
-    """``bcsr_attention`` at the BCSR path's widths and the 524k graph's,
-    with no mask and with a keep mask at BCSR_P (the keep factors of the
-    graph's edges carried into chunk layout), each output (out, m, den)
-    held against the plain version to KERNEL_RTOL of max(1, max |want|)."""
+    """``bcsr_attention`` at the BCSR path's widths, the 524k graph's and
+    the hub graph's, with no mask and with a keep mask at BCSR_P (the keep
+    factors of the graph's edges carried into chunk layout), each output
+    (out, m, den) held against the plain version in f64 to KERNEL_RTOL of
+    max(1, max |want|), and called twice (the two results equal bit for
+    bit)."""
     import torch
 
     from pygat_tpu_torch.legacy_bcsr.fused_attention import (
@@ -1557,21 +1575,28 @@ def _bcsr_kernel_cases(graphs, tilings):
             masked = keep[tiles.edge_perm.long().clamp(min=0)] * tiles.valid
             for rate, drop in ((0.0, None), (BCSR_P, masked)):
                 args = (fd, fs, wh, tiles, 0.2, drop)
-                got, want = bcsr_attention(*args), bcsr_attention_plain(*args)
+                got = bcsr_attention(*args)
+                again = bcsr_attention(*args)
+                want = bcsr_attention_plain(*args, f64=True)
                 torch.cuda.synchronize()
                 errs = [_max_err(a, b) for a, b in zip(got, want)]
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
                 print(f"  bcsr_attention {label} H={h} F={f} dropout={rate}: "
                       "max_abs_err out, m, den " + ", ".join(
-                          f"{e:.3e} (allowed {a:.3e})" for e, a in errs),
+                          f"{e:.3e} (allowed {a:.3e})" for e, a in errs)
+                      + f"; second call equal bit for bit: {same}",
                       flush=True)
                 if not all(e <= a for e, a in errs):
                     raise AssertionError("bcsr_attention disagrees with its "
                                          "plain version")
+                if not same:
+                    raise AssertionError("bcsr_attention: a second call "
+                                         "gave other bits")
                 cases.append(dict(kernel="bcsr_attention", dataset=label, H=h,
                                   F=f, dropout=rate, args=args,
-                                  n_valid=n_valid,
+                                  n_valid=n_valid, bitwise_repeat=same,
                                   max_abs_err=max(e for e, _ in errs)))
-                del got, want
+                del got, again, want
     return cases
 
 
@@ -1598,7 +1623,7 @@ def _time_bcsr(case, large=None, band_plan=None):
     h, n, f = wh.shape
     # the plain version takes 50-80 ms a call at Pubmed and 524k
     kw = (dict(calls=BIG_CALLS, replays=BIG_REPLAYS)
-          if case["dataset"] != "cora" else {})
+          if case["dataset"] in ("pubmed", "large") else {})
     case["ms"] = _time_ms(lambda: bcsr_attention(*args), **kw)
     if drop is None:  # with a mask, the kernel is held to it but not timed
         case["plain_ms"] = _time_ms(lambda: bcsr_attention_plain(*args), **kw)
@@ -2130,7 +2155,8 @@ def main() -> int:
     # kernel against its plain version, and timed, there and at 524k
     t0 = time.perf_counter()
     bcsr_graphs = {"cora": datasets["cora"].graph,
-                   "pubmed": datasets["pubmed"].graph, "large": large.graph}
+                   "pubmed": datasets["pubmed"].graph, "large": large.graph,
+                   "hub": _hub_graph()}
     bcsr_tilings, bcsr_setup = _bcsr_tilings(bcsr_graphs)
     for fn in counters.values():
         fn.launches = 0

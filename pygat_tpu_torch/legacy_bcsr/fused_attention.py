@@ -10,12 +10,14 @@ heads:
     out[h, i, :] = sum_e num[e, h] * drop[e] * wh[h, send_e, :] / sum_e num[e, h]
 
 On CUDA tensors :func:`bcsr_attention` launches the hand-written kernel
-``csrc/bcsr_attention.cu``, which replaces the TPU kernel ``_make_kernel``
+``csrc/bcsr_attention.cu`` over the tiling's walk
+(:attr:`~.tiles.TiledGraph.walk`, built on the host by
+:func:`~.tiles.tile_graph`), which replaces the TPU kernel ``_make_kernel``
 (the source says how and what bounds it); on CPU tensors it runs
 :func:`bcsr_attention_plain`, the plain PyTorch version over the flat
-slots, which is also the kernel's oracle. Both also return the per-(head,
-receiver) max and denominator, which the analytic backward of
-:mod:`.sparse_attention` reuses.
+slots, which evaluated in float64 (``f64=True``) is also the kernel's
+oracle. Both also return the per-(head, receiver) max and denominator,
+which the analytic backward of :mod:`.sparse_attention` reuses.
 
 ``precision`` takes the reference's ``"default"`` and ``"highest"``, and
 both compute in f32. The TPU's ``"default"`` is bf16-class (its one-hot
@@ -24,9 +26,6 @@ matmuls at the MXU's default precision); the port has no such mode here.
 
 from __future__ import annotations
 
-import weakref
-
-import numpy as np
 import torch
 
 from pygat_tpu_torch.legacy_bcsr.tiles import EDGE_CHUNK, TILE, TiledGraph
@@ -44,29 +43,6 @@ def head_feature_pad(n_heads: int, f: int) -> int:
     while (n_heads * f_pad) % LANE:
         f_pad += 1
     return f_pad
-
-
-# chunk offsets of each row tile, by id of the TiledGraph's chunk_row
-_TILE_PTR: dict = {}
-
-
-def tile_ptr(tiles: TiledGraph) -> torch.Tensor:
-    """[n_tiles + 1] int32 on the tiles' device: row tile I owns chunks
-    ``tile_ptr[I]`` to ``tile_ptr[I + 1]``. Derived on the host once per
-    TiledGraph (chunk_row is sorted) and kept while its chunk_row lives."""
-    key = id(tiles.chunk_row)
-    ptr = _TILE_PTR.get(key)
-    if ptr is None:
-        rows = tiles.chunk_row.cpu().numpy()
-        if rows.size and (np.any(np.diff(rows) < 0) or rows[0] < 0
-                          or rows[-1] >= tiles.n_tiles):
-            raise ValueError("chunk_row must be sorted row tiles in "
-                             f"[0, {tiles.n_tiles})")
-        host = np.searchsorted(rows, np.arange(tiles.n_tiles + 1), "left")
-        ptr = torch.from_numpy(host.astype(np.int32)).to(tiles.chunk_row.device)
-        _TILE_PTR[key] = ptr
-        weakref.finalize(tiles.chunk_row, _TILE_PTR.pop, key, None)
-    return ptr
 
 
 def _check_args(f_dst, f_src, wh, tiles: TiledGraph, drop, precision):
@@ -94,12 +70,20 @@ def _check_args(f_dst, f_src, wh, tiles: TiledGraph, drop, precision):
 
 
 def bcsr_attention_plain(f_dst, f_src, wh, tiles: TiledGraph, alpha: float,
-                         drop=None, precision: str = "default"):
+                         drop=None, precision: str = "default", *,
+                         f64: bool = False):
     """Plain PyTorch version of :func:`bcsr_attention` over the flat slots:
     a gather, the segment max (``scatter_reduce``), exp, and two
     ``index_add_`` calls. Invalid slots go to a scratch row past the
-    outputs, so nothing depends on the data's shape and nothing syncs."""
+    outputs, so nothing depends on the data's shape and nothing syncs.
+    ``f64=True`` computes in float64 and returns float32: the kernel's
+    oracle, since the float32 sums of a hub's row (``index_add_``'s atomics
+    on the card, in an order that changes from call to call) are as noisy
+    as the tolerance."""
     _check_args(f_dst, f_src, wh, tiles, drop, precision)
+    if f64:
+        f_dst, f_src, wh = (t.double() for t in (f_dst, f_src, wh))
+        drop = None if drop is None else drop.double()
     h, n_pad = f_dst.shape
     valid = tiles.valid.reshape(-1) > 0
     rcv = (tiles.chunk_row.long().repeat_interleave(EDGE_CHUNK) * TILE
@@ -122,7 +106,8 @@ def bcsr_attention_plain(f_dst, f_src, wh, tiles: TiledGraph, alpha: float,
     m, den, acc = m[:, :n_pad], den[:, :n_pad], acc[:, :n_pad]
     has = den > 0
     out = acc / torch.where(has, den, 1.0)[:, :, None]
-    return out, torch.where(has, m, 0.0), den
+    res = (out, torch.where(has, m, 0.0), den)
+    return tuple(t.float() for t in res) if f64 else res
 
 
 @build.counted
@@ -135,9 +120,10 @@ def bcsr_attention(f_dst, f_src, wh, tiles: TiledGraph, alpha: float,
 
     f_dst / f_src [H, N_pad], wh [H, N_pad, F] float32; ``drop`` [C,
     EDGE_CHUNK] the numerators' keep factors per slot, or None. On a CUDA
-    tensor this launches ``csrc/bcsr_attention.cu`` (counted in
-    ``bcsr_attention.launches``); on a CPU tensor it runs
-    :func:`bcsr_attention_plain`.
+    tensor this launches ``csrc/bcsr_attention.cu`` over the tiling's walk
+    (:attr:`~.tiles.TiledGraph.walk`; it raises when there is none, and
+    never builds one), counted in ``bcsr_attention.launches``; on a CPU
+    tensor it runs :func:`bcsr_attention_plain`.
     """
     if f_dst.device.type == "cpu":
         return bcsr_attention_plain(f_dst, f_src, wh, tiles, alpha, drop,
@@ -145,15 +131,30 @@ def bcsr_attention(f_dst, f_src, wh, tiles: TiledGraph, alpha: float,
     if f_dst.device.type != "cuda":
         raise ValueError(f"bcsr_attention: unsupported device {f_dst.device}")
     _check_args(f_dst, f_src, wh, tiles, drop, precision)
+    walk = tiles.walk
+    if walk is None:
+        raise ValueError("bcsr_attention: a CUDA call needs the tiling's walk "
+                         "(TiledGraph.walk, built by tile_graph, or by "
+                         "attach_walk outside any CUDA-graph capture)")
     h, n_pad = f_dst.shape
     f = wh.shape[2]
-    out = torch.empty(h, n_pad, f, dtype=torch.float32, device=wh.device)
-    m = torch.empty(h, n_pad, dtype=torch.float32, device=wh.device)
+    n_split = walk.stream.split_at.shape[0]
+    kw = dict(dtype=torch.float32, device=wh.device)
+    # the kernel's outputs, a cut tile's pieces, and its node-major copy of
+    # f_src (scratch)
+    out = torch.empty(h, n_pad, f, **kw)
+    m = torch.empty(h, n_pad, **kw)
     den = torch.empty_like(m)
-    build.launch(bcsr_attention, f_dst, f_src, wh, tiles.chunk_col,
-                 tiles.recv_local, tiles.send_local, tiles.valid, drop,
-                 tile_ptr(tiles), tiles.n_tiles, h, f, float(alpha), out, m,
-                 den)
+    parts = ((torch.empty(n_split, h, TILE, f, **kw),
+              torch.empty(n_split, h, TILE, **kw),
+              torch.empty(n_split, h, TILE, **kw)) if n_split
+             else (None, None, None))
+    st = walk.stream
+    build.launch(bcsr_attention, f_dst, f_src, wh,
+                 None if drop is None else drop.reshape(-1), walk.rows,
+                 st.order, st.row_ptr, st.tile_ptr, st.split_at, tiles.n_tiles,
+                 n_split, st.max_run, h, f, float(alpha), out, m, den, *parts,
+                 torch.empty(n_pad, h, **kw))
     return out, m, den
 
 

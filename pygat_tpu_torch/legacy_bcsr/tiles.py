@@ -8,18 +8,22 @@ holds ``(recv_local, send_local, valid)``, both locals in [0, 128), and the
 chunks are in row-tile-major order, so one row tile's chunks are
 contiguous. The TPU kernel needs this layout to turn gathers and scatters
 into one-hot matmuls; the CUDA kernel (``csrc/bcsr_attention.cu``) reads
-the same layout with native gathers. The tiling is numpy on the host, field
+the tiling's walk instead (:class:`BcsrWalk`: its valid slots re-sorted by
+receiver, built on the host with the tiling and kept beside it, so the
+tuple keeps the reference's fields). The tiling is numpy on the host, field
 for field the reference's; the tensors go to the graph's device.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from pygat_tpu_torch.graph import Graph, host_edges
+from pygat_tpu_torch.ops.stream import DEAD, EC, StreamWalk, build_stream_walk
 
 TILE = 128  # node tile
 EDGE_CHUNK = 128  # edge slots per chunk
@@ -43,6 +47,85 @@ class TiledGraph(NamedTuple):
     def num_chunks(self) -> int:
         return self.chunk_row.shape[0]
 
+    @property
+    def walk(self) -> "BcsrWalk | None":
+        """The walk the CUDA kernel reads (:class:`BcsrWalk`), built with
+        the tiling by :func:`tile_graph` (or :func:`attach_walk`) and kept
+        while its tensors live; None for a tiling built otherwise."""
+        return _WALKS.get(_walk_key(self))
+
+
+class BcsrWalk(NamedTuple):
+    """A tiling's valid slots as the kernel ``csrc/bcsr_attention.cu``
+    walks them: re-sorted by (row tile, local receiver), senders ascending
+    within a receiver, and laid out as a stream of ``EC``-position chunks
+    per row tile (a tile without a valid slot owns none; a tile's last
+    chunk is padded with dead positions, which no run reaches).
+    ``stream.order`` names the flat BCSR slot ``c * EDGE_CHUNK + j`` at
+    each position (-1 dead), through which ``drop`` is read; ``rows`` the
+    sender's row ``chunk_col[c] * TILE + send_local[c, j]`` (-1 dead).
+    ``stream`` carries ``row_ptr``, the tile ranges (a hub's tile cut into
+    ``split_at`` pieces) and ``max_run``, the largest in-degree."""
+
+    stream: StreamWalk
+    rows: torch.Tensor  # [positions] int32
+
+
+# the walk of each tiling, by the ids of the tensors it was built from
+_WALKS: dict = {}
+_KEY_FIELDS = ("chunk_row", "chunk_col", "recv_local", "send_local", "valid")
+
+
+def _walk_key(tiles: TiledGraph) -> tuple:
+    return tuple(id(getattr(tiles, f)) for f in _KEY_FIELDS)
+
+
+def _build_walk(chunk_row, chunk_col, recv_local, send_local, valid,
+                n_tiles: int, device=None) -> BcsrWalk:
+    """The :class:`BcsrWalk` of a tiling's host arrays (numpy), on
+    ``device``."""
+    valid = np.asarray(valid).reshape(-1) > 0
+    recv_local = np.asarray(recv_local).reshape(-1)
+    send_local = np.asarray(send_local).reshape(-1)
+    slot = np.flatnonzero(valid)  # chunks by row tile, slots by sender
+    chunk = slot // EDGE_CHUNK
+    tile = np.asarray(chunk_row, np.int64)[chunk]
+    order = np.argsort(tile * TILE + recv_local[slot], kind="stable")
+    slot, chunk, tile = slot[order], chunk[order], tile[order]
+    counts = np.bincount(tile, minlength=n_tiles)
+    chunks = -(-counts // EC)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    base = np.concatenate([[0], np.cumsum(chunks)[:-1]]) * EC
+    pos = base[tile] + np.arange(slot.size) - start[tile]
+    n_pos = int(chunks.sum()) * EC
+    at_slot = np.full(n_pos, -1, np.int64)
+    at_slot[pos] = slot
+    rows = np.full(n_pos, -1, np.int64)
+    rows[pos] = (np.asarray(chunk_col, np.int64)[chunk] * TILE
+                 + send_local[slot])
+    local = np.full(n_pos, DEAD, np.int64)
+    local[pos] = recv_local[slot]
+    stream = build_stream_walk(local, np.repeat(np.arange(n_tiles), chunks),
+                               n_tiles, device, order=at_slot)
+    return BcsrWalk(stream, torch.from_numpy(rows.astype(np.int32)).to(device))
+
+
+def attach_walk(tiles: TiledGraph) -> BcsrWalk:
+    """Build the walk of ``tiles`` from its tensors (one read to the host)
+    and keep it beside them, as :func:`tile_graph` does; returns it. Not
+    inside a CUDA-graph capture."""
+    walk = _build_walk(*(getattr(tiles, f).cpu().numpy() for f in _KEY_FIELDS),
+                      tiles.n_tiles, tiles.chunk_row.device)
+    _keep_walk(tiles, walk)
+    return walk
+
+
+def _keep_walk(tiles: TiledGraph, walk: BcsrWalk) -> None:
+    key = _walk_key(tiles)
+    _WALKS[key] = walk
+    for f in _KEY_FIELDS:  # dropped when the first of them dies
+        weakref.finalize(getattr(tiles, f), _WALKS.pop, key, None)
+
 
 def _edges(graph: Graph):
     """(senders, receivers, edge_mask) of ``graph`` as host numpy arrays,
@@ -61,7 +144,8 @@ def tile_graph(graph: Graph, *, pad_chunks_to: int | None = None) -> TiledGraph:
     Padding edges are dropped (the kernels use ``valid``). Every row tile
     has at least one chunk, a row tile with no edge one empty chunk. The
     chunk count is padded to a multiple of 8 and to ``pad_chunks_to``, with
-    empty chunks on the last row tile.
+    empty chunks on the last row tile. The tiling's walk
+    (:attr:`TiledGraph.walk`) is built here too.
     """
     all_senders, all_receivers, mask = _edges(graph)
     mask = np.asarray(mask, bool)
@@ -161,7 +245,7 @@ def tile_graph(graph: Graph, *, pad_chunks_to: int | None = None) -> TiledGraph:
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return TiledGraph(
+    tiles = TiledGraph(
         chunk_row=dev(chunk_row),
         chunk_col=dev(chunk_col),
         chunk_last=dev(chunk_last),
@@ -171,6 +255,9 @@ def tile_graph(graph: Graph, *, pad_chunks_to: int | None = None) -> TiledGraph:
         edge_perm=dev(perm),
         n_tiles=n_tiles,
     )
+    _keep_walk(tiles, _build_walk(chunk_row, chunk_col, recv_l, send_l,
+                                  valid, n_tiles, device))
+    return tiles
 
 
 def tile_stats(tiles: TiledGraph) -> dict:

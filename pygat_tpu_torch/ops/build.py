@@ -26,16 +26,19 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# source name -> (C entry point, ctypes argtypes); every entry point returns
+# source name -> (C entry point, ctypes argtypes); every entry point takes
+# the CUDA stream last, typed as a pointer (ctypes passes an argument past
+# argtypes as a 32-bit int, which cuts a stream's address and, on the stack,
+# leaves the upper half of its slot as it found it), and returns
 # cudaGetLastError() as an int
 ENTRY_POINTS = {
-    "stream_scatter": ("pygat_stream_scatter", [_P] * 5 + [_I] * 4 + [_P] * 2),
+    "stream_scatter": ("pygat_stream_scatter", [_P] * 5 + [_I] * 4 + [_P] * 3),
     "fused_v1": ("pygat_fused_v1", [_P] * 9 + [_I] * 5 + [_F] + [_P] * 5),
     "fused_v2": ("pygat_fused_v2", [_P] * 9 + [_I] * 5 + [_F] + [_P] * 5),
     "expand": ("pygat_expand", [_P] * 3 + [_I] * 2 + [_P] * 2),
     "banded_take": ("pygat_banded_take", [_P] * 3 + [_I] * 3 + [_P] * 2),
     "banded_sender_sum": ("pygat_banded_sender_sum",
-                          [_P] * 5 + [_I] * 4 + [_P] * 2),
+                          [_P] * 5 + [_I] * 4 + [_P] * 3),
     "fused_v1_banded": ("pygat_fused_v1_banded",
                         [_P] * 10 + [_I] * 5 + [_F] + [_P] * 5),
     "fused_v2_banded": ("pygat_fused_v2_banded",
@@ -48,7 +51,7 @@ ENTRY_POINTS = {
     "spmm_banded": ("pygat_spmm_banded", [_P] * 7 + [_I] * 3 + [_P] * 3),
     "panel_spmm": ("pygat_panel_spmm", [_P] * 9 + [_I] * 4 + [_P] * 3),
     "bcsr_attention": ("pygat_bcsr_attention",
-                       [_P] * 9 + [_I] * 3 + [_F] + [_P] * 4),
+                       [_P] * 9 + [_I] * 5 + [_F] + [_P] * 8),
 }
 SOURCES = tuple(ENTRY_POINTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -3,6 +3,7 @@ checkout of this repository on the card, for an A/B of two commits in one
 call (parent, change, change, parent):
 
     python pygat_tpu_torch/tools/banded_ab.py ROOT --tag NAME [--out DIR] [--ablate] [--epochs]
+    python pygat_tpu_torch/tools/banded_ab.py ROOT --tag NAME --bcsr [--out DIR] [--ablate]
 
 ``ROOT`` is a checkout of the repository (for the parent, a ``git archive``
 unpacked into a directory that ``.gitignore`` lists). The script imports
@@ -34,6 +35,37 @@ memory rate). At F 256 the plain version is not run (some 30 GB of
 gathers); the GPU tests hold that width. The stream and window forwards of
 a checkout whose wrappers take the graph's walk (``walk=``,
 ``Graph.stream_walk``) get it; those of an older checkout run without.
+
+``--bcsr`` times kernel row 11 (``bcsr_attention``, the BCSR fused
+attention) instead, through ``ROOT``'s wrapper, at ``chip_smoke.py``'s
+phase-7 shapes (Cora H 8 F 8 and H 1 F 7, Pubmed H 8 F 8 and H 8 F 3, 524k
+H 8 F 8) and on the hub graph at H 8 F 8, without a dropout mask, each
+tiled by ``ROOT``'s ``tile_graph``: ``ROOT``'s ``chip_smoke._time_bcsr``
+times the kernel, its plain version and, at 524k, rows 2 and 8 over the
+same attention (``fused_v1``, ``fused_v1_banded``), beside the bound;
+then each call is held against the plain version (in f64 where ``ROOT``
+has ``f64=``) and called twice (is the second result equal bit for bit?).
+With ``--ablate`` it also builds altered copies of ``ROOT``'s
+``csrc/bcsr_attention.cu`` and times each through the wrapper at every
+shape (device time only; most alter the result). Of the earlier
+block-per-(tile, head, slab) body: ``pass1`` (the max pass alone), ``pass2`` (the exp and sum
+pass alone) and ``nopasses`` (neither: the shared-memory set-up and the
+row stores). Of the walk body: ``nofsrc`` (no f_src gather: logits from
+f_dst alone), ``fsrc_heads`` (f_src gathered head-major in place, H
+sectors a position, not from its node-major copy), ``nocopy`` (the
+node-major copy of f_src not made), ``cols4`` (lanes of up to 4
+columns: two lanes a head at F 8), ``occ3`` and ``occ4`` (at most 85 or
+64 registers a thread: three or four blocks of 256 threads an SM),
+``l2only`` and ``evictfirst`` (every load of the kernel's file cached in L2
+only, or marked evict-first, in place of the read-only path), ``nowh`` (no wh row gather),
+``norescale`` (the max of a run's first
+batch kept: no online rescale), ``nomerge`` (the segments of a cut run
+added, not merged into the larger max), ``nocombine`` (no combine of a
+cut tile's pieces), ``nosplit`` (no cut of long runs), ``batch2`` and
+``batch8`` (2 or 8 positions in flight instead of 4) and ``threads128``
+(blocks of at most 128 threads); ``fsrc_heads``, ``cols4``, ``occ3``,
+``occ4``, ``l2only`` and ``evictfirst`` give the same result too. The results go to
+``OUT/banded_ab_NAME.json`` under ``"bcsr"`` and ``"bcsr_ablate"``.
 
 ``--epochs`` also times, with ``ROOT``'s ``chip_smoke`` helpers, the Cora
 fast-loop epoch of both models and the 524k fast-loop epoch of both models
@@ -187,6 +219,169 @@ def _walk_kw(graph):
             if hasattr(type(graph), "stream_walk") else {})
 
 
+# the row-11 shapes (chip_smoke.py phase 7's, and the hub graph)
+BCSR_SHAPES = (("cora", ((8, 8), (1, 7))), ("pubmed", ((8, 8), (8, 3))),
+               ("large", ((8, 8),)), ("hub", ((8, 8),)))
+# text of csrc/bcsr_attention.cu -> its ablated form: of the earlier
+# block-per-(tile, head, slab) body (found by its "pass 1" comment), then
+# of the walk body
+_BCSR_OLD = {
+    "pass1": [(r"for \(long long base = k0; base < k1; base \+= THREADS\)",
+               "for (long long base = k0; base < k0; base += THREADS)", 1)],
+    "pass2": [(r"for \(long long k = k0 \+ threadIdx\.x; k < k1; "
+               r"k \+= THREADS\)",
+               "for (long long k = k0 + threadIdx.x; k < k0; k += THREADS)",
+               1)],
+    "nopasses": [(r"base < k1; base \+= THREADS\)",
+                  "base < k0; base += THREADS)", 1),
+                 (r"k < k1; k \+= THREADS\)", "k < k0; k += THREADS)", 1)],
+}
+_BCSR_WALK = {
+    "nofsrc": [(r"lg\[u\] = u < n && ln\.on \? __ldg\(fs \+ static_cast<long "
+                r"long>\(s\[u\]\) \* p\.H\)\s*: 0\.f;", "lg[u] = 0.f;", 1)],
+    "fsrc_heads": [(r"const float\* fs = p\.f_src_t \+ ln\.h;",
+                    "const float* fs = p.f_src + hrow;", 1),
+                   (r"__ldg\(fs \+ static_cast<long long>\(s\[u\]\) \* p\.H\)",
+                    "__ldg(fs + s[u])", 1)],
+    "nocopy": [(r"  transpose_kernel<<<", "  if (false) transpose_kernel<<<",
+                1)],
+    "cols4": [(r"while \(p\.Q \* BA_MAX_C < fg\) p\.Q <<= 1;",
+               "while (p.Q < BA_MAX_P && p.Q * 4 < fg) p.Q <<= 1;", 1)],
+    "occ3": [(r"__launch_bounds__\(kSplit \? BA_SPLIT_THREADS : BA_THREADS\)",
+              "__launch_bounds__(kSplit ? BA_SPLIT_THREADS : BA_THREADS, "
+              "kSplit ? 6 : 3)", 1)],
+    "occ4": [(r"__launch_bounds__\(kSplit \? BA_SPLIT_THREADS : BA_THREADS\)",
+              "__launch_bounds__(kSplit ? BA_SPLIT_THREADS : BA_THREADS, "
+              "kSplit ? 8 : 4)", 1)],
+    "l2only": [(r'#include "tile_pieces\.cuh"',
+                '#define __ldg __ldcg\n#include "tile_pieces.cuh"', 1)],
+    "evictfirst": [(r'#include "tile_pieces\.cuh"',
+                    '#define __ldg __ldcs\n#include "tile_pieces.cuh"', 1)],
+    "nowh": [(r"load_cols<C, kVec>\(wh \+ static_cast<long long>\(s\[u\]\) "
+              r"\* p\.F,\s*u < n \? ln\.nf : 0, v\[u\]\);",
+              "for (int i = 0; i < C; ++i) v[u][i] = lg[u];", 1)],
+    "norescale": [(r"if \(bm > st\.mx\) \{", "if (st.mx == neg_inf()) {",
+                   1)],
+    "nomerge": [(r"merge\(st, src\[0\], src\[1\], src \+ 2\);",
+                 "st.mx = fmaxf(st.mx, src[0]); st.d += src[1]; "
+                 "for (int i = 0; i < C; ++i) st.acc[i] += src[2 + i];", 1)],
+    "nocombine": [(r"if \(rc != 0 \|\| n_split <= 0\) return rc;",
+                   "return rc;", 1)],
+    "nosplit": [(r"const bool split = max_run > BA_SPLIT;",
+                 "const bool split = false;", 1)],
+    "batch2": [(r"constexpr int BA_BATCH = 4;", "constexpr int BA_BATCH = 2;",
+                1)],
+    "batch8": [(r"constexpr int BA_BATCH = 4;", "constexpr int BA_BATCH = 8;",
+                1)],
+    "threads128": [(r"constexpr int BA_THREADS = 256;",
+                    "constexpr int BA_THREADS = 128;", 1)],
+}
+
+
+def _bcsr_ablated(root, build):
+    """Build altered copies of ``root``'s bcsr_attention.cu (the earlier
+    body's variants or the walk body's), all nvcc processes at once;
+    returns {variant: ctypes function}."""
+    csrc = os.path.join(root, "pygat_tpu_torch", "csrc")
+    out_dir = os.path.join(root, "pygat_tpu_torch", "_build", "ablate_bcsr")
+    with open(os.path.join(csrc, "bcsr_attention.cu")) as f:
+        body = f.read()
+    table = _BCSR_OLD if "// pass 1:" in body else _BCSR_WALK
+    procs = []
+    for variant, subs in table.items():
+        vdir = os.path.join(out_dir, variant)
+        shutil.rmtree(vdir, ignore_errors=True)
+        shutil.copytree(csrc, vdir)
+        text = body
+        for pattern, repl, want in subs:
+            text, hits = re.subn(pattern, repl, text)
+            if hits != want:
+                raise RuntimeError(f"{variant}: {pattern!r} matched {hits} "
+                                   f"times, not {want}")
+        with open(os.path.join(vdir, "bcsr_attention.cu"), "w") as f:
+            f.write(text)
+        lib = os.path.join(vdir, "bcsr_attention.so")
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib,
+               os.path.join(vdir, "bcsr_attention.cu")]
+        procs.append((variant, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    fns = {}
+    for variant, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc bcsr {variant}:\n{log.decode()}")
+        symbol, argtypes = build.ENTRY_POINTS["bcsr_attention"]
+        fn = getattr(ctypes.CDLL(lib), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[variant] = fn
+    return fns
+
+
+def _bcsr_section(cs, root, graphs, large, plan, build, ablate, torch):
+    """Kernel row 11 of the checkout on the card (``--bcsr``): returns
+    (cases, ablation rows)."""
+    from pygat_tpu_torch.legacy_bcsr import fused_attention as bfa
+    from pygat_tpu_torch.legacy_bcsr.tiles import tile_graph
+
+    variants = _bcsr_ablated(root, build) if ablate else {}
+    exact = ({"f64": True} if "f64" in inspect.signature(
+        bfa.bcsr_attention_plain).parameters else {})
+    cases, ablated = [], []
+    for label, shapes in BCSR_SHAPES:
+        g = graphs[label]
+        t0 = time.perf_counter()
+        tiles = tile_graph(g)
+        torch.cuda.synchronize()
+        tiling_s = time.perf_counter() - t0
+        n_valid = int(tiles.valid.sum())
+        for i, (h, f) in enumerate(shapes):
+            fd, fs, wh, _ = cs._bcsr_inputs(g, h, f, 60 + i)
+            args = (fd, fs, wh, tiles, 0.2, None)
+            case = dict(kernel="bcsr_attention", dataset=label, H=h, F=f,
+                        dropout=0.0, args=args, n_valid=n_valid,
+                        tiling_s=tiling_s)
+            # times the kernel, its plain version and, at 524k, rows 2 and 8
+            cs._time_bcsr(case, large if label == "large" else None, plan)
+            got = bfa.bcsr_attention(*args)
+            again = bfa.bcsr_attention(*args)
+            want = bfa.bcsr_attention_plain(*args, **exact)
+            torch.cuda.synchronize()
+            errs = [cs._max_err(a, b) for a, b in zip(got, want)]
+            case["max_abs_err"] = max(e for e, _ in errs)
+            case["within_tolerance"] = all(e <= a for e, a in errs)
+            case["bitwise_repeat"] = all(
+                torch.equal(a, b) for a, b in zip(got, again))
+            case["oracle"] = "f64" if exact else "f32"
+            print(f"  bcsr_attention {label} H {h} F {f}: error "
+                  f"{case['max_abs_err']:.3e} against the {case['oracle']} "
+                  f"plain version (within tolerance: "
+                  f"{case['within_tolerance']}), bitwise repeat "
+                  f"{case['bitwise_repeat']}", flush=True)
+            cases.append(case)
+            del got, again, want
+            if variants:
+                row = dict(dataset=label, H=h, F=f,
+                           base_ms=cs._time_ms(lambda: bfa.bcsr_attention(
+                               *args)))
+                base = build.kernel("bcsr_attention")
+                try:
+                    for v, fn in variants.items():
+                        build._KERNELS["bcsr_attention"] = fn
+                        row[f"{v}_ms"] = cs._time_ms(
+                            lambda: bfa.bcsr_attention(*args))
+                finally:
+                    build._KERNELS["bcsr_attention"] = base
+                print(f"  bcsr_attention.cu {label} H {h} F {f}: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in row.items()
+                    if k.endswith("_ms")), flush=True)
+                ablated.append(row)
+            del args, fd, fs, wh
+            torch.cuda.empty_cache()
+        del tiles
+        torch.cuda.empty_cache()
+    return cases, ablated
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", help="checkout whose kernels are timed")
@@ -196,6 +391,8 @@ def main() -> int:
                     help="also time ablated copies of the tile-owner body")
     ap.add_argument("--epochs", action="store_true",
                     help="also time the Cora and 524k fast-loop epochs")
+    ap.add_argument("--bcsr", action="store_true",
+                    help="time kernel row 11 (bcsr_attention) instead")
     a = ap.parse_args()
     root = os.path.abspath(a.root)
     sys.path.insert(0, root)
@@ -237,6 +434,12 @@ def main() -> int:
     plans = {"large": bd.maybe_plan_large(large.graph),
              "cora": bd.build_band_plan(cora.graph, w=4),
              "hub": bd.build_band_plan(hub, w=4)}
+    if a.bcsr:
+        res["bcsr"], res["bcsr_ablate"] = _bcsr_section(
+            cs, root, graphs, large, plans["large"], build, a.ablate, torch)
+        for case in res["bcsr"]:
+            case.pop("args", None)
+        return _finish(res, a, t0)
     corner = plan_csc_to_csr(large.graph)
     wide = ((8, 8), (1, 4), (1, 64), (1, 256))
     # (order, graph label, kernel, shapes)
@@ -395,12 +598,17 @@ def main() -> int:
                       f"{v[len(v) // 2]:.4f} ms ({[round(x, 4) for x in v]})",
                       flush=True)
 
+    return _finish(res, a, t0)
+
+
+def _finish(res, a, t0) -> int:
+    """Write the results; 1 if a case disagreed with its plain version."""
     print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
     os.makedirs(a.out, exist_ok=True)
     with open(os.path.join(a.out, f"banded_ab_{a.tag}.json"), "w") as f:
         json.dump(res, f, indent=1)
     return int(not all(c.get("within_tolerance", True)
-                       for c in res["cases"]))
+                       for c in res["cases"] + res.get("bcsr", [])))
 
 
 if __name__ == "__main__":

@@ -37,11 +37,14 @@ segments, their tiles into pieces); two calls agree bit for bit, a launch
 is capturable, and a CUDA call without a walk raises. The tile-owner
 kernels are held to their plain versions evaluated in f64
 (``f64=True``), since a hub row's 9,000-term f32 sum by index_add_ is
-itself off by up to about 1e-5. The BCSR attention kernel runs on
-tilings with a row tile without edges and (I, J) pairs of several chunks,
-at F = 7, 8 and 256 (four column slabs), with and without a dropout mask,
-and its autograd Function card against CPU. chip_smoke.py covers the main
-path's full-size shapes.
+itself off by up to about 1e-5. The BCSR attention kernel (a walk over the
+tiling's valid slots, ``TiledGraph.walk``) runs on tilings with a row tile
+without edges and (I, J) pairs of several chunks, and on the hub graph (its
+tile cut into pieces, the hub's run into segments), at H 8 F 8, H 1 F 7
+and H 3 F 256, with and without a dropout mask, held to the plain version
+in f64; two calls agree bit for bit, a launch is capturable, a CUDA call
+without the walk raises, and its autograd Function runs card against CPU.
+chip_smoke.py covers the main path's full-size shapes.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ from pygat_tpu_torch.data.citation import CitationDataset
 from pygat_tpu_torch.graph import build_graph
 from pygat_tpu_torch.legacy_bcsr import fused_attention as bfa
 from pygat_tpu_torch.legacy_bcsr import sparse_attention as bsa
-from pygat_tpu_torch.legacy_bcsr.tiles import tile_graph
+from pygat_tpu_torch.legacy_bcsr.tiles import attach_walk, tile_graph
 from pygat_tpu_torch.models.gat import GATConfig
 from pygat_tpu_torch import ops
 from pygat_tpu_torch.ops import banded as bd
@@ -1555,23 +1558,68 @@ def _bcsr_args(g, tiles, h, f, gen, device, dropout):
              torch.randn(h, n, f, generator=gen, device=device)], keep, drop)
 
 
+def _bcsr_graph(device, kind):
+    return _hub(device) if kind == "hub" else _graph(device,
+                                                     kind == "empty_tile")
+
+
 @pytest.mark.parametrize("dropout", [False, True], ids=["no_drop", "drop"])
-@pytest.mark.parametrize("empty_tile", [False, True])
+@pytest.mark.parametrize("kind", ["graph", "empty_tile", "hub"])
 @pytest.mark.parametrize("h,f", [(8, 8), (1, 7), (3, 256)])
-def test_bcsr_attention_kernel_matches_plain(cuda, h, f, empty_tile, dropout):
-    g = _graph(cuda, empty_tile)
+def test_bcsr_attention_kernel_matches_plain(cuda, h, f, kind, dropout):
+    """The walk kernel, one launch, against the plain version in f64: on a
+    tiling with a row tile without edges, and on the hub graph (its tile
+    cut into pieces, the hub's run into segments: both merges run)."""
+    g = _bcsr_graph(cuda, kind)
     tiles = tile_graph(g)
+    if kind == "hub":
+        assert tiles.walk.stream.split_at.numel() and \
+            tiles.walk.stream.max_run > 32
     gen = torch.Generator(device=cuda).manual_seed(10 * h + f)
     (fd, fs_, wh), _, drop = _bcsr_args(g, tiles, h, f, gen, cuda, dropout)
     before = bfa.bcsr_attention.launches
     got = bfa.bcsr_attention(fd, fs_, wh, tiles, 0.2, drop)
     torch.cuda.synchronize()
     assert bfa.bcsr_attention.launches == before + 1
-    want = bfa.bcsr_attention_plain(fd, fs_, wh, tiles, 0.2, drop)
+    want = bfa.bcsr_attention_plain(fd, fs_, wh, tiles, 0.2, drop, f64=True)
     for a, b in zip(got, want):
         _close(a, b)
-    if empty_tile:
+    if kind == "empty_tile":
         assert not got[0][:, 128:256].any() and not got[2][:, 128:256].any()
+
+
+@pytest.mark.parametrize("kind", ["graph", "hub"])
+@pytest.mark.parametrize("h,f", [(8, 8), (3, 256)])
+def test_bcsr_attention_repeats_bit_for_bit(cuda, h, f, kind):
+    """The walk fixes the summation order: a second call, with a dropout
+    mask, gives the same bits."""
+    g = _bcsr_graph(cuda, kind)
+    tiles = tile_graph(g)
+    gen = torch.Generator(device=cuda).manual_seed(h + f)
+    (fd, fs_, wh), _, drop = _bcsr_args(g, tiles, h, f, gen, cuda, True)
+    first = bfa.bcsr_attention(fd, fs_, wh, tiles, 0.2, drop)
+    second = bfa.bcsr_attention(fd, fs_, wh, tiles, 0.2, drop)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bcsr_attention_without_a_walk_raises(cuda):
+    """A tiling not built by tile_graph has no walk: a CUDA call raises
+    (it never builds one), and runs once attach_walk has built it."""
+    g = _graph(cuda, False)
+    tiles = tile_graph(g)
+    copy = type(tiles)(*(t.clone() if isinstance(t, torch.Tensor) else t
+                         for t in tiles))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    (fd, fs_, wh), _, _ = _bcsr_args(g, tiles, 2, 8, gen, cuda, False)
+    before = bfa.bcsr_attention.launches
+    with pytest.raises(ValueError, match="walk"):
+        bfa.bcsr_attention(fd, fs_, wh, copy, 0.2)
+    assert bfa.bcsr_attention.launches == before
+    attach_walk(copy)
+    for a, b in zip(bfa.bcsr_attention(fd, fs_, wh, copy, 0.2),
+                    bfa.bcsr_attention(fd, fs_, wh, tiles, 0.2)):
+        assert torch.equal(a, b)
 
 
 def test_bcsr_attention_gradients_card_vs_cpu(cuda, monkeypatch):

@@ -52,3 +52,23 @@ def test_port_and_smoke_import_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 30  # every module was imported
+
+
+def test_entry_points_type_every_argument_and_the_stream():
+    """Each kernel library's C entry point takes as many arguments as its
+    ctypes argtypes name, the CUDA stream last as a pointer (an argument
+    past argtypes would go as a 32-bit int: a cut, or on the stack
+    half-undefined, stream address)."""
+    import ctypes
+    import re
+
+    from pygat_tpu_torch.ops import build
+
+    for name, (symbol, types) in build.ENTRY_POINTS.items():
+        with open(os.path.join(build.CSRC_DIR, f"{name}.cu")) as f:
+            src = f.read()
+        params = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{",
+                           src, re.S).group(1)
+        assert len(params.split(",")) == len(types), name
+        assert params.split(",")[-1].split() == ["void*", "stream"], name
+        assert types[-1] is ctypes.c_void_p, name
