@@ -99,11 +99,31 @@ of which prints its seconds:
    beside its plain version and its bound; at 524k also the stream and
    banded fused forwards (``fused_v1``, ``fused_v1_banded``) over the same
    attention;
-8. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+8. the PPI path (``pygat_tpu_torch.cli.train_ppi``, the inductive
+   trainer): load the PPI stand-in (20 / 2 / 2 graphs at the real sizes);
+   on the first train batch of ``make_batches`` and on a batch assembled
+   from the device-resident bank with a dead member (whose walks, assembled
+   on the card, must equal those built on the host from its fields) hold
+   rows 1-3 at the preset's widths (fused forwards at H 4 F 256 and H 6 F
+   121, GATv2's with exact bounds; segment sums at L = 4, 6, 726, 1,024,
+   1,452 and 2,048) against their f64 plain versions, each called twice
+   (equal bit for bit); both models on the train batch, forward and
+   gradients, card vs CPU; then through the CLI, with the counters set to
+   0 just before each run and read just after, both models by the
+   per-batch loop and by the banked loop (``--epoch-scan``) for
+   PPI_EPOCHS epochs: finite, falling training losses, the launches
+   ``_want_ppi`` states (and the CLI prints) and no other kernel, and the
+   banked loop's first-epoch losses equal to the per-batch loop's within
+   LOOPS_RTOL; then the kernels on the train batch timed as in phase 5,
+   and the epoch of both loops of both models (the per-batch loop split
+   into host batch building, copies and device steps); the phase fails
+   past PPI_BUDGET_S seconds;
+9. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 The script imports nothing of JAX or of the JAX package, needs no network
 and starts no process other than ``nvidia-smi``, ``nvcc`` and the one
-trainer subprocess, and waits for each.
+trainer subprocess, and waits for each. Without the PPI files under
+``data/ppi/`` it builds the loader's deterministic stand-ins.
 """
 
 from __future__ import annotations
@@ -166,6 +186,13 @@ BCSR_P = 0.6
 # atomics, S[i] from the forward's output) against autograd of the segment
 # ops, as tests/test_torch_bcsr.py holds the gradients to the JAX package's
 BCSR_GRAD_RTOL = 5e-5
+# the PPI path: the preset's distinct (heads, features) of its layers (4 x
+# 256 twice, 6 x 121), the epochs of each CLI run, the epochs timed after a
+# warm-up one, and the phase's budget on the card
+PPI_WIDTHS = ((4, 256), (6, 121))
+PPI_EPOCHS = 2
+PPI_TIMED_EPOCHS = 3
+PPI_BUDGET_S = 90.0
 REPLACES = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
             "corner_permute": "pygat_tpu/ops/corner.py:216",
             "fused_v1_window": "pygat_tpu/ops/fused_stream.py:134",
@@ -329,6 +356,75 @@ def _stream_kernel_cases(name, g, heads, feats, gen, fused, kernel_cases):
                 bitwise_repeat=repeat, n_live=int((g.r_local < 128).sum())))
 
 
+def _time_scatter(case, g):
+    """Time a segment-sum case of :func:`_scatter_cases` over ``g``'s
+    walks: the kernel, its plain version, ``index_add_`` and the byte
+    bound, into ``case``."""
+    import torch
+
+    from pygat_tpu_torch.ops.stream import stream_scatter, stream_scatter_plain
+
+    kw = (dict(calls=BIG_CALLS, replays=BIG_REPLAYS)
+          if case["dataset"] == "large" else {})
+    n_pad, width = g.num_nodes_padded, case["L"]
+    case["ms"] = _time_ms(lambda: _scatter_call(case, g, stream_scatter), **kw)
+    case["plain_ms"] = _time_ms(
+        lambda: _scatter_call(case, g, stream_scatter_plain), **kw)
+    # one PyTorch call computing the same sums: index_add_ into a zeroed
+    # buffer with one scratch row taking the dead slots
+    if case["side"] == "recv":
+        idx = torch.where(g.r_local < 128,
+                          g.r_chunk.long().repeat_interleave(256) * 128
+                          + g.r_local.long(), n_pad)
+    else:
+        idx = g.senders.long()
+    lib_out = torch.zeros(n_pad + 1, width, device="cuda")
+    case["library_ms"] = _time_ms(
+        lambda: lib_out.index_add_(0, idx, case["data"]), **kw)
+    del idx, lib_out
+    idx_words = g.r_local.numel() + g.r_chunk.numel() + (
+        g.c_slot.numel() if case["side"] == "send" else 0)
+    n_bytes = 4 * (case["n_live"] * width + idx_words + n_pad * width)
+    case["bound_ms"], case["bound_by"] = _bound(n_bytes, case["n_live"] * width)
+    print(f"  stream_scatter {case['dataset']} {case['path']} "
+          f"{case['side']} L={width}: "
+          f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
+          f"index_add_ {case['library_ms']:.4f} ms, bound "
+          f"{case['bound_ms']:.5f} ms ({case['bound_by']})")
+
+
+def _time_fused(kname, kernel, plain, case, g):
+    """Time a fused-forward case of :func:`_stream_kernel_cases` over
+    ``g``'s walk: the kernel, its plain version and the byte bound, into
+    ``case`` (no one PyTorch call computes it)."""
+    args = case["args"]
+    kw = (dict(calls=BIG_CALLS, replays=BIG_REPLAYS)
+          if case["dataset"] == "large" else {})
+    n_pad, h, f = g.num_nodes_padded, case["H"], case["F"]
+    case["ms"] = _time_ms(lambda: kernel(*args, walk=g.stream_walk), **kw)
+    case["plain_ms"] = _time_ms(lambda: plain(*args), **kw)
+    case["library_ms"] = None
+    n_live = case["n_live"]
+    index_words = 2 * g.num_edges_padded + g.r_chunk.numel()
+    if kname == "fused_v1":
+        n_bytes = 4 * (n_pad * h * f + 2 * n_pad * h + h * f
+                       + n_live * h + index_words
+                       + n_pad * (h * f + h))
+        n_flops = n_live * (4 * h * f + 6 * h)
+    else:
+        # each input once: the node tables whi and whj (their gathered rows
+        # are re-read from L2, not from memory), ub, a, a live slot's keep
+        # factors, the index words; out and den written
+        n_bytes = 4 * (2 * n_pad * h * f + n_pad * h + h * f
+                       + n_live * h + index_words
+                       + n_pad * (h * f + h))
+        n_flops = n_live * (6 * h * f + 6 * h)
+    case["bound_ms"], case["bound_by"] = _bound(n_bytes, n_flops)
+    print(f"  {kname} {case['dataset']} H={h} F={f}: "
+          f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
+          f"bound {case['bound_ms']:.5f} ms ({case['bound_by']})")
+
+
 def _tail(g, plan, e, h, gen):
     """Keep factors of dropout 0.6 over ``e`` slots, then the edge order's
     arguments: the receiver stream of ``g``, or the band ``plan``."""
@@ -382,26 +478,23 @@ def _fused_v2_inputs(g, h, f, gen, plan=None):
     return (whi, whj, ub, a) + _tail(g, plan, e, h, gen)
 
 
-def _model_card_vs_cpu(layer_type, cora, plan=None):
-    """Forward and gradients of the Cora model on the card against the same
-    model on the CPU (kernels against plain versions, end to end), over
-    the band plan or the corner plans ``plan`` when one is given."""
+def _card_vs_cpu(label, cfg, x, graph, plan=None):
+    """Forward and gradients of the model ``cfg`` on the card against the
+    same model on the CPU (kernels against plain versions, end to end),
+    the loss summing sin of the outputs of the graph's real rows, over the
+    band plan or the corner plans ``plan`` when one is given."""
     import torch
 
-    from pygat_tpu_torch.models.gat import GATConfig, apply_gat, init_gat, parameters
-    from pygat_tpu_torch.ops.banded import BandPlan
-    from pygat_tpu_torch.models.presets import PRESETS
+    from pygat_tpu_torch.models.gat import apply_gat, init_gat, parameters
     from pygat_tpu_torch.utils.platform import make_generator
 
-    cfg = GATConfig(layer_type=layer_type, **PRESETS["cora"])
-    cfg = cfg._replace(nfeats=(int(cora.features.shape[1]),) + cfg.nfeats[1:])
     results = {}
     for dev in ("cuda", "cpu"):
         params = init_gat(cfg, make_generator("cpu", 72), device=dev)
-        out = apply_gat(params, cfg, cora.features.to(dev), cora.graph.to(dev),
-                        None, train=False,
+        gd = graph.to(dev)
+        out = apply_gat(params, cfg, x.to(dev), gd, None, train=False,
                         plans=None if plan is None else plan.to(dev))
-        torch.sin(out[: cora.num_nodes]).sum().backward()
+        torch.sin(out[gd.node_mask]).sum().backward()
         results[dev] = (out.detach().cpu(),
                         [p.grad.detach().cpu() for p in parameters(params)])
     out_c, grads_c = results["cuda"]
@@ -410,12 +503,7 @@ def _model_card_vs_cpu(layer_type, cora, plan=None):
         raise AssertionError("model output on the card is not finite")
     scale = max(1.0, float(out_p.abs().max()))
     err = float((out_c - out_p).abs().max())
-    over = ("receiver stream" if plan is None else
-            f"band plan (w={plan.w})" if isinstance(plan, BandPlan) else
-            f"corner plans ({len(plan.fwd.passes)} + {len(plan.inv.passes)} "
-            "passes)")
-    print(f"phase 3: Cora {layer_type} over the {over}, forward card vs CPU: "
-          f"max_abs_err "
+    print(f"{label}, forward card vs CPU: max_abs_err "
           f"{err:.3e} (allowed {MODEL_RTOL * scale:.3e})")
     if err > MODEL_RTOL * scale:
         raise AssertionError("model forward on the card disagrees with the CPU")
@@ -426,15 +514,56 @@ def _model_card_vs_cpu(layer_type, cora, plan=None):
               f"(allowed {MODEL_RTOL * gscale:.3e})")
         if not (gerr <= MODEL_RTOL * gscale):
             raise AssertionError("model gradient on the card disagrees with the CPU")
+
+
+def _fused_v2_exact_inputs(g, h, f, gen):
+    """:func:`_fused_v2_inputs` over the receiver stream, with each row's
+    exact largest logit as ub: at F = 121 and 256 the layer's sign-split
+    bound lies so far above the logits of random tables that every
+    numerator underflows and the comparison would hold nothing."""
+    import torch
+
+    from pygat_tpu_torch.ops.fused_stream import leaky_relu, stream_receivers
+
+    whi, whj, _, a, *tail = _fused_v2_inputs(g, h, f, gen)
+    n, e = g.num_nodes_padded, g.num_edges_padded
+    rcv, snd = stream_receivers(g.r_local, g.r_chunk), g.senders.long()
+    logits = (leaky_relu(whi[rcv] + whj[snd], 0.2).view(e, h, f) * a).sum(-1)
+    logits = torch.where((g.r_local < 128)[:, None], logits, float("-inf"))
+    ub = torch.full((n, h), float("-inf"), device=whi.device).scatter_reduce(
+        0, rcv[:, None].expand(e, h), logits, "amax")
+    ub = torch.where(torch.isfinite(ub), ub, 0.0).contiguous()
+    return (whi, whj, ub, a, *tail)
+
+
+def _model_card_vs_cpu(layer_type, cora, plan=None):
+    """:func:`_card_vs_cpu` of the Cora model over the receiver stream, or
+    over the band plan or the corner plans ``plan``; returns its config."""
+    from pygat_tpu_torch.models.gat import GATConfig
+    from pygat_tpu_torch.ops.banded import BandPlan
+    from pygat_tpu_torch.models.presets import PRESETS
+
+    cfg = GATConfig(layer_type=layer_type, **PRESETS["cora"])
+    cfg = cfg._replace(nfeats=(int(cora.features.shape[1]),) + cfg.nfeats[1:])
+    over = ("receiver stream" if plan is None else
+            f"band plan (w={plan.w})" if isinstance(plan, BandPlan) else
+            f"corner plans ({len(plan.fwd.passes)} + {len(plan.inv.passes)} "
+            "passes)")
+    _card_vs_cpu(f"phase 3: Cora {layer_type} over the {over}", cfg,
+                 cora.features, cora.graph, plan)
     return cfg
 
 
-def _train_cli(argv, epochs, counters, jsonl):
-    """One run of the trainer CLI on CUDA with every launch counter set to 0
-    just before and read just after. Returns (the wrappers' launch counts,
-    train losses, the CUDA graph replays the CLI reported, the launches one
-    replay holds by kernel name, the CLI's standard output)."""
-    from pygat_tpu_torch.cli.train import main as train_main
+def _train_cli(argv, epochs, counters, jsonl, ppi=False):
+    """One run of the trainer CLI on CUDA (``cli.train``, or with ``ppi``
+    ``cli.train_ppi``) with every launch counter set to 0 just before and
+    read just after. Returns (the wrappers' launch counts, train losses,
+    the CUDA graph replays the CLI reported, the launches one replay holds
+    by kernel name, the CLI's standard output)."""
+    if ppi:
+        from pygat_tpu_torch.cli.train_ppi import main as train_main
+    else:
+        from pygat_tpu_torch.cli.train import main as train_main
 
     if os.path.exists(jsonl):
         os.remove(jsonl)
@@ -451,7 +580,8 @@ def _train_cli(argv, epochs, counters, jsonl):
         raise AssertionError("the trainer did not run on CUDA")
     with open(jsonl) as fh:
         recs = [json.loads(line) for line in fh]
-    losses = [r["loss_train"] for r in recs if r["kind"] == "epoch"]
+    kind = "ppi_epoch" if ppi else "epoch"
+    losses = [r["loss_train"] for r in recs if r["kind"] == kind]
     if len(losses) != epochs or not all(math.isfinite(v) for v in losses):
         raise AssertionError("train losses missing or not finite")
     if not losses[-1] < losses[0]:
@@ -1660,6 +1790,252 @@ def _time_bcsr(case, large=None, band_plan=None):
           f"{case['bound_ms']:.5f} ms ({case['bound_by']}){extra}", flush=True)
 
 
+def _ppi_batches(data, gen, fused, kernel_cases):
+    """The PPI path's kernels at the preset's widths against their plain
+    versions (:func:`_stream_kernel_cases`): on the first train batch of
+    ``make_batches`` (shuffled, as the per-batch loop's first epoch) and on
+    a batch assembled from the train bank with a dead member, whose walks
+    must equal those built on the host from its own fields. Returns (the
+    two graphs by name, the bank's and the batch's set-up seconds, the
+    train batch)."""
+    import torch
+
+    from pygat_tpu_torch.data.ppi import (
+        assemble_banked_batch,
+        bank_bounds,
+        batch_bounds,
+        build_bank,
+        make_batches,
+    )
+    from pygat_tpu_torch.ops.stream import build_stream_walk
+
+    bounds = [batch_bounds(s, 2) for s in (data.train, data.valid, data.test)]
+    n_pad, e_pad = max(b[0] for b in bounds), max(b[1] for b in bounds)
+    t1 = time.perf_counter()
+    pb = next(make_batches(data.train, 2, n_pad=n_pad, e_pad=e_pad,
+                           shuffle=True, seed=72, device="cuda"))
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t1
+    n_pg, e_pg = bank_bounds([data.train, data.valid, data.test])
+    t1 = time.perf_counter()
+    bank = build_bank(data.train, n_pg, e_pg, device="cuda")
+    torch.cuda.synchronize()
+    bank_s = time.perf_counter() - t1
+    last = len(data.train) - 1
+    _, gb, _ = assemble_banked_batch(bank, [last, 0], [True, False])
+    for side, (local, chunk, walk) in (
+            ("receiver", (gb.r_local, gb.r_chunk, gb.stream_walk)),
+            ("sender", (gb.c_local, gb.c_chunk, gb.sender_walk))):
+        ref = build_stream_walk(local.cpu().numpy(), chunk.cpu().numpy(),
+                                gb.num_nodes_padded // 128, "cuda")
+        same = all(torch.equal(getattr(walk, f), getattr(ref, f))
+                   for f in ("row_ptr", "tile_ptr", "split_at"))
+        print(f"phase 8: banked batch (graphs {last} and 0, 0 dead), {side} "
+              f"walk assembled on the card: {walk.split_at.numel()} split "
+              f"pieces, max_run {walk.max_run}; "
+              f"{'equal' if same else 'NOT equal'} to the host-built walk "
+              "of its fields")
+        if not same or walk.max_run != ref.max_run:
+            raise AssertionError(f"the banked batch's {side} walk is wrong")
+    graphs = {"ppi batch": pb.batch.graph, "ppi bank": gb}
+    for name, g in graphs.items():
+        print(f"phase 8: {name}: N_pad {g.num_nodes_padded}, E_s "
+              f"{g.num_edges_padded}, CSC stream {g.c_slot.shape[0]}, live "
+              f"slots {int((g.r_local < 128).sum())}", flush=True)
+        _stream_kernel_cases(name, g, *zip(*PPI_WIDTHS), gen, fused,
+                             kernel_cases)
+    del bank
+    return graphs, {"ppi_bank": bank_s, "ppi_batch": batch_s}, pb
+
+
+def _want_ppi(fused_name, epochs, n_train, n_eval):
+    """The launches a PPI run makes through the wrappers, by either loop:
+    per train batch 3 layers of one fused forward and, in its backward, 2
+    stream_scatters (receiver and sender side); per eval batch (the
+    validation batches of every epoch, then the test batches) 3 fused
+    forwards."""
+    return {fused_name: 3 * (epochs * n_train + n_eval),
+            "stream_scatter": 2 * 3 * epochs * n_train}
+
+
+def _train_ppi(label, argv, counters, jsonl, data):
+    """One run of ``cli.train_ppi`` on CUDA for PPI_EPOCHS epochs through
+    :func:`_train_cli`: finite, falling training losses, launches as
+    :func:`_want_ppi` states and as the CLI printed them, no other kernel.
+    Returns (launches, the ppi_epoch records)."""
+    model = argv[argv.index("--model") + 1]
+    got, losses, _, _, text = _train_cli(argv, PPI_EPOCHS, counters, jsonl,
+                                         ppi=True)
+    with open(jsonl) as fh:
+        recs = [r for r in map(json.loads, fh) if r["kind"] == "ppi_epoch"]
+    n_train = -(-len(data.train) // 2)
+    n_eval = PPI_EPOCHS * -(-len(data.valid) // 2) + -(-len(data.test) // 2)
+    fused_name = "fused_v2" if model == "GATv2_sparse" else "fused_v1"
+    want = _want_ppi(fused_name, PPI_EPOCHS, n_train, n_eval)
+    counts = re.search(r"Kernel launches: (\{.*\})", text)
+    print(f"phase 8: {label}: wrapper launches "
+          f"{ {k: v for k, v in got.items() if v} }; train losses {losses}; "
+          f"validation losses {[r['loss_val'] for r in recs]}", flush=True)
+    if counts is None or json.loads(counts.group(1)) != got:
+        raise AssertionError(f"{label}: the CLI printed no or other counts")
+    if {k: v for k, v in got.items() if v} != want:
+        raise AssertionError(f"{label}: launches {got}, want {want} and no "
+                             "other kernel")
+    return got, recs
+
+
+def _ppi_epoch_s(cfg, data):
+    """Host seconds per PPI epoch of both loops, PPI_TIMED_EPOCHS epochs
+    each after a warm-up one: the per-batch loop (``fit_inductive``
+    without per-batch records) and the banked loop (``epoch_chunk`` 1, one
+    host read an epoch), from their ppi_epoch records; and the per-batch
+    loop's parts, from the same building blocks: building the epoch's
+    train and validation batches on the host (stream layouts and walks),
+    copying them to the card, and the steps over them (host clock after a
+    synchronize, and CUDA events)."""
+    import torch
+
+    from pygat_tpu_torch.data.ppi import batch_bounds, make_batches
+    from pygat_tpu_torch.models.gat import init_gat
+    from pygat_tpu_torch.models.presets import TRAIN_PRESETS
+    from pygat_tpu_torch.train.inductive import (
+        fit_inductive,
+        fit_inductive_banked,
+        make_inductive_steps,
+    )
+    from pygat_tpu_torch.train.logging import TrainLogger
+    from pygat_tpu_torch.train.state import init_state, make_optimizer
+    from pygat_tpu_torch.utils.platform import make_generator
+
+    kw = dict(batch_size=2, **TRAIN_PRESETS["ppi"],
+              epochs=PPI_TIMED_EPOCHS + 1, patience=100, device="cuda")
+    out = {}
+    for name, fit, extra in (
+            ("per_batch", fit_inductive, dict(log_batches=False)),
+            ("banked", fit_inductive_banked, dict(epoch_chunk=1,
+                                                  log_every=1))):
+        text = io.StringIO()
+        fit(cfg, data, logger=TrainLogger(stream=text), **kw, **extra)
+        times = [float(m) for m in re.findall(r"^Epoch: .* time: ([0-9.]+)s$",
+                                              text.getvalue(), re.M)]
+        out[f"{name}_epoch_s"] = times[1:]
+
+    bounds = [batch_bounds(s, 2) for s in (data.train, data.valid, data.test)]
+    n_pad, e_pad = max(b[0] for b in bounds), max(b[1] for b in bounds)
+    params = init_gat(cfg, make_generator("cpu", 72), device="cuda")
+    state = init_state(params, make_optimizer(params, **TRAIN_PRESETS["ppi"]),
+                       make_generator("cuda", 73))
+    train_step, eval_step = make_inductive_steps(cfg)
+    parts = {"host_build_s": [], "copy_s": [], "steps_s": [],
+             "steps_device_s": []}
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    for epoch in range(PPI_TIMED_EPOCHS + 1):
+        t0 = time.perf_counter()
+        host = [list(make_batches(data.train, 2, n_pad=n_pad, e_pad=e_pad,
+                                  shuffle=True, seed=72 + epoch,
+                                  device="cpu")),
+                list(make_batches(data.valid, 2, n_pad=n_pad, e_pad=e_pad,
+                                  device="cpu"))]
+        t1 = time.perf_counter()
+        dev = [[(pb.features.to("cuda"), pb.batch.graph.to("cuda"),
+                 pb.labels.to("cuda")) for pb in split] for split in host]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        start.record()
+        for x, g, y in dev[0]:
+            train_step(state, x, g, y)
+        for x, g, y in dev[1]:
+            eval_step(state.params, x, g, y)
+        stop.record()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if epoch:
+            parts["host_build_s"].append(t1 - t0)
+            parts["copy_s"].append(t2 - t1)
+            parts["steps_s"].append(t3 - t2)
+            parts["steps_device_s"].append(start.elapsed_time(stop) / 1e3)
+        del host, dev
+    out.update(parts)
+    return out
+
+
+def _ppi_phase(gen, fused, kernel_cases, counters, jsonl, path_launches,
+               path_replayed):
+    """Phase 8, the PPI path: load the data; rows 1-3 at the preset's
+    widths (:func:`_ppi_batches`, GATv2 with exact bounds); each model on
+    a train batch, card vs CPU; both loops of both models through the CLI
+    (:func:`_train_ppi`, adding their launches to ``path_launches``), the
+    banked loop's first epoch held to the per-batch loop's; the kernels
+    timed on the train batch; the epochs timed (:func:`_ppi_epoch_s`).
+    Returns (the epoch seconds by model, the set-up seconds)."""
+    import torch
+
+    from pygat_tpu_torch.data.ppi import load_ppi, ppi_config
+    from pygat_tpu_torch.ops.fused_stream import fused_v2, fused_v2_plain
+
+    t1 = time.perf_counter()
+    ppi = load_ppi()
+    ppi_setup = {"ppi_load": time.perf_counter() - t1}
+    print(f"phase 8: PPI loaded in {ppi_setup['ppi_load']:.2f} s: graphs "
+          f"{[len(s) for s in ppi[:3]]}, nodes "
+          f"{[sum(g.num_nodes for g in s) for s in ppi[:3]]}, edges "
+          f"{[sum(len(g.senders) for g in s) for s in ppi[:3]]}; synthetic "
+          f"stand-ins for {list(ppi.synthetic_parts)}", flush=True)
+    ppi_fused = dict(fused, fused_v2=(fused_v2, fused_v2_plain,
+                                      _fused_v2_exact_inputs))
+    ppi_graphs, setup, ppi_pb = _ppi_batches(ppi, gen, ppi_fused,
+                                             kernel_cases)
+    ppi_setup.update(setup)
+    for lt in ("GAT_sparse", "GATv2_sparse"):
+        _card_vs_cpu(f"phase 8: PPI {lt}, one train batch", ppi_config(lt),
+                     ppi_pb.features, ppi_pb.batch.graph)
+    del ppi_pb
+    ppi_runs = {}
+    for lt in ("GAT_sparse", "GATv2_sparse"):
+        for loop, flags in (("per-batch loop", []),
+                            ("banked loop", ["--epoch-scan"])):
+            label = f"ppi {lt}, {loop}"
+            got, recs = _train_ppi(label, ["--model", lt, *flags], counters,
+                                   jsonl, ppi)
+            path_launches[label] = got
+            path_replayed[label] = dict.fromkeys(counters, 0)
+            ppi_runs[label] = recs
+        a = ppi_runs[f"ppi {lt}, per-batch loop"][0]
+        b = ppi_runs[f"ppi {lt}, banked loop"][0]
+        worst = max(abs(a[k] - b[k]) / abs(a[k])
+                    for k in ("loss_train", "loss_val"))
+        print(f"phase 8: PPI {lt}, banked loop vs per-batch loop, first "
+              f"epoch's train and validation losses: worst relative "
+              f"difference {worst:.3e} (allowed {LOOPS_RTOL:.0e})", flush=True)
+        if not worst <= LOOPS_RTOL:
+            raise AssertionError("the banked loop's losses differ from the "
+                                 "per-batch loop's")
+    for case in kernel_cases["stream_scatter"]:
+        if case.get("dataset") == "ppi batch":
+            _time_scatter(case, ppi_graphs["ppi batch"])
+    for kname, (kernel, plain, _) in fused.items():
+        for case in kernel_cases[kname]:
+            if case["dataset"] == "ppi batch":
+                _time_fused(kname, kernel, plain, case,
+                            ppi_graphs["ppi batch"])
+    for cases in kernel_cases.values():
+        for case in cases:
+            case.pop("args", None)
+            case.pop("data", None)
+    del ppi_graphs
+    torch.cuda.empty_cache()
+    ppi_epoch_s = {}
+    for lt in ("GAT_sparse", "GATv2_sparse"):
+        res = _ppi_epoch_s(ppi_config(lt), ppi)
+        ppi_epoch_s[lt] = res
+        print(f"phase 8: PPI {lt} epoch, host clock, {PPI_TIMED_EPOCHS} "
+              "epochs after a warm-up one: "
+              + "; ".join(f"{k} {[round(v, 4) for v in vs]}"
+                          for k, vs in res.items()), flush=True)
+    return ppi_epoch_s, ppi_setup
+
+
 def main() -> int:
     import torch
 
@@ -1676,14 +2052,13 @@ def main() -> int:
         maybe_plan_large,
         set_band,
     )
-    from pygat_tpu_torch.ops.large import CscCsrPlans, plan_csc_to_csr, set_corner
+    from pygat_tpu_torch.ops.large import plan_csc_to_csr, set_corner
     from pygat_tpu_torch.ops.fused_stream import (
         fused_v1,
         fused_v1_plain,
         fused_v2,
         fused_v2_plain,
     )
-    from pygat_tpu_torch.ops.stream import stream_scatter, stream_scatter_plain
     from pygat_tpu_torch.tools.profile_epoch import large_config, large_dataset
     from pygat_tpu_torch.train.loop import fit_transductive, fit_transductive_fast
 
@@ -2009,67 +2384,11 @@ def main() -> int:
     for case in kernel_cases["stream_scatter"]:
         if "side" not in case:
             continue  # a banded width, timed below
-        g = stream_graphs[case["dataset"]]
-        kw = (dict(calls=BIG_CALLS, replays=BIG_REPLAYS)
-              if case["dataset"] == "large" else {})
-        n_pad, width = g.num_nodes_padded, case["L"]
-        case["ms"] = _time_ms(lambda: _scatter_call(case, g, stream_scatter),
-                              **kw)
-        case["plain_ms"] = _time_ms(
-            lambda: _scatter_call(case, g, stream_scatter_plain), **kw)
-        # one PyTorch call computing the same sums: index_add_ into a zeroed
-        # buffer with one scratch row taking the dead slots
-        if case["side"] == "recv":
-            idx = torch.where(g.r_local < 128,
-                              g.r_chunk.long().repeat_interleave(256) * 128
-                              + g.r_local.long(), n_pad)
-        else:
-            idx = g.senders.long()
-        lib_out = torch.zeros(n_pad + 1, width, device="cuda")
-        case["library_ms"] = _time_ms(
-            lambda: lib_out.index_add_(0, idx, case["data"]), **kw)
-        del idx, lib_out
-        idx_words = g.r_local.numel() + g.r_chunk.numel() + (
-            g.c_slot.numel() if case["side"] == "send" else 0)
-        n_bytes = 4 * (case["n_live"] * width + idx_words + n_pad * width)
-        case["bound_ms"], case["bound_by"] = _bound(
-            n_bytes, case["n_live"] * width)
-        print(f"  stream_scatter {case['dataset']} {case['path']} "
-              f"{case['side']} L={width}: "
-              f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
-              f"index_add_ {case['library_ms']:.4f} ms, bound "
-              f"{case['bound_ms']:.5f} ms ({case['bound_by']})")
+        _time_scatter(case, stream_graphs[case["dataset"]])
     for kname, (kernel, plain, _) in fused.items():
         for case in kernel_cases[kname]:
-            args = case["args"]
-            g = stream_graphs[case["dataset"]]
-            kw = (dict(calls=BIG_CALLS, replays=BIG_REPLAYS)
-                  if case["dataset"] == "large" else {})
-            n_pad, h, f = g.num_nodes_padded, case["H"], case["F"]
-            case["ms"] = _time_ms(
-                lambda: kernel(*args, walk=g.stream_walk), **kw)
-            case["plain_ms"] = _time_ms(lambda: plain(*args), **kw)
-            case["library_ms"] = None
-            n_live = case["n_live"]
-            index_words = 2 * g.num_edges_padded + g.r_chunk.numel()
-            if kname == "fused_v1":
-                n_bytes = 4 * (n_pad * h * f + 2 * n_pad * h + h * f
-                               + n_live * h + index_words
-                               + n_pad * (h * f + h))
-                n_flops = n_live * (4 * h * f + 6 * h)
-            else:
-                # each input once: the node tables whi and whj (their
-                # gathered rows are re-read from L2, not from memory), ub,
-                # a, a live slot's keep factors, the index words; out and
-                # den written
-                n_bytes = 4 * (2 * n_pad * h * f + n_pad * h + h * f
-                               + n_live * h + index_words
-                               + n_pad * (h * f + h))
-                n_flops = n_live * (6 * h * f + 6 * h)
-            case["bound_ms"], case["bound_by"] = _bound(n_bytes, n_flops)
-            print(f"  {kname} {case['dataset']} H={h} F={f}: "
-                  f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
-                  f"bound {case['bound_ms']:.5f} ms ({case['bound_by']})")
+            _time_fused(kname, kernel, plain, case,
+                        stream_graphs[case["dataset"]])
     for case in banded_cases:
         _time_banded(case, plans[case["dataset"]], case["dataset"] == "large")
     _time_corner("large", large_corner, large_widths, 7, corner_cases)
@@ -2176,7 +2495,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done(7, t0)
 
-    # -- phase 8: the kernels line ----------------------------------------------
+    # -- phase 8: the PPI path --------------------------------------------------
+    # the inductive trainer at the PPI preset's full width: the kernels at
+    # its shapes, the model card vs CPU, both loops through the CLI with
+    # the counters set to 0 just before each run and read just after, and
+    # the epoch times
+    t0 = time.perf_counter()
+    ppi_epoch_s, ppi_setup = _ppi_phase(gen, fused, kernel_cases, counters,
+                                        jsonl, path_launches, path_replayed)
+    ppi_s = time.perf_counter() - t0
+    print(f"phase 8: PPI phase {ppi_s:.1f} s (budget {PPI_BUDGET_S:.0f} s)",
+          flush=True)
+    if ppi_s > PPI_BUDGET_S:
+        raise AssertionError("the PPI phase took longer than its budget")
+    phase_done(8, t0)
+
+    # -- phase 9: the kernels line ----------------------------------------------
     launches = {name: sum(v[name] for v in path_launches.values())
                 for name in counters}
     replayed = {name: sum(v[name] for v in path_replayed.values())
@@ -2197,7 +2531,7 @@ def main() -> int:
         # graph for bcsr_attention (one forward at H = 8, F = 8, no
         # dropout mask); every shape is
         # listed under "cases". "launches" sums the wrapper's count over the
-        # main-path runs of phases 4, 6 and 7 (one by one under
+        # main-path runs of phases 4, 6, 7 and 8 (one by one under
         # "launches_by_path"); "replayed_launches" are those of the fast
         # loop's CUDA graph replays, replays x launches captured.
         main_set = "cora" if name in ("stream_scatter", "fused_v1",
@@ -2242,6 +2576,7 @@ def main() -> int:
                       "spmm": {"route_max_abs_err": route_errors,
                                "peak_allocated_gib": spmm_peak_gib},
                       "bcsr": {"route_max_abs_err": bcsr_errors},
+                      "ppi": {"epoch_s": ppi_epoch_s, "setup_s": ppi_setup},
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

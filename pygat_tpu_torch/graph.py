@@ -14,7 +14,9 @@ fields, dtypes and values as the reference's ``Graph``:
 
 Beside the fields, :func:`build_graph` derives the walks of the receiver
 stream and of the CSC stream for the tile-owner kernels once
-(:attr:`Graph.stream_walk`, :attr:`Graph.sender_walk`).
+(:attr:`Graph.stream_walk`, :attr:`Graph.sender_walk`). :func:`block_diag`
+merges several graphs into one such graph, a block-diagonal batch of the
+inductive path (:class:`GraphBatch`).
 """
 
 from __future__ import annotations
@@ -126,6 +128,21 @@ class Graph(NamedTuple):
             if walk is not None and new is not local:
                 _remember_walk(new, walk.to(device))
         return g
+
+
+class GraphBatch(NamedTuple):
+    """A block-diagonal batch of graphs (the inductive PPI path).
+
+    ``graph`` is one disconnected padded Graph (built by
+    :func:`build_graph`, so it has its walks); ``graph_ids[v]`` names the
+    member graph of node ``v`` (-1 on padding nodes). The reference's
+    ``torch.block_diag`` collate (load_data_ppi.py:71-88), at static padded
+    shapes.
+    """
+
+    graph: Graph
+    graph_ids: torch.Tensor  # [N_pad] int32 on the graph's device
+    n_graph: torch.Tensor  # scalar int32
 
 
 def build_graph(
@@ -299,4 +316,42 @@ def from_scipy(adj, *, n_pad: int | None = None, e_pad: int | None = None,
         n_pad=n_pad,
         e_pad=e_pad,
         device=device,
+    )
+
+
+def block_diag(
+    graphs: list[tuple[np.ndarray, np.ndarray, np.ndarray | None, int]],
+    *,
+    n_pad: int | None = None,
+    e_pad: int | None = None,
+    device: torch.device | str | None = None,
+) -> GraphBatch:
+    """Merge ``(senders, receivers, weights, num_nodes)`` tuples into one
+    disconnected padded graph with node-id offsets (a block-diagonal
+    batch), on ``device`` as :func:`build_graph` resolves it."""
+    device = resolve_device(device)
+    all_s, all_r, all_w = [], [], []
+    offsets = [0]
+    for s, r, w, n in graphs:
+        s = np.asarray(s)
+        r = np.asarray(r)
+        all_s.append(s + offsets[-1])
+        all_r.append(r + offsets[-1])
+        all_w.append(np.ones_like(s, dtype=np.float32) if w is None
+                     else np.asarray(w, np.float32))
+        offsets.append(offsets[-1] + int(n))
+    num_nodes = offsets[-1]
+    senders = np.concatenate(all_s) if all_s else np.zeros((0,), np.int64)
+    receivers = np.concatenate(all_r) if all_r else np.zeros((0,), np.int64)
+    weights = np.concatenate(all_w) if all_w else np.zeros((0,), np.float32)
+    g = build_graph(senders, receivers, weights, num_nodes, n_pad=n_pad,
+                    e_pad=e_pad, device=device)
+
+    gid = np.full((g.num_nodes_padded,), -1, dtype=np.int32)
+    for k in range(len(graphs)):
+        gid[offsets[k]:offsets[k + 1]] = k
+    return GraphBatch(
+        graph=g,
+        graph_ids=torch.from_numpy(gid).to(device),
+        n_graph=torch.tensor(len(graphs), dtype=torch.int32, device=device),
     )

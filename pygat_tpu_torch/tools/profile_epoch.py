@@ -1,6 +1,6 @@
 """Where the epoch's time goes on the GPU, by ``torch.profiler``.
 
-    python -m pygat_tpu_torch.tools.profile_epoch [--model GATv2_sparse] [--large]
+    python -m pygat_tpu_torch.tools.profile_epoch [--model GATv2_sparse] [--large | --ppi]
 
 Profiles one chunk of 10 epochs of each loop on the synthetic Cora stand-in
 at the reference preset: the fast loop (replays of one captured CUDA graph)
@@ -9,7 +9,12 @@ the fast loop on the 524,288-node clustered graph of the banded path
 (``clustered_citation``, spread 1024, the Cora preset's widths) instead,
 over the band plan ``maybe_plan_large`` picks, over the corner plans
 (``set_band("off")``, ``set_corner("on")``) and over the receiver stream
-(``set_band("off")``). For each it prints the wall time per epoch (host
+(``set_band("off")``). ``--ppi`` profiles PPI_EPOCHS epochs of both
+inductive loops on the PPI stand-in at the PPI preset (full width, batch
+size 2): the banked loop (batches collated on the card, one host read per
+chunk) and the per-batch loop (every batch built on the host with its
+walks and copied, the validation loss read every epoch). For each it
+prints the wall time per epoch (host
 clock around a synchronize), traced and untraced, the device-busy time per
 epoch (the sum of all kernel and memory-operation durations the profiler
 saw), the idle share of the traced chunk, and the ten kernels with the
@@ -28,6 +33,7 @@ import sys
 import time
 
 EPOCHS = 10
+PPI_EPOCHS = 3
 
 
 def epoch_runners(cfg, data, n_epochs, plans=None):
@@ -152,16 +158,76 @@ def _profile_large(model: str) -> None:
     set_corner("auto")
 
 
+def _profile_ppi(model: str) -> None:
+    from pygat_tpu_torch.data.ppi import (
+        bank_bounds,
+        batch_bounds,
+        build_bank,
+        load_ppi,
+        make_batches,
+        ppi_config,
+    )
+    from pygat_tpu_torch.models.gat import init_gat
+    from pygat_tpu_torch.models.presets import TRAIN_PRESETS
+    from pygat_tpu_torch.train.inductive import BankedEpochs, make_inductive_steps
+    from pygat_tpu_torch.train.state import init_state, make_optimizer
+    from pygat_tpu_torch.utils.platform import make_generator
+
+    data = load_ppi()
+    cfg = ppi_config(model)
+
+    def fresh_state():
+        params = init_gat(cfg, make_generator("cpu", 72), device="cuda")
+        return init_state(params, make_optimizer(params, **TRAIN_PRESETS["ppi"]),
+                          make_generator("cuda", 73))
+
+    n_pg, e_pg = bank_bounds([data.train, data.valid, data.test])
+    chunk = BankedEpochs(cfg, fresh_state(),
+                         build_bank(data.train, n_pg, e_pg, device="cuda"),
+                         build_bank(data.valid, n_pg, e_pg, device="cuda"), 2,
+                         n_epochs=PPI_EPOCHS, seed=72, max_epochs=10 ** 6,
+                         patience=100)
+    done = [0]
+
+    def banked():
+        chunk.run(done[0])
+        done[0] += PPI_EPOCHS
+
+    _profile(f"PPI {model}, banked loop", banked, PPI_EPOCHS)
+
+    bounds = [batch_bounds(s, 2) for s in (data.train, data.valid, data.test)]
+    n_pad, e_pad = max(b[0] for b in bounds), max(b[1] for b in bounds)
+    state = fresh_state()
+    train_step, eval_step = make_inductive_steps(cfg)
+
+    def per_batch():
+        for epoch in range(PPI_EPOCHS):
+            for pb in make_batches(data.train, 2, n_pad=n_pad, e_pad=e_pad,
+                                   shuffle=True, seed=72 + epoch,
+                                   device="cuda"):
+                train_step(state, pb.features, pb.batch.graph, pb.labels)
+            for pb in make_batches(data.valid, 2, n_pad=n_pad, e_pad=e_pad,
+                                   device="cuda"):
+                float(eval_step(state.params, pb.features, pb.batch.graph,
+                                pb.labels)[0])
+
+    _profile(f"PPI {model}, per-batch loop", per_batch, PPI_EPOCHS)
+
+
 def main(argv=None) -> int:
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="GATv2_sparse",
                    choices=["GAT_sparse", "GATv2_sparse"])
-    p.add_argument("--large", action="store_true",
-                   help="the 524,288-node clustered graph, fast loop, over "
-                        "the band plan, the corner plans and the receiver "
-                        "stream")
+    where = p.add_mutually_exclusive_group()
+    where.add_argument("--large", action="store_true",
+                       help="the 524,288-node clustered graph, fast loop, "
+                            "over the band plan, the corner plans and the "
+                            "receiver stream")
+    where.add_argument("--ppi", action="store_true",
+                       help="the PPI stand-in at the PPI preset, the banked "
+                            "and the per-batch inductive loops")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_epoch: torch.cuda.is_available() is false",
@@ -178,6 +244,9 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip().splitlines()[0])
     if args.large:
         _profile_large(args.model)
+        return 0
+    if args.ppi:
+        _profile_ppi(args.model)
         return 0
     cora = load_citation("cora", device="cuda")
     cfg = GATConfig(layer_type=args.model, **PRESETS["cora"])

@@ -44,6 +44,10 @@ tile cut into pieces, the hub's run into segments), at H 8 F 8, H 1 F 7
 and H 3 F 256, with and without a dropout mask, held to the plain version
 in f64; two calls agree bit for bit, a launch is capturable, a CUDA call
 without the walk raises, and its autograd Function runs card against CPU.
+The receiver stream's kernels also run at the PPI preset's widths on a
+block-diagonal batch (the fused forwards at H 4 F 256 and H 6 F 121, the
+segment sums at L = 726 to 2,048), and a batch assembled from a PPI bank
+on the card carries walks equal to those built from its fields.
 chip_smoke.py covers the main path's full-size shapes.
 """
 
@@ -1670,3 +1674,97 @@ def test_bcsr_attention_is_capturable(cuda):
     graph.replay()
     torch.cuda.synchronize()
     _close(got, want)
+
+
+# -- the PPI shapes: block-diagonal batches and the bank -----------------------
+
+
+def _ppi_data():
+    from tests.torch_ppi_data import synth_ppi
+    from pygat_tpu_torch.data import ppi
+
+    return ppi, synth_ppi(ppi.PPIGraph, ppi.PPIData, n_feat=50, n_labels=121)
+
+
+def _ppi_batch(device):
+    """The first train batch of the tiny PPI problem, built on the host by
+    ``make_batches`` (block-diagonal, with its walks)."""
+    ppi, data = _ppi_data()
+    n_pad, e_pad = ppi.batch_bounds(data.train, 2)
+    return next(ppi.make_batches(data.train, 2, n_pad=n_pad, e_pad=e_pad,
+                                 device=device)).batch.graph
+
+
+@pytest.mark.parametrize("h,f", [(4, 256), (6, 121)])
+@pytest.mark.parametrize("which", [0, 1], ids=["v1", "v2"])
+def test_fused_kernels_at_ppi_widths(cuda, which, h, f):
+    """The PPI preset's heads (H 4 F 256: rows of 1,024 floats; H 6 F 121:
+    columns not a multiple of 4, rows of 726 floats) on a block-diagonal
+    batch, held to the f64 plain version; a second call equal bit for
+    bit."""
+    g = _ppi_batch(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(h * f)
+    kernel, plain = ((fs.fused_v1, fs.fused_v1_plain),
+                     (fs.fused_v2, fs.fused_v2_plain))[which]
+    args = (_fused_args, _fused_v2_args)[which](g, h, f, gen, cuda)
+    out, den = kernel(*args, walk=g.stream_walk)
+    again = kernel(*args, walk=g.stream_walk)
+    out_p, den_p = plain(*args, f64=True)
+    torch.cuda.synchronize()
+    _close(out, out_p)
+    _close(den, den_p)
+    assert torch.equal(out, again[0]) and torch.equal(den, again[1])
+
+
+@pytest.mark.parametrize("width", [726, 1024, 1452, 2048])
+def test_stream_scatter_at_ppi_widths(cuda, width):
+    """The segment sums of the PPI backward (H F = 726 and 1,024, and
+    GATv2's sender side at 2 H F): past 256 columns the slabs run along
+    the grid, and 726 is not a multiple of 4 (no float4 path). Each side
+    held to the f64 plain version, to RTOL of the same sums over |data|;
+    a second call equal bit for bit."""
+    g = _ppi_batch(cuda)
+    n_pad = g.num_nodes_padded
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    data = torch.randn(g.num_edges_padded, width, generator=gen, device=cuda)
+    data = data * (g.r_local < 128)[:, None]
+    for walk, args, kw in (
+            (g.stream_walk, (g.r_local, g.r_chunk), {}),
+            (g.sender_walk, (g.c_local, g.c_chunk), {"slot": g.c_slot})):
+        got = st.stream_scatter(data, *args, n_pad, walk=walk, **kw)
+        again = st.stream_scatter(data, *args, n_pad, walk=walk, **kw)
+        want = st.stream_scatter_plain(data, *args, n_pad, f64=True, **kw)
+        mag = st.stream_scatter_plain(data.abs(), *args, n_pad, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got - want).abs() <= RTOL * mag + 1e-30).all())
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("idx,live", [([3, 1], [True, True]),
+                                      ([2, 0, 3], [True, True, False])],
+                         ids=["b2", "b3_dead"])
+def test_banked_batch_walks_on_the_card(cuda, idx, live):
+    """A batch assembled from a bank on the card carries walks on the card
+    equal to ``build_stream_walk`` of its own fields (a dead member keeps
+    its walk), and the fused forward over them matches its plain
+    version."""
+    ppi, data = _ppi_data()
+    n_pg, e_pg = ppi.bank_bounds([data.train, data.valid, data.test])
+    bank = ppi.build_bank(data.train, n_pg, e_pg, device=cuda)
+    _, g, _ = ppi.assemble_banked_batch(bank, idx, live)
+    n_tiles = g.num_nodes_padded // 128
+    for local, chunk, walk in ((g.r_local, g.r_chunk, g.stream_walk),
+                               (g.c_local, g.c_chunk, g.sender_walk)):
+        ref = st.build_stream_walk(local.cpu().numpy(), chunk.cpu().numpy(),
+                                   n_tiles, cuda)
+        assert walk.row_ptr.device.type == "cuda"
+        for f in ("row_ptr", "tile_ptr", "split_at"):
+            assert torch.equal(getattr(walk, f), getattr(ref, f)), f
+        assert walk.max_run == ref.max_run
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    args = _fused_args(g, 4, 256, gen, cuda)
+    out, den = fs.fused_v1(*args, walk=g.stream_walk)
+    out_p, den_p = fs.fused_v1_plain(*args, f64=True)
+    _close(out, out_p)
+    _close(den, den_p)

@@ -27,7 +27,9 @@ assert {"pygat_tpu_torch.ops.corner", "pygat_tpu_torch.ops.fused_corner",
         "pygat_tpu_torch.ops.spmm", "pygat_tpu_torch.ops.sddmm",
         "pygat_tpu_torch.ops.panel", "pygat_tpu_torch.legacy_bcsr.tiles",
         "pygat_tpu_torch.legacy_bcsr.fused_attention",
-        "pygat_tpu_torch.legacy_bcsr.sparse_attention"} <= set(names)
+        "pygat_tpu_torch.legacy_bcsr.sparse_attention",
+        "pygat_tpu_torch.data.ppi", "pygat_tpu_torch.train.inductive",
+        "pygat_tpu_torch.cli.train_ppi"} <= set(names)
 # every kernel has its wrapper, the corner, SpMM and BCSR kernels included
 assert set(build.launch_counts()) >= {"corner_permute", "fused_v1_window",
                                       "fused_v2_window", "spmm_banded",
