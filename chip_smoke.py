@@ -118,7 +118,28 @@ of which prints its seconds:
    and the epoch of both loops of both models (the per-batch loop split
    into host batch building, copies and device steps); the phase fails
    past PPI_BUDGET_S seconds;
-9. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+9. the dense layers and the unfused sparse branches: ``stream_scatter`` at
+   the unfused branches' widths (Cora's L = 1, 7, 8, 64 and 72, PPI's 726,
+   732, 1,024 and 1,028; each input a contiguous transpose, as the layers
+   hand it over) against its f64 plain version, called twice (equal bit
+   for bit) and timed beside ``index_add_``; the Cora dense models (GAT,
+   GATv2) card vs CPU, and their remat path (the threshold lowered to 0,
+   dropout on) against the batched heads fed the same masks, on the card;
+   the Cora sparse models through the unfused branch
+   (``set_fused_attention("off")``) card vs CPU under the ``stream`` and
+   ``scatter`` impls; through the CLIs on CUDA, with the counters set to 0
+   just before each run and read just after, Cora GAT by the fast loop,
+   Cora GATv2 by the per-epoch loop, Cora GAT_sparse with ``--backend
+   xla``, PPI's default (the dense GAT) by the per-batch loop, PPI GATv2
+   by the banked loop and PPI GATv2_sparse with the fused attention off:
+   finite, falling training and validation losses, no kernel launched but
+   ``stream_scatter`` in the last run (as many as the unfused branch
+   takes), each run's peak memory; the dense epochs of Cora and PPI by
+   both loops timed as in phases 5 and 8; two Pubmed dense GAT epochs
+   through the remat path (its [8, N, N] attention is 12.6 GB a layer),
+   their seconds and peak memory; the phase fails past DENSE_BUDGET_S
+   seconds;
+10. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 The script imports nothing of JAX or of the JAX package, needs no network
 and starts no process other than ``nvidia-smi``, ``nvcc`` and the one
@@ -193,6 +214,16 @@ PPI_WIDTHS = ((4, 256), (6, 121))
 PPI_EPOCHS = 2
 PPI_TIMED_EPOCHS = 3
 PPI_BUDGET_S = 90.0
+# the dense layers and the unfused branches: row 1 at the unfused sparse
+# branches' widths on their own graphs (Cora's layers, H 8 F 8 and H 1 F 7:
+# forward the receiver sum of [E, H F + H], 72 and 8; backward GATv1's
+# [E, H] receiver sums, 8 and 1, GATv2's [E, H F] ones, 64 and 7, and the
+# [E, H F] sender sums; PPI's H 4 F 256 and H 6 F 121: 1,028 and 732
+# forward, 1,024 and 726 backward), and the phase's budget on the card
+UNFUSED_WIDTHS = {"cora": {"recv": (72, 8, 64, 7, 1), "send": (64, 7)},
+                  "ppi batch": {"recv": (1028, 732, 1024, 726),
+                                "send": (1024, 726)}}
+DENSE_BUDGET_S = 150.0
 REPLACES = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
             "corner_permute": "pygat_tpu/ops/corner.py:216",
             "fused_v1_window": "pygat_tpu/ops/fused_stream.py:134",
@@ -302,6 +333,36 @@ def _scatter_call(case, g, fn, **kw):
               slot=g.c_slot, **kw)
 
 
+def _check_scatter(case, g, kernel_cases):
+    """A segment-sum case of ``g`` (:func:`_scatter_cases`) against its
+    plain version in f64, to KERNEL_RTOL of the same sums over |data|, and
+    called again, equal bit for bit; appended to ``kernel_cases``."""
+    import torch
+
+    from pygat_tpu_torch.ops.stream import stream_scatter, stream_scatter_plain
+
+    got = _scatter_call(case, g, stream_scatter)
+    want = _scatter_call(case, g, stream_scatter_plain, f64=True)
+    mag = _scatter_call(dict(case, data=case["data"].abs()), g,
+                        stream_scatter_plain)
+    again = _scatter_call(case, g, stream_scatter)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("kernel output is not finite")
+    diff = (got - want).abs()
+    err = float(diff.max())
+    worst = float((diff / (KERNEL_RTOL * mag + 1e-30)).max())
+    repeat = torch.equal(got, again)
+    case.update(max_abs_err=err, bitwise_repeat=repeat)
+    print(f"  stream_scatter {case['dataset']} {case['path']} {case['side']} "
+          f"L={case['L']}: max_abs_err {err:.3e}, worst element at "
+          f"{worst:.3f} of its allowance; a second call "
+          f"{'' if repeat else 'NOT '}equal bit for bit")
+    if worst > 1.0 or not repeat:
+        raise AssertionError("stream_scatter disagrees with its plain version")
+    kernel_cases["stream_scatter"].append(case)
+
+
 def _stream_kernel_cases(name, g, heads, feats, gen, fused, kernel_cases):
     """The receiver stream's kernels at one graph's layer widths against
     their plain versions: the segment sums of :func:`_scatter_cases` over
@@ -312,30 +373,8 @@ def _stream_kernel_cases(name, g, heads, feats, gen, fused, kernel_cases):
     ``kernel_cases``."""
     import torch
 
-    from pygat_tpu_torch.ops.stream import stream_scatter, stream_scatter_plain
-
     for case in _scatter_cases(name, g, heads, feats, gen):
-        got = _scatter_call(case, g, stream_scatter)
-        want = _scatter_call(case, g, stream_scatter_plain, f64=True)
-        mag = _scatter_call(dict(case, data=case["data"].abs()), g,
-                            stream_scatter_plain)
-        again = _scatter_call(case, g, stream_scatter)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError("kernel output is not finite")
-        diff = (got - want).abs()
-        err = float(diff.max())
-        worst = float((diff / (KERNEL_RTOL * mag + 1e-30)).max())
-        repeat = torch.equal(got, again)
-        case.update(max_abs_err=err, bitwise_repeat=repeat)
-        print(f"  stream_scatter {name} {case['path']} {case['side']} "
-              f"L={case['L']}: max_abs_err {err:.3e}, worst element at "
-              f"{worst:.3f} of its allowance; a second call "
-              f"{'' if repeat else 'NOT '}equal bit for bit")
-        if worst > 1.0 or not repeat:
-            raise AssertionError("stream_scatter disagrees with its plain version")
-        kernel_cases["stream_scatter"].append(case)
-        del got, want, mag, diff, again
+        _check_scatter(case, g, kernel_cases)
     for kname, (kernel, plain, make_inputs) in fused.items():
         for h, f in zip(heads, feats):
             args = make_inputs(g, h, f, gen)
@@ -507,13 +546,40 @@ def _card_vs_cpu(label, cfg, x, graph, plan=None):
           f"{err:.3e} (allowed {MODEL_RTOL * scale:.3e})")
     if err > MODEL_RTOL * scale:
         raise AssertionError("model forward on the card disagrees with the CPU")
-    for i, (gc, gp) in enumerate(zip(grads_c, grads_p)):
+    _check_grads(cfg, grads_c, grads_p, "card vs CPU")
+
+
+def _zero_grads(cfg):
+    """Per parameter leaf (:func:`parameters` order), whether its gradient
+    is zero in exact arithmetic: the dense GATv2's ``a``, since its logit
+    is per receiver (the reference's [N, 1] quirk) and so constant along
+    its softmax row, which the softmax does not see."""
+    if cfg.layer_type != "GATv2":
+        return None
+    return [False, True] + [False] * cfg.skip_connection
+
+
+def _check_grads(cfg, got, want, what):
+    """Raise unless each gradient in ``got`` is within MODEL_RTOL of the
+    largest magnitude of its ``want``; a gradient that is zero in exact
+    arithmetic (:func:`_zero_grads`), rounding noise on either side, is
+    held on both to MODEL_RTOL of the model's largest gradient instead."""
+    zero = _zero_grads(cfg)
+    top = max(float(g.abs().max()) for g in want)
+    for i, (gc, gp) in enumerate(zip(got, want)):
+        if zero is not None and zero[i % len(zero)]:
+            worst = max(float(gc.abs().max()), float(gp.abs().max()))
+            print(f"  grad {i} {tuple(gp.shape)} (zero in exact arithmetic): "
+                  f"largest {worst:.3e} (allowed {MODEL_RTOL * top:.3e})")
+            if not worst <= MODEL_RTOL * top:
+                raise AssertionError(f"model gradient {i} is not zero")
+            continue
         gscale = max(1e-30, float(gp.abs().max()))
         gerr = float((gc - gp).abs().max())
         print(f"  grad {i} {tuple(gp.shape)}: max_abs_err {gerr:.3e} "
               f"(allowed {MODEL_RTOL * gscale:.3e})")
         if not (gerr <= MODEL_RTOL * gscale):
-            raise AssertionError("model gradient on the card disagrees with the CPU")
+            raise AssertionError(f"model gradient disagrees, {what}")
 
 
 def _fused_v2_exact_inputs(g, h, f, gen):
@@ -536,15 +602,22 @@ def _fused_v2_exact_inputs(g, h, f, gen):
     return (whi, whj, ub, a, *tail)
 
 
+def _preset_cfg(name, layer_type, ds):
+    """The reference preset of dataset ``name`` for ``layer_type``, its
+    input width that of ``ds``'s padded features."""
+    from pygat_tpu_torch.models.gat import GATConfig
+    from pygat_tpu_torch.models.presets import PRESETS
+
+    cfg = GATConfig(layer_type=layer_type, **PRESETS[name])
+    return cfg._replace(nfeats=(int(ds.features.shape[1]),) + cfg.nfeats[1:])
+
+
 def _model_card_vs_cpu(layer_type, cora, plan=None):
     """:func:`_card_vs_cpu` of the Cora model over the receiver stream, or
     over the band plan or the corner plans ``plan``; returns its config."""
-    from pygat_tpu_torch.models.gat import GATConfig
     from pygat_tpu_torch.ops.banded import BandPlan
-    from pygat_tpu_torch.models.presets import PRESETS
 
-    cfg = GATConfig(layer_type=layer_type, **PRESETS["cora"])
-    cfg = cfg._replace(nfeats=(int(cora.features.shape[1]),) + cfg.nfeats[1:])
+    cfg = _preset_cfg("cora", layer_type, cora)
     over = ("receiver stream" if plan is None else
             f"band plan (w={plan.w})" if isinstance(plan, BandPlan) else
             f"corner plans ({len(plan.fwd.passes)} + {len(plan.inv.passes)} "
@@ -1968,7 +2041,8 @@ def _ppi_phase(gen, fused, kernel_cases, counters, jsonl, path_launches,
     (:func:`_train_ppi`, adding their launches to ``path_launches``), the
     banked loop's first epoch held to the per-batch loop's; the kernels
     timed on the train batch; the epochs timed (:func:`_ppi_epoch_s`).
-    Returns (the epoch seconds by model, the set-up seconds)."""
+    Returns (the epoch seconds by model, the set-up seconds, the PPI data,
+    the train batch's graph)."""
     import torch
 
     from pygat_tpu_torch.data.ppi import load_ppi, ppi_config
@@ -2023,6 +2097,7 @@ def _ppi_phase(gen, fused, kernel_cases, counters, jsonl, path_launches,
         for case in cases:
             case.pop("args", None)
             case.pop("data", None)
+    ppi_batch = ppi_graphs["ppi batch"]
     del ppi_graphs
     torch.cuda.empty_cache()
     ppi_epoch_s = {}
@@ -2033,7 +2108,255 @@ def _ppi_phase(gen, fused, kernel_cases, counters, jsonl, path_launches,
               "epochs after a warm-up one: "
               + "; ".join(f"{k} {[round(v, 4) for v in vs]}"
                           for k, vs in res.items()), flush=True)
-    return ppi_epoch_s, ppi_setup
+    return ppi_epoch_s, ppi_setup, ppi, ppi_batch
+
+
+def _unfused_scatter_cases(name, g, gen):
+    """The segment sums of the unfused sparse branches on ``g`` at
+    UNFUSED_WIDTHS[name], each a contiguous copy of an [L, E] tensor's
+    transpose, as the layer hands the [H, E] gradient over (zero on the
+    receiver side's dead slots, whose rows the layers zero)."""
+    import torch
+
+    cases = []
+    for side, widths in UNFUSED_WIDTHS[name].items():
+        live = (g.r_local if side == "recv" else g.c_local) < 128
+        for width in widths:
+            data = torch.randn(width, g.num_edges_padded, generator=gen,
+                               device="cuda").t().contiguous()
+            if side == "recv":
+                data = data * live[:, None]
+            cases.append(dict(dataset=name, path="unfused", side=side,
+                              L=width, data=data, n_live=int(live.sum())))
+    return cases
+
+
+def _dense_remat_vs_batched(layer_type, cora):
+    """The Cora dense model in train mode (dropout 0.6) through the remat
+    path, forced by a threshold of 0, against the batched heads fed the
+    same masks: apply_gat's per-head draws (made before each checkpointed
+    head) are recorded, then stacked per layer for the batched heads;
+    output and gradients on the card within MODEL_RTOL."""
+    import torch
+
+    from pygat_tpu_torch.models import gat
+    from pygat_tpu_torch.models.layers import DropoutMasks
+    from pygat_tpu_torch.utils.platform import make_generator
+
+    cfg = _preset_cfg("cora", layer_type, cora)
+    params = gat.init_gat(cfg, make_generator("cpu", 72), device="cuda")
+    leaves = gat.parameters(params)
+    x, g = cora.features, cora.graph
+    drawn, draw, thresh = [], gat.draw_masks, gat._DENSE_VMAP_BYTES
+
+    def record(*a, **k):
+        drawn.append(draw(*a, **k))
+        return drawn[-1]
+
+    gat.draw_masks, gat._DENSE_VMAP_BYTES = record, 0
+    try:
+        out_r = gat.apply_gat(params, cfg, x, g, make_generator("cuda", 73),
+                              train=True)
+    finally:
+        gat.draw_masks, gat._DENSE_VMAP_BYTES = draw, thresh
+    if len(drawn) != sum(cfg.nheads):
+        raise AssertionError("the remat path did not draw per head")
+    grads_r = torch.autograd.grad(torch.sin(out_r[g.node_mask]).sum(), leaves)
+    neighborhood = g.to_dense(binary=True) > 0
+    h, start = x, 0
+    for i, p in enumerate(params):
+        heads, concat = p.W.shape[0], i < cfg.nlayers - 1
+        stacked = DropoutMasks(*(
+            None if ms[0] is None else torch.stack(ms)
+            for ms in zip(*drawn[start:start + heads])))
+        start += heads
+        outs = gat.dense_heads(cfg, p, h, neighborhood, stacked,
+                               concat=concat, train=True, remat=False)
+        h = (outs.permute(1, 0, 2).reshape(h.shape[0], -1) if concat
+             else outs.mean(0))
+    grads_b = torch.autograd.grad(torch.sin(h[g.node_mask]).sum(), leaves)
+    print(f"phase 9: Cora {layer_type}, dropout 0.6, remat path (threshold "
+          "0) vs batched heads with the same masks, on the card:")
+    scale = max(1.0, float(h.detach().abs().max()))
+    err = float((out_r - h).detach().abs().max())
+    print(f"  forward: max_abs_err {err:.3e} (allowed "
+          f"{MODEL_RTOL * scale:.3e})")
+    if not err <= MODEL_RTOL * scale:
+        raise AssertionError("the remat path's forward disagrees")
+    _check_grads(cfg, grads_r, grads_b, "remat vs batched")
+
+
+def _dense_clis(ppi, counters, jsonl, path_launches, path_replayed):
+    """The dense models, ``--backend xla`` and the fused attention off
+    through the CLIs on CUDA, the counters set to 0 just before each run
+    and read just after (through :func:`_train_cli`): finite, falling
+    training and validation losses; the launches the CLI printed; no
+    kernel but ``stream_scatter`` of the PPI GATv2_sparse run with the
+    fused attention off (per train batch 3 layers of one forward receiver
+    sum and three backward sums, per eval batch 3 forward sums); the fast
+    loop's replays; each run's peak device memory."""
+    import torch
+
+    from pygat_tpu_torch.ops.fused_stream import set_fused_attention
+
+    n_train = -(-len(ppi.train) // 2)
+    n_eval = PPI_EPOCHS * -(-len(ppi.valid) // 2) + -(-len(ppi.test) // 2)
+    runs = [
+        ("cora GAT, fast loop", ["--dataset", "cora", "--model", "GAT",
+                                 "--epoch-chunk", str(EPOCH_CHUNK)],
+         TRAIN_EPOCHS, False, {}),
+        ("cora GATv2, per-epoch loop", ["--dataset", "cora", "--model",
+                                        "GATv2"], V1_EPOCHS, False, {}),
+        ("cora GAT_sparse, --backend xla", ["--dataset", "cora", "--model",
+                                            "GAT_sparse", "--backend", "xla"],
+         V1_EPOCHS, False, {}),
+        ("ppi GAT (the default), per-batch loop", [], PPI_EPOCHS, True, {}),
+        ("ppi GATv2, banked loop", ["--model", "GATv2", "--epoch-scan"],
+         PPI_EPOCHS, True, {}),
+        ("ppi GATv2_sparse, fused attention off",
+         ["--model", "GATv2_sparse"], PPI_EPOCHS, True,
+         {"stream_scatter": 4 * 3 * PPI_EPOCHS * n_train + 3 * n_eval}),
+    ]
+    peaks = {}
+    for label, argv, epochs, is_ppi, want in runs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        set_fused_attention("off" if "fused attention off" in label
+                            else "auto")
+        try:
+            got, losses, replays, captured, text = _train_cli(
+                argv, epochs, counters, jsonl, ppi=is_ppi)
+        finally:
+            set_fused_attention("auto")
+        peaks[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(jsonl) as fh:
+            val = [r["loss_val"] for r in map(json.loads, fh)
+                   if r["kind"] == ("ppi_epoch" if is_ppi else "epoch")]
+        counts = re.search(r"Kernel launches: (\{.*\})", text)
+        print(f"phase 9: {label}: wrapper launches "
+              f"{ {k: v for k, v in got.items() if v} }; {replays} CUDA "
+              f"graph replays, each launching "
+              f"{ {k: v for k, v in captured.items() if v} }; train losses "
+              f"{losses}; validation losses {val}; peak allocated "
+              f"{peaks[label]:.2f} GiB", flush=True)
+        if counts is None or json.loads(counts.group(1)) != got:
+            raise AssertionError(f"{label}: the CLI printed no or other counts")
+        if {k: v for k, v in got.items() if v} != want or any(
+                captured.values()):
+            raise AssertionError(f"{label}: launches {got}, want {want}")
+        if replays != (epochs if "fast loop" in label else 0):
+            raise AssertionError(f"{label}: {replays} CUDA graph replays")
+        if not all(math.isfinite(v) for v in val) or not val[-1] < val[0]:
+            raise AssertionError(f"{label}: the validation loss did not fall")
+        path_launches[label] = got
+        path_replayed[label] = dict.fromkeys(counters, 0)
+    return peaks
+
+
+def _pubmed_dense_epochs(pubmed, counters):
+    """Two Pubmed dense GAT training epochs (train step and eval forward, as
+    the per-epoch loop runs them) through the remat path, which the
+    [8, N, N] attention's bytes take by themselves: host seconds of each
+    after a synchronize, and the peak device memory; finite losses, and
+    no kernel of the port launched."""
+    import torch
+
+    from pygat_tpu_torch.models import gat
+    from pygat_tpu_torch.models.presets import TRAIN_PRESETS
+    from pygat_tpu_torch.train.loop import make_transductive_steps
+    from pygat_tpu_torch.train.state import init_state, make_optimizer
+    from pygat_tpu_torch.utils.platform import make_generator
+
+    cfg = _preset_cfg("pubmed", "GAT", pubmed)
+    x, g, y = pubmed.features, pubmed.graph, pubmed.labels
+    n = g.num_nodes_padded
+    att_gb = max(cfg.nheads) * n * n * 4 / 1e9
+    if not att_gb * 1e9 > gat._DENSE_VMAP_BYTES:
+        raise AssertionError("Pubmed's dense attention is under the remat "
+                             "threshold")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    params = gat.init_gat(cfg, make_generator("cpu", 72), device="cuda")
+    state = init_state(params, make_optimizer(params,
+                                              **TRAIN_PRESETS["pubmed"]),
+                       make_generator("cuda", 73))
+    train_step, eval_step = make_transductive_steps(cfg)
+    epoch_s, losses = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, loss, _, _ = train_step(state, x, g, y, pubmed.idx_train)
+        loss_val = eval_step(state.params, x, g, y, pubmed.idx_val)[0]
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t1)
+        losses.append((float(loss), float(loss_val)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    print(f"phase 9: Pubmed GAT (dense), N_pad {n}: [8, N, N] attention of "
+          f"{att_gb:.2f} GB a layer, so heads one after another under "
+          f"checkpoint; 2 epochs of {[round(t, 4) for t in epoch_s]} s, "
+          f"(train, validation) losses {losses}; peak allocated {peak:.2f} "
+          f"GiB; wrapper launches {launched}", flush=True)
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        raise AssertionError("the Pubmed dense losses are not finite")
+    if launched:
+        raise AssertionError("a kernel ran on the dense path")
+    del state, params
+    torch.cuda.empty_cache()
+    return {"epoch_s": epoch_s, "peak_allocated_gib": peak}
+
+
+def _dense_phase(datasets, ppi, ppi_batch, gen, kernel_cases, counters,
+                 jsonl, path_launches, path_replayed):
+    """Phase 9, the dense layers and the unfused branches: row 1 at the
+    unfused widths (:func:`_unfused_scatter_cases`) against its f64 plain
+    version, twice, and timed beside index_add_; the Cora dense models
+    card vs CPU and their remat path against the batched heads; the Cora
+    sparse models through the unfused branch card vs CPU under the stream
+    and the scatter impls; the CLIs (:func:`_dense_clis`); the dense
+    epochs of Cora (both loops) and PPI (both loops) timed; the Pubmed
+    dense epoch (:func:`_pubmed_dense_epochs`). Returns its numbers."""
+    from pygat_tpu_torch.data.ppi import ppi_config
+    from pygat_tpu_torch.ops.fused_stream import set_fused_attention
+    from pygat_tpu_torch.ops.segment import use_impl
+
+    cora = datasets["cora"]
+    for name, g in (("cora", cora.graph), ("ppi batch", ppi_batch)):
+        for case in _unfused_scatter_cases(name, g, gen):
+            _check_scatter(case, g, kernel_cases)
+            _time_scatter(case, g)
+            del case["data"]
+    for lt in ("GAT", "GATv2"):
+        _card_vs_cpu(f"phase 9: Cora {lt} (dense)",
+                     _preset_cfg("cora", lt, cora), cora.features,
+                     cora.graph)
+        _dense_remat_vs_batched(lt, cora)
+    set_fused_attention("off")
+    try:
+        for lt in ("GAT_sparse", "GATv2_sparse"):
+            for impl in ("stream", "scatter"):
+                with use_impl(impl):
+                    _card_vs_cpu(f"phase 9: Cora {lt}, unfused branch, "
+                                 f"{impl} impl", _preset_cfg("cora", lt, cora),
+                                 cora.features, cora.graph)
+    finally:
+        set_fused_attention("auto")
+    peaks = _dense_clis(ppi, counters, jsonl, path_launches, path_replayed)
+    out = {"cli_peak_allocated_gib": peaks}
+    for lt in ("GAT", "GATv2"):
+        samples, fast = _epoch_ms(_preset_cfg("cora", lt, cora), cora)
+        out[f"cora {lt}"] = {"per_epoch_loop_ms": samples[len(samples) // 2],
+                             "fast_loop_ms": fast[len(fast) // 2]}
+        out[f"ppi {lt}"] = _ppi_epoch_s(ppi_config(lt), ppi)
+        print(f"phase 9: Cora {lt} (dense) epoch, host clock: per-epoch "
+              f"loop median {samples[len(samples) // 2]:.4f} ms; fast loop "
+              f"median {fast[len(fast) // 2]:.4f} ms; PPI {lt} epoch: "
+              + "; ".join(f"{k} {[round(v, 4) for v in vs]}"
+                          for k, vs in out[f"ppi {lt}"].items()), flush=True)
+    out["pubmed GAT"] = _pubmed_dense_epochs(datasets["pubmed"], counters)
+    return out
 
 
 def main() -> int:
@@ -2501,8 +2824,9 @@ def main() -> int:
     # the counters set to 0 just before each run and read just after, and
     # the epoch times
     t0 = time.perf_counter()
-    ppi_epoch_s, ppi_setup = _ppi_phase(gen, fused, kernel_cases, counters,
-                                        jsonl, path_launches, path_replayed)
+    ppi_epoch_s, ppi_setup, ppi, ppi_batch = _ppi_phase(
+        gen, fused, kernel_cases, counters, jsonl, path_launches,
+        path_replayed)
     ppi_s = time.perf_counter() - t0
     print(f"phase 8: PPI phase {ppi_s:.1f} s (budget {PPI_BUDGET_S:.0f} s)",
           flush=True)
@@ -2510,7 +2834,19 @@ def main() -> int:
         raise AssertionError("the PPI phase took longer than its budget")
     phase_done(8, t0)
 
-    # -- phase 9: the kernels line ----------------------------------------------
+    # -- phase 9: the dense layers and the unfused branches ---------------------
+    t0 = time.perf_counter()
+    dense = _dense_phase(datasets, ppi, ppi_batch, gen, kernel_cases,
+                         counters, jsonl, path_launches, path_replayed)
+    del ppi_batch
+    dense_s = time.perf_counter() - t0
+    print(f"phase 9: dense and unfused phase {dense_s:.1f} s (budget "
+          f"{DENSE_BUDGET_S:.0f} s)", flush=True)
+    if dense_s > DENSE_BUDGET_S:
+        raise AssertionError("the dense phase took longer than its budget")
+    phase_done(9, t0)
+
+    # -- phase 10: the kernels line ---------------------------------------------
     launches = {name: sum(v[name] for v in path_launches.values())
                 for name in counters}
     replayed = {name: sum(v[name] for v in path_replayed.values())
@@ -2519,8 +2855,9 @@ def main() -> int:
     for name, cases in kernel_cases.items():
         # the summary numbers sum the shapes one train step gives the kernel
         # on its path's graph: Cora for the stream kernels (stream_scatter:
-        # the 4 backward launches of each model's step; the fused kernels:
-        # one forward's 2 launches), the large graph for the banded ones
+        # the 4 backward launches of each model's step, not the unfused
+        # branches' widths of phase 9; the fused kernels: one forward's 2
+        # launches), the large graph for the banded ones
         # (each of the 4 backward kernels: one launch per layer of each
         # model's step; the fused kernels: one forward's 2 launches), and the
         # large graph for the corner ones (corner_permute: every pass of
@@ -2531,13 +2868,13 @@ def main() -> int:
         # graph for bcsr_attention (one forward at H = 8, F = 8, no
         # dropout mask); every shape is
         # listed under "cases". "launches" sums the wrapper's count over the
-        # main-path runs of phases 4, 6, 7 and 8 (one by one under
+        # main-path runs of phases 4, 6, 7, 8 and 9 (one by one under
         # "launches_by_path"); "replayed_launches" are those of the fast
         # loop's CUDA graph replays, replays x launches captured.
         main_set = "cora" if name in ("stream_scatter", "fused_v1",
                                       "fused_v2") else "large"
         main_cases = [c for c in cases if c["dataset"] == main_set
-                      and not c.get("dropout")]
+                      and not c.get("dropout") and c.get("path") != "unfused"]
         lib = [c["library_ms"] for c in main_cases]
         entries.append({
             "name": name, "route": "cuda",
@@ -2577,6 +2914,7 @@ def main() -> int:
                                "peak_allocated_gib": spmm_peak_gib},
                       "bcsr": {"route_max_abs_err": bcsr_errors},
                       "ppi": {"epoch_s": ppi_epoch_s, "setup_s": ppi_setup},
+                      "dense": dense,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

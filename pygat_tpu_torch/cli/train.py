@@ -13,11 +13,12 @@ package, the large-N banded path has no flag: the trainers take it past
 300k padded nodes, or when the environment asks (``PYGAT_BAND=on``; also
 ``PYGAT_BAND_N``, ``PYGAT_BAND_W``, ``PYGAT_BAND_MIN_FILL``). ``--corner
 on`` (or ``PYGAT_CORNER=on``) runs the fused layers over the corner plans
-where no band plan is taken. On CUDA the last line counts the kernel
-launches made through their wrappers. Flags whose machinery is not ported
-yet (``--mesh``, ``--partition``, ``--reorder``, ``--distributed``,
-``--backend xla``, the dense models ``GAT`` / ``GATv2``) raise an error
-naming the ROADMAP item that ports it.
+where no band plan is taken. ``--model GAT`` / ``GATv2`` run the dense
+layers; ``--backend`` picks the segment impl for the run (``xla``: the
+``index_add_`` sums and the unfused sparse branch). On CUDA the last line
+counts the kernel launches made through their wrappers. Flags whose
+machinery is not ported yet (``--mesh``, ``--partition``, ``--reorder``,
+``--distributed``) raise an error naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -41,16 +42,18 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["cora", "pubmed", "citeseer"])
     p.add_argument("--model", type=str, default="GAT_sparse",
                    choices=["GAT_sparse", "GAT", "GATv2", "GATv2_sparse"],
-                   help="GAT_sparse and GATv2_sparse are ported; the dense "
-                        "models are not yet")
+                   help="GAT_sparse / GATv2_sparse: edge-list attention; "
+                        "GAT / GATv2: dense [N, N] attention")
     p.add_argument("--seed", type=int, default=72)
     p.add_argument("--epochs", type=int, default=10000)
     p.add_argument("--patience", type=int, default=100)
     p.add_argument("--backend", type=str, default=None,
                    choices=["stream", "xla"],
-                   help="stream = fused attention + stream segment sums "
-                        "(the port's path); xla = the unfused path, not "
-                        "ported yet")
+                   help="the segment impl: stream = the stream segment "
+                        "sums and (PYGAT_FUSED_ATTENTION auto) the fused "
+                        "attention; xla = index_add_ sums, the unfused "
+                        "branch; default: PYGAT_SEGMENT_IMPL, else auto "
+                        "(as stream)")
     p.add_argument("--corner", type=str, default=None,
                    choices=["auto", "on", "off"],
                    help="gather-free window build for million-node graphs "
@@ -86,6 +89,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+# --backend -> segment impl, the JAX CLI's mapping (xla = the scatter
+# lowering); main() scopes it to the run
+BACKEND_IMPLS = {"stream": "stream", "xla": "scatter"}
+
+
 def _reject_unported(args) -> None:
     if args.platform is not None:
         raise SystemExit("--platform picks a JAX platform and has no "
@@ -97,10 +105,6 @@ def _reject_unported(args) -> None:
         (args.distributed, "--distributed", "Queue 1, item 14: multi-GPU"),
         (args.reorder, "--reorder",
          "Queue 1, item 15: ctypes loader for csrc/graphops.cpp"),
-        (args.model in ("GAT", "GATv2"), f"--model {args.model}",
-         "Queue 1, item 10: the dense layers"),
-        (args.backend == "xla", "--backend xla",
-         "Queue 1, item 10: unfused layer branches"),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -110,6 +114,14 @@ def _reject_unported(args) -> None:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _reject_unported(args)
+
+    from pygat_tpu_torch.ops.segment import use_impl
+
+    with use_impl(BACKEND_IMPLS.get(args.backend)):
+        return _train(args)
+
+
+def _train(args) -> int:
 
     from pygat_tpu_torch.data.citation import dataset_stats, load_citation
     from pygat_tpu_torch.models.gat import GATConfig

@@ -4,7 +4,7 @@ Same flags and defaults as the JAX package's CLI (reference
 train_ppi.py:26-39, config train_ppi.py:43-55), running on CUDA unless
 ``--no-cuda`` asks for the CPU:
 
-    python -m pygat_tpu_torch.cli.train_ppi --model GAT_sparse
+    python -m pygat_tpu_torch.cli.train_ppi
     python -m pygat_tpu_torch.cli.train_ppi --model GATv2_sparse --epoch-scan
 
 The PPI preset: 3 layers of 4, 4 and 6 heads, 50 (padded to 128) -> 256 ->
@@ -14,11 +14,12 @@ Without ``--epoch-scan`` it trains by the per-batch loop
 every graph on the device once, a chunk of epochs per host sync).
 ``--fastmode`` is accepted and has no effect, as in the JAX package. On
 CUDA the last line counts the kernel launches made through their
-wrappers. Flags whose machinery is not ported yet raise an error naming
-the ROADMAP item that ports it: the dense models ``GAT`` and ``GATv2``
-(so the default ``--model GAT`` raises until item 10 lands),
-``--backend xla``, ``--mesh`` and ``--distributed``; ``--platform`` has no
-counterpart in the port.
+wrappers. The default ``--model GAT`` is the dense layer, as in the JAX
+CLI. ``--backend`` picks the segment impl for the run (``xla``: the
+``index_add_`` sums and the unfused sparse branch). Flags whose machinery
+is not ported yet raise an error naming the ROADMAP item that ports it:
+``--mesh`` and ``--distributed``; ``--platform`` has no counterpart in the
+port.
 
 The reference's checkpoint rotation crashes after epoch 0
 (train_ppi.py:198: int('0_ppi')); this implements the intended keep-best
@@ -45,8 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", type=str, default="ppi", choices=["ppi"])
     p.add_argument("--model", type=str, default="GAT",
                    choices=["GAT_sparse", "GAT", "GATv2", "GATv2_sparse"],
-                   help="GAT_sparse and GATv2_sparse are ported; the dense "
-                        "models (the default GAT among them) are not yet")
+                   help="GAT_sparse / GATv2_sparse: edge-list attention; "
+                        "GAT / GATv2 (the default): dense [N, N] attention")
     p.add_argument("--seed", type=int, default=72)
     p.add_argument("--epochs", type=int, default=10000)
     p.add_argument("--patience", type=int, default=100)
@@ -54,9 +55,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Number of graphs that are passed during training")
     p.add_argument("--backend", type=str, default=None,
                    choices=["stream", "xla"],
-                   help="stream = fused attention + stream segment sums "
-                        "(the port's path); xla = the unfused path, not "
-                        "ported yet")
+                   help="the segment impl: stream = the stream segment "
+                        "sums and (PYGAT_FUSED_ATTENTION auto) the fused "
+                        "attention; xla = index_add_ sums, the unfused "
+                        "branch; default: PYGAT_SEGMENT_IMPL, else auto "
+                        "(as stream)")
     p.add_argument("--platform", type=str, default=None,
                    help="the JAX package's platform switch; the port rejects "
                         "it (its one device switch is --no-cuda)")
@@ -86,10 +89,6 @@ def _reject_unported(args) -> None:
     unported = [
         (args.mesh is not None, "--mesh", "Queue 1, item 14: multi-GPU"),
         (args.distributed, "--distributed", "Queue 1, item 14: multi-GPU"),
-        (args.model in ("GAT", "GATv2"), f"--model {args.model}",
-         "Queue 1, item 10: the dense layers"),
-        (args.backend == "xla", "--backend xla",
-         "Queue 1, item 10: unfused layer branches"),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -99,6 +98,15 @@ def _reject_unported(args) -> None:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _reject_unported(args)
+
+    from pygat_tpu_torch.cli.train import BACKEND_IMPLS
+    from pygat_tpu_torch.ops.segment import use_impl
+
+    with use_impl(BACKEND_IMPLS.get(args.backend)):
+        return _train(args)
+
+
+def _train(args) -> int:
 
     from pygat_tpu_torch.data.ppi import load_ppi, ppi_config
     from pygat_tpu_torch.models.presets import TRAIN_PRESETS

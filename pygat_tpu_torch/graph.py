@@ -116,6 +116,22 @@ class Graph(NamedTuple):
         return (None if self.c_local is None
                 else _STREAM_WALKS.get(id(self.c_local)))
 
+    def to_dense(self, binary: bool = False) -> torch.Tensor:
+        """Dense ``[N_pad, N_pad]`` adjacency (``adj[i, j]`` is the weight of
+        edge ``j -> i``, or 1 if ``binary``; 0 on padding edges), the dense
+        attention path's mask source and the reference's densification
+        (utils.py:55). Set by ``index_put_`` without accumulation, as the
+        JAX package's ``.at[].set``; no host sync, so a CUDA graph can
+        capture it."""
+        n = self.num_nodes_padded
+        vals = self.edge_weight if not binary else torch.ones_like(
+            self.edge_weight)
+        vals = torch.where(self.edge_mask, vals, 0.0)
+        dense = torch.zeros(n, n, dtype=self.edge_weight.dtype,
+                            device=self.edge_weight.device)
+        return dense.index_put_(
+            (self.receivers.long(), self.senders.long()), vals)
+
     def to(self, device) -> "Graph":
         """The same graph with every tensor on ``device`` (the host edge
         cache and the walks follow)."""

@@ -9,22 +9,37 @@ container (models.py:7-35): layer ``i`` takes ``nfeats[i] * nheads[i-1]``
 inputs; non-final layers ELU and concat their heads, the final layer
 averages them.
 
-``GAT_sparse`` and ``GATv2_sparse`` are ported; the dense layer types raise
-``NotImplementedError``.
+The sparse types run the head-batched sparse layers. The dense types
+(``GAT``, ``GATv2``) run a layer's heads as one batch of ``[H, N, N]``
+attention over the graph's dense neighbourhood mask; above
+``PYGAT_DENSE_VMAP_BYTES`` of such attention (2 GiB by default, as in the
+JAX package) the heads run one after another, each under
+``torch.utils.checkpoint``, so that the backward recomputes a head's
+attention instead of keeping it. Their dropout masks are drawn before the
+checkpointed function and passed in: the recompute reads the same masks
+(the checkpoint's RNG stash covers the global generators only, and the
+port draws from an explicit one).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pygat_tpu_torch.graph import Graph
 from pygat_tpu_torch.models import init as gini
 from pygat_tpu_torch.models.layers import (
+    NO_MASKS,
+    DropoutMasks,
     V1Params,
     V2Params,
+    draw_masks,
+    gat_v1_dense,
     gat_v1_sparse_heads,
+    gat_v2_dense,
     gat_v2_sparse_heads,
 )
 from pygat_tpu_torch.ops.banded import BandPlan
@@ -32,7 +47,10 @@ from pygat_tpu_torch.ops.large import CscCsrPlans
 from pygat_tpu_torch.utils.platform import resolve_device
 
 LAYER_TYPES = ("GAT", "GAT_sparse", "GATv2", "GATv2_sparse")
-PORTED_LAYER_TYPES = ("GAT_sparse", "GATv2_sparse")
+
+# Dense attention switches from batched heads to sequential rematerialized
+# heads above this many bytes of [H, N, N] f32 attention (see apply_gat).
+_DENSE_VMAP_BYTES = int(os.environ.get("PYGAT_DENSE_VMAP_BYTES", 2 << 30))
 
 
 class GATConfig(NamedTuple):
@@ -53,13 +71,9 @@ class GATConfig(NamedTuple):
         return self.layer_type.startswith("GATv2")
 
 
-def _check_ported(cfg: GATConfig) -> None:
+def _check_type(cfg: GATConfig) -> None:
     if cfg.layer_type not in LAYER_TYPES:
         raise ValueError(f"unknown layer_type {cfg.layer_type!r}")
-    if cfg.layer_type not in PORTED_LAYER_TYPES:
-        raise NotImplementedError(
-            f"layer_type {cfg.layer_type!r} is not ported yet "
-            "(ROADMAP Queue 1, item 10: the dense layers)")
 
 
 def layer_dims(cfg: GATConfig, i: int) -> tuple[int, int, int]:
@@ -72,25 +86,27 @@ def init_gat(cfg: GATConfig, gen: torch.Generator,
              device: torch.device | str | None = None
              ) -> list[V1Params | V2Params]:
     """Per-layer stacked-head parameters with the reference's init
-    distributions (xavier normal for the sparse W and a, xavier uniform for
-    skip projections), drawn from ``gen`` and moved to ``device`` (CUDA
-    unless the caller names another device; raises without CUDA). Leaves
-    require grad."""
-    _check_ported(cfg)
+    distributions (W and a xavier uniform for the dense types, xavier
+    normal for the sparse ones; skip projections always uniform, reference
+    layers.py:22,112,119,193,248), drawn from ``gen`` and moved to
+    ``device`` (CUDA unless the caller names another device; raises
+    without CUDA). Leaves require grad."""
+    _check_type(cfg)
     device = resolve_device(device)
     if len(cfg.nfeats) != cfg.nlayers + 1 or len(cfg.nheads) != cfg.nlayers:
         raise ValueError("nfeats must have nlayers+1 entries, nheads nlayers")
 
     cls = V2Params if cfg.is_v2 else V1Params
+    w_init = gini.xavier_normal if cfg.is_sparse else gini.xavier_uniform
     params = []
     for i in range(cfg.nlayers):
         f_in, f_out, h = layer_dims(cfg, i)
         if cfg.is_v2:
-            w = gini.xavier_normal(gen, (h, 2 * f_in, f_out), 2 * f_in + f_out)
-            a = gini.xavier_normal(gen, (h, f_out), f_out + 1)
+            w = w_init(gen, (h, 2 * f_in, f_out), 2 * f_in + f_out)
+            a = w_init(gen, (h, f_out), f_out + 1)
         else:
-            w = gini.xavier_normal(gen, (h, f_in, f_out), f_in + f_out)
-            a = gini.xavier_normal(gen, (h, 2 * f_out), 2 * f_out + 1)
+            w = w_init(gen, (h, f_in, f_out), f_in + f_out)
+            a = w_init(gen, (h, 2 * f_out), 2 * f_out + 1)
         skip = (gini.xavier_uniform(gen, (h, f_in, f_out), f_in + f_out)
                 if cfg.skip_connection else None)
         params.append(cls(
@@ -102,6 +118,10 @@ def init_gat(cfg: GATConfig, gen: torch.Generator,
 def parameters(params: list[V1Params | V2Params]) -> list[torch.Tensor]:
     """The parameter tensors in a fixed order (layer by layer, W, a, skip)."""
     return [t for p in params for t in p if t is not None]
+
+
+def param_count(params: list[V1Params | V2Params]) -> int:
+    return sum(t.numel() for t in parameters(params))
 
 
 def apply_gat(
@@ -118,16 +138,72 @@ def apply_gat(
     final layer has no activation; the transductive loss head adds ELU +
     log_softmax). ``gen`` draws the dropout masks and is unused unless
     training with dropout. ``plans`` (a large-N plan of ``graph``, see
-    :func:`~pygat_tpu_torch.ops.banded.maybe_plan_large`) runs every layer's
-    attention over the banded order of a band plan, or over the corner
-    plans."""
-    _check_ported(cfg)
-    heads_fn = gat_v2_sparse_heads if cfg.is_v2 else gat_v1_sparse_heads
+    :func:`~pygat_tpu_torch.ops.banded.maybe_plan_large`) runs every sparse
+    layer's fused attention over the banded order of a band plan, or over
+    the corner plans; the unfused branch and the dense layers ignore it."""
+    _check_type(cfg)
+    if cfg.is_sparse:
+        heads_fn = gat_v2_sparse_heads if cfg.is_v2 else gat_v1_sparse_heads
+        h = x
+        for i, layer_params in enumerate(params):
+            h = heads_fn(
+                layer_params, h, graph, gen,
+                alpha=cfg.alpha, drop=cfg.dropout,
+                concat=i < cfg.nlayers - 1, train=train, plan=plans,
+            )
+        return h
+
+    # the reference's `adj > 0` test (layers.py:41) against the densified
+    # adjacency, once per forward for every layer
+    neighborhood = graph.to_dense(binary=True) > 0
+    use_drop = train and cfg.dropout > 0.0
+    n_pad = x.shape[0]
     h = x
     for i, layer_params in enumerate(params):
-        h = heads_fn(
-            layer_params, h, graph, gen,
-            alpha=cfg.alpha, drop=cfg.dropout,
-            concat=i < cfg.nlayers - 1, train=train, plan=plans,
-        )
+        concat = i < cfg.nlayers - 1
+        n_heads, f_out = layer_params.W.shape[0], layer_params.W.shape[-1]
+        remat = n_heads * n_pad * n_pad * 4 > _DENSE_VMAP_BYTES
+        masks = NO_MASKS
+        if use_drop:
+            kw = dict(n=n_pad, f_in=h.shape[1], f_out=f_out, e=0)
+            # remat: each head's masks drawn on their own, so that no
+            # [H, N, N] draw is ever materialized
+            masks = ([draw_masks(gen, cfg.layer_type, cfg.dropout, **kw)
+                      for _ in range(n_heads)] if remat else
+                     draw_masks(gen, cfg.layer_type, cfg.dropout,
+                                heads=n_heads, **kw))
+        outs = dense_heads(cfg, layer_params, h, neighborhood, masks,
+                           concat=concat, train=train, remat=remat)
+        if concat:  # torch.cat of the head outputs: head-major blocks
+            h = outs.permute(1, 0, 2).reshape(n_pad, -1)
+        else:
+            h = outs.mean(dim=0)
     return h
+
+
+def dense_heads(cfg: GATConfig, params: V1Params | V2Params,
+                h: torch.Tensor, neighborhood: torch.Tensor,
+                masks: DropoutMasks | list[DropoutMasks], *, concat: bool,
+                train: bool, remat: bool) -> torch.Tensor:
+    """One dense layer's heads -> [H, N, F_out]: batched (``masks`` with
+    leading [H] leaves, or :data:`NO_MASKS`), or with ``remat`` one head
+    after another, each under ``torch.utils.checkpoint`` with its masks
+    passed in (``masks`` a list of per-head masks, or batched masks sliced
+    per head): the recompute in the backward reads the same masks, and
+    needs no RNG state."""
+    fn = gat_v2_dense if cfg.is_v2 else gat_v1_dense
+    kw = dict(alpha=cfg.alpha, drop=cfg.dropout, concat=concat, train=train)
+    if not remat:
+        return fn(params, h, neighborhood, masks, **kw)
+
+    def run_head(p, m):
+        return fn(p, h, neighborhood, m, **kw)
+
+    outs = []
+    for k in range(params.W.shape[0]):
+        p = type(params)(*(None if t is None else t[k] for t in params))
+        m = masks[k] if isinstance(masks, list) else DropoutMasks(
+            *(None if t is None else t[k] for t in masks))
+        outs.append(checkpoint(run_head, p, m, use_reentrant=False,
+                               preserve_rng_state=False))
+    return torch.stack(outs)

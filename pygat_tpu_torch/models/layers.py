@@ -1,21 +1,38 @@
-"""Head-batched sparse GATv1 and GATv2 layers (port of the fused branches
-of ``pygat_tpu/models/layers.py::gat_v1_sparse_heads`` and
-``gat_v2_sparse_heads`` and the pieces they use).
+"""GAT attention layers (port of ``pygat_tpu/models/layers.py``).
+
+* :func:`gat_v1_dense` / :func:`gat_v2_dense`: masked ``[N, N]`` attention
+  (reference layers.py:8-67, 179-232), GATv2 with the reference's [N, 1]
+  logit quirk. A layer's heads run batched: with stacked ``[H, ...]``
+  leaves (and ``[H, ...]`` masks) every product carries a leading head
+  axis, as the JAX package's ``vmap`` gives;
+* :func:`gat_v1_sparse` / :func:`gat_v2_sparse`: single-head edge-list
+  attention over :func:`~pygat_tpu_torch.ops.segment.segment_softmax_stable`
+  (no model path calls them; tests hold them to the reference's goldens);
+* :func:`gat_v1_sparse_heads` / :func:`gat_v2_sparse_heads`: the
+  head-batched sparse layers of the model. Their fused branch runs the
+  fused attention op (over the receiver stream, a band plan's banded
+  order, or the corner plans), their unfused branch the segment gathers
+  and sums of :mod:`~pygat_tpu_torch.ops.segment` with one receiver sum
+  of ``[E, H F + H]``; :func:`~pygat_tpu_torch.ops.fused_stream.
+  fused_enabled` picks, as in the JAX package.
 
 Dropout placement copies the reference: on the inputs, after the
 projection(s), and on the attention numerators, with the softmax denominator
 computed from pre-dropout numerators (reference layers.py:150-160). Masks
 are drawn from an explicit ``torch.Generator``: the same distribution as
-the JAX package's masks, not the same bits.
+the JAX package's masks, not the same bits. The dense and single-head
+layers also take pre-drawn :class:`DropoutMasks`, so the same boolean masks
+can go through both packages.
 
 With a :class:`~pygat_tpu_torch.ops.banded.BandPlan` (``plan=``, the large-N
-path the trainers pick past 300k nodes) the attention runs over the plan's
-banded slots, and its keep mask is drawn over those slots, not the receiver
-stream's: a different draw of the same distribution, as in the JAX package.
-With :class:`~pygat_tpu_torch.ops.large.CscCsrPlans` (the corner plans,
-opt-in) it runs over the receiver stream's slots with sender windows built
-by expand and corner-turn, and draws the stream path's keep mask at the
-stream path's site: the same generator gives both paths the same masks.
+path the trainers pick past 300k nodes) the fused attention runs over the
+plan's banded slots, and its keep mask is drawn over those slots, not the
+receiver stream's: a different draw of the same distribution, as in the JAX
+package. With :class:`~pygat_tpu_torch.ops.large.CscCsrPlans` (the corner
+plans, opt-in) it runs over the receiver stream's slots with sender windows
+built by expand and corner-turn, and draws the stream path's keep mask at
+the stream path's site: the same generator gives both paths the same masks.
+The unfused branch ignores ``plan``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,11 +53,25 @@ from pygat_tpu_torch.ops.fused_corner import (
     fused_v2_attention_corner,
 )
 from pygat_tpu_torch.ops.fused_stream import (
+    fused_enabled,
     fused_v1_attention,
     fused_v2_attention,
     leaky_relu,
 )
 from pygat_tpu_torch.ops.large import CscCsrPlans
+from pygat_tpu_torch.ops.segment import (
+    gather_receivers,
+    gather_receivers_hn,
+    gather_senders,
+    segment_softmax_stable,
+    segment_sum,
+    segment_sum_receivers,
+    sorted_segment_sum,
+    take_receivers,
+    take_senders,
+)
+
+NEG_INF = -9e15  # the reference's masking constant (layers.py:40)
 
 # Softmax-denominator clamp. 1e-18, not 0: with the bound-shifted softmax a
 # row whose incoming logits all sit far under the bound can underflow its
@@ -96,6 +127,235 @@ def _keep(gen: torch.Generator, keep_prob: float, shape) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=gen.device) < keep_prob
 
 
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
+            train: bool) -> torch.Tensor:
+    """torch-style inverted dropout (``F.dropout`` semantics) drawn from
+    ``gen``."""
+    if not train or rate <= 0.0:
+        return x
+    return apply_mask(x, _keep(gen, 1.0 - rate, x.shape), rate)
+
+
+class DropoutMasks(NamedTuple):
+    """Pre-drawn boolean keep masks of one layer's dropout sites, each
+    ``[N, F]`` (or ``[E]`` / ``[N, N]`` for the attention), with a leading
+    ``[H]`` when drawn for a layer's heads at once (one draw per site).
+    ``m_proj2`` masks the second projection of the GATv2 layers (reference
+    layers.py:207-211); None for GATv1."""
+
+    m_in: torch.Tensor | None  # [.., N, F_in]
+    m_proj: torch.Tensor | None  # [.., N, F_out]
+    m_proj2: torch.Tensor | None  # [.., N, F_out] (GATv2 only)
+    m_att: torch.Tensor | None  # [.., E] sparse / [.., N, N] dense
+
+
+NO_MASKS = DropoutMasks(None, None, None, None)
+
+
+def apply_mask(x: torch.Tensor, keep: torch.Tensor | None,
+               rate: float) -> torch.Tensor:
+    """Inverted dropout by a pre-drawn boolean keep mask (None: no-op)."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def draw_masks(gen: torch.Generator, layer_type: str, drop: float, *, n: int,
+               f_in: int, f_out: int, e: int, heads: int | None = None,
+               train: bool = True) -> DropoutMasks:
+    """A layer's keep masks drawn from ``gen`` in site order (input,
+    projection, second projection, attention), with a leading ``[heads]``
+    when given: one draw per site for all heads."""
+    if not train or drop <= 0.0:
+        return NO_MASKS
+    lead = () if heads is None else (heads,)
+    keep = 1.0 - drop
+    att = lead + ((e,) if layer_type.endswith("_sparse") else (n, n))
+    return DropoutMasks(
+        m_in=_keep(gen, keep, lead + (n, f_in)),
+        m_proj=_keep(gen, keep, lead + (n, f_out)),
+        m_proj2=(_keep(gen, keep, lead + (n, f_out))
+                 if layer_type.startswith("GATv2") else None),
+        m_att=_keep(gen, keep, att),
+    )
+
+
+def _coerce_masks(gen_or_masks, layer_type: str, drop: float, train: bool,
+                  n: int, f_in: int, f_out: int, e: int) -> DropoutMasks:
+    """Pre-drawn :class:`DropoutMasks` as given, or unbatched masks drawn
+    from a ``torch.Generator``; :data:`NO_MASKS` unless training with
+    dropout."""
+    if not train or drop <= 0.0:
+        return NO_MASKS
+    if isinstance(gen_or_masks, DropoutMasks):
+        return gen_or_masks
+    return draw_masks(gen_or_masks, layer_type, drop, n=n, f_in=f_in,
+                      f_out=f_out, e=e)
+
+
+def _finish(h_prime, h_dropped, skip, concat: bool):
+    """Shared tail: the skip projection of the dropped input (reference
+    layers.py:166), then ELU unless the layer is the last."""
+    if skip is not None:
+        h_prime = h_prime + h_dropped @ skip
+    return F.elu(h_prime) if concat else h_prime
+
+
+# ---------------------------------------------------------------------------
+# Dense layers: masked [N, N] attention. Leaves may carry a leading [H]:
+# W [H, F_in, F_out] and a [H, 2F] (or [H, F]) give [H, N, F_out].
+# ---------------------------------------------------------------------------
+
+
+def _vec(a: torch.Tensor) -> torch.Tensor:
+    """An attention vector [.., F] as a column [.., F, 1] for a product."""
+    return a.unsqueeze(-1)
+
+
+def gat_v1_dense(
+    params: V1Params,
+    h: torch.Tensor,  # [N, F_in]
+    adj_mask: torch.Tensor,  # [N, N] bool; adj_mask[i, j]: edge j -> i
+    masks,  # DropoutMasks or a torch.Generator; unused unless train
+    *,
+    alpha: float,
+    drop: float,
+    concat: bool,
+    train: bool,
+) -> torch.Tensor:
+    """Dense GATv1 (reference layers.py:8-67): ``[.., N, F_out]``."""
+    f_out = params.W.shape[-1]
+    m = _coerce_masks(masks, "GAT", drop, train, h.shape[-2], h.shape[-1],
+                      f_out, 0)
+    h = apply_mask(h, m.m_in, drop)
+    wh = apply_mask(h @ params.W, m.m_proj, drop)
+    e_i = wh @ _vec(params.a[..., :f_out])  # [.., N, 1] receiver term
+    e_j = wh @ _vec(params.a[..., f_out:])  # [.., N, 1] sender term
+    e = leaky_relu(e_i + e_j.transpose(-1, -2), alpha)  # e[i, j]
+    att = torch.softmax(torch.where(adj_mask, e, NEG_INF), dim=-1)
+    att = apply_mask(att, m.m_att, drop)
+    return _finish(att @ wh, h, params.skip, concat)
+
+
+def gat_v2_dense(
+    params: V2Params,
+    h: torch.Tensor,
+    adj_mask: torch.Tensor,
+    masks,
+    *,
+    alpha: float,
+    drop: float,
+    concat: bool,
+    train: bool,
+) -> torch.Tensor:
+    """Reference-faithful dense GATv2, its [N, 1] logit quirk included:
+    ``e = leaky_relu(Wh1 + Wh2) @ a`` is per node, broadcast along each row
+    against the adjacency mask, so the row softmax is uniform over the
+    neighbours; it aggregates the right projection Wh2 (reference
+    layers.py:212-220). The sparse GATv2 aggregates the left one."""
+    f_in = h.shape[-1]
+    m = _coerce_masks(masks, "GATv2", drop, train, h.shape[-2], f_in,
+                      params.W.shape[-1], 0)
+    h = apply_mask(h, m.m_in, drop)
+    wh1 = apply_mask(h @ params.W[..., :f_in, :], m.m_proj, drop)
+    wh2 = apply_mask(h @ params.W[..., f_in:, :], m.m_proj2, drop)
+    e = leaky_relu(wh1 + wh2, alpha) @ _vec(params.a)  # [.., N, 1]
+    att = torch.softmax(torch.where(adj_mask, e, NEG_INF), dim=-1)
+    att = apply_mask(att, m.m_att, drop)
+    return _finish(att @ wh2, h, params.skip, concat)
+
+
+# ---------------------------------------------------------------------------
+# Single-head sparse layers: edge-list segment attention
+# ---------------------------------------------------------------------------
+
+
+def _sparse_attention_aggregate(edge_logits, values, graph: Graph, m_att, *,
+                                drop: float):
+    """Segment softmax over each receiver's incoming edges, then the
+    aggregation of ``values`` [N, F] gathered at the senders; the
+    denominator from pre-dropout numerators (reference layers.py:145-160).
+    With the graph's CSC view the gathers and sums take the reference's
+    sorted-segment forms."""
+    n_pad = graph.num_nodes_padded
+    fast = graph.col_perm is not None
+    num, den = segment_softmax_stable(
+        edge_logits, graph.receivers, n_pad, edge_mask=graph.edge_mask,
+        row_ptr=graph.row_ptr if fast else None)
+    num = apply_mask(num, m_att, drop)
+    if fast:
+        vals = take_senders(values, graph.senders, graph.col_perm,
+                            graph.col_ptr)
+        h_prime = sorted_segment_sum(num[:, None] * vals, graph.receivers,
+                                     graph.row_ptr)
+    else:
+        h_prime = segment_sum(num[:, None] * values[graph.senders.long()],
+                              graph.receivers, n_pad)
+    return softmax_div(h_prime, den)
+
+
+def gat_v1_sparse(
+    params: V1Params,  # W [F_in, F_out], a [2 F_out]
+    h: torch.Tensor,
+    graph: Graph,
+    masks,
+    *,
+    alpha: float,
+    drop: float,
+    concat: bool,
+    train: bool,
+) -> torch.Tensor:
+    """Single-head sparse GATv1 (reference layers.py:98-176)."""
+    f_out = params.W.shape[1]
+    m = _coerce_masks(masks, "GAT_sparse", drop, train, h.shape[0],
+                      h.shape[1], f_out, graph.num_edges_padded)
+    h = apply_mask(h, m.m_in, drop)
+    wh = apply_mask(h @ params.W, m.m_proj, drop)
+    f_dst = wh @ params.a[:f_out]  # pairs the receiver
+    f_src = wh @ params.a[f_out:]  # pairs the sender
+    if graph.col_perm is not None:
+        e_dst = take_receivers(f_dst, graph.receivers, graph.row_ptr)
+        e_src = take_senders(f_src, graph.senders, graph.col_perm,
+                             graph.col_ptr)
+    else:
+        e_dst = f_dst[graph.receivers.long()]
+        e_src = f_src[graph.senders.long()]
+    h_prime = _sparse_attention_aggregate(
+        leaky_relu(e_dst + e_src, alpha), wh, graph, m.m_att, drop=drop)
+    return _finish(h_prime, h, params.skip, concat)
+
+
+def gat_v2_sparse(
+    params: V2Params,  # W [2 F_in, F_out], a [F_out]
+    h: torch.Tensor,
+    graph: Graph,
+    masks,
+    *,
+    alpha: float,
+    drop: float,
+    concat: bool,
+    train: bool,
+) -> torch.Tensor:
+    """Single-head sparse GATv2 (reference layers.py:234-316): LeakyReLU
+    before the a-projection, aggregation of the left projection Whi
+    gathered at the senders."""
+    f_in = h.shape[1]
+    m = _coerce_masks(masks, "GATv2_sparse", drop, train, h.shape[0], f_in,
+                      params.W.shape[1], graph.num_edges_padded)
+    h = apply_mask(h, m.m_in, drop)
+    whi = apply_mask(h @ params.W[:f_in], m.m_proj, drop)
+    whj = apply_mask(h @ params.W[f_in:], m.m_proj2, drop)
+    if graph.col_perm is not None:
+        pre = (take_receivers(whi, graph.receivers, graph.row_ptr)
+               + take_senders(whj, graph.senders, graph.col_perm,
+                              graph.col_ptr))
+    else:
+        pre = whi[graph.receivers.long()] + whj[graph.senders.long()]
+    h_prime = _sparse_attention_aggregate(
+        leaky_relu(pre, alpha) @ params.a, whi, graph, m.m_att, drop=drop)
+    return _finish(h_prime, h, params.skip, concat)
+
+
 def _heads_tail(out, params: V1Params | V2Params, h, x_h, concat: bool):
     """Shared skip/ELU/concat-or-mean tail: ``out`` is [N, H, F_out]."""
     n, n_heads, f_out = out.shape
@@ -125,12 +385,26 @@ def _slots(graph: Graph, plan: BandPlan | CscCsrPlans | None) -> int:
     return plan.num_slots if isinstance(plan, BandPlan) else graph.num_edges_padded
 
 
-def _need_stream_layout(graph: Graph) -> None:
-    if graph.r_local is None:
-        raise NotImplementedError(
-            "graphs without a stream layout (N_pad not a multiple of 128) "
-            "need the unfused branch, not yet ported (ROADMAP Queue 1, "
-            "item 10: unfused layer branches)")
+def _unfused_aggregate(gathered, logits, bound, graph: Graph, gen, keep,
+                       use_drop: bool, n_heads: int, f_out: int):
+    """The unfused branch's softmax and aggregation: numerators ``exp(logit
+    - bound)`` [H, E] (0 on padding edges), their dropped copies weighting
+    the gathered sender rows [E, H F], and one receiver segment sum of
+    both side by side, ``[E, H F + H]`` (the denominator from the
+    pre-dropout numerators). Returns the normalized [N, H, F_out]."""
+    e_pad, hf = gathered.shape[0], n_heads * f_out
+    num = torch.where(graph.edge_mask[None, :],
+                      torch.exp(logits - bound[:, graph.receivers.long()]),
+                      0.0)
+    qnum = (torch.where(_keep(gen, keep, num.shape), num / keep, 0.0)
+            if use_drop else num)
+    msgs = torch.cat([
+        (gathered.view(e_pad, n_heads, f_out) * qnum.t()[:, :, None]
+         ).reshape(e_pad, hf),
+        num.t(),
+    ], dim=1)
+    agg = segment_sum_receivers(msgs, graph)  # [N, HF + H]
+    return softmax_div(agg[:, :hf].reshape(-1, n_heads, f_out), agg[:, hf:])
 
 
 def gat_v1_sparse_heads(
@@ -145,14 +419,16 @@ def gat_v1_sparse_heads(
     train: bool,
     plan: BandPlan | CscCsrPlans | None = None,
 ) -> torch.Tensor:
-    """Head-batched sparse GATv1 through the fused attention op (over the
-    banded order of a band ``plan``, or over the corner plans).
+    """Head-batched sparse GATv1: the fused attention op (over the receiver
+    stream, the banded order of a band ``plan``, or the corner plans) where
+    :func:`~pygat_tpu_torch.ops.fused_stream.fused_enabled`, else the
+    unfused branch (``plan`` ignored).
 
     Heads stay folded into the minor axis (``[N, H*F_out]`` projections,
-    ``[E, H]`` per-edge factors). Returns ``[N, H*F_out]`` (ELU'd head
-    concat) when ``concat`` else the head mean ``[N, F_out]``.
+    per-edge factors ``[E, H]`` fused, ``[H, E]`` unfused). Returns
+    ``[N, H*F_out]`` (ELU'd head concat) when ``concat`` else the head mean
+    ``[N, F_out]``.
     """
-    _need_stream_layout(graph)
     n_heads, f_in, f_out = params.W.shape
     n = h.shape[0]
     use_drop = train and drop > 0.0
@@ -170,6 +446,28 @@ def gat_v1_sparse_heads(
         wh = h @ params.W.permute(1, 0, 2).reshape(f_in, n_heads * f_out)
 
     wh3 = wh.view(n, n_heads, f_out)
+    if not fused_enabled(graph):
+        # the sender rows gathered once: the sender logit term is read from
+        # them, so the backward sums the logits' and the messages'
+        # cotangents per sender in one segment sum
+        f_dst = torch.einsum("nho,ho->hn", wh3, params.a[:, :f_out])  # [H, N]
+        gathered = gather_senders(wh, graph)  # [E, HF]
+        l_src = torch.einsum("ehf,hf->he",
+                             gathered.view(-1, n_heads, f_out),
+                             params.a[:, f_out:])  # [H, E]
+        logits = leaky_relu(gather_receivers_hn(f_dst, graph) + l_src, alpha)
+        # the bound leaky(f_dst + max over real senders of f_src) >= every
+        # logit of the row (gradient-stopped: the shift's gradient is zero)
+        with torch.no_grad():
+            f_src = torch.einsum("nho,ho->hn", wh3, params.a[:, f_out:])
+            m_src = torch.where(graph.node_mask[None, :], f_src,
+                                float("-inf")).amax(dim=1)
+            m_src = torch.where(torch.isfinite(m_src), m_src, 0.0)
+            bound = leaky_relu(f_dst + m_src[:, None], alpha)
+        out = _unfused_aggregate(gathered, logits, bound, graph, gen, keep,
+                                 use_drop, n_heads, f_out)
+        return _heads_tail(out, params, h, x_h, concat)
+
     f_dst_n = torch.einsum("nho,ho->nh", wh3, params.a[:, :f_out])  # [N, H]
     # Softmax stabilization without a segment max: the softmax is invariant
     # to a per-receiver shift, so subtract the upper bound
@@ -212,15 +510,15 @@ def gat_v2_sparse_heads(
     train: bool,
     plan: BandPlan | CscCsrPlans | None = None,
 ) -> torch.Tensor:
-    """Head-batched sparse GATv2 through the fused attention op (over the
-    banded order of a band ``plan``, or over the corner plans): LeakyReLU
-    before the a-projection (reference layers.py:280-283), aggregation of
-    the LEFT projection ``whi`` gathered at senders (layers.py:296); dropout
-    on the input, both projections and the attention numerator (drawn in
-    that order), with a pre-dropout softmax denominator. Layouts and return
-    value as :func:`gat_v1_sparse_heads`.
+    """Head-batched sparse GATv2, fused or unfused as
+    :func:`gat_v1_sparse_heads`: LeakyReLU before the a-projection
+    (reference layers.py:280-283), aggregation of the LEFT projection
+    ``whi`` gathered at senders (layers.py:296); dropout on the input, both
+    projections and the attention numerator (drawn in that order), with a
+    pre-dropout softmax denominator. Both branches shift the logits by the
+    sign-split bound ``ub``. Layouts and return value as
+    :func:`gat_v1_sparse_heads`.
     """
-    _need_stream_layout(graph)
     n_heads, two_f_in, f_out = params.W.shape
     f_in = two_f_in // 2
     n = h.shape[0]
@@ -267,6 +565,14 @@ def gat_v2_sparse_heads(
             "nhf,hf->nh",
             leaky_relu(whi3 + mq_min.view(1, n_heads, f_out), alpha),
             params.a.clamp(max=0.0))
+    if not fused_enabled(graph):
+        pre = leaky_relu(gather_receivers(whi, graph)
+                         + gather_senders(whj, graph), alpha)  # [E, HF]
+        logits = torch.einsum("ehf,hf->he", pre.view(-1, n_heads, f_out),
+                              params.a)  # [H, E]
+        out = _unfused_aggregate(gather_senders(whi, graph), logits, ub.t(),
+                                 graph, gen, keep, use_drop, n_heads, f_out)
+        return _heads_tail(out, params, h, x_h, concat)
     keepq = _att_keepq(gen, keep, _slots(graph, plan), n_heads, use_drop,
                        whi.device)
     if isinstance(plan, BandPlan):

@@ -6,8 +6,10 @@ Exported as the JAX package's ``pygat_tpu.ops`` exports them, where ported:
 the SpMM ops (the counterparts of the reference's ``SpecialSpmm``,
 ``layers.py:70-95``) over the receiver stream (:func:`spmm_graph`), the
 panel layout (:func:`panel_spmm_graph`), a band plan (:func:`spmm_banded`)
-and the corner plans (:func:`spmm_corner_graph`), the SDDMM, and the
-segment reductions and segment softmax of :mod:`.segment`.
+and the corner plans (:func:`spmm_corner_graph`), the SDDMM, the
+segment reductions, gathers, segment softmax and impl switch
+(:func:`set_segment_impl`) of :mod:`.segment`, the fused-attention switch
+:func:`set_fused_attention` and the differentiable :func:`stream_expand`.
 
 Importing the package also imports
 :mod:`pygat_tpu_torch.legacy_bcsr.fused_attention`, which registers the
@@ -16,6 +18,7 @@ covers every kernel of ``build.ENTRY_POINTS``."""
 
 from pygat_tpu_torch.ops.segment import (  # noqa: F401
     gather_receivers,
+    gather_receivers_hn,
     gather_senders,
     segment_max,
     segment_softmax_stable,
@@ -23,8 +26,12 @@ from pygat_tpu_torch.ops.segment import (  # noqa: F401
     segment_sum_receivers,
     segment_sum_senders,
     sender_segment_sum,
+    set_segment_impl,
     sorted_segment_max,
     sorted_segment_sum,
+    take_receivers,
+    take_senders,
+    use_impl,
 )
 from pygat_tpu_torch.ops.spmm import spmm, spmm_graph  # noqa: F401
 from pygat_tpu_torch.ops.sddmm import sddmm, sddmm_graph  # noqa: F401
@@ -34,8 +41,10 @@ from pygat_tpu_torch.ops.stream import (  # noqa: F401
     stream_segment_sum,
 )
 from pygat_tpu_torch.ops.fused_stream import (  # noqa: F401
+    fused_enabled,
     fused_v1_attention,
     fused_v2_attention,
+    set_fused_attention,
 )
 from pygat_tpu_torch.ops.panel import (  # noqa: F401
     build_panel_layout,
@@ -54,6 +63,7 @@ from pygat_tpu_torch.ops.large import (  # noqa: F401
     plan_csc_to_csr,
     set_corner,
     spmm_corner_graph,
+    stream_expand,
 )
 from pygat_tpu_torch.ops.fused_corner import (  # noqa: F401
     fused_v1_attention_corner,

@@ -27,9 +27,11 @@ and ``whi[s]`` itself.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from pygat_tpu_torch.ops import build
+from pygat_tpu_torch.ops import build, segment
 from pygat_tpu_torch.ops.stream import (
     EC,
     TILE,
@@ -40,6 +42,41 @@ from pygat_tpu_torch.ops.stream import (
 )
 
 MAX_F = 256  # widest head of the fused kernels (tile_fused.cuh)
+
+_FUSED = None  # resolved from PYGAT_FUSED_ATTENTION at first use
+
+
+def _fused_mode() -> str:
+    global _FUSED
+    if _FUSED is None:
+        _FUSED = os.environ.get("PYGAT_FUSED_ATTENTION", "auto")
+    return _FUSED
+
+
+def set_fused_attention(mode: str) -> None:
+    """``'auto'`` (on whenever the stream segment sums are the active impl,
+    :func:`~pygat_tpu_torch.ops.segment.set_segment_impl`), ``'on'`` or
+    ``'off'``; the process default is ``PYGAT_FUSED_ATTENTION``, else
+    ``'auto'``."""
+    global _FUSED
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"unknown fused-attention mode {mode!r}")
+    _FUSED = mode
+
+
+def fused_enabled(graph) -> bool:
+    """Whether the sparse layers take the fused branch on ``graph``: it
+    needs the graph's stream layout and, under ``'auto'``, the stream impl
+    (a graph without the layout takes the unfused branch)."""
+    if graph.r_local is None:
+        return False
+    mode = _fused_mode()
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"unknown fused-attention mode {mode!r} "
+                         "(PYGAT_FUSED_ATTENTION)")
+    if mode != "auto":
+        return mode == "on"
+    return segment.stream_enabled()
 
 
 def leaky_relu(x: torch.Tensor, alpha: float) -> torch.Tensor:

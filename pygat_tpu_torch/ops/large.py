@@ -8,7 +8,9 @@ replaces the TPU kernel ``pygat_tpu/ops/large.py::_make_expand_kernel``; on
 a CPU tensor it runs :func:`expand_plain`, the plain PyTorch version that is
 also the kernel's oracle. The banded backward (:mod:`.banded`) reads its
 receiver-side operands this way, and the corner path (:mod:`.fused_corner`)
-its sender rows in CSC order as well.
+its sender rows in CSC order as well. :func:`stream_expand` is its
+differentiable form (the reference's), whose gradient is the stream
+segment sum on the same side.
 
 :func:`plan_csc_to_csr` builds the corner plans of a graph: the permutation
 from its CSC stream slots to its receiver-stream (CSR) slots and back.
@@ -81,7 +83,7 @@ def expand(x: torch.Tensor, local: torch.Tensor,
     gets ``x[chunk_tile[k // EC] * 128 + local[k]]``, zeros where
     ``local[k] == 128``. On a CUDA tensor this launches ``csrc/expand.cu``
     (counted in ``expand.launches``); on a CPU tensor it runs
-    :func:`expand_plain`. Not differentiable."""
+    :func:`expand_plain`. Not differentiable: :func:`stream_expand` is."""
     if x.device.type == "cpu":
         return expand_plain(x, local, chunk_tile)
     if x.device.type != "cuda":
@@ -92,6 +94,35 @@ def expand(x: torch.Tensor, local: torch.Tensor,
     build.launch(expand, x, local, chunk_tile, chunk_tile.shape[0],
                  x.shape[1], out)
     return out
+
+
+class _StreamExpand(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, local, chunk_tile, n_pad, walk):
+        ctx.save_for_backward(local, chunk_tile)
+        ctx.n_pad, ctx.walk = n_pad, walk
+        return expand(x.contiguous(), local, chunk_tile)
+
+    @staticmethod
+    def backward(ctx, g):
+        local, chunk_tile = ctx.saved_tensors
+        dx = stream_scatter(g.contiguous(), local, chunk_tile, ctx.n_pad,
+                            walk=ctx.walk)
+        return dx, None, None, None, None
+
+
+def stream_expand(x: torch.Tensor, local: torch.Tensor,
+                  chunk_tile: torch.Tensor, n_pad: int, *,
+                  walk=None) -> torch.Tensor:
+    """Differentiable :func:`expand` over one stream side (port of the
+    reference's ``stream_expand``): the forward is :func:`expand`, the
+    gradient the stream segment sum :func:`stream_scatter` on the same
+    side, with no permutation and no gather. ``walk`` is that side's walk
+    (``graph.stream_walk`` for ``r_local`` / ``r_chunk``,
+    ``graph.sender_walk`` for ``c_local`` / ``c_chunk``), which the
+    backward needs on a CUDA tensor. The reference's ``precision`` has no
+    counterpart: the sums are f32 (``high``)."""
+    return _StreamExpand.apply(x, local, chunk_tile, n_pad, walk)
 
 
 # ---------------------------------------------------------------------------

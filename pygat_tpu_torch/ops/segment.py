@@ -1,6 +1,5 @@
-"""Segment reductions, the segment softmax and edge gathers (port of the
-part of ``pygat_tpu/ops/segment.py`` that the SpMM and SDDMM ops and the
-BCSR attention of :mod:`pygat_tpu_torch.legacy_bcsr` use).
+"""Segment reductions, the segment softmax and edge gathers (port of
+``pygat_tpu/ops/segment.py``).
 
 * :func:`segment_sum` is the plain scatter-add (``index_add_``), the
   reference's ``jax.ops.segment_sum``, and :func:`segment_max` the plain
@@ -10,29 +9,46 @@ BCSR attention of :mod:`pygat_tpu_torch.legacy_bcsr` use).
   :func:`sender_segment_sum` take the reference's arguments (CSR offsets,
   the CSC view) and keep its gradient rules: the sums' gradients are
   gathers, the max stops the gradient and fills empty segments with
-  ``-9e15``. The reference lowers them to segmented scans or XLA
-  scatters; here they are ``index_add_`` and ``scatter_reduce_``;
+  ``-9e15``; :func:`take_receivers` / :func:`take_senders` are the row
+  gathers whose gradients are those sums. The reference lowers them to
+  segmented scans or XLA scatters; here they are ``index_add_`` and
+  ``scatter_reduce_``;
 * :func:`segment_softmax_stable` returns the reference's ``(numerator,
   denominator)``, with padding edges at 0;
 * :func:`segment_sum_receivers` / :func:`segment_sum_senders` sum edge data
-  per receiver / per sender through the stream segment sum (kernel
-  ``csrc/stream_scatter.cu``), the receiver side over the graph's physical
-  stream order (its walk ``graph.stream_walk``), the sender side through
-  the CSC slot map (its walk ``graph.sender_walk``); their gradient is a
-  row gather;
-* :func:`gather_receivers` / :func:`gather_senders` are the row gathers
-  ``x[graph.receivers]`` / ``x[graph.senders]`` whose gradient is the
-  opposite-side stream segment sum, as in the reference's custom VJPs.
+  per receiver / per sender, and :func:`gather_receivers` /
+  :func:`gather_senders` / :func:`gather_receivers_hn` (``x[:,
+  receivers]`` of a head-major ``[H, N]`` table) are the row gathers whose
+  gradient is the opposite-side sum, as in the reference's custom VJPs.
+  Where the stream impl is active (below) and the graph has its stream
+  layout, each sum runs the stream segment sum (kernel
+  ``csrc/stream_scatter.cu``): the receiver side over the graph's stream
+  order (its walk ``graph.stream_walk``), the sender side through the CSC
+  slot map (its walk ``graph.sender_walk``). Otherwise it is
+  :func:`segment_sum` (``index_add_``; along the head-major table's
+  columns for ``gather_receivers_hn``).
+
+The impl switch is the reference's: :func:`set_segment_impl` sets the
+process default (``PYGAT_SEGMENT_IMPL`` at import, else ``auto``) and
+:func:`use_impl` overrides it in a scope. ``stream`` and ``auto`` take the
+stream sums, ``scatter`` and ``scan`` ``index_add_``. Two deliberate
+differences from the reference: ``auto`` means the stream sums on every
+device (the reference's ``auto`` is "stream on the TPU only"; on a CPU
+tensor the stream sum runs its plain version), and ``scan`` names the
+reference's segmented-scan lowering, which here computes the same sums as
+``scatter``. A sum or gather reads the impl when its forward runs and its
+backward keeps that choice, since PyTorch runs a backward later, and on
+CUDA in another thread, where the scope is gone.
 
 Edge data may be [E_pad] or [E_pad, ...]; trailing dimensions are summed
-as columns. A graph without stream layouts (N_pad not a multiple of 128)
-sums with :func:`segment_sum` instead, where the reference runs its sorted
-scans. The reference's ``take_receivers``, ``take_senders``,
-``gather_receivers_hn`` and the impl switch ``set_segment_impl`` are not
-ported here (ROADMAP item 10).
+as columns.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
+import os
 
 import torch
 
@@ -136,9 +152,70 @@ def segment_softmax_stable(
     return num, den
 
 
-def _receiver_sum(data: torch.Tensor, graph) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# The impl switch
+# ---------------------------------------------------------------------------
+
+_IMPLS = ("auto", "stream", "scan", "scatter")
+_STREAM_IMPLS = ("auto", "stream")
+
+_segment_impl = os.environ.get("PYGAT_SEGMENT_IMPL", "auto")
+
+# scoped override (use_impl), for one forward without touching the process
+# default
+_impl_override: contextvars.ContextVar[str | None] = contextvars.ContextVar(
+    "pygat_torch_segment_impl_override", default=None)
+
+
+def set_segment_impl(name: str) -> None:
+    """Process-wide default: ``'auto'`` or ``'stream'`` (the stream segment
+    sums), ``'scan'`` or ``'scatter'`` (``index_add_``). For one forward
+    prefer the scoped :func:`use_impl`."""
+    global _segment_impl
+    if name not in _IMPLS:
+        raise ValueError(f"unknown segment impl {name!r}")
+    _segment_impl = name
+
+
+@contextlib.contextmanager
+def use_impl(name: str | None):
+    """Scoped segment-impl override (``None``: no change) for every sum and
+    gather whose forward runs inside the ``with`` body; restored on
+    exit."""
+    if name is None:
+        yield
+        return
+    if name not in _IMPLS:
+        raise ValueError(f"unknown segment impl {name!r}")
+    token = _impl_override.set(name)
+    try:
+        yield
+    finally:
+        _impl_override.reset(token)
+
+
+def current_impl() -> str:
+    """The active segment impl: the scoped override, else the default."""
+    return _impl_override.get() or _segment_impl
+
+
+def stream_enabled() -> bool:
+    """Whether the stream segment sums are the active lowering."""
+    impl = current_impl()
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown segment impl {impl!r} "
+                         "(PYGAT_SEGMENT_IMPL)")
+    return impl in _STREAM_IMPLS
+
+
+# ---------------------------------------------------------------------------
+# Graph-aware sums and gathers
+# ---------------------------------------------------------------------------
+
+
+def _receiver_sum(data: torch.Tensor, graph, stream: bool) -> torch.Tensor:
     n_pad = graph.num_nodes_padded
-    if graph.r_local is None:
+    if not stream or graph.r_local is None:
         return segment_sum(data, graph.receivers, n_pad)
     flat = data.reshape(data.shape[0], -1).contiguous()
     out = stream_scatter(flat, graph.r_local, graph.r_chunk, n_pad,
@@ -146,9 +223,9 @@ def _receiver_sum(data: torch.Tensor, graph) -> torch.Tensor:
     return out.reshape((n_pad,) + tuple(data.shape[1:]))
 
 
-def _sender_sum(data: torch.Tensor, graph) -> torch.Tensor:
+def _sender_sum(data: torch.Tensor, graph, stream: bool) -> torch.Tensor:
     n_pad = graph.num_nodes_padded
-    if graph.c_local is None:
+    if not stream or graph.c_local is None:
         return segment_sum(data, graph.senders, n_pad, sorted_ids=False)
     flat = data.reshape(data.shape[0], -1).contiguous()
     out = stream_scatter(flat, graph.c_local, graph.c_chunk, n_pad,
@@ -160,7 +237,7 @@ class _SumReceivers(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, graph):
         ctx.graph = graph
-        return _receiver_sum(data, graph)
+        return _receiver_sum(data, graph, stream_enabled())
 
     @staticmethod
     def backward(ctx, g):
@@ -171,7 +248,7 @@ class _SumSenders(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, graph):
         ctx.graph = graph
-        return _sender_sum(data, graph)
+        return _sender_sum(data, graph, stream_enabled())
 
     @staticmethod
     def backward(ctx, g):
@@ -181,23 +258,56 @@ class _SumSenders(torch.autograd.Function):
 class _GatherReceivers(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, graph):
-        ctx.graph = graph
+        ctx.graph, ctx.stream = graph, stream_enabled()
         return x[graph.receivers.long()]
 
     @staticmethod
     def backward(ctx, g):
-        return _receiver_sum(g, ctx.graph), None
+        return _receiver_sum(g, ctx.graph, ctx.stream), None
 
 
 class _GatherSenders(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, graph):
-        ctx.graph = graph
+        ctx.graph, ctx.stream = graph, stream_enabled()
         return x[graph.senders.long()]
 
     @staticmethod
     def backward(ctx, g):
-        return _sender_sum(g, ctx.graph), None
+        return _sender_sum(g, ctx.graph, ctx.stream), None
+
+
+class _GatherReceiversHN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, graph):
+        ctx.graph, ctx.stream = graph, stream_enabled()
+        return x[:, graph.receivers.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        graph = ctx.graph
+        if ctx.stream and graph.r_local is not None:
+            # [H, E] -> a contiguous [E, H] for the stream sum, and back
+            return _receiver_sum(g.t().contiguous(), graph, True).t(), None
+        out = torch.zeros(g.shape[0], graph.num_nodes_padded, dtype=g.dtype,
+                          device=g.device)
+        return out.index_add_(1, graph.receivers.long(), g), None
+
+
+class _Take(torch.autograd.Function):
+    """``x[idx]`` whose gradient is the per-``idx`` segment sum over
+    ``num_segments`` rows."""
+
+    @staticmethod
+    def forward(ctx, x, idx, num_segments):
+        ctx.save_for_backward(idx)
+        ctx.num_segments = num_segments
+        return x[idx.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return segment_sum(g, idx, ctx.num_segments), None, None
 
 
 def segment_sum_receivers(data: torch.Tensor, graph) -> torch.Tensor:
@@ -220,3 +330,28 @@ def gather_receivers(x: torch.Tensor, graph) -> torch.Tensor:
 def gather_senders(x: torch.Tensor, graph) -> torch.Tensor:
     """``x[graph.senders]``, whose gradient is the sender segment sum."""
     return _GatherSenders.apply(x, graph)
+
+
+def gather_receivers_hn(x: torch.Tensor, graph) -> torch.Tensor:
+    """``x[:, graph.receivers]`` for a head-major [H, N_pad] table -> [H,
+    E_pad]. The gradient is the receiver segment sum of the [H, E]
+    cotangent: under the stream impl, of its transpose as a contiguous
+    [E, H], transposed back; otherwise an ``index_add_`` along the
+    columns."""
+    return _GatherReceiversHN.apply(x, graph)
+
+
+def take_receivers(x: torch.Tensor, receivers: torch.Tensor,
+                   row_ptr: torch.Tensor) -> torch.Tensor:
+    """``x[receivers]``, whose gradient is :func:`sorted_segment_sum` over
+    the CSR offsets ``row_ptr`` [N + 1] (only their length is read)."""
+    return _Take.apply(x, receivers, row_ptr.shape[0] - 1)
+
+
+def take_senders(x: torch.Tensor, senders: torch.Tensor,
+                 col_perm: torch.Tensor, col_ptr: torch.Tensor) -> torch.Tensor:
+    """``x[senders]``, whose gradient is :func:`sender_segment_sum` over the
+    CSC view (``col_perm`` is taken for the reference's signature; only
+    ``col_ptr``'s length is read)."""
+    del col_perm
+    return _Take.apply(x, senders, col_ptr.shape[0] - 1)

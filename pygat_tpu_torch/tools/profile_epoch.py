@@ -1,6 +1,7 @@
 """Where the epoch's time goes on the GPU, by ``torch.profiler``.
 
     python -m pygat_tpu_torch.tools.profile_epoch [--model GATv2_sparse] [--large | --ppi]
+    python -m pygat_tpu_torch.tools.profile_epoch --model GAT [--ppi]
 
 Profiles one chunk of 10 epochs of each loop on the synthetic Cora stand-in
 at the reference preset: the fast loop (replays of one captured CUDA graph)
@@ -9,7 +10,8 @@ the fast loop on the 524,288-node clustered graph of the banded path
 (``clustered_citation``, spread 1024, the Cora preset's widths) instead,
 over the band plan ``maybe_plan_large`` picks, over the corner plans
 (``set_band("off")``, ``set_corner("on")``) and over the receiver stream
-(``set_band("off")``). ``--ppi`` profiles PPI_EPOCHS epochs of both
+(``set_band("off")``); ``--model GAT`` / ``GATv2`` profile the dense
+models on Cora or, with ``--ppi``, PPI. ``--ppi`` profiles PPI_EPOCHS epochs of both
 inductive loops on the PPI stand-in at the PPI preset (full width, batch
 size 2): the banked loop (batches collated on the card, one host read per
 chunk) and the per-batch loop (every batch built on the host with its
@@ -219,7 +221,7 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="GATv2_sparse",
-                   choices=["GAT_sparse", "GATv2_sparse"])
+                   choices=["GAT_sparse", "GATv2_sparse", "GAT", "GATv2"])
     where = p.add_mutually_exclusive_group()
     where.add_argument("--large", action="store_true",
                        help="the 524,288-node clustered graph, fast loop, "
@@ -229,6 +231,9 @@ def main(argv=None) -> int:
                        help="the PPI stand-in at the PPI preset, the banked "
                             "and the per-batch inductive loops")
     args = p.parse_args(argv)
+    if args.large and not args.model.endswith("_sparse"):
+        p.error("--large runs the sparse models only (a dense [N, N] "
+                "attention at 524k nodes is 1.1 TB a head)")
     if not torch.cuda.is_available():
         print("profile_epoch: torch.cuda.is_available() is false",
               file=sys.stderr)

@@ -1768,3 +1768,184 @@ def test_banked_batch_walks_on_the_card(cuda, idx, live):
     out_p, den_p = fs.fused_v1_plain(*args, f64=True)
     _close(out, out_p)
     _close(den, den_p)
+
+
+# ---------------------------------------------------------------------------
+# The dense layers, the unfused branches and the segment impls on the card
+# ---------------------------------------------------------------------------
+
+# model on the card against the same model on the CPU (chip_smoke's
+# MODEL_RTOL: sums in other orders, a softmax in between)
+MODEL_RTOL = 1e-4
+
+
+@pytest.mark.parametrize("width", [1, 8, 72, 732, 1028])
+def test_stream_scatter_at_unfused_widths(cuda, width):
+    """The unfused branches' segment sums on a block-diagonal PPI batch:
+    the receiver sum of [E, H F + H] (72 at Cora's layer 1, 1,028 and 732
+    at PPI's), the [E, H] receiver sum of the head-major gather's backward
+    (8, and 1 on the scalar path), each a contiguous transpose of an [H, E]
+    tensor as the layer hands it over, and the sender side at the same
+    widths; held to the f64 plain version and equal bit for bit on a
+    second call."""
+    g = _ppi_batch(cuda)
+    n_pad = g.num_nodes_padded
+    gen = torch.Generator(device=cuda).manual_seed(width + 1)
+    data = torch.randn(width, g.num_edges_padded, generator=gen,
+                       device=cuda).t().contiguous()
+    data = data * (g.r_local < 128)[:, None]
+    for walk, args, kw in (
+            (g.stream_walk, (g.r_local, g.r_chunk), {}),
+            (g.sender_walk, (g.c_local, g.c_chunk), {"slot": g.c_slot})):
+        got = st.stream_scatter(data, *args, n_pad, walk=walk, **kw)
+        again = st.stream_scatter(data, *args, n_pad, walk=walk, **kw)
+        want = st.stream_scatter_plain(data, *args, n_pad, f64=True, **kw)
+        mag = st.stream_scatter_plain(data.abs(), *args, n_pad, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got - want).abs() <= RTOL * mag + 1e-30).all())
+        assert torch.equal(got, again)
+
+
+def _model_card_vs_cpu(cfg, data, impl=None):
+    """Forward and parameter gradients of ``cfg``'s model (eval) on the
+    card against the CPU; returns the card run's wrapper launches."""
+    from pygat_tpu_torch.models.gat import apply_gat, init_gat, parameters
+    from pygat_tpu_torch.ops import segment
+
+    results, launches = {}, None
+    for dev in ("cuda", "cpu"):
+        params = init_gat(cfg, torch.Generator().manual_seed(5), device=dev)
+        g = data.graph.to(dev)
+        before = build.launch_counts()
+        with segment.use_impl(impl):
+            out = apply_gat(params, cfg, data.features.to(dev), g, None,
+                            train=False)
+            torch.sin(out[g.node_mask]).sum().backward()
+        if dev == "cuda":
+            launches = {k: v - before[k]
+                        for k, v in build.launch_counts().items()
+                        if v != before[k]}
+        results[dev] = (out.detach().cpu(),
+                        [p.grad.cpu() for p in parameters(params)])
+    (out_c, grads_c), (out_p, grads_p) = results["cuda"], results["cpu"]
+    assert bool(torch.isfinite(out_c).all())
+    torch.testing.assert_close(out_c, out_p, rtol=0, atol=MODEL_RTOL * max(
+        1.0, float(out_p.abs().max())))
+    _close_grads(cfg, grads_c, grads_p)
+    return launches
+
+
+def _close_grads(cfg, got, want):
+    """Each gradient within MODEL_RTOL of its largest entry; the dense
+    GATv2's ``a`` gradients, zero in exact arithmetic (its per-receiver
+    logit is constant along the softmax row: the reference's [N, 1] quirk)
+    and so rounding noise on either side, within MODEL_RTOL of the model's
+    largest gradient of zero."""
+    top = max(float(g.abs().max()) for g in want)
+    per_layer = 2 + cfg.skip_connection
+    for i, (a, b) in enumerate(zip(got, want)):
+        if cfg.layer_type == "GATv2" and i % per_layer == 1:
+            assert float(a.abs().max()) <= MODEL_RTOL * top
+            assert float(b.abs().max()) <= MODEL_RTOL * top
+            continue
+        torch.testing.assert_close(a, b, rtol=0, atol=MODEL_RTOL * max(
+            1e-30, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("layer_type", ["GAT", "GATv2"])
+def test_dense_model_card_vs_cpu(cuda, layer_type):
+    """The dense model (skip connections, 3 + 2 heads) on the card against
+    the CPU; it launches none of the port's kernels."""
+    cfg = GATConfig(nlayers=2, nheads=(3, 2), nfeats=(128, 8, 3),
+                    dropout=0.0, alpha=0.2, layer_type=layer_type,
+                    skip_connection=True)
+    assert _model_card_vs_cpu(cfg, _planted(cuda)) == {}
+
+
+@pytest.mark.parametrize("impl", ["stream", "scatter"])
+@pytest.mark.parametrize("layer_type", ["GAT_sparse", "GATv2_sparse"])
+def test_unfused_model_card_vs_cpu(cuda, layer_type, impl):
+    """The sparse models through the unfused branch (fused attention off)
+    on the card against the CPU: under the stream impl every segment sum
+    is ``stream_scatter`` (per layer 1 forward, and backward 2 for GATv1,
+    3 for GATv2); under scatter none is, and no fused kernel runs."""
+    cfg = GATConfig(nlayers=2, nheads=(3, 1), nfeats=(128, 8, 3),
+                    dropout=0.0, alpha=0.2, layer_type=layer_type)
+    fs.set_fused_attention("off")
+    try:
+        launches = _model_card_vs_cpu(cfg, _planted(cuda), impl)
+    finally:
+        fs.set_fused_attention("auto")
+    per_layer = 4 if layer_type == "GATv2_sparse" else 3
+    assert launches == ({"stream_scatter": 2 * per_layer}
+                        if impl == "stream" else {})
+
+
+def test_backend_xla_launches_no_stream_scatter(cuda):
+    """``--backend xla`` is the scatter impl: a run of the trainer under it
+    takes the unfused branch with index_add_ sums, and launches no kernel
+    of the port."""
+    from pygat_tpu_torch.ops import segment
+
+    data = _planted(cuda)
+    cfg = GATConfig(nlayers=2, nheads=(2, 1), nfeats=(128, 8, 3),
+                    dropout=0.4, alpha=0.2, layer_type="GAT_sparse")
+    before = build.launch_counts()
+    with segment.use_impl("scatter"):
+        res = fit_transductive(cfg, data, lr=0.01, weight_decay=5e-4,
+                               epochs=3, patience=100, seed=1,
+                               checkpoint_dir=None, logger=_quiet())
+    assert build.launch_counts() == before
+    assert np.isfinite(res.test_loss)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["batched", "remat"])
+@pytest.mark.parametrize("layer_type", ["GAT", "GATv2"])
+def test_dense_fast_loop_captures(cuda, layer_type, remat, monkeypatch):
+    """The fast loop captures the dense epoch (the dense adjacency, the
+    masks from the graph-registered generator, the softmax), the batched
+    heads and the rematerialized ones (threshold 0), and replays it: the
+    per-epoch loop's losses from the same seeds, dropout on."""
+    from pygat_tpu_torch.models import gat
+
+    if remat:
+        monkeypatch.setattr(gat, "_DENSE_VMAP_BYTES", 0)
+    data = _planted(cuda)
+    cfg = GATConfig(nlayers=2, nheads=(2, 1), nfeats=(128, 8, 3),
+                    dropout=0.4, alpha=0.2, layer_type=layer_type)
+    kw = dict(lr=0.01, weight_decay=5e-4, epochs=8, patience=100, seed=7,
+              checkpoint_dir=None, logger=_quiet(), log_every=100)
+    a = fit_transductive(cfg, data, **kw)
+    b = fit_transductive_fast(cfg, data, epoch_chunk=4, **kw)
+    assert b.graph_replays == 8
+    assert not any(b.captured_launches.values())
+    np.testing.assert_allclose(b.history, a.history, rtol=1e-4)
+
+
+@pytest.mark.parametrize("layer_type", ["GAT", "GATv2"])
+def test_dense_remat_matches_batched_on_the_card(cuda, layer_type):
+    """With dropout on and the same masks, the rematerialized heads give the
+    batched heads' output and gradients on the card."""
+    from pygat_tpu_torch.models import gat, layers
+
+    data = _planted(cuda)
+    cfg = GATConfig(nlayers=1, nheads=(4,), nfeats=(128, 8), dropout=0.5,
+                    alpha=0.2, layer_type=layer_type, skip_connection=True)
+    (p,) = gat.init_gat(cfg, torch.Generator().manual_seed(2), device=cuda)
+    n = data.graph.num_nodes_padded
+    masks = layers.draw_masks(torch.Generator(device=cuda).manual_seed(3),
+                              layer_type, 0.5, n=n, f_in=128, f_out=8, e=0,
+                              heads=4)
+    neighborhood = data.graph.to_dense(binary=True) > 0
+    results = []
+    for remat in (False, True):
+        out = gat.dense_heads(cfg, p, data.features, neighborhood, masks,
+                              concat=True, train=True, remat=remat)
+        grads = torch.autograd.grad(torch.sin(out).sum(), [t for t in p
+                                                            if t is not None])
+        results.append((out.detach(), grads))
+    (out_b, grads_b), (out_r, grads_r) = results
+    torch.testing.assert_close(out_r, out_b, rtol=0, atol=MODEL_RTOL * max(
+        1.0, float(out_b.abs().max())))
+    _close_grads(cfg, grads_r, grads_b)

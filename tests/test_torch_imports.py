@@ -34,7 +34,8 @@ assert {"pygat_tpu_torch.ops.corner", "pygat_tpu_torch.ops.fused_corner",
 assert set(build.launch_counts()) >= {"corner_permute", "fused_v1_window",
                                       "fused_v2_window", "spmm_banded",
                                       "panel_spmm", "bcsr_attention"}
-# the SpMM family is exported as the JAX package exports it
+# the SpMM family, the segment ops and the switches are exported as the
+# JAX package exports them
 from pygat_tpu_torch import ops
 for name in ("spmm", "spmm_graph", "sddmm", "sddmm_graph", "panel_spmm",
              "panel_spmm_graph", "build_panel_layout", "spmm_banded",
@@ -42,7 +43,9 @@ for name in ("spmm", "spmm_graph", "sddmm", "sddmm_graph", "panel_spmm",
              "gather_receivers", "segment_sum_receivers",
              "segment_sum_senders", "segment_max", "sorted_segment_sum",
              "sorted_segment_max", "sender_segment_sum",
-             "segment_softmax_stable"):
+             "segment_softmax_stable", "gather_receivers_hn",
+             "take_receivers", "take_senders", "set_segment_impl",
+             "use_impl", "set_fused_attention", "stream_expand"):
     assert callable(getattr(ops, name)), name
 print(len(names))
 """

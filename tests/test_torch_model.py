@@ -152,8 +152,27 @@ def test_dropout_train_step_is_finite_and_seeded(setup):
 
 
 def test_unported_layer_types_raise():
-    for lt in ("GAT", "GATv2"):  # the sparse types are ported
-        cfg = tgat.GATConfig(nlayers=1, nheads=(1,), nfeats=(4, 2),
-                             dropout=0.0, alpha=0.2, layer_type=lt)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tgat.init_gat(cfg, make_generator("cpu", 0))
+    """Every layer type initialises now (the dense ones since their port):
+    the dense types' W and a are xavier uniform (inside the bound, which
+    xavier normal of the same std passes), at the JAX package's shapes;
+    an unknown type still raises."""
+    for lt in ("GAT", "GATv2"):
+        kw = dict(nlayers=2, nheads=(8, 2), nfeats=(64, 16, 4), dropout=0.0,
+                  alpha=0.2, layer_type=lt, skip_connection=True)
+        params = tgat.init_gat(tgat.GATConfig(**kw),
+                               make_generator("cpu", 0), device="cpu")
+        want = jax.eval_shape(
+            lambda k: jgat.init_gat(k, jgat.GATConfig(**kw)),
+            jax.random.PRNGKey(0))
+        for p, jp in zip(params, want):
+            f_in, f_out = jp.skip.shape[1:]
+            fans = ((2 * f_in + f_out, f_out + 1) if lt == "GATv2"
+                    else (f_in + f_out, 2 * f_out + 1))
+            for t, jt, fan in zip(p[:2], jp[:2], fans):
+                assert t.shape == jt.shape and t.requires_grad
+                bound = 1.414 * np.sqrt(6.0 / fan)
+                assert bound * 0.9 < float(t.detach().abs().max()) <= bound
+    bad = tgat.GATConfig(nlayers=1, nheads=(1,), nfeats=(4, 2), dropout=0.0,
+                         alpha=0.2, layer_type="GAT_dense")
+    with pytest.raises(ValueError, match="unknown layer_type"):
+        tgat.init_gat(bad, make_generator("cpu", 0), device="cpu")

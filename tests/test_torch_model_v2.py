@@ -15,6 +15,7 @@ from jax.flatten_util import ravel_pytree
 
 from pygat_tpu.graph import build_graph as jbuild_graph
 from pygat_tpu.models import gat as jgat
+from pygat_tpu.models import layers as jlayers
 from pygat_tpu.ops import segment as jseg
 from pygat_tpu.train import loop as jloop
 from pygat_tpu.train import state as jstate
@@ -199,23 +200,59 @@ def test_params_from_jax_tells_the_layer_kinds_apart():
 
 
 def test_dense_layer_types_still_raise():
-    for lt in ("GAT", "GATv2"):
-        cfg = tgat.GATConfig(nlayers=1, nheads=(1,), nfeats=(4, 2),
+    """The dense types initialise since their port, with the JAX package's
+    leaf shapes (so ``params_from_jax`` takes them unchanged: a GATv2
+    layer's ``a`` has F_out columns, a GATv1 layer's 2 F_out) and xavier
+    uniform W and a, within the bound."""
+    for lt, cls in (("GAT", tlayers.V1Params), ("GATv2", tlayers.V2Params)):
+        cfg = tgat.GATConfig(nlayers=1, nheads=(16,), nfeats=(64, 32),
                              dropout=0.0, alpha=0.2, layer_type=lt)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tgat.init_gat(cfg, make_generator("cpu", 0), device="cpu")
+        (p,) = tgat.init_gat(cfg, make_generator("cpu", 0), device="cpu")
+        (jp,) = jax.eval_shape(
+            lambda k: jgat.init_gat(k, jgat.GATConfig(*cfg)),
+            jax.random.PRNGKey(0))
+        assert p.W.shape == jp.W.shape and p.a.shape == jp.a.shape
+        (q,) = params_from_jax([tuple(t.detach().numpy() for t in p[:2])
+                                + (None,)], device="cpu")
+        assert isinstance(q, cls) and torch.equal(q.W, p.W)
+        fan = 2 * 64 + 32 if lt == "GATv2" else 64 + 32
+        assert float(p.W.detach().abs().max()) <= 1.414 * np.sqrt(6.0 / fan)
 
 
 def test_v2_graph_without_stream_layout_names_the_roadmap():
-    g = tbuild_graph(np.arange(5), np.arange(5), None, 5, node_align=8,
-                     device="cpu")
-    if g.r_local is not None:
-        pytest.skip("this graph got a stream layout")
-    params = tlayers.V2Params(torch.zeros(1, 4, 2), torch.zeros(1, 2), None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tlayers.gat_v2_sparse_heads(
-            params, torch.zeros(g.num_nodes_padded, 2), g, None, alpha=0.2,
-            drop=0.0, concat=True, train=False)
+    """A graph without a stream layout (N_pad not a multiple of 128) takes
+    the unfused branch, which matches the JAX package's, forward and
+    gradients (it raised before the unfused branch was ported)."""
+    rng = np.random.default_rng(2)
+    n = 60
+    s = np.concatenate([rng.integers(0, n, 300), np.arange(n)])
+    r = np.concatenate([rng.integers(0, n, 300), np.arange(n)])
+    gj = jbuild_graph(s, r, None, n, node_align=8)
+    g = tbuild_graph(s, r, None, n, node_align=8, device="cpu")
+    assert g.r_local is None
+    w = (rng.standard_normal((2, 8, 3)) * 0.5).astype(np.float32)
+    a = (rng.standard_normal((2, 3)) * 0.5).astype(np.float32)
+    x = rng.standard_normal((g.num_nodes_padded, 4)).astype(np.float32)
+
+    def jloss(p, h):
+        out = jlayers.gat_v2_sparse_heads(
+            jlayers.V2Params(*p, None), h, gj, None, alpha=0.2, drop=0.0,
+            concat=True, train=False)
+        return jnp.sum(jnp.sin(out)), out
+
+    (_, out_j), grads_j = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))((jnp.asarray(w), jnp.asarray(a)),
+                                              jnp.asarray(x))
+    tw, ta, th = (torch.tensor(t, requires_grad=True) for t in (w, a, x))
+    out = tlayers.gat_v2_sparse_heads(
+        tlayers.V2Params(tw, ta, None), th, g, None, alpha=0.2, drop=0.0,
+        concat=True, train=False)
+    torch.sin(out).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               rtol=1e-5, atol=1e-6)
+    for got, want in zip((tw, ta, th), (*grads_j[0], grads_j[1])):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-5)
 
 
 def test_v2_sign_split_bound_tops_every_logit(setup, monkeypatch):

@@ -145,19 +145,48 @@ def test_banked_resume_continues_exactly(data, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "GAT"], "item 10"),
-    (["--model", "GATv2"], "item 10"),
-    (["--model", "GAT_sparse", "--backend", "xla"], "item 10"),
     (["--model", "GAT_sparse", "--mesh", "2,1"], "item 14"),
     (["--model", "GAT_sparse", "--distributed"], "item 14"),
     (["--model", "GAT_sparse", "--platform", "cpu"], "no counterpart"),
-], ids=["GAT", "GATv2", "xla", "mesh", "distributed", "platform"])
+], ids=["mesh", "distributed", "platform"])
 def test_cli_rejects_unported_flags(argv, item):
-    """Flags whose machinery is not ported raise, naming what ports them;
-    the default model (the dense GAT) among them."""
+    """Flags whose machinery is not ported raise, naming what ports them."""
     with pytest.raises(SystemExit, match=item):
         train_ppi.main(argv + ["--no-cuda"])
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--model", "GATv2"],
+    ["--model", "GAT_sparse", "--backend", "xla"],
+], ids=["GAT", "GATv2", "xla"])
+def test_cli_trains_with_the_dense_models_and_xla(monkeypatch, tmp_path,
+                                                  argv):
+    """The flags that raised before the dense layers and the unfused
+    branch were ported train with ``--no-cuda`` on the tiny load_ppi of
+    :func:`test_cli_trains_on_the_cpu`: the default ``--model GAT`` (the
+    dense layer), ``GATv2`` and ``--backend xla`` (the ``index_add_``
+    sums and the unfused sparse branch, scoped to the run)."""
+    from pygat_tpu_torch.ops import segment
+
     assert train_ppi.build_parser().parse_args([]).model == "GAT"
+    tiny = synth_ppi(tppi.PPIGraph, tppi.PPIData, n_feat=50, n_labels=121)
+    monkeypatch.setattr(tppi, "load_ppi", lambda data_root=None: tiny)
+    jsonl = str(tmp_path / "log.jsonl")
+    base = segment.current_impl()
+    text = io.StringIO()
+    with redirect_stdout(text):
+        assert train_ppi.main(argv + ["--no-cuda", "--epochs", "1",
+                                      "--no-checkpoint", "--jsonl", jsonl,
+                                      "--quiet-batches"]) == 0
+    assert segment.current_impl() == base
+    assert "Optimization Finished!" in text.getvalue()
+    with open(jsonl) as fh:
+        recs = [json.loads(line) for line in fh]
+    epochs = [r for r in recs if r["kind"] == "ppi_epoch"]
+    assert len(epochs) == 1 and np.isfinite(epochs[0]["loss_train"])
+    assert np.isfinite(epochs[0]["loss_val"])
+    assert recs[-1]["kind"] == "test"
 
 
 @pytest.mark.parametrize("scan", [False, True], ids=["per_batch", "banked"])

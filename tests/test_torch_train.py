@@ -154,14 +154,40 @@ def test_train_cli_two_epochs_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "2,1"], ["--partition", "ring"], ["--distributed"],
-    ["--reorder"], ["--model", "GATv2"],
-    ["--backend", "xla"],
+    ["--reorder"],
 ])
 def test_train_cli_unported_flags_name_the_roadmap(flags):
     from pygat_tpu_torch.cli.train import main
 
     with pytest.raises(SystemExit, match="ROADMAP"):
         main(["--no-cuda", "--epochs", "1", "--no-checkpoint", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--model", "GATv2"], ["--model", "GAT_sparse", "--backend", "xla"],
+], ids=["GATv2", "xla"])
+def test_train_cli_runs_the_flags_once_unported(flags, tmp_path,
+                                                monkeypatch):
+    """``--model GATv2`` (the dense layer) and ``--backend xla`` (the
+    unfused branch over index_add_ sums), which raised before their port,
+    train on the CPU: a small citation graph stands in for Cora."""
+    from pygat_tpu_torch.cli import train as cli
+    from pygat_tpu_torch.data import citation
+
+    small = _planted(300, 7, "cli", 32, 64, 6,
+                     ((0, 100), (100, 200), (200, 300)), 0.2)
+    monkeypatch.setattr(citation, "load_citation",
+                        lambda *a, **k: small)
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = cli.main(["--dataset", "cora", "--epochs", "2", "--no-cuda",
+                       "--no-checkpoint", "--jsonl",
+                       str(tmp_path / "m.jsonl"), *flags])
+    assert rc == 0
+    assert "Epoch: 0002 loss_train:" in out.getvalue()
+    recs = [json.loads(line) for line in open(tmp_path / "m.jsonl")]
+    losses = [r["loss_train"] for r in recs if r["kind"] == "epoch"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def test_device_defaults_to_cuda_and_never_falls_back():
