@@ -8,7 +8,9 @@ of which prints its seconds:
 
 1. print the card (``nvidia-smi`` name and power limit), CUDA and nvcc
    versions;
-2. build the fourteen CUDA kernels from ``pygat_tpu_torch/csrc`` and print
+2. build the fourteen CUDA kernel libraries (sixteen kernels: the ring's
+   per-hop forwards sit in the stream forwards' sources) from
+   ``pygat_tpu_torch/csrc`` and print
    the build seconds and the compiler's register / shared-memory report;
 3. hold each kernel against its plain PyTorch version on the card, at every
    shape the GAT_sparse and GATv2_sparse paths give it: the stream kernels
@@ -139,7 +141,31 @@ of which prints its seconds:
    through the remat path (its [8, N, N] attention is 12.6 GB a layer),
    their seconds and peak memory; the phase fails past DENSE_BUDGET_S
    seconds;
-10. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+10. the ring (``pygat_tpu_torch.parallel``): Cora and Pubmed interleaved
+    and repadded for RING_SHARDS shards, their ``partition_edges`` and
+    every shard's blocks and walks (host seconds printed); at the presets'
+    widths, both models, every hop into every shard, by the rotation (the
+    source shard's rows) and by the halo exchange (the rows it gathers by
+    ``halo_idx``), the parts kernels (``fused_v1_parts``,
+    ``fused_v2_parts``) against their f64 plain versions, called twice
+    (equal bit for bit); each shard's summed hops, after ``softmax_div``,
+    against the single-device fused attention on the same graph, output
+    and gradients, within MODEL_RTOL; ``stream_scatter`` over every
+    block's receiver, sender and halo views against its f64 plain version,
+    twice; the hops timed (Cora, Pubmed and the 524k graph) beside their
+    bounds and row 2 or 3's single-device time, row 1's views beside
+    ``index_add_``; the ring model at one shard on the card against the
+    single-device model on the CPU; through both CLIs at world size 1
+    (the launcher's variables of one rank, the CLI bringing up an NCCL
+    group of one), with the counters set to 0 just before each run and
+    read just after, Cora GAT_sparse and GATv2_sparse by both loops with
+    ``--mesh 1,1 --partition ring --distributed`` and PPI GATv2_sparse by
+    the banked loop: finite, falling training and validation losses; on
+    Cora the parts kernels and row 1 launched, the single-device forwards
+    not;
+    the Cora epoch of the ring at one shard beside the single device's;
+    the phase fails past RING_BUDGET_S seconds;
+11. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 The script imports nothing of JAX or of the JAX package, needs no network
 and starts no process other than ``nvidia-smi``, ``nvcc`` and the one
@@ -224,12 +250,18 @@ UNFUSED_WIDTHS = {"cora": {"recv": (72, 8, 64, 7, 1), "send": (64, 7)},
                   "ppi batch": {"recv": (1028, 732, 1024, 726),
                                 "send": (1024, 726)}}
 DENSE_BUDGET_S = 150.0
+# the ring: the shards of its block shapes on one card, and the phase's
+# budget on the card
+RING_SHARDS = 4
+RING_BUDGET_S = 150.0
 REPLACES = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
             "corner_permute": "pygat_tpu/ops/corner.py:216",
             "fused_v1_window": "pygat_tpu/ops/fused_stream.py:134",
             "fused_v2_window": "pygat_tpu/ops/fused_stream.py:207",
             "fused_v1": "pygat_tpu/ops/fused_stream.py:134",
             "fused_v2": "pygat_tpu/ops/fused_stream.py:207",
+            "fused_v1_parts": "pygat_tpu/ops/fused_stream.py:134",
+            "fused_v2_parts": "pygat_tpu/ops/fused_stream.py:207",
             "expand": "pygat_tpu/ops/large.py:47",
             "banded_take": "pygat_tpu/ops/banded.py:314",
             "banded_sender_sum": "pygat_tpu/ops/banded.py:411",
@@ -2359,6 +2391,657 @@ def _dense_phase(datasets, ppi, ppi_batch, gen, kernel_cases, counters,
     return out
 
 
+
+# -- phase 10: the ring (pygat_tpu_torch.parallel) ---------------------------
+
+
+def _ring_partition(name, ds):
+    """Dataset ``ds`` interleaved and repadded for RING_SHARDS shards, its
+    ``partition_edges`` and every shard's blocks and walks on the card,
+    with the host seconds of each step and the blocks' sizes."""
+    import torch
+
+    from pygat_tpu_torch.data.citation import interleave_citation
+    from pygat_tpu_torch.parallel.partition import partition_edges, shard_blocks
+
+    d = RING_SHARDS
+    unit = 128 * d
+    n_pad = ds.graph.num_nodes_padded
+    want = -(-max(n_pad, int(ds.graph.n_node) + 1) // unit) * unit
+    t0 = time.perf_counter()
+    il = interleave_citation(ds, d, n_pad=want)
+    t1 = time.perf_counter()
+    part = partition_edges(il.graph, d)
+    t2 = time.perf_counter()
+    blocks = [shard_blocks(part, k, "cuda") for k in range(d)]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    live = part.edge_mask.sum(axis=-1)
+    sizes = dict(n_local=part.n_local, block_edges=part.block_edges,
+                 live_mean=float(live.mean()), live_max=int(live.max()),
+                 live_min=int(live.min()), h_rows=part.h_rows,
+                 interleave_s=t1 - t0, partition_s=t2 - t1, walks_s=t3 - t2)
+    print(f"phase 10: {name}, {d} shards: N_pad {want}, n_local "
+          f"{part.n_local}, E_blk {part.block_edges} (live per block: mean "
+          f"{sizes['live_mean']:.1f}, {sizes['live_min']}-{sizes['live_max']}"
+          f"), h_rows {part.h_rows}; interleave {t1 - t0:.2f} s, "
+          f"partition_edges {t2 - t1:.2f} s, block walks {t3 - t2:.2f} s",
+          flush=True)
+    return dict(il=il, part=part, blocks=blocks, sizes=sizes)
+
+
+def _ring_tables(il, h, f, v2, gen):
+    """Full node tables of one layer width on the card, with the bound
+    the ring forms from them: GATv1 wh, f_dst, bound, a_src; GATv2 whi,
+    whj, ub, a."""
+    import torch
+
+    from pygat_tpu_torch.ops.fused_stream import leaky_relu
+
+    n = il.graph.num_nodes_padded
+    nm = il.graph.node_mask[:, None]
+    if not v2:
+        wh = torch.randn(n, h * f, generator=gen, device="cuda") * 0.5
+        a = torch.randn(h, 2 * f, generator=gen, device="cuda") * 0.5
+        wh3 = wh.view(n, h, f)
+        f_dst = torch.einsum("nho,ho->nh", wh3, a[:, :f]).contiguous()
+        a_src = a[:, f:].contiguous()
+        f_src = torch.einsum("nho,ho->nh", wh3, a_src)
+        m = torch.where(nm, f_src, float("-inf")).amax(0)
+        return dict(wh=wh, f_dst=f_dst, a_src=a_src,
+                    bound=leaky_relu(f_dst + m, 0.2).contiguous())
+    whi = torch.randn(n, h * f, generator=gen, device="cuda") * 0.5
+    whj = torch.randn(n, h * f, generator=gen, device="cuda") * 0.5
+    a = torch.randn(h, f, generator=gen, device="cuda") * 0.5
+    mq_max = torch.where(nm, whj, float("-inf")).amax(0).view(h, f)
+    mq_min = torch.where(nm, whj, float("inf")).amin(0).view(h, f)
+    wi3 = whi.view(n, h, f)
+    ub = ((leaky_relu(wi3 + mq_max, 0.2) * a.clamp(min=0)).sum(-1)
+          + (leaky_relu(wi3 + mq_min, 0.2) * a.clamp(max=0)).sum(-1))
+    return dict(whi=whi, whj=whj, a=a, ub=ub.contiguous())
+
+
+def _hop_rows(blocks, dst, src, halo):
+    """The rows of the full tables a hop's sender buffer holds: shard
+    ``src``'s range, or (``halo``) the rows of it that shard ``dst``
+    references."""
+    n_local = blocks[dst].n_local
+    if halo and src != dst:
+        return src * n_local + blocks[src].halo_idx[dst].long()
+    return slice(src * n_local, (src + 1) * n_local)
+
+
+def _hop_args(blocks, dst, k, halo, t, keep):
+    """(kernel, plain, args, walk, block) of hop ``k`` into shard ``dst``
+    over the tables ``t`` (GATv1 or GATv2), as a rank would call it."""
+    from pygat_tpu_torch.ops.fused_stream import (
+        fused_v1_parts,
+        fused_v1_parts_plain,
+        fused_v2_parts,
+        fused_v2_parts_plain,
+    )
+
+    d = len(blocks)
+    src = (dst - k) % d
+    b = blocks[dst].block(src, halo and src != dst)
+    n_local = blocks[dst].n_local
+    mine = slice(dst * n_local, (dst + 1) * n_local)
+    rows = _hop_rows(blocks, dst, src, halo)
+    keep_k = keep[:b.recv.shape[0]]
+    if "wh" in t:
+        args = (t["wh"][rows].contiguous(), t["f_dst"][mine],
+                t["bound"][mine], t["a_src"], keep_k, b.senders, b.local,
+                b.chunk, 0.2)
+        return fused_v1_parts, fused_v1_parts_plain, args, b.walk, b
+    args = (t["whi"][mine], t["ub"][mine], t["whi"][rows].contiguous(),
+            t["whj"][rows].contiguous(), t["a"], keep_k, b.senders, b.local,
+            b.chunk, 0.2)
+    return fused_v2_parts, fused_v2_parts_plain, args, b.walk, b
+
+
+def _hop_check(kernel, plain, args, walk):
+    """One hop's launch against its f64 plain version, and a second launch:
+    (worst error over its KERNEL_RTOL allowance, max |error|, whether the
+    second call is equal bit for bit)."""
+    import torch
+
+    out, den = kernel(*args, walk=walk)
+    out_p, den_p = plain(*args, f64=True)
+    again = kernel(*args, walk=walk)
+    torch.cuda.synchronize()
+    e1, a1 = _max_err(out, out_p)
+    e2, a2 = _max_err(den, den_p)
+    repeat = torch.equal(out, again[0]) and torch.equal(den, again[1])
+    return max(e1 / a1, e2 / a2), max(e1, e2), repeat
+
+
+def _check_ring_hops(name, rp, h, f, v2, gen, kernel_cases):
+    """Every hop (each destination shard, each hop, rotation and halo) of
+    the GATv1 or GATv2 parts kernel at width (h, f) against its f64 plain
+    version, to KERNEL_RTOL of its largest output, and again, equal bit for
+    bit; one case a (dataset, width, exchange) with the worst hop."""
+    import torch
+
+    blocks = rp["blocks"]
+    d = len(blocks)
+    t = _ring_tables(rp["il"], h, f, v2, gen)
+    e_blk = rp["part"].block_edges
+    keep = torch.where(torch.rand(e_blk, h, generator=gen, device="cuda")
+                       < 0.4, 1.0 / 0.4, 0.0)
+    kname = "fused_v2_parts" if v2 else "fused_v1_parts"
+    for exchange in ("rotation", "halo"):
+        worst, worst_err, repeat, n_hops = 0.0, 0.0, True, 0
+        for dst in range(d):
+            for k in range(d):
+                if exchange == "halo" and k == 0:
+                    continue  # hop 0 is the shard's own block either way
+                kernel, plain, args, walk, _ = _hop_args(
+                    blocks, dst, k, exchange == "halo", t, keep)
+                w, err, same = _hop_check(kernel, plain, args, walk)
+                worst, worst_err = max(worst, w), max(worst_err, err)
+                repeat &= same
+                n_hops += 1
+        print(f"  {kname} {name} H={h} F={f} {exchange}: {n_hops} hops, "
+              f"worst at {worst:.3f} of its allowance; a second call "
+              f"{'' if repeat else 'NOT '}equal bit for bit")
+        if worst > 1.0 or not repeat:
+            raise AssertionError(f"{kname} disagrees with its plain version")
+        kernel_cases[kname].append(dict(
+            dataset=name, H=h, F=f, path=exchange, max_abs_err=worst_err,
+            bitwise_repeat=repeat, hops=n_hops))
+    return t
+
+
+def _ring_vs_single(name, rp, h, f, v2, gen, halo):
+    """Each shard's summed hops (ring_hop_v1 / _v2 over the parts kernel,
+    no dropout), after softmax_div, against the single-device fused
+    attention on the same interleaved graph, and the gradients of wh,
+    f_dst, a (GATv1) or whi, whj, a (GATv2) of a random cotangent, within
+    MODEL_RTOL."""
+    import torch
+
+    from pygat_tpu_torch.models.layers import softmax_div
+    from pygat_tpu_torch.ops.fused_stream import (
+        fused_v1_attention,
+        fused_v2_attention,
+    )
+    from pygat_tpu_torch.parallel.partition import ring_hop_v1, ring_hop_v2
+
+    blocks, g = rp["blocks"], rp["il"].graph
+    d, n_local, hf = len(blocks), blocks[0].n_local, h * f
+    t = _ring_tables(rp["il"], h, f, v2, gen)
+    names = ("whi", "whj", "a") if v2 else ("wh", "f_dst", "a_src")
+    cot = torch.randn(g.num_nodes_padded, hf, generator=gen, device="cuda")
+    results = []
+    for route in ("ring", "single"):
+        leaves = [t[k].clone().requires_grad_() for k in names]
+        if route == "single":
+            ones = torch.ones(g.num_edges_padded, h, device="cuda")
+            fields = (g.senders, g.receivers, g.r_local, g.r_chunk, g.c_slot,
+                      g.c_local, g.c_chunk, 0.2, g.stream_walk,
+                      g.sender_walk)
+            if v2:
+                agg, den = fused_v2_attention(leaves[0], leaves[1], t["ub"],
+                                              leaves[2], ones, *fields)
+            else:
+                agg, den = fused_v1_attention(leaves[0], leaves[1],
+                                              t["bound"], leaves[2], ones,
+                                              *fields)
+            out = softmax_div(agg.view(-1, h, f), den).view(-1, hf)
+        else:
+            outs = []
+            for dst in range(d):
+                mine = slice(dst * n_local, (dst + 1) * n_local)
+                acc = torch.zeros(n_local, hf + h, device="cuda")
+                for k in range(d):
+                    rows = _hop_rows(blocks, dst, (dst - k) % d, halo)
+                    if v2:
+                        acc = ring_hop_v2(acc, leaves[0][rows],
+                                          leaves[1][rows], k, blocks[dst],
+                                          leaves[0][mine], t["ub"][mine],
+                                          leaves[2], alpha=0.2, halo=halo)
+                    else:
+                        acc = ring_hop_v1(acc, leaves[0][rows], k,
+                                          blocks[dst], leaves[1][mine],
+                                          t["bound"][mine], leaves[2],
+                                          alpha=0.2, halo=halo)
+                outs.append(softmax_div(acc[:, :hf].view(-1, h, f),
+                                        acc[:, hf:]).view(-1, hf))
+            out = torch.cat(outs)
+        grads = torch.autograd.grad((out * cot).sum(), leaves)
+        results.append((out.detach(), grads))
+    (out_r, grads_r), (out_s, grads_s) = results
+    worst = 0.0
+    for what, got, want in (("out", out_r, out_s),
+                            *zip(names, grads_r, grads_s)):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"ring {what} is not finite")
+        scale = MODEL_RTOL * max(1.0, float(want.abs().max()))
+        worst = max(worst, float((got - want).abs().max()) / scale)
+    label = ("v2" if v2 else "v1") + (" halo" if halo else " rotation")
+    print(f"  ring {label} {name} H={h} F={f}: summed hops vs the "
+          f"single-device fused attention, output and gradients of "
+          f"{', '.join(names)}: worst at {worst:.3f} of MODEL_RTOL")
+    if worst > 1.0:
+        raise AssertionError("the ring disagrees with the single device")
+
+
+def _block_view(b, side):
+    """(local, chunk, n_rows, slot, walk) of row 1 over block ``b``'s
+    receiver stream (``side`` 'recv', n_local rows) or its sender or halo
+    view (by the slot map, over the view's rows)."""
+    if side == "recv":
+        return b.local, b.chunk, b.n_local, None, b.walk
+    return b.s_local, b.s_chunk, b.n_rows, b.s_slot, b.sender_walk
+
+
+def _block_scatter_check(data, view):
+    """Row 1 over a block view against its f64 plain version and again:
+    (worst error over its allowance of KERNEL_RTOL of the same sums over
+    |data|, max |error|, whether the second call is equal bit for bit)."""
+    import torch
+
+    from pygat_tpu_torch.ops.stream import stream_scatter, stream_scatter_plain
+
+    local, chunk, n_rows, slot, walk = view
+    got = stream_scatter(data, local, chunk, n_rows, slot=slot, walk=walk)
+    want = stream_scatter_plain(data, local, chunk, n_rows, slot=slot,
+                                f64=True)
+    mag = stream_scatter_plain(data.abs(), local, chunk, n_rows, slot=slot)
+    again = stream_scatter(data, local, chunk, n_rows, slot=slot, walk=walk)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    return (float((diff / (KERNEL_RTOL * mag + 1e-30)).max()),
+            float(diff.max()), torch.equal(got, again))
+
+
+def _block_scatter_cases(name, rp, widths, gen, kernel_cases):
+    """Row 1 over the ring's block views at ``widths``: every block's
+    receiver stream (n_local rows), sender view (n_local rows) and halo view
+    (h_rows rows), against its f64 plain version to KERNEL_RTOL of the same
+    sums over |data|, and again, equal bit for bit; one case a (view,
+    width) with the worst block."""
+    import torch
+
+    blocks = rp["blocks"]
+    d = len(blocks)
+    for width in widths:
+        for side in ("recv", "send", "halo"):
+            worst, worst_err, repeat = 0.0, 0.0, True
+            for dst in range(d):
+                for src in range(d):
+                    if side == "halo" and src == dst:
+                        continue
+                    b = blocks[dst].block(src, side == "halo")
+                    data = torch.randn(b.recv.shape[0], width, generator=gen,
+                                       device="cuda")
+                    if side == "recv":
+                        data = data * b.mask[:, None]
+                    w, err, same = _block_scatter_check(
+                        data, _block_view(b, side))
+                    worst, worst_err = max(worst, w), max(worst_err, err)
+                    repeat &= same
+            print(f"  stream_scatter {name} ring {side} view L={width}: "
+                  f"worst block at {worst:.3f} of its allowance; a second "
+                  f"call {'' if repeat else 'NOT '}equal bit for bit")
+            if worst > 1.0 or not repeat:
+                raise AssertionError("stream_scatter disagrees with its plain "
+                                     "version over a ring block")
+            kernel_cases["stream_scatter"].append(dict(
+                dataset=name, path="ring", side=side, L=width,
+                max_abs_err=worst_err, bitwise_repeat=repeat))
+
+
+def _time_ring_hop(name, rp, t, h, f, exchange, kernel_cases, single_ms,
+                   big=False):
+    """Hop 1 into shard 0 (the rotation's full shard, or the halo buffer)
+    of the parts kernel of tables ``t``: held to its f64 plain version and
+    called again (equal bit for bit), then its time, its plain version's,
+    its bound, and row 2 or 3's single-device time on the same graph."""
+    import torch
+
+    blocks = rp["blocks"]
+    keep = torch.ones(rp["part"].block_edges, h, device="cuda")
+    kernel, plain, args, walk, b = _hop_args(blocks, 0, 1,
+                                             exchange == "halo", t, keep)
+    v2 = "whi" in t
+    kname = "fused_v2_parts" if v2 else "fused_v1_parts"
+    worst, err, repeat = _hop_check(kernel, plain, args, walk)
+    if worst > 1.0 or not repeat:
+        raise AssertionError(f"{kname} {name} {exchange} hop disagrees with "
+                             f"its plain version (worst at {worst:.3f} of "
+                             f"its allowance, repeat {repeat})")
+    kw = dict(calls=BIG_CALLS, replays=BIG_REPLAYS) if big else {}
+    ms = _time_ms(lambda: kernel(*args, walk=walk), **kw)
+    plain_ms = _time_ms(lambda: plain(*args), **kw)
+    n_local, n_buf, hf = blocks[0].n_local, b.n_rows, h * f
+    live = int(b.mask.sum())
+    # the rows the hop reads: its live slots' senders in the sender
+    # table(s), and the receivers with a live slot on the receiver side
+    n_snd = int(torch.unique(b.senders[b.mask]).numel())
+    n_rcv = int(torch.unique(b.recv[b.mask]).numel())
+    index_words = 2 * b.recv.shape[0] + b.chunk.shape[0]
+    # each input once: those rows of the sender table(s) and of the
+    # receiver tables, a, a live slot's keep factors, the index words; out
+    # and den written, all n_local rows
+    n_bytes = 4 * ((2 if v2 else 1) * n_snd * hf
+                   + (n_rcv * (hf + h) if v2 else 2 * n_rcv * h)
+                   + hf + live * h + index_words + n_local * (hf + h))
+    n_flops = live * ((6 if v2 else 4) * hf + 6 * h)
+    bound_ms, bound_by = _bound(n_bytes, n_flops)
+    case = dict(dataset=name, H=h, F=f, path=f"{exchange} hop", n_buf=n_buf,
+                live=live, senders_read=n_snd, receivers_read=n_rcv, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, single_device_ms=single_ms, max_abs_err=err,
+                bitwise_repeat=repeat)
+    kernel_cases[kname].append(case)
+    print(f"  {kname} {name} H={h} F={f} {exchange} hop (n_buf {n_buf}, "
+          f"{live} live slots, {n_snd} senders and {n_rcv} receivers read; "
+          f"worst at {worst:.3f} of its allowance, a second call equal bit "
+          f"for bit): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}); one device's row "
+          f"{'3' if v2 else '2'} on the whole graph "
+          f"{'not measured' if single_ms is None else f'{single_ms:.4f} ms'}")
+    return case
+
+
+def _time_block_scatter(name, rp, width, kernel_cases):
+    """Row 1 over shard 0's block from shard 1, each view, at ``width``:
+    held to its f64 plain version and called again (equal bit for bit),
+    then the kernel, the plain version, ``index_add_`` and the byte
+    bound."""
+    import torch
+
+    from pygat_tpu_torch.ops.stream import stream_scatter, stream_scatter_plain
+
+    blocks = rp["blocks"]
+    for side in ("recv", "send", "halo"):
+        b = blocks[0].block(1, side == "halo")
+        data = torch.randn(b.recv.shape[0], width, device="cuda") * b.mask[
+            :, None]
+        view = _block_view(b, side)
+        local, chunk, n_rows, slot, walk = view
+        worst, err, repeat = _block_scatter_check(data, view)
+        if worst > 1.0 or not repeat:
+            raise AssertionError(f"stream_scatter {name} ring {side} view "
+                                 f"disagrees with its plain version (worst "
+                                 f"at {worst:.3f} of its allowance, repeat "
+                                 f"{repeat})")
+        if side == "recv":
+            idx = torch.where(b.mask, b.recv.long(), b.n_local)
+        else:
+            idx = torch.where(b.mask, b.senders.long(), b.n_rows)
+        ms = _time_ms(lambda: stream_scatter(data, local, chunk, n_rows,
+                                             slot=slot, walk=walk))
+        plain_ms = _time_ms(lambda: stream_scatter_plain(
+            data, local, chunk, n_rows, slot=slot))
+        lib = torch.zeros(n_rows + 1, width, device="cuda")
+        library_ms = _time_ms(lambda: lib.index_add_(0, idx, data))
+        live = int(b.mask.sum())
+        n_bytes = 4 * (live * width + local.numel() + chunk.numel()
+                       + (slot.numel() if slot is not None else 0)
+                       + n_rows * width)
+        bound_ms, bound_by = _bound(n_bytes, live * width)
+        kernel_cases["stream_scatter"].append(dict(
+            dataset=name, path="ring", side=f"{side} timed", L=width, ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+            bound_by=bound_by, max_abs_err=err, bitwise_repeat=repeat))
+        print(f"  stream_scatter {name} ring {side} view (shard 0 from 1) "
+              f"L={width} (worst at {worst:.3f} of its allowance, a second "
+              f"call equal bit for bit): {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, index_add_ {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by})")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _one_rank():
+    """The launcher's environment of a group of one on this card (a free
+    port on this host), taken away again on exit."""
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _ring_clis(counters, jsonl, path_launches, path_replayed):
+    """Both CLIs at world size 1 (an NCCL group of one, brought up by the
+    CLI from the launcher's environment): Cora GAT_sparse and GATv2_sparse
+    by both loops with ``--mesh 1,1 --partition ring --distributed``, and
+    PPI GATv2_sparse by the banked loop with ``--epoch-scan --mesh 1,1
+    --distributed``; each with the counters set to 0 just before and read
+    just after, its losses finite and falling (training and validation);
+    on Cora the parts kernels and row 1 launched, the single-device stream
+    forwards not; on PPI (one batch a rank, no ring) rows 1 and 3, the
+    parts kernels not. Returns the runs' capture records (the fast
+    loop's)."""
+    captures = {}
+    runs = []
+    for lt in ("GAT_sparse", "GATv2_sparse"):
+        base = ["--dataset", "cora", "--model", lt, "--mesh", "1,1",
+                "--partition", "ring", "--distributed"]
+        runs.append((f"ring {lt}", base, TRAIN_EPOCHS, False))
+        runs.append((f"ring {lt} fast loop",
+                     base + ["--epoch-chunk", str(EPOCH_CHUNK)],
+                     TRAIN_EPOCHS, False))
+    runs.append(("ring PPI GATv2_sparse banked",
+                 ["--model", "GATv2_sparse", "--epoch-scan", "--mesh", "1,1",
+                  "--distributed"], PPI_EPOCHS, True))
+    for label, argv, epochs, ppi in runs:
+        with _one_rank():
+            launches, losses, replays, captured, text = _train_cli(
+                argv, epochs, counters, jsonl, ppi=ppi)
+        with open(jsonl) as fh:
+            recs = [json.loads(line) for line in fh]
+        kind = "ppi_epoch" if ppi else "epoch"
+        val = [r["loss_val"] for r in recs if r["kind"] == kind]
+        if not (all(math.isfinite(v) for v in val) and val[-1] < val[0]):
+            raise AssertionError(f"{label}: the validation loss did not fall")
+        if "mesh: data=1 model=1" not in text:
+            raise AssertionError(f"{label}: the CLI did not run on a mesh")
+        if ppi:
+            # data parallelism: each rank's batches through rows 1-3 on
+            # its own device, no ring
+            want, never = ("fused_v2", "stream_scatter"), ("fused_v1_parts",
+                                                           "fused_v2_parts")
+        else:
+            want = ("fused_v2_parts" if "v2" in label else "fused_v1_parts",
+                    "stream_scatter")
+            never = ("fused_v1", "fused_v2")
+        if not all(launches[k] for k in want):
+            raise AssertionError(f"{label}: {want} did not all run")
+        if any(launches[k] for k in never):
+            raise AssertionError(f"{label}: {never} ran")
+        captures[label] = [r for r in recs if r["kind"] == "capture"]
+        path_launches[label] = launches
+        path_replayed[label] = {k: replays * captured.get(k, 0)
+                                for k in counters}
+        print(f"phase 10: {label}: train losses "
+              f"{[round(v, 4) for v in losses]}; validation "
+              f"{[round(v, 4) for v in val]}; wrapper launches "
+              f"{ {k: v for k, v in launches.items() if v} }; CUDA graph "
+              f"replays {replays}"
+              + (f"; eager chunks: {captures[label][0]['error']}"
+                 if captures[label] else ""), flush=True)
+    return captures
+
+
+def _ring_model_card_vs_cpu(cora):
+    """The ring model at one shard (no group: one rank's ring) on the card
+    against the single-device model on the CPU on the same graph, loss and
+    gradients of both sparse models, within MODEL_RTOL."""
+    import torch
+    import torch.nn.functional as F
+
+    from pygat_tpu_torch.data.citation import interleave_citation
+    from pygat_tpu_torch.models.gat import apply_gat, init_gat, parameters
+    from pygat_tpu_torch.parallel.partition import partition_edges, shard_blocks
+    from pygat_tpu_torch.parallel.ring_model import ring_apply_gat
+    from pygat_tpu_torch.utils.platform import make_generator
+
+    il = interleave_citation(cora, 1)
+    blocks = shard_blocks(partition_edges(il.graph, 1), 0, "cuda")
+    idx = il.idx_train.long()
+    for lt in ("GAT_sparse", "GATv2_sparse"):
+        cfg = _preset_cfg("cora", lt, cora)._replace(dropout=0.0)
+        res = {}
+        for side, dev in (("card", "cuda"), ("host", "cpu")):
+            params = init_gat(cfg, make_generator("cpu", 72), device=dev)
+            x = il.features.to(dev)
+            if side == "card":
+                out = ring_apply_gat(params, cfg, x, blocks, None, train=True)
+            else:
+                out = apply_gat(params, cfg, x, il.graph.to(dev), None,
+                                train=True)
+            lp = F.log_softmax(F.elu(out), dim=1)
+            loss = F.nll_loss(lp[idx.to(dev)], il.labels.to(dev)[
+                idx.to(dev)].long())
+            loss.backward()
+            res[side] = (out.detach().cpu(), float(loss.detach()),
+                         [p.grad.cpu() for p in parameters(params)])
+        worst = 0.0
+        for got, want in zip([res["card"][0], *res["card"][2]],
+                             [res["host"][0], *res["host"][2]]):
+            scale = MODEL_RTOL * max(1.0, float(want.abs().max()))
+            worst = max(worst, float((got - want).abs().max()) / scale)
+        print(f"phase 10: Cora {lt}, the ring model on the card vs the "
+              f"single-device model on the CPU: loss {res['card'][1]:.6f} / "
+              f"{res['host'][1]:.6f}, output and gradients worst at "
+              f"{worst:.3f} of MODEL_RTOL")
+        if worst > 1.0 or abs(res["card"][1] - res["host"][1]) > MODEL_RTOL:
+            raise AssertionError("the ring model disagrees with the single "
+                                 "device")
+
+
+def _ring_epoch_ms(cora):
+    """Cora GAT_sparse epochs in a group of one: the ring's (one shard) and
+    the single device's, by the per-epoch loop (median of 20 synchronized
+    epochs) and the fast loop (median of TIMED_CHUNKS chunks of 10), host
+    clock; the fast loop's capture holds the NCCL all-reduces."""
+    import torch
+    import torch.distributed as dist
+
+    from pygat_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from pygat_tpu_torch.tools.profile_epoch import epoch_runners
+    from pygat_tpu_torch.train.logging import TrainLogger
+    from pygat_tpu_torch.train.loop import _ring_setup
+
+    cfg = _preset_cfg("cora", "GAT_sparse", cora)
+    out = {}
+    with _one_rank():
+        initialize_distributed()
+        try:
+            mesh = make_mesh(1, 1)
+            with open(os.devnull, "w") as quiet:
+                local, ring = _ring_setup(cfg, cora, mesh,
+                                          TrainLogger(stream=quiet))
+            for label, data, kw in (("single device", cora, {}),
+                                    ("ring, 1 shard", local, {"ring": ring})):
+                epoch, chunk = epoch_runners(cfg, data, 10, **kw)
+                for _ in range(5):
+                    epoch()
+                torch.cuda.synchronize()
+                samples = []
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    epoch()
+                    torch.cuda.synchronize()
+                    samples.append((time.perf_counter() - t0) * 1e3)
+                chunk.run()
+                fast = []
+                for _ in range(TIMED_CHUNKS):
+                    t0 = time.perf_counter()
+                    chunk.run()
+                    fast.append((time.perf_counter() - t0) * 1e3 / 10)
+                out[label] = dict(per_epoch_ms=sorted(samples)[10],
+                                  fast_ms=sorted(fast)[TIMED_CHUNKS // 2],
+                                  captured=chunk.graph_replays > 0,
+                                  capture_error=chunk.capture_error)
+                print(f"phase 10: Cora GAT_sparse epoch, {label}: per-epoch "
+                      f"loop {out[label]['per_epoch_ms']:.4f} ms, fast loop "
+                      f"{out[label]['fast_ms']:.4f} ms ("
+                      + ("captured" if chunk.graph_replays else
+                         f"eager: {chunk.capture_error}") + ")", flush=True)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def _ring_phase(datasets, large, gen, kernel_cases, counters, jsonl,
+                path_launches, path_replayed):
+    """Phase 10, the ring: the per-hop kernels at the 4-shard block shapes
+    of Cora and Pubmed (both models at the presets' widths, every hop,
+    rotation and halo) against their f64 plain versions and summed against
+    the single-device attention; row 1 over the block views; the CLIs at
+    world size 1; the ring model card vs CPU; the timings (hops at Cora,
+    Pubmed and the 524k graph, the host's partition seconds, the Cora
+    epochs). Returns its numbers."""
+    from pygat_tpu_torch.models.presets import PRESETS
+
+    single = {}
+    for kname in ("fused_v1", "fused_v2"):
+        for c in kernel_cases[kname]:
+            single[(kname, c["dataset"], c["H"], c["F"])] = c.get("ms")
+    out = {"blocks": {}, "hops": []}
+    for name in ("cora", "pubmed"):
+        rp = _ring_partition(name, datasets[name])
+        out["blocks"][name] = rp["sizes"]
+        widths = list(zip(PRESETS[name]["nheads"], PRESETS[name]["nfeats"][1:]))
+        for v2 in (False, True):
+            for h, f in widths:
+                t = _check_ring_hops(name, rp, h, f, v2, gen, kernel_cases)
+                if (h, f) == widths[0]:
+                    for exchange in ("rotation", "halo"):
+                        out["hops"].append(_time_ring_hop(
+                            name, rp, t, h, f, exchange, kernel_cases,
+                            single.get(("fused_v2" if v2 else "fused_v1",
+                                        name, h, f))))
+            h, f = widths[0]
+            for halo in (False, True):
+                _ring_vs_single(name, rp, h, f, v2, gen, halo)
+        h, f = widths[0]
+        _block_scatter_cases(name, rp, (h, h * f), gen, kernel_cases)
+        if name == "cora":
+            _time_block_scatter(name, rp, h * f, kernel_cases)
+        del rp
+    t0 = time.perf_counter()
+    rp = _ring_partition("large", large)
+    out["blocks"]["large"] = rp["sizes"]
+    if time.perf_counter() - t0 > 60:
+        print("phase 10: partitioning the 524k graph took more than 60 s; "
+              "its hops are not timed")
+    else:
+        for v2 in (False, True):
+            t = _ring_tables(rp["il"], 8, 8, v2, gen)
+            for exchange in ("rotation", "halo"):
+                out["hops"].append(_time_ring_hop(
+                    "large", rp, t, 8, 8, exchange, kernel_cases,
+                    single.get(("fused_v2" if v2 else "fused_v1", "large",
+                                8, 8)), big=True))
+            del t
+    del rp
+    _ring_model_card_vs_cpu(datasets["cora"])
+    out["captures"] = _ring_clis(counters, jsonl, path_launches,
+                                 path_replayed)
+    out["epoch_ms"] = _ring_epoch_ms(datasets["cora"])
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2427,7 +3110,7 @@ def main() -> int:
               f"features {tuple(ds.features.shape)} "
               f"({time.perf_counter() - t1:.1f} s to load)", flush=True)
 
-    kernel_cases = {name: [] for name in build.SOURCES}
+    kernel_cases = {name: [] for name in build.WRAPPERS}
     fused = {"fused_v1": (fused_v1, fused_v1_plain, _fused_inputs),
              "fused_v2": (fused_v2, fused_v2_plain, _fused_v2_inputs)}
     # the receiver stream's kernels at each graph's layer widths: Cora's
@@ -2846,7 +3529,22 @@ def main() -> int:
         raise AssertionError("the dense phase took longer than its budget")
     phase_done(9, t0)
 
-    # -- phase 10: the kernels line ---------------------------------------------
+    # -- phase 10: the ring --------------------------------------------------
+    # the per-hop kernels at the 4-shard block shapes of Cora, Pubmed and
+    # the 524k graph on this card, the CLIs at world size 1 (an NCCL group
+    # of one) with the counters set to 0 just before each run and read just
+    # after, the ring model card vs CPU, the timings
+    t0 = time.perf_counter()
+    ring = _ring_phase(datasets, large, gen, kernel_cases, counters, jsonl,
+                       path_launches, path_replayed)
+    ring_s = time.perf_counter() - t0
+    print(f"phase 10: ring phase {ring_s:.1f} s (budget "
+          f"{RING_BUDGET_S:.0f} s)", flush=True)
+    if ring_s > RING_BUDGET_S:
+        raise AssertionError("the ring phase took longer than its budget")
+    phase_done(10, t0)
+
+    # -- phase 11: the kernels line ---------------------------------------------
     launches = {name: sum(v[name] for v in path_launches.values())
                 for name in counters}
     replayed = {name: sum(v[name] for v in path_replayed.values())
@@ -2872,13 +3570,18 @@ def main() -> int:
         # "launches_by_path"); "replayed_launches" are those of the fast
         # loop's CUDA graph replays, replays x launches captured.
         main_set = "cora" if name in ("stream_scatter", "fused_v1",
-                                      "fused_v2") else "large"
+                                      "fused_v2", "fused_v1_parts",
+                                      "fused_v2_parts") else "large"
         main_cases = [c for c in cases if c["dataset"] == main_set
-                      and not c.get("dropout") and c.get("path") != "unfused"]
+                      and not c.get("dropout")
+                      and c.get("path") not in ("unfused", "ring")]
+        if name.endswith("_parts"):  # one rotation hop, timed
+            main_cases = [c for c in main_cases
+                          if c.get("path") == "rotation hop"]
         lib = [c["library_ms"] for c in main_cases]
         entries.append({
             "name": name, "route": "cuda",
-            "source": f"pygat_tpu_torch/csrc/{name}.cu",
+            "source": f"pygat_tpu_torch/csrc/{build.WRAPPERS[name].source}.cu",
             "replaces": REPLACES[name],
             "launches": launches[name],
             "launches_by_path": {k: v[name] for k, v in path_launches.items()},
@@ -2900,7 +3603,10 @@ def main() -> int:
                                          "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
                                          "max_abs_err", "split_at",
-                                         "bitwise_repeat") if k in c}
+                                         "bitwise_repeat", "hops", "n_buf",
+                                         "live", "senders_read",
+                                         "receivers_read", "single_device_ms")
+                       if k in c}
                       for c in cases],
         })
         if not launches[name]:
@@ -2915,6 +3621,7 @@ def main() -> int:
                       "bcsr": {"route_max_abs_err": bcsr_errors},
                       "ppi": {"epoch_s": ppi_epoch_s, "setup_s": ppi_setup},
                       "dense": dense,
+                      "ring": ring,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,13 @@ package's own), running on CUDA unless ``--no-cuda`` asks for the CPU:
     python -m pygat_tpu_torch.cli.train --dataset pubmed --model GATv2_sparse \\
         --epoch-chunk 50
 
+On D ranks (one process a card, brought up by a launcher), the ring:
+
+    torchrun --nproc-per-node D -m pygat_tpu_torch.cli.train --dataset cora \
+        --model GAT_sparse --mesh D,1 --partition ring
+    torchrun --nproc-per-node D -m pygat_tpu_torch.cli.train --no-cuda \
+        --mesh D,1    # on the CPU, a gloo group
+
 ``--epoch-chunk K`` with K > 1 runs ``fit_transductive_fast``: K epochs per
 host sync, on CUDA as replays of one captured CUDA graph. As in the JAX
 package, the large-N banded path has no flag: the trainers take it past
@@ -16,19 +23,33 @@ on`` (or ``PYGAT_CORNER=on``) runs the fused layers over the corner plans
 where no band plan is taken. ``--model GAT`` / ``GATv2`` run the dense
 layers; ``--backend`` picks the segment impl for the run (``xla``: the
 ``index_add_`` sums and the unfused sparse branch). On CUDA the last line
-counts the kernel launches made through their wrappers. Flags whose
-machinery is not ported yet (``--mesh``, ``--partition``, ``--reorder``,
-``--distributed``) raise an error naming the ROADMAP item that ports it.
+counts the kernel launches made through their wrappers.
+
+``--mesh D,M`` trains over a process group of ``D * M`` ranks, brought up
+from the launcher's environment (``torchrun``: NCCL on CUDA, gloo with
+``--no-cuda``); without one, or with another size, it raises.
+``--distributed`` asks for the group explicitly (a mesh of every rank
+when ``--mesh`` is absent). Each rank holds one node shard and runs the
+ring attention (``PYGAT_RING_HALO=1``: the direct halo exchange);
+``--partition gspmd``, the default, runs the ring too (torch has no
+GSPMD) and says so; ``--partition ring`` without a mesh raises. Rank 0 alone prints the epochs and writes the
+checkpoints. Not ported yet, each raising with the ROADMAP item that
+ports it: ``M > 1`` and the dense types under a mesh (item 18),
+``--reorder`` (item 15).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import random
 import time
 
 import numpy as np
+import torch.distributed as dist
+
+from pygat_tpu_torch.parallel.mesh import ITEM_18
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,16 +97,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--reorder", action="store_true", default=False,
                    help="RCM node relabeling (not ported yet)")
     p.add_argument("--mesh", type=str, default=None, metavar="D,M",
-                   help="multi-device data,model mesh (not ported yet)")
+                   help="train over a process group of D*M ranks (from "
+                        "torchrun's environment): D node shards on the "
+                        "ring; M > 1 is not ported yet")
     p.add_argument("--partition", type=str, default="gspmd",
                    choices=["gspmd", "ring"],
-                   help="with --mesh: partitioning mechanism (not ported yet)")
+                   help="with --mesh: ring = the ring exchange of node "
+                        "shards; gspmd runs the ring too (torch has no "
+                        "GSPMD)")
     p.add_argument("--epoch-chunk", type=int, default=1,
                    help=">1: fit_transductive_fast, this many epochs per "
                         "host sync (a replayed CUDA graph on the GPU); "
                         "early stop may overshoot by up to K-1 epochs")
     p.add_argument("--distributed", action="store_true", default=False,
-                   help="multi-process initialization (not ported yet)")
+                   help="bring up the process group from the launcher's "
+                        "environment (torchrun); raises without one")
     return p
 
 
@@ -99,16 +125,62 @@ def _reject_unported(args) -> None:
         raise SystemExit("--platform picks a JAX platform and has no "
                          "counterpart in the port: it runs on CUDA, or on the "
                          "CPU with --no-cuda")
+    if (args.partition != "gspmd" and args.mesh is None
+            and not args.distributed):
+        raise SystemExit(f"--partition {args.partition} partitions a mesh: "
+                         "it needs --mesh D,M (or --distributed)")
+    n_model = parse_mesh(args.mesh)[1] if args.mesh else 1
     unported = [
-        (args.mesh is not None or args.partition != "gspmd",
-         "--mesh/--partition", "Queue 1, item 14: multi-GPU"),
-        (args.distributed, "--distributed", "Queue 1, item 14: multi-GPU"),
+        (n_model > 1, f"--mesh with M = {n_model}", ITEM_18),
+        ((args.mesh is not None or args.distributed)
+         and not args.model.endswith("_sparse"),
+         f"--model {args.model} under a mesh", ITEM_18),
         (args.reorder, "--reorder",
-         "Queue 1, item 15: ctypes loader for csrc/graphops.cpp"),
+         "ROADMAP Queue 1, item 15: ctypes loader for csrc/graphops.cpp"),
     ]
     for bad, flag, item in unported:
         if bad:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP {item})")
+            raise SystemExit(f"{flag} is not ported yet ({item})")
+
+
+def parse_mesh(text: str) -> tuple[int, int]:
+    """``"D,M"`` -> (D, M)."""
+    try:
+        n_data, n_model = (int(v) for v in text.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh takes D,M, got {text!r}") from None
+    return n_data, n_model
+
+
+def bring_up_mesh(args):
+    """(mesh, whether this call brought the group up) for ``--mesh`` /
+    ``--distributed``, or (None, False) without either: the process group
+    from the launcher's environment (NCCL, or gloo with ``--no-cuda``),
+    which must hold D * M ranks."""
+    from pygat_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        local_device,
+        make_mesh,
+    )
+
+    if args.mesh is None and not args.distributed:
+        return None, False
+    already = dist.is_initialized()
+    if not initialize_distributed(cpu=args.no_cuda):
+        raise SystemExit(
+            f"{'--mesh' if args.mesh else '--distributed'} needs a process "
+            "group: launch with torchrun --nproc-per-node D (RANK, "
+            "WORLD_SIZE, MASTER_ADDR and MASTER_PORT are not set)")
+    n_data, n_model = (parse_mesh(args.mesh) if args.mesh
+                       else (dist.get_world_size(), 1))
+    try:
+        mesh = make_mesh(n_data, n_model,
+                         device=local_device(cpu=args.no_cuda))
+    except RuntimeError as exc:
+        if not already:
+            dist.destroy_process_group()
+        raise SystemExit(str(exc)) from None
+    return mesh, not already
 
 
 def main(argv=None) -> int:
@@ -122,7 +194,15 @@ def main(argv=None) -> int:
 
 
 def _train(args) -> int:
+    mesh, owns_group = bring_up_mesh(args)
+    try:
+        return _fit(args, mesh)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
 
+
+def _fit(args, mesh) -> int:
     from pygat_tpu_torch.data.citation import dataset_stats, load_citation
     from pygat_tpu_torch.models.gat import GATConfig
     from pygat_tpu_torch.models.presets import PRESETS, TRAIN_PRESETS
@@ -134,7 +214,8 @@ def _train(args) -> int:
     )
     from pygat_tpu_torch.utils.platform import resolve_device
 
-    device = resolve_device(cpu=args.no_cuda)
+    device = mesh.device if mesh else resolve_device(cpu=args.no_cuda)
+    main_rank = mesh is None or mesh.is_main
     if args.corner:
         from pygat_tpu_torch.ops.large import set_corner
 
@@ -159,7 +240,15 @@ def _train(args) -> int:
     # are zero)
     cfg = cfg._replace(nfeats=(int(data.features.shape[1]),) + cfg.nfeats[1:])
     tp = TRAIN_PRESETS[args.dataset]
-    logger = TrainLogger(jsonl_path=args.jsonl)
+    # rank 0 alone prints the epochs and writes the metrics
+    logger = (TrainLogger(jsonl_path=args.jsonl) if main_rank
+              else TrainLogger(stream=open(os.devnull, "w")))
+    if mesh is not None:
+        print(f"mesh: data={mesh.n_data} model={mesh.n_model} "
+              f"partition={args.partition} rank={mesh.rank}")
+        if args.partition == "gspmd" and main_rank:
+            print("--partition gspmd runs the ring: torch has no GSPMD, and "
+                  "the JAX package's two mechanisms compute the same thing")
 
     print(f"start training on {device}")
     t0 = time.time()
@@ -175,6 +264,7 @@ def _train(args) -> int:
         logger=logger,
         log_every=args.log_every,
         resume=args.resume_training,
+        mesh=mesh,
     )
     if args.epoch_chunk > 1:
         result = fit_transductive_fast(cfg, data,
@@ -190,6 +280,8 @@ def _train(args) -> int:
     if device.type == "cuda":
         print(f"Kernel launches: {json.dumps(build.launch_counts())}")
     logger.close()
+    if not main_rank:
+        logger.stream.close()
     return 0
 
 

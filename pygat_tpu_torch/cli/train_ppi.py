@@ -16,10 +16,21 @@ every graph on the device once, a chunk of epochs per host sync).
 CUDA the last line counts the kernel launches made through their
 wrappers. The default ``--model GAT`` is the dense layer, as in the JAX
 CLI. ``--backend`` picks the segment impl for the run (``xla``: the
-``index_add_`` sums and the unfused sparse branch). Flags whose machinery
-is not ported yet raise an error naming the ROADMAP item that ports it:
-``--mesh`` and ``--distributed``; ``--platform`` has no counterpart in the
-port.
+``index_add_`` sums and the unfused sparse branch). ``--platform`` has no
+counterpart in the port.
+
+With ``--epoch-scan``, ``--mesh D,M`` trains the banked loop data-parallel
+over a process group of ``D * M`` ranks from the launcher's environment
+(one batch a rank a step, the gradients all-reduced; NCCL on CUDA, gloo
+with ``--no-cuda``), as in the JAX CLI; ``--distributed`` asks for the
+group explicitly:
+
+    torchrun --nproc-per-node D -m pygat_tpu_torch.cli.train_ppi \
+        --model GATv2_sparse --epoch-scan --mesh D,1
+
+Not ported yet, each raising with ROADMAP item 18: ``M > 1`` and the
+dense types under a mesh. The per-batch loop is single-device, as in the
+JAX package.
 
 The reference's checkpoint rotation crashes after epoch 0
 (train_ppi.py:198: int('0_ppi')); this implements the intended keep-best
@@ -30,10 +41,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import random
 import time
 
 import numpy as np
+import torch.distributed as dist
+
+from pygat_tpu_torch.cli.train import bring_up_mesh, parse_mesh
+from pygat_tpu_torch.parallel.mesh import ITEM_18
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,13 +85,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quiet-batches", action="store_true", default=False)
     p.add_argument("--data-root", type=str, default=None)
     p.add_argument("--mesh", type=str, default=None, metavar="D,M",
-                   help="inductive data parallelism (not ported yet)")
+                   help="with --epoch-scan: data parallelism over a process "
+                        "group of D*M ranks (from torchrun's environment); "
+                        "M > 1 is not ported yet")
     p.add_argument("--epoch-scan", action="store_true", default=False,
                    help="the banked loop: every graph on the device once, "
                         "batches collated there, one host sync per chunk of "
                         "epochs; per-epoch logs only")
     p.add_argument("--distributed", action="store_true", default=False,
-                   help="multi-process initialization (not ported yet)")
+                   help="bring up the process group from the launcher's "
+                        "environment (torchrun); raises without one")
     p.add_argument("--log-every", type=int, default=10,
                    help="with --epoch-scan: epochs between ppi_epoch records")
     return p
@@ -86,13 +105,19 @@ def _reject_unported(args) -> None:
         raise SystemExit("--platform picks a JAX platform and has no "
                          "counterpart in the port: it runs on CUDA, or on the "
                          "CPU with --no-cuda")
+    on_mesh = args.mesh is not None or args.distributed
+    n_model = parse_mesh(args.mesh)[1] if args.mesh else 1
     unported = [
-        (args.mesh is not None, "--mesh", "Queue 1, item 14: multi-GPU"),
-        (args.distributed, "--distributed", "Queue 1, item 14: multi-GPU"),
+        (n_model > 1, f"--mesh with M = {n_model}"),
+        (on_mesh and not args.model.endswith("_sparse"),
+         f"--model {args.model} under a mesh"),
     ]
-    for bad, flag, item in unported:
+    for bad, flag in unported:
         if bad:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP {item})")
+            raise SystemExit(f"{flag} is not ported yet ({ITEM_18})")
+    if on_mesh and not args.epoch_scan:
+        raise SystemExit("--mesh requires --epoch-scan (the per-batch loop "
+                         "is single-device, as in the JAX package)")
 
 
 def main(argv=None) -> int:
@@ -107,7 +132,15 @@ def main(argv=None) -> int:
 
 
 def _train(args) -> int:
+    mesh, owns_group = bring_up_mesh(args)
+    try:
+        return _fit(args, mesh)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
 
+
+def _fit(args, mesh) -> int:
     from pygat_tpu_torch.data.ppi import load_ppi, ppi_config
     from pygat_tpu_torch.models.presets import TRAIN_PRESETS
     from pygat_tpu_torch.ops import build
@@ -118,7 +151,8 @@ def _train(args) -> int:
     from pygat_tpu_torch.train.logging import TrainLogger
     from pygat_tpu_torch.utils.platform import resolve_device
 
-    device = resolve_device(cpu=args.no_cuda)
+    device = mesh.device if mesh else resolve_device(cpu=args.no_cuda)
+    main_rank = mesh is None or mesh.is_main
     random.seed(args.seed)
     np.random.seed(args.seed)
 
@@ -130,7 +164,12 @@ def _train(args) -> int:
 
     cfg = ppi_config(args.model)
     tp = TRAIN_PRESETS["ppi"]
-    logger = TrainLogger(jsonl_path=args.jsonl)
+    # rank 0 alone prints the epochs and writes the metrics
+    logger = (TrainLogger(jsonl_path=args.jsonl) if main_rank
+              else TrainLogger(stream=open(os.devnull, "w")))
+    if mesh is not None:
+        print(f"mesh: data={mesh.n_data} model={mesh.n_model} "
+              f"rank={mesh.rank}")
 
     print(f"start training on {device}")
     t0 = time.time()
@@ -148,7 +187,7 @@ def _train(args) -> int:
     )
     if args.epoch_scan:
         result = fit_inductive_banked(cfg, data, log_every=args.log_every,
-                                      **common)
+                                      mesh=mesh, **common)
     else:
         result = fit_inductive(cfg, data, log_batches=not args.quiet_batches,
                                **common)
@@ -158,6 +197,8 @@ def _train(args) -> int:
     if device.type == "cuda":
         print(f"Kernel launches: {json.dumps(build.launch_counts())}")
     logger.close()
+    if not main_rank:
+        logger.stream.close()
     return 0
 
 

@@ -9,8 +9,13 @@
 
 #include "tile_fused.cuh"
 
-// wh [N, H*F], f_dst / bound [N, H], a_src [H, F], keepq [E_s, H] f32;
-// senders [E_s] int32 (the receiver stream's); row_ptr [n_tiles * 129 + 1]
+// wh [N_s, H*F], f_dst / bound [n_tiles * 128, H], a_src [H, F], keepq
+// [E_s, H] f32; senders [E_s] int32 (the receiver stream's), indexing wh's
+// rows: N_s is the receivers' row count on one device, while a hop of the
+// ring (pygat_tpu_torch/parallel/partition.py, the counterpart of
+// pygat_tpu/ops/fused_stream.py::fused_v1_attention_parts) passes this
+// shard's f_dst and bound and a rotated shard or a halo buffer as wh, whose
+// row count need not be theirs; row_ptr [n_tiles * 129 + 1]
 // int32: the first stream position of each (tile, local row) key
 // t * 129 + l; tile_ptr [n_tiles + 1] and split_at [n_split] int32
 // (ops/stream.py tile_ranges); max_run the most live slots of one receiver
@@ -32,3 +37,4 @@ extern "C" int pygat_fused_v1(
                 out, den, part_out, part_den, 0, 0, 0},
       ListWalk{senders}, max_run, stream);
 }
+

@@ -33,9 +33,11 @@
 //   * SlotWalk: the same stream over the corner path's window, which holds
 //     slot k's sender-side row in its row k: row k, keepq row k.
 // The sender-side rows come from their own tables and row stride (the node
-// tables, stride HF; or the window, stride HF for v1 and 2HF for v2, whj
-// in columns [0, HF) and whi in [HF, 2HF)); the receiver side (v1: f_dst,
-// bound; v2: whi[r], ub) always from the node tables. In every order:
+// tables, stride HF; a ring hop's sender buffers, stride HF, whose row
+// count need not be the receiver side's; or the window, stride HF for v1
+// and 2HF for v2, whj in columns [0, HF) and whi in [HF, 2HF)); the
+// receiver side (v1: f_dst, bound; v2: whi[r], ub) always from the node
+// tables. In every order:
 //   * A block owns one 128-row receiver tile's chunk range
 //     [tile_ptr[t], tile_ptr[t + 1]) and one group of heads. Within it a
 //     unit of P lanes owns one tile row: it walks that row's run, TF_BATCH
@@ -104,9 +106,10 @@ constexpr int TF_SPLIT = 32;     // longest run a unit walks alone
 
 // The arguments of both forwards. v1: sj = the message's rows (wh, or the
 // window), si and xr unused, fd = f_dst, shift = bound; v2: sj = whj and
-// si = whi at the sender (the node tables, or the window's two column
-// halves), xr = whi (the receiver's rows), fd unused, shift = ub. si and
-// s_stride are read over a window only (SlotWalk).
+// si = whi at the sender (the node tables, the window's two column halves,
+// or a ring hop's sender buffers), xr = whi (the receiver's rows: the same
+// table as si on one device, this shard's block in a ring hop), fd unused,
+// shift = ub. s_stride is read over a window only (SlotWalk).
 struct FusedArgs {
   const float* sj;
   const float* si;
@@ -129,8 +132,8 @@ struct FusedArgs {
 };
 
 // Walk policies: by walk position k, the slot's sender-side row and its
-// row of keepq; kWindow: the sender-side rows are a window's (sj, si,
-// s_stride), else the node tables' (sj, and xr for v2's whi; stride HF).
+// row of keepq; kWindow: the sender-side rows (sj, and si for v2's whi)
+// are a window's, at stride s_stride, else tables' rows at stride HF.
 struct BandWalk {  // a band plan's walk
   static constexpr bool kWindow = false;
   const int* rows;   // [E_b] sender row by position (-1 dead)
@@ -173,7 +176,6 @@ __device__ __forceinline__ void walk_run(const FusedArgs& p, const Walk& w,
                                          float& dsum) {
   const int H = p.H, HF = p.H * p.F;
   const int stride = Walk::kWindow ? p.s_stride : HF;
-  const float* const si = Walk::kWindow ? p.si : p.xr;
   // the receiver's operands, once per run
   float rv[kV2 ? C : 1];
   float fd = 0.f;
@@ -199,7 +201,7 @@ __device__ __forceinline__ void walk_run(const FusedArgs& p, const Walk& w,
       const long long at = static_cast<long long>(s[u]) * stride + ln.col;
       const int m = u < n ? ln.nf : 0;
       load_cols<C, kVec>(p.sj + at, m, vj[u]);
-      if constexpr (kV2) load_cols<C, kVec>(si + at, m, vi[u]);
+      if constexpr (kV2) load_cols<C, kVec>(p.si + at, m, vi[u]);
       kq[u] = u < n && ln.on
                   ? __ldg(p.keepq + static_cast<long long>(o[u]) * H + ln.h)
                   : 0.f;

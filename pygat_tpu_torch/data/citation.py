@@ -27,7 +27,7 @@ from pygat_tpu_torch.data.preprocess import (
     normalize_features,
     symmetrize,
 )
-from pygat_tpu_torch.graph import Graph, from_scipy
+from pygat_tpu_torch.graph import Graph, build_graph, from_scipy, host_edges
 from pygat_tpu_torch.models.presets import (
     CITESEER_NUM_CLASSES,
     CITESEER_NUM_INPUT_FEATURES,
@@ -257,6 +257,102 @@ def load_citation(dataset: str, data_root: str | None = None,
         num_features=int(features.shape[1]),
         synthetic_parts=synth,
     )
+
+
+def _real_edges(g: Graph):
+    """(senders, receivers, weights) of ``g``'s real edges, numpy (the
+    host copy kept by :func:`~pygat_tpu_torch.graph.build_graph`, else read
+    from the device)."""
+    host = host_edges(g)
+    if host is None:
+        host = tuple(t.cpu().numpy() for t in (g.senders, g.receivers,
+                                               g.edge_weight, g.edge_mask))
+    send, recv, w, mask = host
+    return send[mask], recv[mask], w[mask]
+
+
+def repad_citation(ds: CitationDataset, n_pad: int) -> CitationDataset:
+    """The dataset with its node padding changed to ``n_pad`` (feature rows
+    grow with zeros, labels with -1), the graph rebuilt by
+    :func:`~pygat_tpu_torch.graph.build_graph` on the dataset's device, so
+    it has its walks. Port of ``pygat_tpu/data/citation.py::
+    repad_citation``: the ring edge partition needs ``N_pad % (128 *
+    n_shards) == 0``."""
+    g = ds.graph
+    old_pad = g.num_nodes_padded
+    if n_pad == old_pad:
+        return ds
+    n_real = int(g.n_node)
+    if n_pad < n_real + 1:
+        raise ValueError(f"n_pad={n_pad} too small for {n_real} nodes")
+    device = ds.features.device
+    send, recv, w = _real_edges(g)
+    g2 = build_graph(send, recv, w, n_real, n_pad=n_pad, device=device)
+    feats, labels = ds.features, ds.labels
+    if n_pad > old_pad:
+        feats = torch.nn.functional.pad(feats, (0, 0, 0, n_pad - old_pad))
+        labels = torch.nn.functional.pad(labels, (0, n_pad - old_pad),
+                                         value=-1)
+    else:
+        feats, labels = feats[:n_pad], labels[:n_pad]
+    return ds._replace(graph=g2, features=feats.contiguous(),
+                       labels=labels.contiguous())
+
+
+def interleave_citation(ds: CitationDataset, n_shards: int,
+                        n_pad: int | None = None) -> CitationDataset:
+    """Cyclic node relabel that balances the ring edge partition's blocks
+    (port of ``pygat_tpu/data/citation.py::interleave_citation``): real
+    node ``v`` goes to shard ``v % d`` at rank ``v // d``, so every
+    neighbourhood spreads over the shards and the (dst, src) blocks
+    approach ``E / d^2`` edges each, where contiguous ranges would pile
+    id-local edges into the diagonal blocks. Padding fills each shard's
+    tail: the real rows are a prefix of each shard's range, not of the
+    graph's, whose ``node_mask`` says which rows are real, and the dummy
+    row ``n_pad - 1`` stays padding. ``n_pad`` (default: the current
+    padding) must be a multiple of ``128 * n_shards``. The graph is
+    rebuilt by :func:`~pygat_tpu_torch.graph.build_graph` on the dataset's
+    device, walks included. Training is node-permutation-equivariant."""
+    g = ds.graph
+    d = int(n_shards)
+    n_real = int(g.n_node)
+    if n_pad is None:
+        n_pad = g.num_nodes_padded
+    if n_pad % (128 * d):
+        raise ValueError(f"n_pad={n_pad} not a multiple of 128*{d}")
+    if n_pad <= n_real:
+        raise ValueError(f"n_pad={n_pad} too small for {n_real} real nodes")
+    n_local = n_pad // d
+    device = ds.features.device
+
+    old_real = np.arange(n_real, dtype=np.int64)
+    new_of_real = (old_real % d) * n_local + old_real // d
+    # per-shard real counts differ by at most 1 and n_real < n_pad, so every
+    # new id lands inside its shard's range and the dummy row stays free
+    if n_real and int(new_of_real.max()) >= n_pad - 1:
+        raise ValueError(f"{n_real} real nodes leave no dummy row in "
+                         f"{n_pad} over {d} shards")
+    mask_new = np.zeros(n_pad, bool)
+    mask_new[new_of_real] = True
+
+    send, recv, w = _real_edges(g)
+    g2 = build_graph(new_of_real[send], new_of_real[recv], w, n_real,
+                     n_pad=n_pad, node_mask=mask_new, device=device)
+    new_t = torch.from_numpy(new_of_real).to(device)
+    feats = ds.features
+    f_new = torch.zeros(n_pad, feats.shape[1], dtype=feats.dtype,
+                        device=device)
+    f_new[new_t] = feats[:n_real]
+    l_new = torch.full((n_pad,), -1, dtype=ds.labels.dtype, device=device)
+    l_new[new_t] = ds.labels[:n_real]
+
+    def remap(idx):
+        return new_t[idx.long()].to(torch.int32)
+
+    return ds._replace(graph=g2, features=f_new, labels=l_new,
+                       idx_train=remap(ds.idx_train),
+                       idx_val=remap(ds.idx_val),
+                       idx_test=remap(ds.idx_test))
 
 
 def dataset_stats(ds: CitationDataset) -> dict:

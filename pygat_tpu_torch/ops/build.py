@@ -34,7 +34,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     "stream_scatter": ("pygat_stream_scatter", [_P] * 5 + [_I] * 4 + [_P] * 3),
     "fused_v1": ("pygat_fused_v1", [_P] * 9 + [_I] * 5 + [_F] + [_P] * 5),
-    "fused_v2": ("pygat_fused_v2", [_P] * 9 + [_I] * 5 + [_F] + [_P] * 5),
+    "fused_v2": ("pygat_fused_v2", [_P] * 10 + [_I] * 5 + [_F] + [_P] * 5),
     "expand": ("pygat_expand", [_P] * 3 + [_I] * 2 + [_P] * 2),
     "banded_take": ("pygat_banded_take", [_P] * 3 + [_I] * 3 + [_P] * 2),
     "banded_sender_sum": ("pygat_banded_sender_sum",
@@ -59,21 +59,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _KERNELS: dict[str, ctypes._CFuncPtr] = {}
-# kernel name -> its Python wrapper, which counts its launches in ``launches``
+# kernel name -> its Python wrapper, which counts its launches in
+# ``launches``; a kernel is a source's entry point as one wrapper calls it
 WRAPPERS: dict = {}
 
 
-def counted(wrapper=None, *, kernel: str | None = None):
+def counted(wrapper=None, *, kernel: str | None = None,
+            source: str | None = None):
     """Register ``wrapper`` as the one that launches the kernel ``kernel``
     (by default the wrapper's own name; ``@counted(kernel=...)`` names
-    another) and start its launch count at 0 (the wrapper adds one per
-    launch)."""
+    another) through the entry point of ``ENTRY_POINTS[source]`` (by
+    default the kernel's own source; the ring's per-hop forwards launch the
+    stream forwards' entry points under counts of their own), and start its
+    launch count at 0 (the wrapper adds one per launch)."""
     if wrapper is None:
-        return lambda w: counted(w, kernel=kernel)
+        return lambda w: counted(w, kernel=kernel, source=source)
     name = kernel or wrapper.__name__
-    if name not in ENTRY_POINTS:
-        raise KeyError(f"no kernel named {name}")
-    wrapper.kernel = name
+    source = source or name
+    if source not in ENTRY_POINTS:
+        raise KeyError(f"no kernel source named {source}")
+    wrapper.kernel, wrapper.source = name, source
     wrapper.launches = 0
     WRAPPERS[name] = wrapper
     return wrapper
@@ -81,8 +86,11 @@ def counted(wrapper=None, *, kernel: str | None = None):
 
 def launch_counts() -> dict[str, int]:
     """The launch count of every kernel's wrapper, by kernel name; raises if
-    a kernel of ``ENTRY_POINTS`` has no registered wrapper."""
-    return {name: WRAPPERS[name].launches for name in ENTRY_POINTS}
+    a source of ``ENTRY_POINTS`` has no registered wrapper."""
+    missing = set(ENTRY_POINTS) - {w.source for w in WRAPPERS.values()}
+    if missing:
+        raise KeyError(f"no wrapper launches {sorted(missing)}")
+    return {name: w.launches for name, w in WRAPPERS.items()}
 
 
 def nvcc_path() -> str:
@@ -198,7 +206,7 @@ def launch(wrapper, *args) -> None:
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"{name}: every tensor must be contiguous and "
                              "on the same device")
-    fn = kernel(name)
+    fn = kernel(wrapper.source)
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args]
     with torch.cuda.device(device):

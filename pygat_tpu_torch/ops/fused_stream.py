@@ -354,8 +354,8 @@ def fused_v2(whi, whj, ub, a, keepq, senders, r_local, r_chunk, alpha: float,
                 r_chunk)
     n_pad = whi.shape[0]
     walk = stream_walk_arg("fused_v2", walk, n_pad, r_chunk)
-    return launch_tile_fused(fused_v2, (whi, whj, ub, a, keepq, senders), a,
-                             n_pad, walk, alpha)
+    return launch_tile_fused(fused_v2, (whi, whi, whj, ub, a, keepq, senders),
+                             a, n_pad, walk, alpha)
 
 
 class _FusedV2Attention(torch.autograd.Function):
@@ -423,3 +423,255 @@ def fused_v2_attention(whi, whj, ub, a, keepq, senders, receivers, r_local,
     return _FusedV2Attention.apply(whi, whj, ub, a, keepq, senders, receivers,
                                    r_local, r_chunk, c_slot, c_local, c_chunk,
                                    alpha, walk, sender_walk)
+
+
+# ---------------------------------------------------------------------------
+# One hop of the ring (parallel/partition.py): the receiver side lives on
+# this shard's node block [n_local, ...], the sender tables are a rotated
+# shard or a halo buffer [n_buf, HF], and the edge order is one (dst, src)
+# block's receiver stream. Port of fused_v1_attention_parts /
+# fused_v2_attention_parts (pygat_tpu/ops/fused_stream.py:696, :589).
+# ---------------------------------------------------------------------------
+
+
+def _check_parts(what, bufs, local, narrow, a, keepq, senders, r_local,
+                 r_chunk):
+    """Shapes and types of a ring hop's forward: ``bufs`` are the sender
+    tables [n_buf, HF] (one row count, any), ``local`` the receiver-side
+    wide tables [n_local, HF] (v2's whi), ``narrow`` the receiver-side head
+    terms [n_local, H]; the stream covers one block."""
+    h, f = a.shape
+    hf = h * f
+    n_local = narrow[0].shape[0]
+    n_buf = bufs[0].shape[0]
+    if n_local % TILE:
+        raise ValueError(f"{what}: the receiver block has {n_local} rows, "
+                         f"not a multiple of {TILE}")
+    if any(t.shape != (n_buf, hf) for t in bufs):
+        raise ValueError(f"{what}: the sender tables must be [n_buf, HF] "
+                         f"with HF = {hf}")
+    if any(t.shape != (n_local, hf) for t in local):
+        raise ValueError(f"{what}: the receiver tables must be [n_local, HF]")
+    if any(t.shape != (n_local, h) for t in narrow):
+        raise ValueError(f"{what}: the per-node head terms must be "
+                         "[n_local, H]")
+    e = r_local.shape[0]
+    if (keepq.shape != (e, h) or r_local.dim() != 1 or senders.shape != (e,)
+            or e != r_chunk.shape[0] * EC):
+        raise ValueError("keepq, senders and r_local must cover the stream")
+    for t in (*bufs, *local, *narrow, a, keepq):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{what} takes float32, got {t.dtype}")
+    for t in (senders, r_local, r_chunk):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{what} takes int32 indices, got {t.dtype}")
+
+
+def fused_v1_parts_plain(w_buf, f_dst, bound, a_src, keepq, senders, r_local,
+                         r_chunk, alpha: float, *, f64: bool = False):
+    """Plain PyTorch version of :func:`fused_v1_parts` (gathers +
+    ``index_add_``; ``f64`` as :func:`v1_plain_core`)."""
+    _check_parts("fused_v1_parts", (w_buf,), (), (f_dst, bound), a_src, keepq,
+                 senders, r_local, r_chunk)
+    return v1_plain_core(w_buf[senders.long()], f_dst, bound, a_src, keepq,
+                         r_local, r_chunk, alpha, f64)
+
+
+@build.counted(source="fused_v1")
+def fused_v1_parts(w_buf, f_dst, bound, a_src, keepq, senders, r_local,
+                   r_chunk, alpha: float, *, walk: StreamWalk | None = None):
+    """(out [n_local, HF], den [n_local, H]) of the fused GATv1 forward over
+    one ring hop: ``f_dst``/``bound`` [n_local, H] of this shard's rows,
+    the sender table ``w_buf`` [n_buf, HF] (a rotated shard or a halo
+    buffer), and one (dst, src) block's receiver stream (``senders`` index
+    ``w_buf``, ``walk`` the block's receiver walk over n_local rows). On a
+    CUDA tensor this launches ``csrc/fused_v1.cu``, whose sender table may
+    have another row count than the receiver side (counted in
+    ``fused_v1_parts.launches``, apart from :func:`fused_v1`'s), and raises
+    without a walk; on a CPU tensor it runs :func:`fused_v1_parts_plain`."""
+    if w_buf.device.type == "cpu":
+        return fused_v1_parts_plain(w_buf, f_dst, bound, a_src, keepq,
+                                    senders, r_local, r_chunk, alpha)
+    if w_buf.device.type != "cuda":
+        raise ValueError(f"fused_v1_parts: unsupported device {w_buf.device}")
+    _check_parts("fused_v1_parts", (w_buf,), (), (f_dst, bound), a_src, keepq,
+                 senders, r_local, r_chunk)
+    n_local = f_dst.shape[0]
+    walk = stream_walk_arg("fused_v1_parts", walk, n_local, r_chunk)
+    return launch_tile_fused(fused_v1_parts, (w_buf, f_dst, bound, a_src,
+                                              keepq, senders),
+                             a_src, n_local, walk, alpha)
+
+
+class _FusedV1Parts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f_dst, bound, w_buf, a_src, keepq, senders, receivers,
+                r_local, r_chunk, c_slot, c_local, c_chunk, alpha, walk,
+                sender_walk):
+        f_dst, bound, w_buf, a_src, keepq = (
+            t.contiguous() for t in (f_dst, bound, w_buf, a_src, keepq))
+        out, den = fused_v1_parts(w_buf, f_dst, bound, a_src, keepq, senders,
+                                  r_local, r_chunk, alpha, walk=walk)
+        ctx.save_for_backward(f_dst, bound, w_buf, a_src, keepq, senders,
+                              receivers, r_local, c_slot, c_local, c_chunk,
+                              r_chunk)
+        ctx.alpha, ctx.walks = alpha, (walk, sender_walk)
+        return out, den
+
+    @staticmethod
+    def backward(ctx, g_out, g_den):
+        (f_dst, bound, w_buf, a_src, keepq, senders, receivers, r_local,
+         c_slot, c_local, c_chunk, r_chunk) = ctx.saved_tensors
+        alpha = ctx.alpha
+        n_local = f_dst.shape[0]
+        n_buf = w_buf.shape[0]
+        h, f = a_src.shape
+        snd, rcv = senders.long(), receivers.long()
+
+        # recompute the per-edge pipeline, as _FusedV1Attention's backward
+        g_w = w_buf[snd]  # [E, HF]
+        abd = _block_diag_a(a_src)
+        exp_bd = _expand_bd(h, f, device=w_buf.device)
+        raw = f_dst[rcv] + g_w @ abd
+        live = (r_local < TILE)[:, None]
+        num = torch.where(live, torch.exp(leaky_relu(raw, alpha) - bound[rcv]),
+                          0.0)
+        qnum = num * keepq
+        dmsg = g_out[rcv]
+        dnum = ((dmsg * g_w) @ exp_bd.T) * keepq + g_den[rcv]
+        draw = dnum * num * torch.where(raw >= 0, 1.0, alpha)  # [E, H]
+
+        walk, sender_walk = ctx.walks
+        # receiver side over this shard's n_local rows, sender side over
+        # the buffer's n_buf rows (the block's sender view)
+        df_dst = stream_segment_sum(draw, receivers, r_local, r_chunk,
+                                    n_local, walk)
+        dgathered = dmsg * (qnum @ exp_bd) + draw @ abd.T  # [E, HF]
+        dw_buf = stream_sender_segment_sum(dgathered, senders, c_slot, c_local,
+                                           c_chunk, n_buf, sender_walk)
+        da = (g_w * (draw @ exp_bd)).sum(0).reshape(h, f)
+        return (df_dst, None, dw_buf, da) + (None,) * 11
+
+
+def fused_v1_attention_parts(f_dst, bound, w_buf, a_src, keepq, senders,
+                             receivers, r_local, r_chunk, c_slot, c_local,
+                             c_chunk, alpha: float,
+                             walk: StreamWalk | None = None,
+                             sender_walk: StreamWalk | None = None):
+    """Differentiable GATv1 attention over one ring hop: (out [n_local,
+    HF], den [n_local, H]). ``f_dst``/``bound`` are this shard's
+    [n_local, H] (``bound`` detached), ``w_buf`` [n_buf, HF] the sender
+    table; ``senders``, ``receivers`` and the stream fields are one (dst,
+    src) block's, and ``c_slot``/``c_local``/``c_chunk`` its sender view
+    over n_buf rows. ``walk`` is the block's receiver walk (n_local rows),
+    ``sender_walk`` its sender view's (n_buf rows), both needed on CUDA
+    tensors. Gradients flow to ``f_dst``, ``w_buf`` and ``a_src``: the
+    JAX package's ``_v1p_bwd`` in PyTorch, through row 1's two sums."""
+    return _FusedV1Parts.apply(f_dst, bound, w_buf, a_src, keepq, senders,
+                               receivers, r_local, r_chunk, c_slot, c_local,
+                               c_chunk, alpha, walk, sender_walk)
+
+
+def fused_v2_parts_plain(wi_local, ub, wi_buf, wj_buf, a, keepq, senders,
+                         r_local, r_chunk, alpha: float, *, f64: bool = False):
+    """Plain PyTorch version of :func:`fused_v2_parts` (gathers +
+    ``index_add_``; ``f64`` as :func:`v1_plain_core`)."""
+    _check_parts("fused_v2_parts", (wi_buf, wj_buf), (wi_local,), (ub,), a,
+                 keepq, senders, r_local, r_chunk)
+    snd = senders.long()
+    return v2_plain_core(wj_buf[snd], wi_buf[snd], wi_local, ub, a, keepq,
+                         r_local, r_chunk, alpha, f64)
+
+
+@build.counted(source="fused_v2")
+def fused_v2_parts(wi_local, ub, wi_buf, wj_buf, a, keepq, senders, r_local,
+                   r_chunk, alpha: float, *, walk: StreamWalk | None = None):
+    """(out [n_local, HF], den [n_local, H]) of the fused GATv2 forward over
+    one ring hop: ``wi_local`` [n_local, HF] and ``ub`` [n_local, H] of this
+    shard's rows (the receiver's whi in the logit), the sender tables
+    ``wi_buf`` (the message's whi) and ``wj_buf`` (the logit's whj)
+    [n_buf, HF], and one block's receiver stream and walk, as
+    :func:`fused_v1_parts`. On a CUDA tensor this launches
+    ``csrc/fused_v2.cu`` with the receiver-side and the sender-side whi
+    apart (counted in ``fused_v2_parts.launches``, apart from
+    :func:`fused_v2`'s) and raises without a walk; on a CPU tensor it runs
+    :func:`fused_v2_parts_plain`."""
+    if wi_local.device.type == "cpu":
+        return fused_v2_parts_plain(wi_local, ub, wi_buf, wj_buf, a, keepq,
+                                    senders, r_local, r_chunk, alpha)
+    if wi_local.device.type != "cuda":
+        raise ValueError(f"fused_v2_parts: unsupported device "
+                         f"{wi_local.device}")
+    _check_parts("fused_v2_parts", (wi_buf, wj_buf), (wi_local,), (ub,), a,
+                 keepq, senders, r_local, r_chunk)
+    n_local = wi_local.shape[0]
+    walk = stream_walk_arg("fused_v2_parts", walk, n_local, r_chunk)
+    return launch_tile_fused(fused_v2_parts, (wi_local, wi_buf, wj_buf, ub, a,
+                                              keepq, senders),
+                             a, n_local, walk, alpha)
+
+
+class _FusedV2Parts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, wi_local, ub, wi_buf, wj_buf, a, keepq, senders,
+                receivers, r_local, r_chunk, c_slot, c_local, c_chunk, alpha,
+                walk, sender_walk):
+        wi_local, ub, wi_buf, wj_buf, a, keepq = (
+            t.contiguous() for t in (wi_local, ub, wi_buf, wj_buf, a, keepq))
+        out, den = fused_v2_parts(wi_local, ub, wi_buf, wj_buf, a, keepq,
+                                  senders, r_local, r_chunk, alpha, walk=walk)
+        ctx.save_for_backward(wi_local, ub, wi_buf, wj_buf, a, keepq, senders,
+                              receivers, r_local, r_chunk, c_slot, c_local,
+                              c_chunk)
+        ctx.alpha, ctx.walks = alpha, (walk, sender_walk)
+        return out, den
+
+    @staticmethod
+    def backward(ctx, g_out, g_den):
+        (wi_local, ub, wi_buf, wj_buf, a, keepq, senders, receivers, r_local,
+         r_chunk, c_slot, c_local, c_chunk) = ctx.saved_tensors
+        alpha = ctx.alpha
+        n_local, hf = wi_local.shape
+        n_buf = wi_buf.shape[0]
+        h, f = a.shape
+        snd, rcv = senders.long(), receivers.long()
+
+        # recompute the per-edge pipeline, as _FusedV2Attention's backward
+        gi = wi_buf[snd]
+        raw = wi_local[rcv] + wj_buf[snd]
+        pre = leaky_relu(raw, alpha)
+        abd = _block_diag_a(a)
+        exp_bd = _expand_bd(h, f, device=wi_local.device)
+        live = (r_local < TILE)[:, None]
+        num = torch.where(live, torch.exp(pre @ abd - ub[rcv]), 0.0)
+        qnum = num * keepq
+        dmsg = g_out[rcv]
+        dlogits = (((dmsg * gi) @ exp_bd.T) * keepq + g_den[rcv]) * num
+        dpre = (dlogits @ abd.T) * torch.where(raw >= 0, 1.0, alpha)
+
+        walk, sender_walk = ctx.walks
+        # receiver side: d wi_local from the logit path; sender side: one
+        # sum of [dpre | the message cotangent] split to the two buffers
+        dwi_local = stream_segment_sum(dpre, receivers, r_local, r_chunk,
+                                       n_local, walk)
+        both = torch.cat([dpre, dmsg * (qnum @ exp_bd)], dim=1)  # [E, 2HF]
+        red = stream_sender_segment_sum(both, senders, c_slot, c_local,
+                                        c_chunk, n_buf, sender_walk)
+        da = (pre * (dlogits @ exp_bd)).sum(0).reshape(h, f)
+        return (dwi_local, None, red[:, hf:], red[:, :hf], da) + (None,) * 11
+
+
+def fused_v2_attention_parts(wi_local, ub, wi_buf, wj_buf, a, keepq, senders,
+                             receivers, r_local, r_chunk, c_slot, c_local,
+                             c_chunk, alpha: float,
+                             walk: StreamWalk | None = None,
+                             sender_walk: StreamWalk | None = None):
+    """Differentiable GATv2 attention over one ring hop: (out [n_local,
+    HF], den [n_local, H]). ``wi_local``/``ub`` are this shard's (``ub``
+    detached), ``wi_buf``/``wj_buf`` [n_buf, HF] the sender tables; the
+    block fields and walks as :func:`fused_v1_attention_parts`. Gradients
+    flow to ``wi_local``, ``wi_buf``, ``wj_buf`` and ``a``: the JAX
+    package's ``_v2p_bwd`` in PyTorch, through row 1's two sums."""
+    return _FusedV2Parts.apply(wi_local, ub, wi_buf, wj_buf, a, keepq,
+                               senders, receivers, r_local, r_chunk, c_slot,
+                               c_local, c_chunk, alpha, walk, sender_walk)

@@ -179,7 +179,10 @@ def _c_args(kernel, args, graph, torch):
     den = torch.empty(n_pad, h, device="cuda")
     part_out = torch.empty(max(n_split, 1), 128, h * f, device="cuda")
     part_den = torch.empty(max(n_split, 1), 128, h, device="cuda")
-    c = (*args[:5], *words, *ptrs[:3], n_pad // 128, n_split, ptrs[3], h, f,
+    tables = args[:5]
+    if kernel == "fused_v2":  # whi at the receivers, then at the senders
+        tables = (args[0], *tables)
+    c = (*tables, *words, *ptrs[:3], n_pad // 128, n_split, ptrs[3], h, f,
          args[-1], out, den, part_out, part_den)
     c = [x.data_ptr() if isinstance(x, torch.Tensor) else x for x in c]
     return c, (out, den)

@@ -38,12 +38,14 @@ EPOCHS = 10
 PPI_EPOCHS = 3
 
 
-def epoch_runners(cfg, data, n_epochs, plans=None):
+def epoch_runners(cfg, data, n_epochs, plans=None, ring=None):
     """(epoch, chunk) on ``data``'s device, each on a fresh state from the
     same seeds: ``epoch()`` is one epoch of the per-epoch loop (train step
     and eval forward, no host sync), ``chunk`` a :class:`ChunkedEpochs` of
     ``n_epochs`` with no epoch budget, whose ``run()`` is the fast loop's
-    chunk; both over the banded order of ``plans`` when one is given."""
+    chunk; both over the banded order of ``plans`` when one is given, or
+    over the ring with ``ring`` (``train.loop._ring_setup``'s loss; ``data``
+    then this rank's share)."""
     from pygat_tpu_torch.models.gat import init_gat
     from pygat_tpu_torch.train.loop import ChunkedEpochs, make_transductive_steps
     from pygat_tpu_torch.train.state import init_state, make_optimizer
@@ -59,7 +61,7 @@ def epoch_runners(cfg, data, n_epochs, plans=None):
             make_generator(device, 73))
 
     state = fresh_state(False)
-    train_step, eval_step = make_transductive_steps(cfg, plans)
+    train_step, eval_step = make_transductive_steps(cfg, plans, ring)
 
     def epoch():
         train_step(state, *args, data.idx_train)
@@ -67,7 +69,8 @@ def epoch_runners(cfg, data, n_epochs, plans=None):
 
     chunk = ChunkedEpochs(cfg, fresh_state(device.type == "cuda"), *args,
                           data.idx_train, data.idx_val, n_epochs=n_epochs,
-                          max_epochs=10 ** 6, patience=100, plans=plans)
+                          max_epochs=10 ** 6, patience=100, plans=plans,
+                          ring=ring)
     return epoch, chunk
 
 

@@ -5,7 +5,8 @@ checkpoint-rotation policy (port of ``make_inductive_steps``,
 train_ppi.py:112-216, whose broken checkpoint rotation is replaced by the
 intended policy).
 
-Two loops, both single-device and eager:
+Two loops, both eager; the banked one also data-parallel over a process
+group (``mesh=``) or, in one process, over ``dp`` slots:
 
 * :func:`fit_inductive` builds every epoch's block-diagonal batches on the
   host (:func:`~pygat_tpu_torch.data.ppi.make_batches`, walks included),
@@ -40,7 +41,16 @@ import torch
 from pygat_tpu_torch.models.gat import GATConfig, apply_gat, init_gat, parameters
 from pygat_tpu_torch.train import checkpoint as ckpt
 from pygat_tpu_torch.train.logging import TrainLogger
-from pygat_tpu_torch.train.loop import FitResult
+from pygat_tpu_torch.parallel.collectives import (
+    all_reduce_mean,
+    all_reduce_sum,
+)
+from pygat_tpu_torch.parallel.distributed import (
+    all_reduce_grads,
+    shard_train_state,
+)
+from pygat_tpu_torch.parallel.mesh import Mesh
+from pygat_tpu_torch.train.loop import FitResult, _dropout_generator
 from pygat_tpu_torch.train.metrics import bce_with_logits, f1_counts, micro_f1
 from pygat_tpu_torch.train.state import TrainState, init_state, make_optimizer
 from pygat_tpu_torch.utils.platform import make_generator, resolve_device
@@ -269,6 +279,20 @@ def banked_eval(cfg: GATConfig, bank, batch_size: int):
     return eval_bank
 
 
+def superstep_slots(n_batches: int, n_data: int
+                    ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The data-parallel super-steps over ``n_batches`` batches in order
+    (the JAX package's ``superbatch``, loop.py:479-500): super-step ``s``
+    takes the batches ``s * D .. s * D + D - 1`` (indices modulo the count,
+    so the last one's pad slots repeat earlier batches) and their weights,
+    1, or 0 on a pad slot. Returns (batch ids [D], weights [D]) each."""
+    s_t = -(-n_batches // n_data)
+    ids = np.arange(s_t * n_data)
+    batch_of = (ids % n_batches).reshape(s_t, n_data)
+    weight = (ids < n_batches).astype(np.float32).reshape(s_t, n_data)
+    return list(zip(batch_of, weight))
+
+
 class BankedEpochs:
     """Banked epochs, ``n_epochs`` per :meth:`run` at most, with no host
     read inside the chunk: the counterpart of ``make_banked_epochs`` on
@@ -286,11 +310,23 @@ class BankedEpochs:
     stop would have fired (the chunk's overshoot), so the selected model is
     one the per-batch policy could reach. The epochs run eagerly;
     capturing one in a CUDA graph is later work.
+
+    ``n_data`` > 1, or a ``mesh``, makes the epoch data-parallel, as the
+    JAX package's ``make_banked_epochs(mesh=, dp=)``: an optimizer step
+    takes ``D`` consecutive batches (:func:`superstep_slots`) and descends
+    the weighted mean of their losses (pad slots weigh 0). Under a mesh of
+    ``D`` ranks, rank ``r`` computes slot ``r``'s loss and the gradients
+    are all-reduced; with ``n_data`` and no mesh one process computes the
+    same arithmetic over the ``D`` slots in turn (how the tests pin the
+    distributed loop). The metrics are the super-steps' weighted means,
+    reduced over the ranks; every rank evaluates the whole validation bank,
+    and the validation loss is averaged over the ranks.
     """
 
     def __init__(self, cfg: GATConfig, state: TrainState, bank_train,
                  bank_val, batch_size: int, *, n_epochs: int, seed: int,
-                 max_epochs: int, patience: int | None = None):
+                 max_epochs: int, patience: int | None = None,
+                 n_data: int = 1, mesh: Mesh | None = None):
         dev = bank_train.features.device
         self.state = state
         self.n_epochs = n_epochs
@@ -307,6 +343,8 @@ class BankedEpochs:
             type(p)(*(None if t is None else t.detach().clone() for t in p))
             for p in state.params]
         self._metrics = torch.zeros(4, n_epochs, device=dev)
+        self._n_data = mesh.n_data if mesh is not None else n_data
+        self._mesh = mesh
 
     def _order(self, epoch: int) -> np.ndarray:
         """The train graphs' order in ``epoch``: the per-batch loop's
@@ -321,7 +359,9 @@ class BankedEpochs:
         state = self.state
         slots = _batch_slots(self._bank.n_graphs, self._b, self._order(epoch))
         tr_loss, tr_f1 = [], []
-        for idx, live in slots:
+        if self._mesh is not None or self._n_data > 1:
+            tr_loss, tr_f1 = self._dp_steps(slots)
+        for idx, live in slots if not tr_loss else ():
             x, g, y = assemble_banked_batch(self._bank, idx, live)
             state.optimizer.zero_grad(set_to_none=True)
             loss, f1, _ = self._loss(state.params, x, g, y, state.generator,
@@ -334,6 +374,11 @@ class BankedEpochs:
         losses_v, f1s_v, *_ = self._eval_val(state.params)
         with torch.no_grad():
             loss_val = losses_v.mean()
+            if self._mesh is not None:
+                # every rank evaluated the same bank with the same
+                # parameters; the mean makes the early-stop and best-epoch
+                # decisions the same bits on every card
+                loss_val = all_reduce_mean(loss_val)
             # epochs past the budget never update the best model
             improved = (loss_val < self.best_val) & (epoch < self._max_epochs)
             if self._patience is not None:
@@ -351,6 +396,37 @@ class BankedEpochs:
             self._metrics[:, j] = torch.stack([
                 torch.stack(tr_loss).mean(), torch.stack(tr_f1).mean(),
                 loss_val, f1s_v.mean()])
+
+    def _dp_steps(self, slots):
+        """The epoch's data-parallel super-steps over the batches ``slots``;
+        returns each one's weighted-mean loss and micro-F1."""
+        from pygat_tpu_torch.data.ppi import assemble_banked_batch
+
+        state, mesh = self.state, self._mesh
+        losses, f1s = [], []
+        for ids, weight in superstep_slots(len(slots), self._n_data):
+            wsum = max(float(weight.sum()), 1.0)
+            mine = ([mesh.rank] if mesh is not None
+                    else range(self._n_data))
+            state.optimizer.zero_grad(set_to_none=True)
+            total, parts = 0.0, []
+            for j in mine:
+                x, g, y = assemble_banked_batch(self._bank, *slots[ids[j]])
+                loss, f1, _ = self._loss(state.params, x, g, y,
+                                         state.generator, True)
+                total = total + loss * (float(weight[j]) / wsum)
+                parts.append(torch.stack([loss.detach(), f1])
+                             * float(weight[j]))
+            total.backward()
+            stats = torch.stack(parts).sum(0) / wsum
+            if mesh is not None:
+                all_reduce_grads(state.params)
+                stats = all_reduce_sum(stats)
+            state.optimizer.step()
+            state.step += 1
+            losses.append(stats[0])
+            f1s.append(stats[1])
+        return losses, f1s
 
     def run(self, first_epoch: int, n: int | None = None) -> list[list[float]]:
         """Run epochs ``first_epoch`` .. ``first_epoch + n - 1`` (``n`` at
@@ -388,6 +464,8 @@ def fit_inductive_banked(
     init_params: Any = None,
     resume: bool = False,
     device: torch.device | str | None = None,
+    mesh: Mesh | None = None,
+    dp: int | None = None,
 ) -> FitResult:
     """:func:`fit_inductive` over device-resident banks with one host sync
     per ``epoch_chunk`` epochs: early stopping can overshoot by up to
@@ -397,12 +475,27 @@ def fit_inductive_banked(
     the same batches. Checkpoints at chunk boundaries carry the val-loss
     history and the best bookkeeping in their header, the best parameters
     in the ``{tag}-best`` checkpoint; ``resume=True`` continues exactly
-    from the newest ones."""
+    from the newest ones.
+
+    ``mesh`` (every rank of the group calls this; ``device`` defaults to
+    the mesh's) trains data-parallel: one batch a rank a step, the
+    gradients all-reduced, rank 0's parameters broadcast first, each rank's
+    dropout from its own generator (seeded with (``seed + 1``, rank)), and
+    only rank 0 writing checkpoints (in the one-device format). ``dp=D``
+    without a mesh runs the same arithmetic in one process
+    (:class:`BankedEpochs`)."""
     from pygat_tpu_torch.data.ppi import bank_bounds, build_bank
 
-    device = resolve_device(device)
+    if mesh is not None and dp is not None and dp != mesh.n_data:
+        raise ValueError(f"dp={dp} against a mesh of {mesh.n_data} ranks")
+    device = resolve_device(device if device is not None or mesh is None
+                            else mesh.device)
     logger = logger or TrainLogger()
     state = _init(cfg, seed, lr, weight_decay, init_params, device)
+    if mesh is not None:
+        state.generator = _dropout_generator(device, seed, mesh)
+        shard_train_state(state, mesh)
+    writes = mesh is None or mesh.is_main
     best_tag = dataset_tag + "-best"
 
     n_pg, e_pg = bank_bounds([data.train, data.valid, data.test])
@@ -417,9 +510,13 @@ def fit_inductive_banked(
         if found is not None:
             state, resumed = ckpt.restore(found[1], like=state)
             history = [float(v) for v in resumed.get("history", [])]
+            if mesh is not None:
+                shard_train_state(state, mesh)
+                state.generator = _dropout_generator(device, seed, mesh,
+                                                     len(history))
     chunk = BankedEpochs(cfg, state, bank_tr, bank_va, batch_size,
                          n_epochs=epoch_chunk, seed=seed, max_epochs=epochs,
-                         patience=patience)
+                         patience=patience, n_data=dp or 1, mesh=mesh)
     if resumed is not None:
         best_val = float(resumed.get("best", np.inf))
         best_epoch = int(resumed.get("best_epoch", -1))
@@ -448,7 +545,7 @@ def fit_inductive_banked(
             if epoch_idx - int(np.argmin(history)) >= patience:
                 stopped = True
                 break
-        if checkpoint_dir:
+        if checkpoint_dir and writes:
             # chunk-boundary checkpoint with full resume bookkeeping
             be = int(chunk.best_epoch)
             last = len(history) - 1

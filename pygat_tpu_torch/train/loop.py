@@ -10,7 +10,11 @@ validation loss every epoch. :func:`fit_transductive_fast` syncs with the
 host once per chunk of epochs: :class:`ChunkedEpochs` keeps the per-epoch
 metrics and the best model on the device and, on CUDA, captures one epoch
 in a CUDA graph and replays it (what ``lax.scan`` under ``jit`` gives the
-JAX package). There is no mesh and no ring. Both loops ask
+JAX package). With ``mesh=`` both loops train over a process group: each
+rank holds one node shard and runs the ring attention of
+:mod:`~pygat_tpu_torch.parallel` (:func:`_ring_setup`), the losses and
+metrics are reduced over the ranks, the gradients all-reduced before Adam,
+and rank 0 alone writes checkpoints. Both loops on one device ask
 :func:`~pygat_tpu_torch.ops.banded.maybe_plan_large` for a large-N plan, as
 the JAX package's do: past 300k padded nodes (or with ``PYGAT_BAND=on``)
 it returns a band plan, and every layer then runs over the banded order;
@@ -28,7 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from pygat_tpu_torch.data.citation import CitationDataset
+from pygat_tpu_torch.data.citation import CitationDataset, interleave_citation
 from pygat_tpu_torch.graph import Graph
 from pygat_tpu_torch.models.gat import (
     GATConfig,
@@ -39,6 +43,16 @@ from pygat_tpu_torch.models.gat import (
 from pygat_tpu_torch.ops import build
 from pygat_tpu_torch.ops.banded import BandPlan, maybe_plan_large
 from pygat_tpu_torch.ops.large import CscCsrPlans
+from pygat_tpu_torch.ops.stream import TILE
+from pygat_tpu_torch.parallel.collectives import all_reduce_max, barrier
+from pygat_tpu_torch.parallel.distributed import (
+    all_reduce_grads,
+    shard_train_state,
+)
+from pygat_tpu_torch.parallel.mesh import ITEM_18, Mesh
+from pygat_tpu_torch.parallel.partition import partition_edges, shard_blocks
+from pygat_tpu_torch.parallel.ring_model import RingLoss, ring_halo_default
+from pygat_tpu_torch.parallel.sharding import shard_transductive_data
 from pygat_tpu_torch.train import checkpoint as ckpt
 from pygat_tpu_torch.train.logging import TrainLogger
 from pygat_tpu_torch.train.metrics import accuracy, log_logits, nll_loss
@@ -49,7 +63,6 @@ from pygat_tpu_torch.train.state import (
     tensor_leaves,
 )
 from pygat_tpu_torch.utils.platform import make_generator
-
 
 def _make_loss(cfg: GATConfig, plans: BandPlan | CscCsrPlans | None = None):
     """``loss(params, x, graph, labels, idx, gen, train) -> (loss, acc,
@@ -65,10 +78,23 @@ def _make_loss(cfg: GATConfig, plans: BandPlan | CscCsrPlans | None = None):
     return _loss
 
 
+def _metrics(loss_fn, out, labels, idx):
+    """(loss, accuracy) of the forward output ``out`` over the split
+    ``idx``: the ring's reduced ones, or the one device's."""
+    if isinstance(loss_fn, RingLoss):
+        return loss_fn.metrics(out, labels, idx)
+    lp = log_logits(out)
+    return nll_loss(lp[idx], labels[idx]), accuracy(lp[idx], labels[idx])
+
+
 def make_transductive_steps(cfg: GATConfig,
-                            plans: BandPlan | CscCsrPlans | None = None):
+                            plans: BandPlan | CscCsrPlans | None = None,
+                            ring: RingLoss | None = None):
     """(train_step, eval_step), over the large-N plan ``plans`` (a band
-    plan or the corner plans) when one is given.
+    plan or the corner plans) when one is given, or with ``ring`` (a
+    :class:`~pygat_tpu_torch.parallel.ring_model.RingLoss`, from
+    :func:`_ring_setup`) over the ring, this rank's share of the data in,
+    the gradients all-reduced before the update.
 
     ``train_step(state, x, graph, labels, idx) -> (state, loss, acc, out)``
     runs forward with dropout, backward and one Adam update, in place;
@@ -77,13 +103,15 @@ def make_transductive_steps(cfg: GATConfig,
     tensors on the data's device.
     """
 
-    _loss = _make_loss(cfg, plans)
+    _loss = ring if ring is not None else _make_loss(cfg, plans)
 
     def train_step(state: TrainState, x, graph: Graph, labels, idx):
         state.optimizer.zero_grad(set_to_none=True)
         loss, acc, out = _loss(state.params, x, graph, labels, idx,
                                state.generator, True)
         loss.backward()
+        if ring is not None:
+            all_reduce_grads(state.params)
         state.optimizer.step()
         state.step += 1
         return state, loss.detach(), acc, out.detach()
@@ -109,6 +137,57 @@ def _plan_large(data: CitationDataset, logger: TrainLogger):
                    p=[[cp.p for cp in pl.passes] for pl in plans],
                    overflow=[fwd.overflow_total, inv.overflow_total])
     return plans
+
+
+def _dropout_generator(device, seed: int, mesh: Mesh | None,
+                       epoch: int = 0) -> torch.Generator:
+    """The dropout generator: seeded with ``seed + 1`` on one device; under
+    a mesh with (``seed + 1``, rank, ``epoch``), so each rank draws its own
+    masks (a resumed run's ``epoch`` reseeds it)."""
+    if mesh is None:
+        return make_generator(device, seed + 1)
+    ss = np.random.SeedSequence([seed + 1, mesh.rank, epoch])
+    return make_generator(device, int(ss.generate_state(1, np.uint64)[0]
+                                      >> np.uint64(1)))
+
+
+def _ring_setup(cfg: GATConfig, data: CitationDataset, mesh: Mesh,
+                logger: TrainLogger):
+    """(this rank's share of ``data``, its :class:`RingLoss`) for the ring
+    (port of the JAX ``_ring_setup``, loop.py:104-135): repad the graph to a
+    multiple of ``128 * D`` rows, so each shard's range is whole 128-row
+    tiles; deal the real nodes over the shards (``interleave_citation``),
+    which balances the partition's blocks; build the partition and put this
+    rank's blocks and walks on its device; keep this rank's node rows. The
+    ring keeps the stream kernels under distribution."""
+    if not cfg.is_sparse:
+        raise NotImplementedError(
+            f"the ring implements the sparse layer types; {cfg.layer_type} "
+            f"under a mesh is not ported yet ({ITEM_18})")
+    t0 = time.perf_counter()
+    d = mesh.n_data
+    unit = TILE * d
+    n_pad = data.graph.num_nodes_padded
+    want = -(-max(n_pad, int(data.graph.n_node) + 1) // unit) * unit
+    data = interleave_citation(data, d, n_pad=want)
+    part = partition_edges(data.graph, d)
+    blocks = shard_blocks(part, mesh.rank, mesh.device)
+    local = shard_transductive_data(data, mesh)
+    logger.log("ring", shards=d, rank=mesh.rank, n_pad=want,
+               n_local=part.n_local, block_edges=part.block_edges,
+               live_edges=int(part.edge_mask.sum()), h_rows=part.h_rows,
+               halo=ring_halo_default(), seconds=time.perf_counter() - t0)
+    return local, RingLoss(cfg, blocks)
+
+
+def _enter_mesh(cfg, data, state, mesh, logger):
+    """(data, ring loss) of a run over ``mesh`` (``data`` and None without
+    one); replicates ``state`` from rank 0."""
+    if mesh is None:
+        return data, None
+    data, ring = _ring_setup(cfg, data, mesh, logger)
+    shard_train_state(state, mesh)
+    return data, ring
 
 
 @dataclass
@@ -142,9 +221,19 @@ def fit_transductive(
     log_every: int = 1,
     init_params: Any = None,
     resume: bool = False,
+    mesh: Mesh | None = None,
 ) -> FitResult:
     """Reference policy: track best val loss, patience counter, save every
     epoch, rotate non-best, restore best, test (train.py:191-236).
+
+    ``mesh`` (a :class:`~pygat_tpu_torch.parallel.mesh.Mesh` of the
+    process group; every rank calls this with the whole ``data`` on its
+    device) trains over the ring, for either of the JAX package's
+    partitions (torch has no GSPMD; the JAX package's two compute the same
+    thing). Every rank then takes the same early-stop and best-epoch
+    decisions from the reduced validation loss; rank 0 writes the
+    checkpoints, in the single-device format, so a run resumes on one
+    device or under a mesh. Each rank draws its own dropout masks.
 
     Runs on the device of ``data``. Parameters are drawn from a CPU
     generator seeded with ``seed`` (the same initial weights on every
@@ -162,7 +251,8 @@ def fit_transductive(
     else:
         params = init_gat(cfg, make_generator("cpu", seed), device=device)
     state = init_state(params, make_optimizer(params, lr, weight_decay),
-                       make_generator(device, seed + 1))
+                       _dropout_generator(device, seed, mesh))
+    writes = mesh is None or mesh.is_main
 
     start_epoch = 0
     resumed_best = None
@@ -173,11 +263,15 @@ def fit_transductive(
             state, header = ckpt.restore(path, like=state)
             start_epoch = header["epoch"] + 1
             resumed_best = header
+            if mesh is not None:
+                state.generator = _dropout_generator(device, seed, mesh,
+                                                     start_epoch)
             logger.log("resume", epoch=header["epoch"],
                        best=header.get("best"), path=path,
                        from_best=(header["epoch"] == header.get("best_epoch")))
-    plans = _plan_large(data, logger)
-    train_step, eval_step = make_transductive_steps(cfg, plans)
+    data, ring = _enter_mesh(cfg, data, state, mesh, logger)
+    plans = _plan_large(data, logger) if mesh is None else None
+    train_step, eval_step = make_transductive_steps(cfg, plans, ring)
 
     x, g, labels = data.features, data.graph, data.labels
 
@@ -196,9 +290,9 @@ def fit_transductive(
         state, loss_tr, acc_tr, out_tr = train_step(state, x, g, labels, data.idx_train)
         if fastmode:
             # reference fastmode: reuse the training-forward output for val
-            lp = log_logits(out_tr)
-            loss_val = nll_loss(lp[data.idx_val], labels[data.idx_val])
-            acc_val = accuracy(lp[data.idx_val], labels[data.idx_val])
+            with torch.no_grad():
+                loss_val, acc_val = _metrics(ring, out_tr, labels,
+                                             data.idx_val)
         else:
             loss_val, acc_val, _ = eval_step(state.params, x, g, labels, data.idx_val)
 
@@ -221,7 +315,7 @@ def fit_transductive(
             bad_counter = 0
         else:
             bad_counter += 1
-        if checkpoint_dir:
+        if checkpoint_dir and writes:
             ckpt.save(checkpoint_dir, epoch, dataset_tag, state,
                       extra={"best": best, "best_epoch": best_epoch,
                              "bad": bad_counter})
@@ -229,14 +323,16 @@ def fit_transductive(
         # already at the limit and must stop again, not train past it
         if bad_counter >= patience:
             break
-        if checkpoint_dir:
+        if checkpoint_dir and writes:
             ckpt.rotate_below_best(checkpoint_dir, dataset_tag, best_epoch)
 
     if checkpoint_dir:
         # keep the final-epoch checkpoint too: resume then continues from
         # where the run stopped instead of replaying post-best epochs
-        ckpt.rotate_above_best(checkpoint_dir, dataset_tag, best_epoch,
-                               keep_epoch=epoch)
+        if writes:
+            ckpt.rotate_above_best(checkpoint_dir, dataset_tag, best_epoch,
+                                   keep_epoch=epoch)
+        barrier()  # every rank reads the best checkpoint rank 0 wrote
         state, _ = ckpt.restore(
             ckpt.best_path(checkpoint_dir, dataset_tag, best_epoch), like=state
         )
@@ -252,6 +348,19 @@ def fit_transductive(
         state=state,
         history=history,
     )
+
+
+def _agree_on_capture(error: str | None, device) -> str | None:
+    """Every rank's verdict on its CUDA-graph capture, made one: None when
+    the capture held on every rank, else this rank's ``error``, or a note
+    that another rank's capture failed. Every rank then replays, or every
+    rank runs eagerly: a rank replaying its captured NCCL calls while
+    another issues them eagerly would deadlock the group. One all-reduce
+    (of one element on ``device``)."""
+    failed = torch.tensor([0.0 if error is None else 1.0], device=device)
+    if float(all_reduce_max(failed)) == 0.0:
+        return None
+    return error or "the capture failed on another rank"
 
 
 class ChunkedEpochs:
@@ -277,17 +386,28 @@ class ChunkedEpochs:
     ``captured_launches`` holds what one replay launches, by kernel name
     (the wrapper calls the capture recorded), and ``graph_replays`` counts
     the replays. On the CPU the epochs run eagerly.
+
+    With ``ring`` (a run over a mesh) the epoch reduces its metrics and
+    all-reduces its gradients, and on CUDA the capture holds those NCCL
+    calls too. If they will not capture on some rank, the ranks agree on it
+    (:func:`_agree_on_capture`) so that none replays while another runs
+    eagerly; then on every rank the error is kept in ``capture_error`` (the
+    caller logs it, once), the state is put back as it was before, and
+    every chunk runs its epochs eagerly.
     """
 
     def __init__(self, cfg: GATConfig, state: TrainState, x, graph: Graph,
                  labels, idx_train, idx_val, *, n_epochs: int, max_epochs: int,
                  patience: int | None = None, fastmode: bool = False,
-                 plans: BandPlan | CscCsrPlans | None = None):
+                 plans: BandPlan | CscCsrPlans | None = None,
+                 ring: RingLoss | None = None):
         dev = x.device
         self.state = state
         self.n_epochs = n_epochs
         self._args = (x, graph, labels, idx_train, idx_val)
-        self._loss = _make_loss(cfg, plans)
+        self._ring = ring
+        self._loss = ring if ring is not None else _make_loss(cfg, plans)
+        self.capture_error: str | None = None
         self._max_epochs = max_epochs
         self._patience = patience
         self._fastmode = fastmode
@@ -310,14 +430,15 @@ class ChunkedEpochs:
         loss_tr, acc_tr, out = self._loss(state.params, x, graph, labels,
                                           idx_train, state.generator, True)
         loss_tr.backward()
+        if self._ring is not None:
+            all_reduce_grads(state.params)
         state.optimizer.step()
         self._step += 1
         with torch.no_grad():
             if self._fastmode:
                 # reference fastmode: reuse the training-forward output
-                lp = log_logits(out.detach())
-                loss_val = nll_loss(lp[idx_val], labels[idx_val])
-                acc_val = accuracy(lp[idx_val], labels[idx_val])
+                loss_val, acc_val = _metrics(self._ring, out.detach(), labels,
+                                             idx_val)
             else:
                 loss_val, acc_val, _ = self._loss(
                     state.params, x, graph, labels, idx_val, None, False)
@@ -364,8 +485,30 @@ class ChunkedEpochs:
         before = build.launch_counts()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
-        with torch.cuda.graph(graph):
-            self._epoch()
+        if self._ring is not None:
+            # the collectives may refuse the capture: keep what to put back
+            saved = [t.detach().clone() for t in carry]
+            gen_state = state.generator.get_state()
+            error = None
+            try:
+                with torch.cuda.graph(graph):
+                    self._epoch()
+            except RuntimeError as exc:
+                torch.cuda.synchronize()
+                error = f"{type(exc).__name__}: {exc}"
+            # a capture runs nothing, so no rank has sent yet: agree now
+            error = _agree_on_capture(error, self._metrics.device)
+            if error is not None:
+                with torch.no_grad():
+                    for t, old in zip(carry, saved):
+                        t.copy_(old)
+                state.generator.set_state(gen_state)
+                self.capture_error = error
+                return
+            del saved
+        else:
+            with torch.cuda.graph(graph):
+                self._epoch()
         # the wrapper calls of the capture: recorded, run at every replay
         self.captured_launches = {
             name: n - before[name]
@@ -377,8 +520,9 @@ class ChunkedEpochs:
         transfer (the chunk's only host sync)."""
         self._slot.zero_()
         on_cuda = self._metrics.device.type == "cuda"
-        if on_cuda and self._graph is None:
+        if on_cuda and self._graph is None and self.capture_error is None:
             self._capture()
+        on_cuda = on_cuda and self._graph is not None
         for _ in range(self.n_epochs):
             if on_cuda:
                 self._graph.replay()
@@ -412,6 +556,7 @@ def fit_transductive_fast(
     log_every: int = 50,
     init_params: Any = None,
     resume: bool = False,
+    mesh: Mesh | None = None,
 ) -> FitResult:
     """Same policy and result as :func:`fit_transductive` (the best-val
     parameters are restored exactly, tracked on the device), but the host
@@ -425,6 +570,12 @@ def fit_transductive_fast(
     header carries the val-loss history (for the patience policy) and the
     best-val bookkeeping; the best parameters reload from the
     ``{tag}-best`` checkpoint refreshed at every chunk boundary.
+
+    ``mesh`` as in :func:`fit_transductive`. On CUDA the captured epoch
+    then holds the NCCL calls (the metrics' and the gradients' all-reduces,
+    the ring's sends). Should the capture refuse them on any rank, every
+    rank runs every chunk's K epochs eagerly, and the loop says so in one
+    ``capture`` record of the log.
     """
     logger = logger or TrainLogger()
     device = data.features.device
@@ -434,8 +585,10 @@ def fit_transductive_fast(
         params = init_gat(cfg, make_generator("cpu", seed), device=device)
     optimizer = make_optimizer(params, lr, weight_decay,
                                capturable=device.type == "cuda")
-    state = init_state(params, optimizer, make_generator(device, seed + 1))
+    state = init_state(params, optimizer, _dropout_generator(device, seed,
+                                                             mesh))
     best_tag = dataset_tag + "-best"
+    writes = mesh is None or mesh.is_main
 
     history: list[float] = []
     resumed = None
@@ -444,12 +597,16 @@ def fit_transductive_fast(
         if found is not None:
             state, resumed = ckpt.restore(found[1], like=state)
             history = [float(v) for v in resumed.get("history", [])]
+            if mesh is not None:
+                state.generator = _dropout_generator(device, seed, mesh,
+                                                     len(history))
+    data, ring = _enter_mesh(cfg, data, state, mesh, logger)
     x, g, labels = data.features, data.graph, data.labels
-    plans = _plan_large(data, logger)
+    plans = _plan_large(data, logger) if mesh is None else None
     chunk = ChunkedEpochs(cfg, state, x, g, labels, data.idx_train,
                           data.idx_val, n_epochs=epoch_chunk,
                           max_epochs=epochs, patience=patience,
-                          fastmode=fastmode, plans=plans)
+                          fastmode=fastmode, plans=plans, ring=ring)
     if resumed is not None:
         best_val = float(resumed.get("best", np.inf))
         best_epoch = int(resumed.get("best_epoch", -1))
@@ -462,8 +619,12 @@ def fit_transductive_fast(
 
     t0 = time.time()
     stopped = False
+    capture_logged = False
     while len(history) < epochs and not stopped:
         chunk_tr, chunk_acc_tr, chunk_vals, chunk_acc_val = chunk.run()
+        if chunk.capture_error is not None and not capture_logged:
+            logger.log("capture", eager=True, error=chunk.capture_error)
+            capture_logged = True
         for j, lv in enumerate(chunk_vals):
             epoch_idx = len(history)
             history.append(lv)
@@ -478,7 +639,7 @@ def fit_transductive_fast(
                 break
             if epoch_idx + 1 >= epochs:
                 break
-        if checkpoint_dir:
+        if checkpoint_dir and writes:
             # chunk-boundary checkpoint with full resume bookkeeping: the
             # header carries the history (patience state) and the best val;
             # the best parameters refresh in the {tag}-best file
@@ -502,7 +663,7 @@ def fit_transductive_fast(
             p.copy_(best)
     best_epoch = int(chunk.best_epoch)
 
-    _, eval_step = make_transductive_steps(cfg, plans)
+    _, eval_step = make_transductive_steps(cfg, plans, ring)
     test_loss, test_acc, _ = eval_step(state.params, x, g, labels, data.idx_test)
     logger.log("test", loss=float(test_loss), accuracy=float(test_acc))
     return FitResult(

@@ -3,10 +3,13 @@
 
 Entry points run on CUDA unless the caller asks for the CPU. There is no
 silent fallback: when CUDA is absent and the CPU was not requested,
-:func:`resolve_device` raises.
+:func:`resolve_device` raises. Under a launcher (``torchrun`` sets
+``LOCAL_RANK``) each process takes its own card, ``cuda:LOCAL_RANK``.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -14,7 +17,8 @@ import torch
 def resolve_device(device: torch.device | str | None = None, *,
                    cpu: bool = False) -> torch.device:
     """The device an entry point runs on: ``device`` when the caller names
-    one, else ``cpu`` when asked (``--no-cuda``), else ``cuda``."""
+    one, else ``cpu`` when asked (``--no-cuda``), else ``cuda`` (under a
+    launcher ``cuda:LOCAL_RANK``)."""
     if device is not None:
         return torch.device(device)
     if cpu:
@@ -23,6 +27,8 @@ def resolve_device(device: torch.device | str | None = None, *,
         raise RuntimeError(
             "CUDA is not available; pass --no-cuda (or device='cpu') to run "
             "on the CPU")
+    if "LOCAL_RANK" in os.environ:
+        return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return torch.device("cuda")
 
 

@@ -1949,3 +1949,205 @@ def test_dense_remat_matches_batched_on_the_card(cuda, layer_type):
     torch.testing.assert_close(out_r, out_b, rtol=0, atol=MODEL_RTOL * max(
         1.0, float(out_b.abs().max())))
     _close_grads(cfg, grads_r, grads_b)
+
+
+# -- the ring (pygat_tpu_torch.parallel): the per-hop kernels on blocks ----
+
+
+def _ring_blocks(device, d, drop=None):
+    """The blocks of every shard of a ``d``-shard partition of 900 nodes
+    over 1,024 rows (few edges a node, so a halo buffer has fewer rows than
+    a shard); ``drop`` = (sender range, receiver range) empties a block."""
+    from pygat_tpu_torch.parallel.partition import partition_edges, shard_blocks
+
+    rng = np.random.default_rng(21)
+    s = np.concatenate([rng.integers(0, 900, 1800), np.arange(900)])
+    r = np.concatenate([rng.integers(0, 900, 1800), np.arange(900)])
+    if drop is not None:
+        (s0, s1), (r0, r1) = drop
+        keep = ~((s >= s0) & (s < s1) & (r >= r0) & (r < r1))
+        s, r = s[keep], r[keep]
+    g = build_graph(s, r, None, 900, n_pad=1024, device="cpu")
+    part = partition_edges(g, d)
+    return part, [shard_blocks(part, k, device) for k in range(d)]
+
+
+def _parts_case(cuda, blk, n_local, h, f, v2, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda) * 0.5
+
+    e = blk.recv.shape[0]
+    keep = torch.where(torch.rand(e, h, generator=gen, device=cuda) < 0.4,
+                       2.5, 0.0)
+    if v2:
+        return (fs.fused_v2_parts, fs.fused_v2_parts_plain,
+                (rnd(n_local, h * f), rnd(n_local, h) + 2.0,
+                 rnd(blk.n_rows, h * f), rnd(blk.n_rows, h * f), rnd(h, f),
+                 keep, blk.senders, blk.local, blk.chunk, 0.2))
+    return (fs.fused_v1_parts, fs.fused_v1_parts_plain,
+            (rnd(blk.n_rows, h * f), rnd(n_local, h), rnd(n_local, h) + 2.0,
+             rnd(h, f), keep, blk.senders, blk.local, blk.chunk, 0.2))
+
+
+@pytest.mark.parametrize("halo", [False, True], ids=["rotation", "halo"])
+@pytest.mark.parametrize("v2", [False, True], ids=["v1", "v2"])
+@pytest.mark.parametrize("h,f", [(8, 8), (1, 7), (3, 130)])
+def test_parts_kernels_match_plain_on_the_card(cuda, v2, halo, h, f):
+    """The ring's per-hop forwards on a (dst 0, src 1) block, the sender
+    buffer a whole shard (n_buf = n_local) or the halo buffer (n_buf <
+    n_local), against their f64 plain versions; two calls bit-equal."""
+    part, blocks = _ring_blocks(cuda, 2)
+    blk = blocks[0].block(1, halo)
+    assert (blk.n_rows < part.n_local) == halo
+    kernel, plain, args = _parts_case(cuda, blk, part.n_local, h, f, v2,
+                                      10 * h + f)
+    out, den = kernel(*args, walk=blk.walk)
+    again = kernel(*args, walk=blk.walk)
+    out_p, den_p = plain(*args, f64=True)
+    torch.cuda.synchronize()
+    for got, want in ((out, out_p), (den, den_p)):
+        torch.testing.assert_close(got, want, rtol=0, atol=RTOL * max(
+            1.0, float(want.abs().max())))
+    assert torch.equal(out, again[0]) and torch.equal(den, again[1])
+    with pytest.raises(ValueError, match="walk"):
+        kernel(*args)
+
+
+@pytest.mark.parametrize("v2", [False, True], ids=["v1", "v2"])
+def test_parts_kernels_on_an_empty_block(cuda, v2):
+    """A block with no edge (all dead chunks, a walk without a slot): every
+    row of its output is written, all zeros."""
+    part, blocks = _ring_blocks(cuda, 4, ((256, 512), (512, 768)))
+    blk = blocks[2].block(1)
+    assert not bool(blk.mask.any()) and blk.walk.max_run == 0
+    kernel, _, args = _parts_case(cuda, blk, part.n_local, 8, 8, v2, 3)
+    out, den = kernel(*args, walk=blk.walk)
+    torch.cuda.synchronize()
+    assert out.shape == (part.n_local, 64) and not bool(out.any())
+    assert not bool(den.any())
+
+
+@pytest.mark.parametrize("side", ["recv", "send", "halo"])
+def test_row1_over_the_ring_block_views(cuda, side):
+    """stream_scatter over a block's receiver stream (n_local rows), its
+    sender view and its halo view (h_rows rows) against its f64 plain
+    version; two calls bit-equal."""
+    part, blocks = _ring_blocks(cuda, 2)
+    blk = blocks[0].block(1, side == "halo")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    data = torch.randn(blk.recv.shape[0], 67, generator=gen, device=cuda)
+    if side == "recv":
+        data = data * blk.mask[:, None]
+        view = (blk.local, blk.chunk, blk.n_local, None, blk.walk)
+    else:
+        view = (blk.s_local, blk.s_chunk, blk.n_rows, blk.s_slot,
+                blk.sender_walk)
+    local, chunk, n_rows, slot, walk = view
+    got = st.stream_scatter(data, local, chunk, n_rows, slot=slot, walk=walk)
+    again = st.stream_scatter(data, local, chunk, n_rows, slot=slot,
+                              walk=walk)
+    want = st.stream_scatter_plain(data, local, chunk, n_rows, slot=slot,
+                                   f64=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=RTOL * max(
+        1.0, float(want.abs().max())))
+    assert torch.equal(got, again)
+
+
+def test_ring_at_world_size_one_matches_the_single_device(cuda, monkeypatch):
+    """An NCCL group of one: ring_apply_gat over the one shard's blocks
+    against apply_gat on the same graph, output and gradients."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pygat_tpu_torch.data.citation import interleave_citation
+    from pygat_tpu_torch.models.gat import apply_gat, init_gat, parameters
+    from pygat_tpu_torch.parallel.mesh import initialize_distributed
+    from pygat_tpu_torch.parallel.partition import partition_edges, shard_blocks
+    from pygat_tpu_torch.parallel.ring_model import ring_apply_gat
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    data = interleave_citation(_planted(cuda), 1)
+    blocks = shard_blocks(partition_edges(data.graph, 1), 0, cuda)
+    assert initialize_distributed()
+    try:
+        for layer_type in ("GAT_sparse", "GATv2_sparse"):
+            cfg = GATConfig(nlayers=2, nheads=(2, 1), nfeats=(128, 8, 3),
+                            dropout=0.0, alpha=0.2, layer_type=layer_type)
+            results = []
+            for ring in (True, False):
+                params = init_gat(cfg, torch.Generator().manual_seed(2),
+                                  device=cuda)
+                out = (ring_apply_gat(params, cfg, data.features, blocks,
+                                      None, train=True) if ring else
+                       apply_gat(params, cfg, data.features, data.graph,
+                                 None, train=True))
+                grads = torch.autograd.grad(
+                    torch.sin(out[data.graph.node_mask]).sum(),
+                    parameters(params))
+                results.append((out.detach(), grads))
+            (out_r, grads_r), (out_s, grads_s) = results
+            torch.testing.assert_close(out_r, out_s, rtol=0, atol=MODEL_RTOL)
+            _close_grads(cfg, grads_r, grads_s)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_a_refused_capture_under_a_group_runs_eagerly(cuda, monkeypatch):
+    """An NCCL group of one whose fast-loop capture is refused: the chunk
+    keeps the error, puts the state back and runs its epochs eagerly, to
+    the metrics of a chunk whose capture held."""
+    import contextlib
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from pygat_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from pygat_tpu_torch.tools.profile_epoch import epoch_runners
+    from pygat_tpu_torch.train.loop import _ring_setup
+
+    @contextlib.contextmanager
+    def refuse(*args, **kwargs):
+        raise RuntimeError("capture refused")
+        yield
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    cfg = GATConfig(nlayers=2, nheads=(2, 1), nfeats=(128, 8, 3),
+                    dropout=0.0, alpha=0.2, layer_type="GAT_sparse")
+    assert initialize_distributed()
+    try:
+        with open(os.devnull, "w") as quiet:
+            local, ring = _ring_setup(cfg, _planted(cuda), make_mesh(1, 1),
+                                      TrainLogger(stream=quiet))
+        metrics = []
+        for refused in (True, False):
+            _, chunk = epoch_runners(cfg, local, 3, ring=ring)
+            with monkeypatch.context() as m:
+                if refused:
+                    m.setattr(torch.cuda, "graph", refuse)
+                metrics.append(chunk.run())
+            if refused:
+                assert chunk.capture_error == "RuntimeError: capture refused"
+                assert chunk.graph_replays == 0
+            else:
+                assert chunk.capture_error is None
+                assert chunk.graph_replays == 3
+        torch.testing.assert_close(torch.tensor(metrics[0]),
+                                   torch.tensor(metrics[1]), rtol=0,
+                                   atol=MODEL_RTOL)
+    finally:
+        dist.destroy_process_group()

@@ -29,11 +29,17 @@ assert {"pygat_tpu_torch.ops.corner", "pygat_tpu_torch.ops.fused_corner",
         "pygat_tpu_torch.legacy_bcsr.fused_attention",
         "pygat_tpu_torch.legacy_bcsr.sparse_attention",
         "pygat_tpu_torch.data.ppi", "pygat_tpu_torch.train.inductive",
-        "pygat_tpu_torch.cli.train_ppi"} <= set(names)
+        "pygat_tpu_torch.cli.train_ppi", "pygat_tpu_torch.parallel.mesh",
+        "pygat_tpu_torch.parallel.collectives",
+        "pygat_tpu_torch.parallel.partition",
+        "pygat_tpu_torch.parallel.ring_model",
+        "pygat_tpu_torch.parallel.distributed",
+        "pygat_tpu_torch.parallel.sharding"} <= set(names)
 # every kernel has its wrapper, the corner, SpMM and BCSR kernels included
 assert set(build.launch_counts()) >= {"corner_permute", "fused_v1_window",
                                       "fused_v2_window", "spmm_banded",
-                                      "panel_spmm", "bcsr_attention"}
+                                      "panel_spmm", "bcsr_attention",
+                                      "fused_v1_parts", "fused_v2_parts"}
 # the SpMM family, the segment ops and the switches are exported as the
 # JAX package exports them
 from pygat_tpu_torch import ops
@@ -77,3 +83,11 @@ def test_entry_points_type_every_argument_and_the_stream():
         assert len(params.split(",")) == len(types), name
         assert params.split(",")[-1].split() == ["void*", "stream"], name
         assert types[-1] is ctypes.c_void_p, name
+    # the ring's per-hop forwards launch the stream forwards' entry points,
+    # counted apart from them
+    from pygat_tpu_torch.ops import fused_stream as fs
+
+    for parts, stream in ((fs.fused_v1_parts, fs.fused_v1),
+                          (fs.fused_v2_parts, fs.fused_v2)):
+        assert parts.source == stream.kernel == stream.source
+        assert build.WRAPPERS[parts.kernel] is parts

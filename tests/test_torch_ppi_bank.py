@@ -145,8 +145,8 @@ def test_banked_resume_continues_exactly(data, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "GAT_sparse", "--mesh", "2,1"], "item 14"),
-    (["--model", "GAT_sparse", "--distributed"], "item 14"),
+    (["--model", "GAT_sparse", "--mesh", "2,2", "--epoch-scan"], "item 18"),
+    (["--model", "GAT", "--distributed", "--epoch-scan"], "item 18"),
     (["--model", "GAT_sparse", "--platform", "cpu"], "no counterpart"),
 ], ids=["mesh", "distributed", "platform"])
 def test_cli_rejects_unported_flags(argv, item):

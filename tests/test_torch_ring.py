@@ -1,0 +1,309 @@
+"""The port's multi-GPU path on the CPU, under gloo groups of 2 and 4
+processes (one spawn a group size, ``tests/torch_dist.py``), against the
+JAX package on one device.
+
+* The ring (``parallel.ring_model`` over ``parallel.partition``): each
+  rank's rows of the forward, the loss, the all-reduced gradients and the
+  first Adam step against the JAX single-device ``apply_gat`` and
+  ``make_transductive_steps`` on the same interleaved data, for GATv1 and
+  GATv2, rotation and halo, fused and unfused hops, dropout off, to 1e-5
+  of each quantity's largest value (two f32 computations summing in other
+  orders); the parameters equal bit for bit on every rank after 3 steps.
+* The CLI, ``cli.train --no-cuda --mesh D,1 --partition ring``: both
+  sparse models, rotation and halo, both loops.
+* The banked PPI loop under a mesh: one data-parallel super-step against
+  the JAX package's (``superbatch`` semantics: the weighted mean over the
+  slots, pad slots at weight 0) and against the port's ``dp=D`` run in one
+  process.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from pygat_tpu.data import ppi as jppi
+from pygat_tpu.graph import build_graph as jbuild_graph
+from pygat_tpu.models.gat import GATConfig as JConfig
+from pygat_tpu.models.gat import apply_gat as japply_gat
+from pygat_tpu.models.gat import init_gat as jinit_gat
+from pygat_tpu.train.metrics import bce_with_logits as jbce
+from pygat_tpu.train.metrics import log_logits as jlog_logits
+from pygat_tpu.train.metrics import nll_loss as jnll_loss
+from pygat_tpu.train.state import make_optimizer as jmake_optimizer
+from tests.torch_dist import GroupRun, _params, group_work
+from tests.torch_ppi_data import CFG as PPI_CFG
+from tests.torch_ppi_data import synth_ppi
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from pygat_tpu_torch.data import ppi as tppi
+from pygat_tpu_torch.models.gat import GATConfig
+from pygat_tpu_torch.train.inductive import fit_inductive_banked, _batch_slots
+from pygat_tpu_torch.train.logging import TrainLogger
+
+CFG = dict(nlayers=2, nheads=(2, 1), nfeats=(16, 8, 3), dropout=0.0,
+           alpha=0.2)
+N, N_PAD, N_RING = 300, 384, 512  # N_RING: the repad for 2 and 4 shards
+LR, WD = 0.005, 5e-4
+LAYER_TYPES = ("GAT_sparse", "GATv2_sparse")
+CASES = [(lt, halo, fused) for lt in LAYER_TYPES for halo in (False, True)
+         for fused in (True, False)]
+STEPS = 3
+# the CLI runs of the two groups: both models, rotation and halo, both
+# loops, and both --partition values
+RUNS = {2: [(["--model", "GAT_sparse", "--mesh", "2,1", "--partition",
+              "ring", "--epochs", "2"], {"PYGAT_RING_HALO": "0"})],
+        4: [(["--model", "GATv2_sparse", "--mesh", "4,1", "--epochs", "2",
+              "--epoch-chunk", "2"], {"PYGAT_RING_HALO": "1"})]}
+PPI_KW = dict(batch_size=2, lr=0.01, weight_decay=5e-4, seed=3, epochs=1,
+              epoch_chunk=1, patience=5, device="cpu")
+# the PPI model cut to two layers, skip connections kept
+PPI_CFG = dict(PPI_CFG, nlayers=2, nheads=(2, 2), nfeats=(128, 8, 6))
+
+
+def _numpy_params(params):
+    return [tuple(None if t is None else np.asarray(t) for t in layer)
+            for layer in params]
+
+
+@pytest.fixture(scope="module")
+def spec():
+    rng = np.random.default_rng(14)
+    s = np.concatenate([rng.integers(0, N, N * 5), np.arange(N)])
+    r = np.concatenate([rng.integers(0, N, N * 5), np.arange(N)])
+    x = np.zeros((N_PAD, CFG["nfeats"][0]), np.float32)
+    x[:N] = rng.random((N, CFG["nfeats"][0]), dtype=np.float32)
+    labels = np.full(N_PAD, -1, np.int32)
+    labels[:N] = rng.integers(0, 3, N)
+    params = {lt: _numpy_params(jinit_gat(jax.random.PRNGKey(i),
+                                          JConfig(layer_type=lt, **CFG)))
+              for i, lt in enumerate(LAYER_TYPES)}
+    ppi_params = _numpy_params(jinit_gat(
+        jax.random.PRNGKey(7), JConfig(layer_type="GAT_sparse", **PPI_CFG)))
+    return dict(
+        ring=dict(send=s, recv=r, n=N, n_pad=N_PAD, x=x, labels=labels,
+                  idx_train=np.arange(0, 90, dtype=np.int32),
+                  idx_val=np.arange(90, 180, dtype=np.int32),
+                  idx_test=np.arange(180, N, dtype=np.int32), n_classes=3,
+                  cfg=CFG, params=params, lr=LR, wd=WD),
+        ppi=dict(cfg=dict(layer_type="GAT_sparse", **PPI_CFG),
+                 params=ppi_params, kw=PPI_KW))
+
+
+@pytest.fixture(scope="module")
+def groups(spec, tmp_path_factory):
+    """The 2- and 4-rank groups, started together before the JAX
+    references are computed, and waited for by the first test that reads
+    them."""
+    runs = {}
+    for d in (2, 4):
+        tmp = tmp_path_factory.mktemp(f"group{d}")
+        runs[d] = GroupRun(group_work, d, tmp, spec["ring"], CASES, STEPS,
+                           RUNS[d], spec["ppi"], tmp, timeout=180)
+    return runs
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["d2", "d4"])
+def group(request, groups, jax_ref, jax_superstep):
+    return request.param, groups[request.param].results()
+
+
+@pytest.fixture(scope="module")
+def jax_ref(spec):
+    """The JAX package on one device: per layer type the output, the loss
+    and gradients over the train split and the parameters after one Adam
+    step, on the graph as loaded (padded to the ring's N_RING rows), and
+    for each group size the interleave's node map, by which the ring's
+    rows are compared (the model is node-permutation-equivariant)."""
+    rs = spec["ring"]
+    g = jbuild_graph(rs["send"], rs["recv"], None, N, n_pad=N_RING)
+    x = np.zeros((N_RING, CFG["nfeats"][0]), np.float32)
+    x[:N_PAD] = rs["x"]
+    labels = np.full(N_RING, -1, np.int32)
+    labels[:N_PAD] = rs["labels"]
+    idx = jnp.asarray(rs["idx_train"])
+    ref = {}
+    for d in (2, 4):
+        # jcit.interleave_citation's map: node v to row (v % d) * n_local
+        # + v // d
+        v = np.arange(N)
+        ref[d] = (v % d) * (N_RING // d) + v // d
+    for lt in LAYER_TYPES:
+        cfg = JConfig(layer_type=lt, **CFG)
+        params = [type(layer)(*(None if a is None else jnp.asarray(a)
+                                for a in arrays))
+                  for layer, arrays in zip(
+                      jinit_gat(jax.random.PRNGKey(0), cfg), rs["params"][lt])]
+
+        def loss_fn(p, cfg=cfg):
+            out = japply_gat(p, cfg, jnp.asarray(x), g,
+                             jax.random.PRNGKey(0), train=False)
+            lp = jlog_logits(out)
+            return jnll_loss(lp[idx], jnp.asarray(labels)[idx]), out
+
+        (loss, out), grads = jax.jit(jax.value_and_grad(
+            loss_fn, has_aux=True))(params)
+        tx = jmake_optimizer(LR, WD)
+        updates, _ = tx.update(grads, tx.init(params), params)
+        new = optax.apply_updates(params, updates)
+        ref[lt] = dict(
+            loss=float(loss), out=np.asarray(out)[:N],
+            grads=[np.asarray(t) for layer in grads for t in layer
+                   if t is not None],
+            params1=[np.asarray(t) for layer in new for t in layer
+                     if t is not None])
+    return ref
+
+
+def _close(got, want, what):
+    scale = max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale,
+                               err_msg=what)
+
+
+def _case_id(case):
+    lt, halo, fused = case
+    return (f"{'v2' if 'v2' in lt else 'v1'}-{'halo' if halo else 'rot'}-"
+            f"{'fused' if fused else 'unfused'}")
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_ring_forward_and_loss_match_jax(group, jax_ref, case):
+    d, ranks = group
+    ref = jax_ref[case[0]]
+    out = np.concatenate([r["ring"][case]["out"] for r in ranks])
+    _close(out[jax_ref[d]], ref["out"], "out")
+    for r in ranks:
+        assert r["ring"][case]["loss"] == pytest.approx(ref["loss"], rel=1e-5)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_ring_gradients_and_adam_step_match_jax(group, jax_ref, case):
+    _, ranks = group
+    ref = jax_ref[case[0]]
+    rec = ranks[0]["ring"][case]
+    for i, (g, want) in enumerate(zip(rec["grads"], ref["grads"])):
+        _close(g, want, f"grad {i}")
+    for i, (p, want) in enumerate(zip(rec["params1"], ref["params1"])):
+        _close(p, want, f"param {i} after one step")
+
+
+def test_parameters_stay_equal_on_every_rank(group):
+    """The all-reduced gradients give every rank the same update: the
+    parameters are equal bit for bit in every case, after 3 steps in the
+    fused halo cases (one step in the others)."""
+    _, ranks = group
+    for case in CASES:
+        for r in ranks[1:]:
+            for a, b in zip(r["ring"][case]["params_last"],
+                            ranks[0]["ring"][case]["params_last"]):
+                np.testing.assert_array_equal(a, b, err_msg=str(case))
+    assert STEPS == 3  # (halo, fused) cases run all of them
+
+
+def test_mesh_of_another_size_raises(group):
+    """A mesh needs exactly its D * M ranks: one more than the group has
+    raises on every rank."""
+    d, ranks = group
+    for r in ranks:
+        assert r["wrong_size"] is not None
+        assert f"needs {d + 1} ranks, the group has {d}" in r["wrong_size"]
+
+
+def test_ranks_agree_on_a_capture_one_rank_refused(group):
+    """The fast loop's capture verdict is the group's: a capture that held
+    on every rank is kept everywhere; one that the last rank refused sends
+    every rank eager, so none replays its NCCL calls while another issues
+    them eagerly."""
+    d, res = group
+    for rank, r in enumerate(res):
+        held, refused = r["capture"]
+        assert held is None
+        assert refused == ("RuntimeError: refused" if rank == d - 1
+                           else "the capture failed on another rank")
+
+
+def test_cli_trains_on_the_ring(group):
+    """``cli.train --no-cuda --mesh D,1``: rank 0 logs every epoch (the
+    other ranks write nothing), the training loss falls, the losses are
+    finite."""
+    d, ranks = group
+    for recs, (argv, _) in zip(ranks[0]["cli"], RUNS[d]):
+        ring = [r for r in recs if r["kind"] == "ring"]
+        assert ring and ring[0]["shards"] == d, argv
+        epochs = [r for r in recs if r["kind"] == "epoch"]
+        assert len(epochs) == int(argv[argv.index("--epochs") + 1]), argv
+        losses = [r["loss_train"] for r in epochs]
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0], argv
+        assert [r for r in recs if r["kind"] == "test"], argv
+
+
+@pytest.fixture(scope="module")
+def jax_superstep(spec):
+    """The JAX package's data-parallel super-step on the port's first
+    shuffled batches: the weighted mean of the slots' losses, one Adam
+    update. The pad slots of D = 4 weigh 0, so one super-step over the two
+    live batches is the reference of both group sizes."""
+    spec, d = spec["ppi"], 2
+    kw = spec["kw"]
+    cfg = JConfig(**spec["cfg"])
+    data = synth_ppi(jppi.PPIGraph, jppi.PPIData)
+    n_pg, e_pg = jppi.bank_bounds([data.train, data.valid, data.test])
+    bank = jppi.build_bank(data.train, n_pg, e_pg)
+    order = np.arange(len(data.train))
+    np.random.default_rng(kw["seed"]).shuffle(order)
+    slots = _batch_slots(len(data.train), kw["batch_size"], order)
+    ids = np.arange(d) % len(slots)
+    w = (np.arange(d) < len(slots)).astype(np.float32)
+    params = [type(layer)(*(None if a is None else jnp.asarray(a)
+                            for a in arrays))
+              for layer, arrays in zip(jinit_gat(jax.random.PRNGKey(7), cfg),
+                                       spec["params"])]
+
+    def super_loss(p):
+        total = 0.0
+        for j in range(d):
+            idx, live = slots[ids[j]]
+            x, g, y = jppi.assemble_banked_batch(
+                bank, jnp.asarray(idx, jnp.int32), jnp.asarray(live))
+            out = japply_gat(p, cfg, x, g, jax.random.PRNGKey(0), train=True)
+            total = total + w[j] * jbce(out, y, mask=g.node_mask)
+        return total / max(w.sum(), 1.0)
+
+    grads = jax.jit(jax.grad(super_loss))(params)
+    tx = jmake_optimizer(kw["lr"], kw["weight_decay"])
+    updates, _ = tx.update(grads, tx.init(params), params)
+    new = optax.apply_updates(params, updates)
+    return [np.asarray(t) for layer in new for t in layer if t is not None]
+
+
+def test_banked_loop_under_a_mesh_matches_jax_and_dp(group, spec,
+                                                    jax_superstep):
+    """One epoch (one super-step of D slots: the 2 train batches, and at D
+    = 4 two pad slots) under the mesh against the JAX package's super-step
+    on the same batches, and its validation history against the port's
+    ``dp=D`` run in one process."""
+    d, ranks = group
+    got = ranks[0]["ppi"]
+    for r in ranks[1:]:
+        for a, b in zip(r["ppi"]["params"], got["params"]):
+            np.testing.assert_array_equal(a, b)
+    for i, (p, q) in enumerate(zip(got["params"], jax_superstep)):
+        _close(p, q, f"param {i}")
+    cfg = GATConfig(**spec["ppi"]["cfg"])
+    with open("/dev/null", "w") as quiet:
+        local = fit_inductive_banked(
+            cfg, synth_ppi(tppi.PPIGraph, tppi.PPIData), dp=d,
+            init_params=_params(cfg, spec["ppi"]["params"]),
+            logger=TrainLogger(stream=quiet), **PPI_KW)
+    np.testing.assert_allclose(got["history"], local.history, rtol=1e-6)
+    assert got["best_epoch"] == local.best_epoch
+    with torch.no_grad():
+        for p, q in zip(got["params"],
+                        [t.numpy() for layer in local.state.params
+                         for t in layer if t is not None]):
+            np.testing.assert_allclose(p, q, rtol=0,
+                                       atol=1e-6 * float(np.abs(q).max()))

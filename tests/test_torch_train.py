@@ -153,7 +153,8 @@ def test_train_cli_two_epochs_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2,1"], ["--partition", "ring"], ["--distributed"],
+    ["--mesh", "2,2"], ["--partition", "ring", "--mesh", "2,1", "--model",
+                        "GAT"], ["--distributed", "--model", "GATv2"],
     ["--reorder"],
 ])
 def test_train_cli_unported_flags_name_the_roadmap(flags):
