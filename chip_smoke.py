@@ -165,11 +165,32 @@ of which prints its seconds:
     not;
     the Cora epoch of the ring at one shard beside the single device's;
     the phase fails past RING_BUDGET_S seconds;
-11. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+11. the RCM order (``load_citation(reorder=True)``, ``--reorder``) and the
+    stacked PPI loop (``fit_inductive_fast``): build and load the host
+    graph library (``pygat_tpu_torch/native.py``, its seconds printed);
+    load Cora and Pubmed in RCM order, with RCM's host seconds and, before
+    and after, E_s, the receiver walk's chunks and split pieces, the mean
+    sender-to-receiver distance of the live edges and the distinct
+    (receiver tile, sender tile) pairs; rows 1-3 at the presets' widths on
+    both reordered graphs against their f64 plain versions, called twice
+    (equal bit for bit); both Cora sparse models in RCM order card vs CPU;
+    through the CLI, with the counters set to 0 just before each run and
+    read just after, Cora GAT_sparse ``--reorder`` by the per-epoch loop
+    and Pubmed GATv2_sparse ``--reorder --epoch-chunk`` by the fast loop:
+    finite, falling training losses and only the stream path's kernels, as
+    many as phase 4 states; ``fit_inductive_fast`` on the PPI stand-in,
+    both sparse models, FAST_PPI_EPOCHS epochs, its launches as
+    ``_want_ppi`` states and its losses against ``fit_inductive``'s within
+    LOOPS_RTOL, both loops' epoch seconds; rows 1-3 timed on both graphs
+    unreordered and in RCM order in turns, beside their bounds and
+    ``index_add_``; the Cora epoch of both models by both loops in both
+    orders; the phase fails past REORDER_BUDGET_S seconds;
+12. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 The script imports nothing of JAX or of the JAX package, needs no network
-and starts no process other than ``nvidia-smi``, ``nvcc`` and the one
-trainer subprocess, and waits for each. Without the PPI files under
+and starts no process other than ``nvidia-smi``, ``nvcc``, the host C++
+compiler (the graph library of phase 11) and the one trainer subprocess,
+and waits for each. Without the PPI files under
 ``data/ppi/`` it builds the loader's deterministic stand-ins.
 """
 
@@ -254,6 +275,11 @@ DENSE_BUDGET_S = 150.0
 # budget on the card
 RING_SHARDS = 4
 RING_BUDGET_S = 150.0
+# the RCM order and the stacked PPI loop: the epochs of each
+# fit_inductive_fast run (and of the per-batch loop it is held to), and the
+# phase's budget on the card
+FAST_PPI_EPOCHS = 3
+REORDER_BUDGET_S = 60.0
 REPLACES = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
             "corner_permute": "pygat_tpu/ops/corner.py:216",
             "fused_v1_window": "pygat_tpu/ops/fused_stream.py:134",
@@ -3042,6 +3068,309 @@ def _ring_phase(datasets, large, gen, kernel_cases, counters, jsonl,
     return out
 
 
+# -- phase 11: the RCM order and the stacked PPI loop -------------------------
+
+
+def _locality(g):
+    """The stream layout and locality of ``g``: E_s, the receiver walk's
+    chunks and split pieces, the mean |sender - receiver| of the live
+    edges, and the distinct (receiver tile, sender tile) pairs they
+    touch."""
+    import numpy as np
+
+    from pygat_tpu_torch.graph import host_edges
+
+    send, recv, _, mask = host_edges(g)
+    send, recv = send[mask].astype(np.int64), recv[mask].astype(np.int64)
+    walk = g.stream_walk
+    return {"E_s": g.num_edges_padded,
+            "walk_chunks": int(walk.tile_ptr[-1]),
+            "split_pieces": int(walk.split_at.numel()),
+            "max_run": int(walk.max_run),
+            "mean_distance": float(np.abs(send - recv).mean()),
+            "tile_pairs": int(np.unique(recv // 128 * (
+                g.num_nodes_padded // 128) + send // 128).size)}
+
+
+def _rcm_seconds(g):
+    """Host seconds of RCM over ``g``'s real edges as the loader runs it
+    (the CSR by receiver, then the order), the order itself, and the
+    build's."""
+    from pygat_tpu_torch import native
+    from pygat_tpu_torch.graph import host_edges
+
+    send, recv, _, mask = host_edges(g)
+    n = int(g.n_node)
+    t0 = time.perf_counter()
+    rowptr, col, _ = native.build_csr(send[mask], recv[mask], n)
+    t1 = time.perf_counter()
+    native.rcm_order(rowptr, col, n)
+    t2 = time.perf_counter()
+    return {"csr_s": t1 - t0, "rcm_s": t2 - t1}
+
+
+def _reorder_loads(datasets):
+    """The graph library's build, and Cora and Pubmed loaded in RCM order:
+    their load seconds, RCM's host seconds, and the layout and locality
+    before and after. Returns (the reordered datasets by name, the
+    numbers)."""
+    from pygat_tpu_torch import native
+    from pygat_tpu_torch.data.citation import load_citation
+
+    t0 = time.perf_counter()
+    native.build()
+    native.load()
+    out = {"graphops_build_s": time.perf_counter() - t0, "graphs": {}}
+    print(f"phase 11: graphops library built and loaded in "
+          f"{out['graphops_build_s']:.2f} s ({native.lib_path()})",
+          flush=True)
+    rcm = {}
+    for name in ("cora", "pubmed"):
+        t0 = time.perf_counter()
+        rcm[name] = load_citation(name, reorder=True, device="cuda")
+        load_s = time.perf_counter() - t0
+        secs = _rcm_seconds(datasets[name].graph)
+        before = _locality(datasets[name].graph)
+        after = _locality(rcm[name].graph)
+        out["graphs"][name] = dict(load_s=load_s, **secs, before=before,
+                                   after=after)
+        print(f"phase 11: {name} in RCM order loaded in {load_s:.2f} s "
+              f"(its CSR {secs['csr_s']:.4f} s, RCM {secs['rcm_s']:.4f} s "
+              f"on the host); before -> after: "
+              + ", ".join(f"{k} {before[k]} -> {after[k]}" for k in before),
+              flush=True)
+        if after["mean_distance"] >= before["mean_distance"]:
+            raise AssertionError(f"RCM did not pack {name}'s edges")
+    return rcm, out
+
+
+def _reorder_cli(counters, jsonl, path_launches, path_replayed):
+    """Cora GAT_sparse ``--reorder`` by the per-epoch loop and Pubmed
+    GATv2_sparse ``--reorder --epoch-chunk`` by the fast loop through the
+    CLI, the counters set to 0 just before each run and read just after:
+    finite, falling training losses, and only the stream path's kernels
+    launched, as many as phase 4 states."""
+    runs = [("cora GAT_sparse --reorder, per-epoch loop", "fused_v1",
+             V1_EPOCHS, ["--dataset", "cora", "--model", "GAT_sparse",
+                         "--reorder"]),
+            ("pubmed GATv2_sparse --reorder, fast loop", "fused_v2",
+             TRAIN_EPOCHS, ["--dataset", "pubmed", "--model", "GATv2_sparse",
+                            "--reorder", "--epoch-chunk", str(EPOCH_CHUNK)])]
+    for label, fused_name, epochs, argv in runs:
+        got, losses, replays, captured, _ = _train_cli(argv, epochs, counters,
+                                                       jsonl)
+        by_replay = {name: replays * n for name, n in captured.items()}
+        path_launches[label], path_replayed[label] = got, by_replay
+        print(f"phase 11: {label}: wrapper launches "
+              f"{ {k: v for k, v in got.items() if v} }; {replays} CUDA graph "
+              f"replays, each launching "
+              f"{ {k: v for k, v in captured.items() if v} }; train losses "
+              f"{losses}", flush=True)
+        if "fast loop" in label:
+            want = {fused_name: 2 * 4 + 2, "stream_scatter": 2 * 4}
+            want_captured = {fused_name: 4, "stream_scatter": 4}
+            if replays != epochs or {k: v for k, v in captured.items()
+                                     if v} != want_captured:
+                raise AssertionError(f"{label}: {replays} replays of "
+                                     f"{captured}")
+        else:
+            want = {fused_name: 2 * 2 * epochs + 2,
+                    "stream_scatter": 2 * 2 * epochs}
+            if replays:
+                raise AssertionError(f"{label}: CUDA graph replays")
+        if {k: v for k, v in got.items() if v} != want:
+            raise AssertionError(f"{label}: launches {got}, want {want} and "
+                                 "no other kernel")
+
+
+def _reorder_timings(datasets, rcm, gen, fused, kernel_cases):
+    """Rows 1-3 at the presets' widths on Cora and Pubmed in RCM order (the
+    cases phase 11 checked) and unreordered (fresh inputs of the same
+    shapes), timed by phase 5's timers (kernel, plain version, bound,
+    ``index_add_`` for row 1) in turns, unreordered, RCM, RCM, unreordered;
+    each case keeps the better of its two kernel times. Returns the
+    pairs."""
+    import torch
+
+    from pygat_tpu_torch.models.presets import PRESETS
+
+    pairs = []
+    for name in ("cora", "pubmed"):
+        heads = PRESETS[name]["nheads"]
+        feats = PRESETS[name]["nfeats"][1:]
+        graphs = {"plain": datasets[name].graph, "rcm": rcm[name].graph}
+        g_p = graphs["plain"]
+        # (kernel name, its kernel and plain version or None for row 1,
+        # the unreordered case, the RCM case)
+        rows = [c for c in kernel_cases["stream_scatter"]
+                if c["dataset"] == f"{name} rcm"]
+        trip = [("stream_scatter", None, a, b) for a, b in zip(
+            _scatter_cases(f"{name} unreordered", g_p, heads, feats, gen),
+            rows)]
+        for kname, (kernel, plain, make_inputs) in fused.items():
+            rows = [c for c in kernel_cases[kname]
+                    if c["dataset"] == f"{name} rcm"]
+            for h, f, b in zip(heads, feats, rows):
+                a = dict(dataset=f"{name} unreordered", H=h, F=f,
+                         args=make_inputs(g_p, h, f, gen),
+                         n_live=int((g_p.r_local < 128).sum()))
+                trip.append((kname, (kernel, plain), a, b))
+        runs = {}
+        for order in ("plain", "rcm", "rcm", "plain"):
+            for i, (kname, fk, a, b) in enumerate(trip):
+                case = a if order == "plain" else b
+                if fk is None:
+                    _time_scatter(case, graphs[order])
+                else:
+                    _time_fused(kname, *fk, case, graphs[order])
+                runs.setdefault((i, order), []).append(case["ms"])
+        for i, (kname, _, a, b) in enumerate(trip):
+            a["ms"], b["ms"] = min(runs[i, "plain"]), min(runs[i, "rcm"])
+            what = (f"{b['path']} {b['side']} L={b['L']}" if "side" in b
+                    else f"H={b['H']} F={b['F']}")
+            pairs.append(dict(kernel=kname, dataset=name, case=what,
+                              unreordered_ms=a["ms"], rcm_ms=b["ms"],
+                              unreordered_bound_ms=a["bound_ms"],
+                              rcm_bound_ms=b["bound_ms"],
+                              rcm_library_ms=b["library_ms"]))
+            print(f"phase 11: {kname} {name} {what}: RCM order "
+                  f"{b['ms']:.4f} ms against {a['ms']:.4f} ms unreordered "
+                  f"(bounds {b['bound_ms']:.5f} / {a['bound_ms']:.5f} ms; "
+                  f"the better of two runs each, in turns)", flush=True)
+            for case in (a, b):
+                case.pop("args", None)
+                case.pop("data", None)
+        del trip, runs
+        torch.cuda.empty_cache()
+    return pairs
+
+
+def _reorder_epochs(datasets, rcm):
+    """The Cora epoch of both sparse models by both loops (phase 5's
+    :func:`_epoch_ms`), unreordered and in RCM order, in turns (plain,
+    RCM, RCM, plain); medians of each order's two runs."""
+    out = {}
+    for lt in ("GAT_sparse", "GATv2_sparse"):
+        cfg = _preset_cfg("cora", lt, datasets["cora"])
+        res = {"plain": [], "rcm": []}
+        for order in ("plain", "rcm", "rcm", "plain"):
+            ds = datasets["cora"] if order == "plain" else rcm["cora"]
+            samples, fast = _epoch_ms(cfg, ds)
+            res[order].append((samples[len(samples) // 2],
+                               fast[len(fast) // 2]))
+        out[lt] = {f"{order}_{loop}_ms": [r[i] for r in runs]
+                   for order, runs in res.items()
+                   for i, loop in enumerate(("per_epoch_loop", "fast_loop"))}
+        print(f"phase 11: Cora {lt} epoch, host clock (medians of 30 "
+              f"per-epoch-loop epochs and of {TIMED_CHUNKS} chunks of 10 "
+              f"replays, two runs an order): "
+              + "; ".join(f"{k} {[round(v, 4) for v in vs]}"
+                          for k, vs in out[lt].items()), flush=True)
+    return out
+
+
+def _fast_ppi(ppi, counters, jsonl, path_launches, path_replayed):
+    """``fit_inductive_fast`` on the PPI stand-in at the preset's full
+    width (dropout off, as the preset has it), both sparse models, for
+    FAST_PPI_EPOCHS epochs, the counters set to 0 just before and
+    read just after: the launches :func:`_want_ppi` states and no other
+    kernel; its validation and training losses against
+    ``fit_inductive``'s on the same seeds within LOOPS_RTOL; each loop's
+    epoch seconds (host clock, from its records, the first epoch left
+    out)."""
+    from pygat_tpu_torch.data.ppi import ppi_config
+    from pygat_tpu_torch.models.presets import TRAIN_PRESETS
+    from pygat_tpu_torch.train.inductive import fit_inductive, fit_inductive_fast
+    from pygat_tpu_torch.train.logging import TrainLogger
+
+    epochs = FAST_PPI_EPOCHS
+    kw = dict(batch_size=2, **TRAIN_PRESETS["ppi"], epochs=epochs,
+              patience=100, device="cuda")
+    n_train = -(-len(ppi.train) // 2)
+    n_eval = epochs * -(-len(ppi.valid) // 2) + -(-len(ppi.test) // 2)
+    out = {}
+    for lt in ("GAT_sparse", "GATv2_sparse"):
+        cfg = ppi_config(lt)
+        if cfg.dropout:
+            raise AssertionError("the PPI preset has dropout on")
+        recs = {}
+        for loop, fit, extra in (("fast", fit_inductive_fast, {}),
+                                 ("per_batch", fit_inductive,
+                                  dict(log_batches=False))):
+            if os.path.exists(jsonl):
+                os.remove(jsonl)
+            for fn in counters.values():
+                fn.launches = 0
+            logger = TrainLogger(stream=io.StringIO(), jsonl_path=jsonl)
+            res = fit(cfg, ppi, logger=logger, **kw, **extra)
+            got = {name: fn.launches for name, fn in counters.items()}
+            logger.close()
+            with open(jsonl) as fh:
+                recs[loop] = [r for r in map(json.loads, fh)
+                              if r["kind"] == "ppi_epoch"]
+            if loop == "fast":
+                label = f"ppi {lt}, stacked loop (fit_inductive_fast)"
+                path_launches[label] = got
+                path_replayed[label] = dict.fromkeys(counters, 0)
+                want = _want_ppi("fused_v2" if lt == "GATv2_sparse"
+                                 else "fused_v1", epochs, n_train, n_eval)
+                print(f"phase 11: {label}: wrapper launches "
+                      f"{ {k: v for k, v in got.items() if v} }; train "
+                      f"losses {[r['loss_train'] for r in recs[loop]]}; "
+                      f"validation losses {res.history}", flush=True)
+                if {k: v for k, v in got.items() if v} != want:
+                    raise AssertionError(f"{label}: launches {got}, want "
+                                         f"{want} and no other kernel")
+                if not all(math.isfinite(v) for v in res.history):
+                    raise AssertionError(f"{label}: losses not finite")
+        worst = max(abs(a[k] - b[k]) / abs(b[k])
+                    for a, b in zip(recs["fast"], recs["per_batch"])
+                    for k in ("loss_train", "loss_val"))
+        times = {f"{loop}_epoch_s": [r["time"] for r in rs[1:]]
+                 for loop, rs in recs.items()}
+        out[lt] = dict(times, worst_rel_diff=worst)
+        print(f"phase 11: PPI {lt}, stacked loop vs per-batch loop, "
+              f"{epochs} epochs' train and validation losses: worst relative "
+              f"difference {worst:.3e} (allowed {LOOPS_RTOL:.0e}); epoch "
+              f"seconds, host clock, after the first: "
+              + "; ".join(f"{k} {[round(v, 4) for v in vs]}"
+                          for k, vs in times.items()), flush=True)
+        if not worst <= LOOPS_RTOL:
+            raise AssertionError("the stacked loop's losses differ from the "
+                                 "per-batch loop's")
+    return out
+
+
+def _reorder_phase(datasets, ppi, gen, fused, kernel_cases, counters, jsonl,
+                   path_launches, path_replayed):
+    """Phase 11: the graph library and the reordered loads
+    (:func:`_reorder_loads`); rows 1-3 on the reordered Cora and Pubmed
+    at the presets' widths against their f64 plain versions (twice, equal
+    bit for bit; :func:`_stream_kernel_cases`); both Cora sparse models in
+    RCM order card vs CPU; the CLI with ``--reorder``
+    (:func:`_reorder_cli`); the stacked PPI loop (:func:`_fast_ppi`); the
+    kernels timed in both orders (:func:`_reorder_timings`) and the Cora
+    epochs in both (:func:`_reorder_epochs`). Returns its numbers."""
+    from pygat_tpu_torch.models.presets import PRESETS
+
+    rcm, out = _reorder_loads(datasets)
+    for name, ds in rcm.items():
+        _stream_kernel_cases(f"{name} rcm", ds.graph, PRESETS[name]["nheads"],
+                             PRESETS[name]["nfeats"][1:], gen, fused,
+                             kernel_cases)
+    for lt in ("GAT_sparse", "GATv2_sparse"):
+        _card_vs_cpu(f"phase 11: Cora {lt} in RCM order",
+                     _preset_cfg("cora", lt, rcm["cora"]),
+                     rcm["cora"].features, rcm["cora"].graph)
+    _reorder_cli(counters, jsonl, path_launches, path_replayed)
+    out["ppi_fast"] = _fast_ppi(ppi, counters, jsonl, path_launches,
+                                path_replayed)
+    out["kernels"] = _reorder_timings(datasets, rcm, gen, fused,
+                                      kernel_cases)
+    out["cora_epoch_ms"] = _reorder_epochs(datasets, rcm)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3544,7 +3873,22 @@ def main() -> int:
         raise AssertionError("the ring phase took longer than its budget")
     phase_done(10, t0)
 
-    # -- phase 11: the kernels line ---------------------------------------------
+    # -- phase 11: the RCM order and the stacked PPI loop ---------------------
+    # the graph library, Cora and Pubmed in RCM order: rows 1-3 there
+    # against their plain versions, both Cora models card vs CPU, the CLI
+    # with --reorder and fit_inductive_fast on PPI with the counters set to
+    # 0 just before each run and read just after, then the timings
+    t0 = time.perf_counter()
+    reorder = _reorder_phase(datasets, ppi, gen, fused, kernel_cases,
+                             counters, jsonl, path_launches, path_replayed)
+    reorder_s = time.perf_counter() - t0
+    print(f"phase 11: RCM and stacked-loop phase {reorder_s:.1f} s (budget "
+          f"{REORDER_BUDGET_S:.0f} s)", flush=True)
+    if reorder_s > REORDER_BUDGET_S:
+        raise AssertionError("the RCM phase took longer than its budget")
+    phase_done(11, t0)
+
+    # -- phase 12: the kernels line ---------------------------------------------
     launches = {name: sum(v[name] for v in path_launches.values())
                 for name in counters}
     replayed = {name: sum(v[name] for v in path_replayed.values())
@@ -3566,7 +3910,7 @@ def main() -> int:
         # graph for bcsr_attention (one forward at H = 8, F = 8, no
         # dropout mask); every shape is
         # listed under "cases". "launches" sums the wrapper's count over the
-        # main-path runs of phases 4, 6, 7, 8 and 9 (one by one under
+        # main-path runs of phases 4, 6 to 11 (one by one under
         # "launches_by_path"); "replayed_launches" are those of the fast
         # loop's CUDA graph replays, replays x launches captured.
         main_set = "cora" if name in ("stream_scatter", "fused_v1",
@@ -3622,6 +3966,7 @@ def main() -> int:
                       "ppi": {"epoch_s": ppi_epoch_s, "setup_s": ppi_setup},
                       "dense": dense,
                       "ring": ring,
+                      "reorder": reorder,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

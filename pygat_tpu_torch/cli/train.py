@@ -34,8 +34,15 @@ ring attention (``PYGAT_RING_HALO=1``: the direct halo exchange);
 ``--partition gspmd``, the default, runs the ring too (torch has no
 GSPMD) and says so; ``--partition ring`` without a mesh raises. Rank 0 alone prints the epochs and writes the
 checkpoints. Not ported yet, each raising with the ROADMAP item that
-ports it: ``M > 1`` and the dense types under a mesh (item 18),
-``--reorder`` (item 15).
+ports it: ``M > 1`` and the dense types under a mesh (item 18).
+
+``--reorder`` relabels the citation graph in reverse Cuthill-McKee order
+(the port's host library, ``pygat_tpu_torch/native.py``) before the
+padded graph and its walks are built, with every loop and order above;
+under a mesh the ring interleaves the reordered nodes over the shards:
+
+    python -m pygat_tpu_torch.cli.train --dataset pubmed \
+        --model GATv2_sparse --reorder --epoch-chunk 5
 """
 
 from __future__ import annotations
@@ -95,7 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "--checkpoint-dir (parameters, Adam moments, "
                         "generator state, best-val bookkeeping)")
     p.add_argument("--reorder", action="store_true", default=False,
-                   help="RCM node relabeling (not ported yet)")
+                   help="RCM node relabeling (isomorphic; packs each "
+                        "receiver's senders near it in id order)")
     p.add_argument("--mesh", type=str, default=None, metavar="D,M",
                    help="train over a process group of D*M ranks (from "
                         "torchrun's environment): D node shards on the "
@@ -135,8 +143,6 @@ def _reject_unported(args) -> None:
         ((args.mesh is not None or args.distributed)
          and not args.model.endswith("_sparse"),
          f"--model {args.model} under a mesh", ITEM_18),
-        (args.reorder, "--reorder",
-         "ROADMAP Queue 1, item 15: ctypes loader for csrc/graphops.cpp"),
     ]
     for bad, flag, item in unported:
         if bad:
@@ -223,7 +229,8 @@ def _fit(args, mesh) -> int:
     random.seed(args.seed)
     np.random.seed(args.seed)
 
-    data = load_citation(args.dataset, data_root=args.data_root, device=device)
+    data = load_citation(args.dataset, data_root=args.data_root,
+                         reorder=args.reorder, device=device)
     stats = dataset_stats(data)
     print(f"Number of nodes: {stats['nodes']}")
     print(f"Number of edges: {stats['edges']}")

@@ -196,14 +196,15 @@ def load_citation(dataset: str, data_root: str | None = None,
     """Load a citation dataset onto ``device`` (CUDA unless the caller names
     another device; raises without CUDA).
 
-    ``reorder=True`` (RCM node relabeling) needs the native graph library,
-    which is not ported yet, and raises ``NotImplementedError``.
+    ``reorder=True`` relabels the nodes in reverse Cuthill-McKee order
+    (:func:`pygat_tpu_torch.native.rcm_order` over the CSR of the
+    normalised adjacency) before the padded Graph is built: an isomorphic
+    relabelling, under which the features, labels and the three splits
+    move with their nodes, that packs each receiver's senders near it in
+    id order. Default off, to keep the reference's node numbering (Cora's
+    train split is range(140)).
     """
     device = resolve_device(device)
-    if reorder:
-        raise NotImplementedError(
-            "reorder=True needs the native RCM library, not ported yet "
-            "(ROADMAP Queue 1, item 15: ctypes loader for csrc/graphops.cpp)")
     roots = _search_roots(data_root)
 
     if dataset == "cora":
@@ -230,6 +231,24 @@ def load_citation(dataset: str, data_root: str | None = None,
     adj = symmetrize(adj)
     features = normalize_features(features)
     adj_norm = normalize_adj_with_self_loops(adj)
+
+    if reorder:
+        from pygat_tpu_torch.native import apply_reorder, rcm_order
+
+        csr = adj_norm.tocsr()
+        order = rcm_order(csr.indptr, csr.indices, n)
+        coo = csr.tocoo()
+        # adj[i, j] is the edge j -> i: senders = col, receivers = row
+        new_row, new_col, inverse = apply_reorder(
+            order.astype(np.int64), coo.row.astype(np.int64),
+            coo.col.astype(np.int64))
+        adj_norm = sp.coo_matrix((coo.data, (new_row, new_col)), shape=(n, n))
+        features = (features.tocsr() if sp.issparse(features)
+                    else np.asarray(features))[order]
+        labels = np.asarray(labels)[order]
+        idx_train, idx_val, idx_test = (
+            inverse[np.asarray(i, dtype=np.int64)]
+            for i in (idx_train, idx_val, idx_test))
 
     graph = from_scipy(adj_norm.tocsr(), device=device)
     n_pad = graph.num_nodes_padded

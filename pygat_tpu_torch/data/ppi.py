@@ -11,10 +11,11 @@ Missing files are regenerated deterministically at the real sizes, by the
 same generators as the JAX package, so both packages load the same arrays:
 topology as planted-partition graphs at the per-graph sizes of the
 ``graph_id`` files, labels from one global random hyperplane rule over
-(features + neighbour mean). There is no download: ``load_ppi`` reads the
-files from a search root that has them (``data_root``, ``$PYGAT_DATA``, the
-working directory) and builds the stand-ins otherwise, as the JAX loader
-does with its download gate off.
+(features + neighbour mean). ``load_ppi`` reads the files from a search
+root that has them (``data_root``, ``$PYGAT_DATA``, the working
+directory); where none has them it first asks :func:`ensure_ppi_download`,
+which fetches the reference's archive only when ``PYGAT_ALLOW_DOWNLOAD=1``
+says so, and builds the stand-ins otherwise.
 
 Two ways to batch, both block-diagonal at one static shape:
 
@@ -30,6 +31,7 @@ Two ways to batch, both block-diagonal at one static shape:
 from __future__ import annotations
 
 import json
+import os
 import sys
 from typing import Iterator, NamedTuple, Sequence
 
@@ -199,11 +201,74 @@ class PPIData(NamedTuple):
     synthetic_parts: tuple[str, ...]
 
 
+PPI_URL = "https://data.dgl.ai/dataset/ppi.zip"  # reference load_data_ppi.py:27
+
+
+def ensure_ppi_download(dest_root: str, *, url: str = PPI_URL,
+                        sha256: str | None = None, _fetch=None) -> bool:
+    """First-use fetch of the preprocessed PPI files into
+    ``dest_root/data/ppi/`` (port of ``pygat_tpu/data/ppi.py::
+    ensure_ppi_download``; the reference's lazy download,
+    load_data_ppi.py:92-106: fetch ppi.zip, unzip, remove the archive).
+
+    Gated by ``PYGAT_ALLOW_DOWNLOAD=1``: without it nothing touches the
+    network. ``sha256`` (or ``$PYGAT_PPI_SHA256``) pins the archive's
+    digest; a mismatch aborts before extracting. Returns True when the
+    files are there (already, or fetched), False when downloading is off
+    or failed (the loader then builds its stand-ins, as without a fetch).
+    ``_fetch(url, path)`` is injectable for tests (default: urllib)."""
+    import hashlib
+    import zipfile
+
+    ppi_dir = os.path.join(dest_root, "data", "ppi")
+    if os.path.exists(os.path.join(ppi_dir, "train_feats.npy")):
+        return True
+    if os.environ.get("PYGAT_ALLOW_DOWNLOAD") != "1":
+        return False
+    sha256 = sha256 or os.environ.get("PYGAT_PPI_SHA256") or None
+    os.makedirs(ppi_dir, exist_ok=True)
+    zip_tmp = os.path.join(ppi_dir, "ppi.zip")
+    try:
+        if _fetch is None:
+            import urllib.request
+
+            def _fetch(u, p):
+                with urllib.request.urlopen(u, timeout=120) as r, \
+                        open(p, "wb") as f:
+                    while chunk := r.read(1 << 20):
+                        f.write(chunk)
+        _fetch(url, zip_tmp)
+        if sha256 is not None:
+            h = hashlib.sha256()
+            with open(zip_tmp, "rb") as f:
+                while chunk := f.read(1 << 20):
+                    h.update(chunk)
+            if h.hexdigest() != sha256:
+                raise IOError(
+                    f"ppi.zip sha256 {h.hexdigest()} != expected {sha256}")
+        with zipfile.ZipFile(zip_tmp) as zf:
+            zf.extractall(path=ppi_dir)
+        return True
+    except Exception as exc:
+        print(f"[pygat_tpu_torch.data] ppi download failed ({exc}); using "
+              "the local files or the stand-ins", file=sys.stderr)
+        return False
+    finally:
+        if os.path.exists(zip_tmp):
+            os.remove(zip_tmp)
+
+
 def load_ppi(data_root: str | None = None) -> PPIData:
     """The three splits as host graphs: read from the first search root
     that has each file, else the deterministic stand-ins (recorded in
-    ``synthetic_parts``). Nothing is downloaded."""
+    ``synthetic_parts``). Where no root has the files,
+    :func:`ensure_ppi_download` is asked first (into ``data_root``, else
+    ``$PYGAT_DATA``, else the working directory); it fetches nothing
+    unless ``PYGAT_ALLOW_DOWNLOAD=1``."""
     roots = _search_roots(data_root)
+    if _find("data/ppi/train_feats.npy", roots) is None:
+        dest = data_root or os.environ.get("PYGAT_DATA") or os.getcwd()
+        ensure_ppi_download(dest)
     out = {}
     synth: list[str] = []
     for split in SPLITS:

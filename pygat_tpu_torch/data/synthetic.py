@@ -108,7 +108,7 @@ def planted_partition_graph(
 
 
 def clustered_citation(n_nodes: int, n_feat: int, n_classes: int, name: str,
-                       spread: int, n_pad: int | None = None, *,
+                       spread: int | None, n_pad: int | None = None, *,
                        device=None):
     """A citation-like dataset whose senders lie within ``spread`` of their
     receivers (the counterpart of ``_synthetic_citation(spread=k)`` in the
@@ -119,7 +119,10 @@ def clustered_citation(n_nodes: int, n_feat: int, n_classes: int, name: str,
     band, and 10 % / 10 % / 80 % train / validation / test splits. Seeded
     from ``name`` through sha256, so every process draws the same graph
     (the JAX function seeds from ``hash(name)``, which is salted per
-    process; the two generators are not meant to agree). Returns a
+    process; the two generators are not meant to agree). ``spread=None``
+    takes :func:`planted_partition_graph`'s topology and labels instead
+    (``_synthetic_citation(spread=None)``; the same arrays as the JAX
+    function, whose generator this is). Returns a
     :class:`~pygat_tpu_torch.data.citation.CitationDataset` on ``device``
     (CUDA unless the caller names another device; raises without CUDA)."""
     import torch
@@ -129,14 +132,16 @@ def clustered_citation(n_nodes: int, n_feat: int, n_classes: int, name: str,
     from pygat_tpu_torch.utils.platform import resolve_device
 
     device = resolve_device(device)
-    rng = _rng(name + ":clustered", n_nodes, spread)
-    deg = 9
-    base = np.repeat(np.arange(n_nodes, dtype=np.int64), deg)
-    s = np.clip(base + rng.integers(-spread, spread, base.shape[0]),
-                0, n_nodes - 1)
+    if spread is None:
+        s, r, labels = planted_partition_graph(n_nodes, n_classes, name)
+    else:
+        rng = _rng(name + ":clustered", n_nodes, spread)
+        r = np.repeat(np.arange(n_nodes, dtype=np.int64), 9)
+        s = np.clip(r + rng.integers(-spread, spread, r.shape[0]),
+                    0, n_nodes - 1)
+        labels = (np.arange(n_nodes) * n_classes // n_nodes).astype(np.int32)
     s = np.concatenate([s, np.arange(n_nodes)])
-    r = np.concatenate([base, np.arange(n_nodes)])
-    labels = (np.arange(n_nodes) * n_classes // n_nodes).astype(np.int32)
+    r = np.concatenate([r, np.arange(n_nodes)])
     g = build_graph(s, r, None, n_nodes, n_pad=n_pad, device=device)
     feats = class_features(labels, min(n_feat, 64), name)
     x = np.zeros((g.num_nodes_padded, n_feat), np.float32)

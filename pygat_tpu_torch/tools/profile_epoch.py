@@ -10,7 +10,9 @@ the fast loop on the 524,288-node clustered graph of the banded path
 (``clustered_citation``, spread 1024, the Cora preset's widths) instead,
 over the band plan ``maybe_plan_large`` picks, over the corner plans
 (``set_band("off")``, ``set_corner("on")``) and over the receiver stream
-(``set_band("off")``); ``--model GAT`` / ``GATv2`` profile the dense
+(``set_band("off")``), and over the band plan also two epochs of the
+per-epoch loop, whose eager operators the profiler names with their input
+shapes; ``--model GAT`` / ``GATv2`` profile the dense
 models on Cora or, with ``--ppi``, PPI. ``--ppi`` profiles PPI_EPOCHS epochs of both
 inductive loops on the PPI stand-in at the PPI preset (full width, batch
 size 2): the banked loop (batches collated on the card, one host read per
@@ -19,8 +21,10 @@ walks and copied, the validation loss read every epoch). For each it
 prints the wall time per epoch (host
 clock around a synchronize), traced and untraced, the device-busy time per
 epoch (the sum of all kernel and memory-operation durations the profiler
-saw), the idle share of the traced chunk, and the ten kernels with the
-most device time. Exits non-zero without a GPU, when the profiler reports
+saw), the idle share of the traced chunk, the ten kernels with the
+most device time and, where the run launched them eagerly, the five
+operators with the most device self time with their input shapes (the
+trace records shapes, ``utils/profiling.py::trace``). Exits non-zero without a GPU, when the profiler reports
 no device time, or when it reports more device time than the traced
 chunk's wall time.
 :func:`epoch_runners` is the set-up of both loops, shared with
@@ -36,6 +40,7 @@ import time
 
 EPOCHS = 10
 PPI_EPOCHS = 3
+LARGE_EAGER_EPOCHS = 2
 
 
 def epoch_runners(cfg, data, n_epochs, plans=None, ring=None):
@@ -76,12 +81,13 @@ def epoch_runners(cfg, data, n_epochs, plans=None, ring=None):
 
 def _profile(label, run, n_epochs):
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from pygat_tpu_torch.utils.profiling import top_ops, trace
 
     run()  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(cuda=True, record_shapes=True) as prof:
         run()
         torch.cuda.synchronize()
     traced_ms = (time.perf_counter() - t0) * 1e3 / n_epochs
@@ -112,6 +118,16 @@ def _profile(label, run, n_epochs):
           f"idle share {1 - busy_ms / traced_ms:.3f} of the traced chunk")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:10]:
         print(f"    {ms:8.4f} ms  {count:5.1f}x  {key[:100]}")
+    # the operators that launched their kernels eagerly, with their input
+    # shapes, each at least 1 % of the busy time (a replayed CUDA graph's
+    # kernels have no operator)
+    ops = [r for r in top_ops(prof, 5, shapes=True)
+           if r[2] / n_epochs >= 0.01 * busy_ms]
+    if ops:
+        print("  operators by device self time, with their input shapes:")
+    for key, shapes, ms, count in ops:
+        print(f"    {ms / n_epochs:8.4f} ms  {count / n_epochs:5.1f}x  "
+              f"{key[:40]} {shapes[:160]}")
 
 
 def large_dataset():
@@ -155,7 +171,18 @@ def _profile_large(model: str) -> None:
         else:
             over = (f"corner plans (passes {[cp.p for cp in plans.fwd.passes]}"
                     f" / {[cp.p for cp in plans.inv.passes]})")
-        _, chunk = epoch_runners(cfg, data, EPOCHS, plans)
+        epoch, chunk = epoch_runners(cfg, data, EPOCHS, plans)
+        if band == "auto":
+            # the order the graph picks by itself, eagerly, so that the
+            # profiler names each kernel's operator and its input shapes
+            def eager_epochs():
+                for _ in range(LARGE_EAGER_EPOCHS):
+                    float(epoch())
+
+            _profile(f"524k {model} over the {over}, per-epoch loop",
+                     eager_epochs, LARGE_EAGER_EPOCHS)
+        del epoch
+        torch.cuda.empty_cache()
         _profile(f"524k {model} over the {over}, fast loop", chunk.run, EPOCHS)
         del chunk, plans
         torch.cuda.empty_cache()

@@ -1,12 +1,13 @@
 """Inductive (PPI) training loops with the reference's early-stop and
 checkpoint-rotation policy (port of ``make_inductive_steps``,
 ``fit_inductive``, ``_banked_eval_fn``, ``make_banked_epochs`` and
-``fit_inductive_banked`` from ``pygat_tpu/train/loop.py``;
-train_ppi.py:112-216, whose broken checkpoint rotation is replaced by the
-intended policy).
+``fit_inductive_banked``, ``stack_batches`` and ``fit_inductive_fast``
+from ``pygat_tpu/train/loop.py``; train_ppi.py:112-216, whose broken
+checkpoint rotation is replaced by the intended policy).
 
-Two loops, both eager; the banked one also data-parallel over a process
-group (``mesh=``) or, in one process, over ``dp`` slots:
+Three loops, all eager; the banked and the stacked ones also
+data-parallel over a process group (``mesh=``), the banked one in one
+process over ``dp`` slots too:
 
 * :func:`fit_inductive` builds every epoch's block-diagonal batches on the
   host (:func:`~pygat_tpu_torch.data.ppi.make_batches`, walks included),
@@ -17,7 +18,10 @@ group (``mesh=``) or, in one process, over ``dp`` slots:
   there (:func:`~pygat_tpu_torch.data.ppi.assemble_banked_batch`);
   :class:`BankedEpochs` runs a chunk of epochs with one host read, keeping
   the per-epoch metrics, the best model and the patience gate on the
-  device.
+  device;
+* :func:`fit_inductive_fast` builds each epoch's batches on the host as
+  the per-batch loop does, stacks them (:func:`stack_batches`), copies
+  them to the device at once and reads the epoch's metrics once.
 
 The banked loop draws each epoch's graph order on the host with the same
 ``np.random.default_rng(seed + epoch)`` shuffle as the per-batch loop, where
@@ -33,7 +37,7 @@ loops never ask for one.
 from __future__ import annotations
 
 import time
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -578,6 +582,286 @@ def fit_inductive_banked(
         test_loss=test_loss,
         test_acc=test_f1,
         epochs_run=len(history),
+        state=state,
+        history=history,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The stacked loop: each epoch's batches of one static shape, stacked on the
+# host and copied to the device at once, its steps run back to back, and
+# one host read of the epoch's metrics.
+# ---------------------------------------------------------------------------
+
+
+class StackedWalks(NamedTuple):
+    """One stream side's walks of ``B`` stacked batches: ``row_ptr`` and
+    ``tile_ptr`` stacked (their shapes follow the batch's padded shape),
+    ``split_at`` flat with host offsets (a walk's pieces vary in number),
+    and each walk's ``max_run`` on the host."""
+
+    row_ptr: torch.Tensor  # [B, n_tiles * (TILE + 1) + 1] int32
+    tile_ptr: torch.Tensor  # [B, n_tiles + 1] int32
+    split_at: torch.Tensor  # flat int32, batch i at split_off[i]:split_off[i+1]
+    split_off: np.ndarray  # [B + 1] int64
+    max_run: np.ndarray  # [B] int64
+
+    @classmethod
+    def stack(cls, walks) -> "StackedWalks":
+        off = np.cumsum([0] + [w.split_at.numel() for w in walks])
+        return cls(torch.stack([w.row_ptr for w in walks]),
+                   torch.stack([w.tile_ptr for w in walks]),
+                   torch.cat([w.split_at for w in walks]), off,
+                   np.asarray([w.max_run for w in walks], np.int64))
+
+    def to(self, device) -> "StackedWalks":
+        return self._replace(row_ptr=self.row_ptr.to(device),
+                             tile_ptr=self.tile_ptr.to(device),
+                             split_at=self.split_at.to(device))
+
+    def walk(self, i: int):
+        from pygat_tpu_torch.ops.stream import StreamWalk
+
+        lo, hi = self.split_off[i], self.split_off[i + 1]
+        return StreamWalk(self.row_ptr[i], self.tile_ptr[i],
+                          self.split_at[lo:hi], int(self.max_run[i]))
+
+
+class StackedBatches(NamedTuple):
+    """``B`` padded batches of one shape with every leaf stacked on a new
+    first axis (the JAX package's ``stack_batches`` pytree: features,
+    the Graph's fields, labels), and the batches' walks of both stream
+    sides beside them (None where the batches have none)."""
+
+    features: torch.Tensor  # [B, N_pad, F_pad]
+    graph: Any  # Graph with [B, ...] leaves
+    labels: torch.Tensor  # [B, N_pad, C]
+    walks: tuple[StackedWalks, StackedWalks] | None
+
+    @property
+    def n_batches(self) -> int:
+        return self.features.shape[0]
+
+    def to(self, device) -> "StackedBatches":
+        """Every leaf on ``device``: the epoch's one copy."""
+        return StackedBatches(
+            self.features.to(device),
+            type(self.graph)(*(None if t is None else t.to(device)
+                               for t in self.graph)),
+            self.labels.to(device),
+            None if self.walks is None
+            else tuple(w.to(device) for w in self.walks))
+
+    def batch(self, i: int):
+        """(x, graph, y) of batch ``i``: views of the stacked leaves, the
+        graph's walks attached as :func:`~pygat_tpu_torch.graph.
+        build_graph` attaches them."""
+        from pygat_tpu_torch.graph import _remember_walk
+
+        g = type(self.graph)(*(None if t is None else t[i]
+                               for t in self.graph))
+        if self.walks is not None:
+            _remember_walk(g.r_local, self.walks[0].walk(i))
+            _remember_walk(g.c_local, self.walks[1].walk(i))
+        return self.features[i], g, self.labels[i]
+
+
+def stack_batches(batches) -> StackedBatches:
+    """Stack a list of :class:`~pygat_tpu_torch.data.ppi.PaddedBatch` of
+    one padded shape (port of ``pygat_tpu/train/loop.py::stack_batches``),
+    on the batches' device."""
+    graphs = [pb.batch.graph for pb in batches]
+    stacked = type(graphs[0])(*(
+        None if leaves[0] is None else torch.stack(leaves)
+        for leaves in zip(*graphs)))
+    walks = None
+    if all(g.stream_walk is not None and g.sender_walk is not None
+           for g in graphs):
+        walks = (StackedWalks.stack([g.stream_walk for g in graphs]),
+                 StackedWalks.stack([g.sender_walk for g in graphs]))
+    return StackedBatches(torch.stack([pb.features for pb in batches]),
+                          stacked, torch.stack([pb.labels for pb in batches]),
+                          walks)
+
+
+def _stacked_train_epoch(state: TrainState, stacked: StackedBatches, loss_fn,
+                         mesh: Mesh | None):
+    """One epoch over ``stacked``: a step a batch, or under a mesh a
+    super-step of ``D`` consecutive batches (:func:`superstep_slots`),
+    rank ``r`` taking slot ``r`` and descending the weighted mean of the
+    slots' losses, the gradients all-reduced. Returns the device tensor
+    [2, steps] of each step's (weighted-mean) loss and micro-F1 times its
+    weight, and the steps' weights (host)."""
+    stats, weights = [], []
+    n_data = 1 if mesh is None else mesh.n_data
+    for ids, weight in superstep_slots(stacked.n_batches, n_data):
+        j = 0 if mesh is None else mesh.rank
+        wsum = max(float(weight.sum()), 1.0)
+        x, g, y = stacked.batch(int(ids[j]))
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, f1, _ = loss_fn(state.params, x, g, y, state.generator, True)
+        (loss * (float(weight[j]) / wsum)).backward()
+        step = torch.stack([loss.detach(), f1]) * float(weight[j])
+        if mesh is not None:
+            all_reduce_grads(state.params)
+            step = all_reduce_sum(step)
+        state.optimizer.step()
+        state.step += 1
+        stats.append(step)
+        weights.append(float(weight.sum()))
+    return torch.stack(stats, 1), np.asarray(weights)
+
+
+@torch.no_grad()
+def _stacked_eval(params, stacked: StackedBatches, loss_fn) -> torch.Tensor:
+    """[5, B] device tensor of each batch's (loss, micro-F1, tp, fp, fn),
+    without dropout or autograd."""
+    rows = []
+    for i in range(stacked.n_batches):
+        x, g, y = stacked.batch(i)
+        loss, f1, out = loss_fn(params, x, g, y, None, False)
+        rows.append(torch.stack([loss, f1, *f1_counts(out, y,
+                                                      mask=g.node_mask)]))
+    return torch.stack(rows, 1)
+
+
+def fit_inductive_fast(
+    cfg: GATConfig,
+    data,  # pygat_tpu_torch.data.ppi.PPIData
+    *,
+    batch_size: int,
+    lr: float,
+    weight_decay: float,
+    epochs: int,
+    patience: int,
+    seed: int = 72,
+    checkpoint_dir: str | None = None,
+    dataset_tag: str = "ppi",
+    logger: TrainLogger | None = None,
+    init_params: Any = None,
+    device: torch.device | str | None = None,
+    mesh: Mesh | None = None,
+) -> FitResult:
+    """:func:`fit_inductive` with one host read an epoch (port of the JAX
+    ``fit_inductive_fast``, loop.py:582-733, whose one dispatch an epoch is
+    a scan over stacked batches): the batches of the three splits are
+    padded to one shape (``batch_bounds`` over train, valid and test); each
+    epoch's shuffled train batches (``seed + epoch``, as
+    :func:`fit_inductive`) are built on the host, stacked
+    (:func:`stack_batches`) and copied to the device at once; the steps run
+    back to back, then the validation batches (stacked once); the next
+    epoch's batches are built while the device runs them; and the host
+    reads the epoch's losses and F1s once and logs one ``ppi_epoch`` record
+    of their means (its ``time`` covers the epoch's steps and the next
+    epoch's batches). The same early stop, checkpoint rotation (the best and
+    the final epoch kept) and best-model restore as :func:`fit_inductive`;
+    the test loss is the mean of the test batches' losses and the micro-F1
+    comes from their summed counts. Capturing the epoch in a CUDA graph is
+    later work.
+
+    ``mesh`` (every rank of the group calls this; ``device`` defaults to
+    the mesh's) trains data-parallel as the JAX package's
+    ``make_sharded_inductive_epochs``: ``D`` consecutive batches make one
+    optimizer step (:func:`superstep_slots`; the last one's pad slots weigh
+    0), rank ``r`` computing slot ``r``'s loss, the weighted-mean loss's
+    gradients all-reduced, rank 0's parameters broadcast first, each rank's
+    dropout from its own generator, and rank 0 alone writing checkpoints.
+    The logged train metrics are the weighted means over the slots; every
+    rank evaluates every validation and test batch. A mesh with a model
+    axis (``n_model > 1``) raises (ROADMAP item 18)."""
+    from pygat_tpu_torch.data.ppi import batch_bounds, make_batches
+    from pygat_tpu_torch.parallel.collectives import barrier
+    from pygat_tpu_torch.parallel.mesh import ITEM_18
+
+    if mesh is not None and mesh.n_model != 1:
+        raise NotImplementedError(
+            f"fit_inductive_fast over a mesh with n_model={mesh.n_model} is "
+            f"not ported yet ({ITEM_18})")
+    device = resolve_device(device if device is not None or mesh is None
+                            else mesh.device)
+    logger = logger or TrainLogger()
+    state = _init(cfg, seed, lr, weight_decay, init_params, device)
+    if mesh is not None:
+        state.generator = _dropout_generator(device, seed, mesh)
+        shard_train_state(state, mesh)
+    writes = mesh is None or mesh.is_main
+    loss_fn = _make_loss(cfg)
+
+    bounds = [batch_bounds(g, batch_size)
+              for g in (data.train, data.valid, data.test)]
+    n_pad = max(b[0] for b in bounds)
+    e_pad = max(b[1] for b in bounds)
+
+    def stacked(graphs, **kw):
+        return stack_batches(list(make_batches(
+            graphs, batch_size, n_pad=n_pad, e_pad=e_pad, device="cpu",
+            **kw))).to(device)
+
+    val_stacked = stacked(data.valid)
+    best = float("inf")
+    best_epoch = 0
+    bad_counter = 0
+    history: list[float] = []
+    epoch = -1
+
+    t0 = time.time()
+    train = stacked(data.train, shuffle=True, seed=seed)
+    for epoch in range(epochs):
+        tr, w_tr = _stacked_train_epoch(state, train, loss_fn, mesh)
+        ev = _stacked_eval(state.params, val_stacked, loss_fn)
+        # the next epoch's batches are built on the host while the device
+        # runs this epoch's steps, before the epoch's one host read
+        train = (stacked(data.train, shuffle=True, seed=seed + epoch + 1)
+                 if epoch + 1 < epochs else None)
+        tr, ev = (np.asarray(v, np.float64) for v in
+                  torch.cat([tr, ev[:2]], 1).cpu().split(
+                      [tr.shape[1], ev.shape[1]], 1))
+        loss_val = float(ev[0].mean())
+        logger.log("ppi_epoch", epoch=epoch,
+                   loss_train=float(tr[0].sum() / w_tr.sum()),
+                   f1_train=float(tr[1].sum() / w_tr.sum()),
+                   loss_val=loss_val, f1_val=float(ev[1].mean()),
+                   time=time.time() - t0)
+        t0 = time.time()
+        history.append(loss_val)
+
+        if checkpoint_dir and writes:
+            ckpt.save(checkpoint_dir, epoch, dataset_tag, state)
+        if loss_val < best:
+            best = loss_val
+            best_epoch = epoch
+            bad_counter = 0
+        else:
+            bad_counter += 1
+        if bad_counter >= patience:
+            break
+        if checkpoint_dir and writes:
+            ckpt.rotate_below_best(checkpoint_dir, dataset_tag, best_epoch)
+    del train
+
+    if checkpoint_dir:
+        # keep the final-epoch checkpoint too: a resume then continues from
+        # where the run stopped instead of replaying post-best epochs
+        if writes:
+            ckpt.rotate_above_best(checkpoint_dir, dataset_tag, best_epoch,
+                                   keep_epoch=epoch)
+        if mesh is not None:
+            barrier()  # every rank reads the best checkpoint rank 0 wrote
+        state, _ = ckpt.restore(
+            ckpt.best_path(checkpoint_dir, dataset_tag, best_epoch), like=state)
+
+    te = _stacked_eval(state.params, stacked(data.test), loss_fn)
+    te = np.asarray(te.cpu(), np.float64)
+    test_loss = float(te[0].mean())
+    tp, fp, fn = (float(v) for v in te[2:].sum(1))
+    test_f1 = 2 * tp / max(2 * tp + fp + fn, 1.0)
+    logger.log("test", loss=test_loss, accuracy=test_f1)
+    return FitResult(
+        best_epoch=best_epoch,
+        best_val_loss=best,
+        test_loss=test_loss,
+        test_acc=test_f1,
+        epochs_run=epoch + 1,
         state=state,
         history=history,
     )

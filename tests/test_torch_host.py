@@ -112,8 +112,43 @@ def test_load_citation_cora_identical():
 
 
 def test_load_citation_reorder_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcitation.load_citation("cora", reorder=True, device="cpu")
+    """``reorder=True``, which raised before the host graph library was
+    ported, relabels Cora isomorphically by the RCM order of its
+    normalised adjacency: the same counts, each node's features, label and
+    split membership moved with it, every edge relabelled, and the edges
+    packed nearer the diagonal."""
+    from pygat_tpu_torch import native
+    from pygat_tpu_torch.data.preprocess import (
+        normalize_adj_with_self_loops,
+        symmetrize,
+    )
+
+    plain = tcitation.load_citation("cora", device="cpu")
+    re = tcitation.load_citation("cora", reorder=True, device="cpu")
+    n = plain.num_nodes
+    assert tcitation.dataset_stats(re) == tcitation.dataset_stats(plain)
+    adj = tcitation._load_cora(tcitation._search_roots(None))[0]
+    csr = normalize_adj_with_self_loops(symmetrize(adj)).tocsr()
+    order = native.rcm_order(csr.indptr, csr.indices, n)
+    inverse = np.argsort(order)
+    assert torch.equal(re.features[:n], plain.features[:n][order])
+    assert torch.equal(re.labels[:n], plain.labels[:n][order])
+    for f in ("idx_train", "idx_val", "idx_test"):
+        np.testing.assert_array_equal(
+            getattr(re, f).numpy(), inverse[getattr(plain, f).numpy()])
+
+    def edges(g, relabel=None):
+        m = g.edge_mask.numpy()
+        s, r = g.senders.numpy()[m], g.receivers.numpy()[m]
+        if relabel is not None:
+            s, r = relabel[s], relabel[r]
+        return s, r
+
+    s_re, r_re = edges(re.graph)
+    s_pl, r_pl = edges(plain.graph, inverse)
+    assert sorted(zip(s_re, r_re)) == sorted(zip(s_pl, r_pl))
+    s_old, r_old = edges(plain.graph)
+    assert np.abs(s_re - r_re).mean() < np.abs(s_old - r_old).mean()
 
 
 def test_graph_tensors_on_requested_device():

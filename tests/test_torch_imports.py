@@ -1,5 +1,5 @@
 """The PyTorch port and chip_smoke.py never import JAX or the JAX package,
-and importing them builds nothing."""
+and importing them builds nothing (no kernel, no host library)."""
 
 from __future__ import annotations
 
@@ -34,7 +34,13 @@ assert {"pygat_tpu_torch.ops.corner", "pygat_tpu_torch.ops.fused_corner",
         "pygat_tpu_torch.parallel.partition",
         "pygat_tpu_torch.parallel.ring_model",
         "pygat_tpu_torch.parallel.distributed",
-        "pygat_tpu_torch.parallel.sharding"} <= set(names)
+        "pygat_tpu_torch.parallel.sharding", "pygat_tpu_torch.native",
+        "pygat_tpu_torch.data.prepare", "pygat_tpu_torch.utils.debug",
+        "pygat_tpu_torch.utils.profiling",
+        "pygat_tpu_torch.graft_entry"} <= set(names)
+# the host graph library builds at its first call, not at import
+from pygat_tpu_torch import native
+assert native._lib is None
 # every kernel has its wrapper, the corner, SpMM and BCSR kernels included
 assert set(build.launch_counts()) >= {"corner_permute", "fused_v1_window",
                                       "fused_v2_window", "spmm_banded",

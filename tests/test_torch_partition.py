@@ -362,7 +362,7 @@ def test_launcher_checks(monkeypatch):
     (tcli, ["--distributed"], "process group"),
     (tcli, ["--mesh", "2,2"], "item 18"),
     (tcli, ["--mesh", "2,1", "--model", "GAT"], "item 18"),
-    (tcli, ["--reorder"], "item 15"),
+    (tcli, ["--reorder", "--mesh", "2,1"], "process group"),
     (tcli, ["--partition", "ring"], "needs --mesh"),
     (tcli_ppi, ["--mesh", "2,1", "--model", "GAT_sparse"], "--epoch-scan"),
     (tcli_ppi, ["--mesh", "2,1", "--model", "GATv2", "--epoch-scan"],

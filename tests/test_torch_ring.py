@@ -15,6 +15,9 @@ JAX package on one device.
   the JAX package's (``superbatch`` semantics: the weighted mean over the
   slots, pad slots at weight 0) and against the port's ``dp=D`` run in one
   process.
+* The stacked PPI loop under the group of 2, ``fit_inductive_fast(mesh=)``,
+  against the JAX package's at ``make_mesh(2, 1)``
+  (``make_sharded_inductive_epochs``).
 """
 
 from __future__ import annotations
@@ -62,6 +65,9 @@ PPI_KW = dict(batch_size=2, lr=0.01, weight_decay=5e-4, seed=3, epochs=1,
               epoch_chunk=1, patience=5, device="cpu")
 # the PPI model cut to two layers, skip connections kept
 PPI_CFG = dict(PPI_CFG, nlayers=2, nheads=(2, 2), nfeats=(128, 8, 6))
+# the stacked loop under the group of 2: 3 epochs of one super-step each
+FAST_KW = dict(batch_size=2, lr=0.01, weight_decay=5e-4, seed=3, epochs=3,
+               patience=5)
 
 
 def _numpy_params(params):
@@ -90,7 +96,7 @@ def spec():
                   idx_test=np.arange(180, N, dtype=np.int32), n_classes=3,
                   cfg=CFG, params=params, lr=LR, wd=WD),
         ppi=dict(cfg=dict(layer_type="GAT_sparse", **PPI_CFG),
-                 params=ppi_params, kw=PPI_KW))
+                 params=ppi_params, kw=PPI_KW, fast_kw=FAST_KW))
 
 
 @pytest.fixture(scope="module")
@@ -107,7 +113,8 @@ def groups(spec, tmp_path_factory):
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["d2", "d4"])
-def group(request, groups, jax_ref, jax_superstep):
+def group(request, groups, jax_ref, jax_superstep, jax_fast_mesh):
+    # the JAX references are computed while the ranks run
     return request.param, groups[request.param].results()
 
 
@@ -307,3 +314,43 @@ def test_banked_loop_under_a_mesh_matches_jax_and_dp(group, spec,
                          for t in layer if t is not None]):
             np.testing.assert_allclose(p, q, rtol=0,
                                        atol=1e-6 * float(np.abs(q).max()))
+
+
+@pytest.fixture(scope="module")
+def jax_fast_mesh(spec):
+    """The JAX package's ``fit_inductive_fast`` over ``make_mesh(2, 1)``
+    (GSPMD's data-parallel super-steps) from the same parameters."""
+    import os
+
+    from pygat_tpu.parallel.mesh import make_mesh
+    from pygat_tpu.train.logging import TrainLogger as JLogger
+    from pygat_tpu.train.loop import fit_inductive_fast as jfit_fast
+
+    ppi = spec["ppi"]
+    cfg = JConfig(**ppi["cfg"])
+    params = [type(layer)(*(None if a is None else jnp.asarray(a)
+                            for a in arrays))
+              for layer, arrays in zip(jinit_gat(jax.random.PRNGKey(7), cfg),
+                                       ppi["params"])]
+    with open(os.devnull, "w") as quiet:
+        return jfit_fast(cfg, synth_ppi(jppi.PPIGraph, jppi.PPIData),
+                         init_params=params, mesh=make_mesh(2, 1),
+                         logger=JLogger(stream=quiet), **ppi["fast_kw"])
+
+
+def test_fast_loop_under_a_mesh_matches_jax(groups, jax_fast_mesh):
+    """``fit_inductive_fast(mesh=)`` on the group of 2 against the JAX
+    package's at ``make_mesh(2, 1)``: the validation history within 2e-4,
+    the same best epoch, the test loss and micro-F1; the parameters equal
+    bit for bit on both ranks."""
+    ranks = groups[2].results()
+    got = ranks[0]["ppi_fast"]
+    for a, b in zip(ranks[1]["ppi_fast"]["params"], got["params"]):
+        np.testing.assert_array_equal(a, b)
+    assert ranks[1]["ppi_fast"]["history"] == got["history"]
+    ref = jax_fast_mesh
+    assert len(got["history"]) == FAST_KW["epochs"]
+    np.testing.assert_allclose(got["history"], ref.history, rtol=2e-4)
+    assert got["best_epoch"] == ref.best_epoch
+    np.testing.assert_allclose(got["test_loss"], ref.test_loss, rtol=2e-4)
+    assert abs(got["test_acc"] - ref.test_acc) <= 2e-3

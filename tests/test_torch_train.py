@@ -155,7 +155,7 @@ def test_train_cli_two_epochs_on_cpu(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--mesh", "2,2"], ["--partition", "ring", "--mesh", "2,1", "--model",
                         "GAT"], ["--distributed", "--model", "GATv2"],
-    ["--reorder"],
+    ["--reorder", "--mesh", "2,2"],
 ])
 def test_train_cli_unported_flags_name_the_roadmap(flags):
     from pygat_tpu_torch.cli.train import main

@@ -225,7 +225,8 @@ def cli_runs(rank, world, runs, tmp_dir):
 def group_work(rank, world, ring_spec, cases, steps, runs, ppi_spec,
                tmp_dir):
     """One group's whole share of a test module: :func:`ring_steps`,
-    :func:`cli_runs`, with ``ppi_spec`` :func:`banked_dp`, the error of a
+    :func:`cli_runs`, with ``ppi_spec`` :func:`banked_dp` (and in a group
+    of 2 :func:`fast_dp`), the error of a
     mesh one rank larger than the group, and the ranks' agreement on a
     capture that held everywhere and on one the last rank refused (one
     spawn a module and group size)."""
@@ -241,6 +242,8 @@ def group_work(rank, world, ring_spec, cases, steps, runs, ppi_spec,
                 cli=cli_runs(rank, world, runs, tmp_dir),
                 ppi=None if ppi_spec is None
                 else banked_dp(rank, world, ppi_spec),
+                ppi_fast=None if ppi_spec is None or world != 2
+                else fast_dp(rank, world, ppi_spec),
                 wrong_size=wrong_size,
                 capture=[_agree_on_capture(None, "cpu"), _agree_on_capture(
                     "RuntimeError: refused" if rank == world - 1 else None,
@@ -270,3 +273,30 @@ def banked_dp(rank, world, spec):
         final = [p.numpy().copy() for p in parameters(res.state.params)]
     return dict(history=res.history, best_epoch=res.best_epoch,
                 params=final, test_loss=res.test_loss)
+
+
+def fast_dp(rank, world, spec):
+    """``fit_inductive_fast(mesh=)`` on the spec's tiny PPI data for the
+    epochs of ``spec["fast_kw"]``; returns the validation history, the best
+    epoch, the test loss and the final parameters."""
+    import torch
+
+    from pygat_tpu_torch.data import ppi as tppi
+    from pygat_tpu_torch.models.gat import GATConfig, parameters
+    from pygat_tpu_torch.parallel.mesh import make_mesh
+    from pygat_tpu_torch.train.inductive import fit_inductive_fast
+    from pygat_tpu_torch.train.logging import TrainLogger
+    from tests.torch_ppi_data import synth_ppi
+
+    mesh = make_mesh(world, 1, device="cpu")
+    cfg = GATConfig(**spec["cfg"])
+    with open(os.devnull, "w") as quiet:
+        res = fit_inductive_fast(
+            cfg, synth_ppi(tppi.PPIGraph, tppi.PPIData), mesh=mesh,
+            init_params=_params(cfg, spec["params"]),
+            logger=TrainLogger(stream=quiet), **spec["fast_kw"])
+    with torch.no_grad():
+        final = [p.numpy().copy() for p in parameters(res.state.params)]
+    return dict(history=res.history, best_epoch=res.best_epoch,
+                params=final, test_loss=res.test_loss,
+                test_acc=res.test_acc)
