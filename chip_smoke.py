@@ -185,7 +185,24 @@ of which prints its seconds:
     unreordered and in RCM order in turns, beside their bounds and
     ``index_add_``; the Cora epoch of both models by both loops in both
     orders; the phase fails past REORDER_BUDGET_S seconds;
-12. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+12. the model axis on one card (one card holds one NCCL rank, so every
+    model rank's per-rank code runs in turn on this device): rows 1-3 at
+    every H/M width a split layer gives them (Cora GAT_sparse and
+    GATv2_sparse at M = 2 and 4, Pubmed's 8 + 8 heads at M = 2, PPI's
+    preset at M = 2 and 4, whose 6-head output layer stays whole at 4)
+    against their f64 plain versions, called twice (equal bit for bit),
+    and the ring's per-hop kernels at Cora's H/M widths; with the counters
+    set to 0 just before and read just after, ``apply_gat_pieces`` of
+    every configuration and both sparse models over every model rank's
+    heads, forward and gradients joined and held to the single-device
+    model on the card within MODEL_RTOL, MODEL_AXIS_STEPS Adam steps of
+    Cora's split states against one device's (losses within LOOPS_RTOL)
+    and a step under dropout from each rank's generators; the split
+    state's bytes a rank; Cora's dense GAT and GATv2 at (D, M) = (2, 2) as
+    four row x head pieces against the single-device dense model; the H/M
+    launches timed beside the full-H ones and their bounds; the phase
+    fails past MODEL_AXIS_BUDGET_S seconds;
+13. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 The script imports nothing of JAX or of the JAX package, needs no network
 and starts no process other than ``nvidia-smi``, ``nvcc``, the host C++
@@ -280,6 +297,11 @@ RING_BUDGET_S = 150.0
 # phase's budget on the card
 FAST_PPI_EPOCHS = 3
 REORDER_BUDGET_S = 60.0
+# the model axis on one card: the model-axis sizes of Cora and PPI (Pubmed
+# at 2 only), the Adam steps of the split states, and the phase's budget
+MODEL_AXIS_M = (2, 4)
+MODEL_AXIS_STEPS = 3
+MODEL_AXIS_BUDGET_S = 90.0
 REPLACES = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
             "corner_permute": "pygat_tpu/ops/corner.py:216",
             "fused_v1_window": "pygat_tpu/ops/fused_stream.py:134",
@@ -2421,10 +2443,11 @@ def _dense_phase(datasets, ppi, ppi_batch, gen, kernel_cases, counters,
 # -- phase 10: the ring (pygat_tpu_torch.parallel) ---------------------------
 
 
-def _ring_partition(name, ds):
+def _ring_partition(name, ds, phase=10):
     """Dataset ``ds`` interleaved and repadded for RING_SHARDS shards, its
     ``partition_edges`` and every shard's blocks and walks on the card,
-    with the host seconds of each step and the blocks' sizes."""
+    with the host seconds of each step and the blocks' sizes (printed
+    under ``phase``)."""
     import torch
 
     from pygat_tpu_torch.data.citation import interleave_citation
@@ -2447,7 +2470,7 @@ def _ring_partition(name, ds):
                  live_mean=float(live.mean()), live_max=int(live.max()),
                  live_min=int(live.min()), h_rows=part.h_rows,
                  interleave_s=t1 - t0, partition_s=t2 - t1, walks_s=t3 - t2)
-    print(f"phase 10: {name}, {d} shards: N_pad {want}, n_local "
+    print(f"phase {phase}: {name}, {d} shards: N_pad {want}, n_local "
           f"{part.n_local}, E_blk {part.block_edges} (live per block: mean "
           f"{sizes['live_mean']:.1f}, {sizes['live_min']}-{sizes['live_max']}"
           f"), h_rows {part.h_rows}; interleave {t1 - t0:.2f} s, "
@@ -3371,6 +3394,344 @@ def _reorder_phase(datasets, ppi, gen, fused, kernel_cases, counters, jsonl,
     return out
 
 
+# -- phase 12: the model axis on one card ---------------------------------------
+
+
+def _model_axis_specs(datasets, ppi_x, ppi_g):
+    """The configurations of phase 12: (label, features, graph, preset
+    config by layer type, M), Cora at M = 2 and 4, Pubmed (8, 8) at M = 2,
+    PPI at M = 2 and 4 (whose 6-head output layer stays whole at 4)."""
+    from pygat_tpu_torch.data.ppi import ppi_config
+
+    cora, pubmed = datasets["cora"], datasets["pubmed"]
+    specs = []
+    for m in MODEL_AXIS_M:
+        specs.append((f"cora M{m}", cora.features, cora.graph,
+                      lambda lt, ds=cora: _preset_cfg("cora", lt, ds), m))
+    specs.append(("pubmed M2", pubmed.features, pubmed.graph,
+                  lambda lt: _preset_cfg("pubmed", lt, pubmed), 2))
+    for m in MODEL_AXIS_M:
+        specs.append((f"ppi batch M{m}", ppi_x, ppi_g, ppi_config, m))
+    return specs
+
+
+def _split_widths(cfg, m):
+    """The distinct (H/M, F) of ``cfg``'s layers that split at ``m``."""
+    from pygat_tpu_torch.parallel.sharding import split_leaf
+
+    out = []
+    for h, f in zip(cfg.nheads, cfg.nfeats[1:]):
+        if split_leaf((h,), m) and (h // m, f) not in out:
+            out.append((h // m, f))
+    return out
+
+
+def _model_axis_kernels(specs, datasets, gen, fused, kernel_cases):
+    """Rows 1-3 at every H/M width of the configurations (a split layer's
+    per-rank heads) against their f64 plain versions, called twice, equal
+    bit for bit (:func:`_stream_kernel_cases`; PPI's GATv2 with exact
+    bounds), and the ring's per-hop kernels at Cora's H/M widths, every
+    hop of 4 shards, rotation and halo (:func:`_check_ring_hops`). Returns
+    the new cases by (kernel, label, H, F)."""
+    from pygat_tpu_torch.ops.fused_stream import fused_v2, fused_v2_plain
+
+    ppi_fused = dict(fused, fused_v2=(fused_v2, fused_v2_plain,
+                                      _fused_v2_exact_inputs))
+    for label, _, g, cfg_of, m in specs:
+        widths = _split_widths(cfg_of("GAT_sparse"), m)
+        print(f"phase 12: {label}: split widths (H/M, F) {widths}",
+              flush=True)
+        _stream_kernel_cases(label, g, *zip(*widths), gen,
+                             ppi_fused if label.startswith("ppi") else fused,
+                             kernel_cases)
+    rp = _ring_partition("cora", datasets["cora"], phase=12)
+    for m in MODEL_AXIS_M:
+        for v2 in (False, True):
+            _check_ring_hops(f"cora M{m}", rp, 8 // m, 8, v2, gen,
+                             kernel_cases)
+    del rp
+
+
+def _model_axis_vs_whole(specs, cora, counters, path_launches,
+                         path_replayed):
+    """The main path of phase 12: for each configuration and both sparse
+    models (dropout off), the per-rank code of the model axis,
+    ``apply_gat_pieces`` over every model rank's heads on the card, forward
+    and backward, with the counters set to 0 just before the pieces run and
+    read just after (the single-device references run before); the joined
+    output and every rank's gradients put together against the
+    single-device model on the card within MODEL_RTOL. Then, on Cora at M =
+    2, MODEL_AXIS_STEPS Adam steps of the split states (each rank its own
+    optimizer) against the same steps on one device, the losses within
+    LOOPS_RTOL, and a step with the preset's dropout from each rank's
+    generators (finite). Returns the launches and the split-state bytes."""
+    import torch
+
+    from pygat_tpu_torch.models.gat import (
+        HeadGenerators,
+        apply_gat,
+        apply_gat_pieces,
+        init_gat,
+        parameters,
+    )
+    from pygat_tpu_torch.parallel.distributed import slice_state
+    from pygat_tpu_torch.train.state import (
+        init_state,
+        leaf_split,
+        make_optimizer,
+        tensor_leaves,
+    )
+    from pygat_tpu_torch.utils.platform import make_generator
+
+    def whole_state(cfg, dropout_gen=None):
+        params = init_gat(cfg, make_generator("cpu", 72), device="cuda")
+        return init_state(params, make_optimizer(params, 0.005, 5e-4),
+                          dropout_gen)
+
+    runs, refs = [], {}
+    for label, x, g, cfg_of, m in specs:
+        for lt in ("GAT_sparse", "GATv2_sparse"):
+            cfg = cfg_of(lt)._replace(dropout=0.0)
+            state = whole_state(cfg)
+            out = apply_gat(state.params, cfg, x, g, None, train=False)
+            torch.sin(out[g.node_mask]).sum().backward()
+            refs[label, lt] = (out.detach(), [p.grad.detach().clone()
+                                              for p in parameters(
+                                                  state.params)])
+            runs.append((label, lt, cfg, x, g, m, state))
+    steps_ref = {}
+    for lt in ("GAT_sparse", "GATv2_sparse"):
+        cfg = _preset_cfg("cora", lt, cora)._replace(dropout=0.0)
+        steps_ref[lt] = _steps_losses([whole_state(cfg)], cfg, cora, [None])
+    for fn in counters.values():
+        fn.launches = 0
+    got = {}
+    for label, lt, cfg, x, g, m, state in runs:
+        shares = [slice_state(state, k, m) for k in range(m)]
+        out = apply_gat_pieces([s.params for s in shares], cfg, x, g,
+                               [None] * m, train=False)
+        torch.sin(out[g.node_mask]).sum().backward()
+        grads = []
+        for i, flag in enumerate(shares[0].split or
+                                 [False] * len(parameters(state.params))):
+            mine = [parameters(s.params)[i].grad for s in shares]
+            grads.append(torch.cat(mine) if flag else mine[0])
+        got[label, lt] = (out.detach(), grads, shares)
+    steps = {}
+    for lt in ("GAT_sparse", "GATv2_sparse"):
+        cfg = _preset_cfg("cora", lt, cora)._replace(dropout=0.0)
+        shares = [slice_state(whole_state(cfg), k, 2) for k in range(2)]
+        steps[lt] = _steps_losses(shares, cfg, cora, [None] * 2)
+        cfg = _preset_cfg("cora", lt, cora)
+        gens = [HeadGenerators(make_generator("cuda", 7),
+                               make_generator("cuda", 8 + k))
+                for k in range(2)]
+        drop = _steps_losses([slice_state(whole_state(cfg), k, 2)
+                              for k in range(2)], cfg, cora, gens,
+                             train=True)
+        if not all(math.isfinite(v) for v in drop):
+            raise AssertionError(f"model axis {lt} under dropout: losses "
+                                 f"{drop}")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    label = "model axis, per-rank pieces on one card"
+    path_launches[label] = launches
+    path_replayed[label] = dict.fromkeys(counters, 0)
+    print(f"phase 12: {label}: wrapper launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    for name in ("fused_v1", "fused_v2", "stream_scatter"):
+        if not launches[name]:
+            raise AssertionError(f"the model axis path launched no {name}")
+
+    out_bytes = {}
+    for label, lt, cfg, x, g, m, _ in runs:
+        out_w, grads_w = refs[label, lt]
+        out_p, grads_p, shares = got[label, lt]
+        mask = g.node_mask
+        scale = max(1.0, float(out_w[mask].abs().max()))
+        err = float((out_p[mask] - out_w[mask]).abs().max())
+        print(f"phase 12: {label} {lt}: joined forward vs one device, "
+              f"max_abs_err {err:.3e} (allowed {MODEL_RTOL * scale:.3e})")
+        if not err <= MODEL_RTOL * scale:
+            raise AssertionError("the model axis's forward disagrees")
+        _check_grads(cfg, grads_p, grads_w, "model axis vs one device")
+        if lt == "GAT_sparse":
+            split = sum(t.numel() * t.element_size()
+                        for t, f in zip(tensor_leaves(shares[0]),
+                                        leaf_split(shares[0])) if f)
+            whole = split * m
+            out_bytes[label] = dict(
+                split_leaves=[i for i, f in enumerate(shares[0].split) if f],
+                rank_split_state_bytes=split, whole_split_state_bytes=whole)
+            print(f"phase 12: {label}: split leaves (parameters() order) "
+                  f"{out_bytes[label]['split_leaves']}; split state "
+                  f"(parameters and Adam moments) {split} bytes a rank of "
+                  f"{whole} whole (1/{m})", flush=True)
+    for lt in steps:
+        worst = max(abs(a - b) / abs(b) for a, b in zip(steps[lt],
+                                                        steps_ref[lt]))
+        print(f"phase 12: Cora {lt} M2, {MODEL_AXIS_STEPS} Adam steps of "
+              f"the split states: losses {steps[lt]} vs one device "
+              f"{steps_ref[lt]}: worst relative difference {worst:.3e} "
+              f"(allowed {LOOPS_RTOL:.0e})", flush=True)
+        if not worst <= LOOPS_RTOL:
+            raise AssertionError("the split states' steps differ from one "
+                                 "device's")
+    return dict(launches=launches, split_state=out_bytes,
+                steps_losses={lt: [steps[lt], steps_ref[lt]] for lt in steps})
+
+
+def _steps_losses(shares, cfg, cora, gens, train=False):
+    """MODEL_AXIS_STEPS Adam steps of the NLL over Cora's train split
+    through ``apply_gat_pieces`` over the model ranks' states ``shares``
+    (each rank its own optimizer; one whole state runs the model on one
+    device); returns each step's loss."""
+    import torch
+    import torch.nn.functional as F
+
+    from pygat_tpu_torch.models.gat import apply_gat_pieces
+
+    x, g = cora.features, cora.graph
+    ds_idx, labels = cora.idx_train.long(), cora.labels.long()
+    losses = []
+    for _ in range(MODEL_AXIS_STEPS):
+        for s in shares:
+            s.optimizer.zero_grad(set_to_none=True)
+        out = apply_gat_pieces([s.params for s in shares], cfg, x, g, gens,
+                               train=train)
+        lp = F.log_softmax(F.elu(out), dim=1)
+        loss = F.nll_loss(lp[ds_idx], labels[ds_idx])
+        loss.backward()
+        for s in shares:
+            s.optimizer.step()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    return losses
+
+
+def _dense_rows_vs_whole(cora):
+    """Cora's dense GAT and GATv2 at (D, M) = (2, 2) as four row x head
+    pieces (``dense_rows_grid``: the trainer's per-rank layer, the sender
+    tables joined by ``torch.cat``) on the card against the single-device
+    dense model on the card, eval: the output and every model rank's
+    gradients put together, within MODEL_RTOL."""
+    import torch
+
+    from pygat_tpu_torch.models.gat import apply_gat, init_gat, parameters
+    from pygat_tpu_torch.parallel.ring_model import dense_rows_grid
+    from pygat_tpu_torch.parallel.sharding import head_slice, split_leaf
+    from pygat_tpu_torch.train.loop import rows_neighborhood
+    from pygat_tpu_torch.utils.platform import make_generator
+
+    g = cora.graph
+    n, mask = g.num_nodes_padded, g.node_mask
+    for lt in ("GAT", "GATv2"):
+        cfg = _preset_cfg("cora", lt, cora)
+        params = init_gat(cfg, make_generator("cpu", 72), device="cuda")
+        want = apply_gat(params, cfg, cora.features, g, None, train=False)
+        grads_w = torch.autograd.grad(torch.sin(want[mask]).sum(),
+                                      parameters(params))
+        ranks = [[type(lp)(*(None if t is None else
+                             t.detach().clone().requires_grad_()
+                             for t in lp))
+                  for lp in head_slice(params, k, 2)] for k in range(2)]
+        got = dense_rows_grid(
+            ranks, cfg,
+            [cora.features[k * n // 2:(k + 1) * n // 2] for k in range(2)],
+            [rows_neighborhood(g, k * n // 2, (k + 1) * n // 2)
+             for k in range(2)])
+        torch.sin(got[mask]).sum().backward()
+        grads_p = []
+        for i, t in enumerate(parameters(params)):
+            mine = [parameters(r)[i].grad for r in ranks]
+            grads_p.append(torch.cat(mine) if split_leaf(
+                tuple(t.shape), 2) else mine[0])
+        scale = max(1.0, float(want[mask].abs().max()))
+        err = float((got[mask] - want[mask]).abs().max())
+        print(f"phase 12: Cora {lt} (dense) at (D, M) = (2, 2), four row x "
+              f"head pieces vs one device: max_abs_err {err:.3e} (allowed "
+              f"{MODEL_RTOL * scale:.3e})", flush=True)
+        if not err <= MODEL_RTOL * scale:
+            raise AssertionError("the dense rows disagree with one device")
+        _check_grads(cfg, grads_p, grads_w, "dense rows vs one device")
+        del want, got, grads_w, grads_p, ranks
+    torch.cuda.empty_cache()
+
+
+def _model_axis_timings(specs, kernel_cases, fused):
+    """Rows 1-3 timed at every H/M width of phase 12 (kernel, plain
+    version, bound, ``index_add_`` for row 1) beside the same kernel's
+    full-H time at that layer (phases 5 and 8). Returns one record a
+    case."""
+    import torch
+
+    graphs = {label: g for label, _, g, _, _ in specs}
+    full = {}
+    for kname in ("fused_v1", "fused_v2"):
+        for c in kernel_cases[kname]:
+            full[kname, c["dataset"], c["F"]] = (c["H"], c.get("ms"),
+                                                 c.get("bound_ms"))
+    out = []
+    for kname, (kernel, plain, _) in fused.items():
+        for case in kernel_cases[kname]:
+            if case["dataset"] not in graphs or "path" in case:
+                continue
+            _time_fused(kname, kernel, plain, case, graphs[case["dataset"]])
+            base = case["dataset"].rsplit(" M", 1)[0]
+            h_full, ms_full, bound_full = full.get(
+                (kname, base, case["F"]), (None, None, None))
+            out.append(dict(kernel=kname, dataset=case["dataset"],
+                            H=case["H"], F=case["F"], ms=case["ms"],
+                            bound_ms=case["bound_ms"],
+                            plain_ms=case["plain_ms"], full_H=h_full,
+                            full_ms=ms_full, full_bound_ms=bound_full))
+            print(f"phase 12: {kname} {case['dataset']} H={case['H']} "
+                  f"F={case['F']}: {case['ms']:.4f} ms (bound "
+                  f"{case['bound_ms']:.5f}) against {ms_full} ms at H="
+                  f"{h_full} (bound {bound_full})", flush=True)
+    for case in kernel_cases["stream_scatter"]:
+        if case["dataset"] in graphs:
+            _time_scatter(case, graphs[case["dataset"]])
+            out.append({k: case[k] for k in (
+                "dataset", "path", "side", "L", "ms", "plain_ms",
+                "library_ms", "bound_ms")} | {"kernel": "stream_scatter"})
+    for cases in kernel_cases.values():
+        for case in cases:
+            case.pop("args", None)
+            case.pop("data", None)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _model_axis_phase(datasets, ppi, gen, fused, kernel_cases, counters,
+                      path_launches, path_replayed):
+    """Phase 12, the model axis on one card (one card holds one NCCL rank,
+    so the per-rank code runs every model rank in turn on this device):
+    the kernels at the H/M widths (:func:`_model_axis_kernels`), the main
+    path of per-rank pieces against one device
+    (:func:`_model_axis_vs_whole`), the dense rows
+    (:func:`_dense_rows_vs_whole`), the timings
+    (:func:`_model_axis_timings`). Returns its numbers."""
+    import torch
+
+    from pygat_tpu_torch.data.ppi import batch_bounds, make_batches
+
+    cora = datasets["cora"]
+    bounds = [batch_bounds(s, 2) for s in (ppi.train, ppi.valid, ppi.test)]
+    pb = next(make_batches(ppi.train, 2, n_pad=max(b[0] for b in bounds),
+                           e_pad=max(b[1] for b in bounds), shuffle=True,
+                           seed=72, device="cuda"))
+    specs = _model_axis_specs(datasets, pb.features, pb.batch.graph)
+    _model_axis_kernels(specs, datasets, gen, fused, kernel_cases)
+    out = _model_axis_vs_whole(specs, cora, counters, path_launches,
+                               path_replayed)
+    _dense_rows_vs_whole(cora)
+    out["kernels"] = _model_axis_timings(specs, kernel_cases, fused)
+    del pb, specs
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3888,7 +4249,22 @@ def main() -> int:
         raise AssertionError("the RCM phase took longer than its budget")
     phase_done(11, t0)
 
-    # -- phase 12: the kernels line ---------------------------------------------
+    # -- phase 12: the model axis on one card -----------------------------------
+    # rows 1-3 at every H/M width against their plain versions, the
+    # per-rank pieces against one device with the counters set to 0 just
+    # before and read just after, the dense rows, the timings
+    t0 = time.perf_counter()
+    model_axis = _model_axis_phase(datasets, ppi, gen, fused, kernel_cases,
+                                   counters, path_launches, path_replayed)
+    model_axis_s = time.perf_counter() - t0
+    print(f"phase 12: model-axis phase {model_axis_s:.1f} s (budget "
+          f"{MODEL_AXIS_BUDGET_S:.0f} s)", flush=True)
+    if model_axis_s > MODEL_AXIS_BUDGET_S:
+        raise AssertionError("the model-axis phase took longer than its "
+                             "budget")
+    phase_done(12, t0)
+
+    # -- phase 13: the kernels line ---------------------------------------------
     launches = {name: sum(v[name] for v in path_launches.values())
                 for name in counters}
     replayed = {name: sum(v[name] for v in path_replayed.values())
@@ -3910,7 +4286,7 @@ def main() -> int:
         # graph for bcsr_attention (one forward at H = 8, F = 8, no
         # dropout mask); every shape is
         # listed under "cases". "launches" sums the wrapper's count over the
-        # main-path runs of phases 4, 6 to 11 (one by one under
+        # main-path runs of phases 4, 6 to 12 (one by one under
         # "launches_by_path"); "replayed_launches" are those of the fast
         # loop's CUDA graph replays, replays x launches captured.
         main_set = "cora" if name in ("stream_scatter", "fused_v1",
@@ -3967,6 +4343,7 @@ def main() -> int:
                       "dense": dense,
                       "ring": ring,
                       "reorder": reorder,
+                      "model_axis": model_axis,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,16 @@ package's own), running on CUDA unless ``--no-cuda`` asks for the CPU:
     python -m pygat_tpu_torch.cli.train --dataset pubmed --model GATv2_sparse \\
         --epoch-chunk 50
 
-On D ranks (one process a card, brought up by a launcher), the ring:
+On D * M ranks (one process a card, brought up by a launcher), the ring
+over D node shards, each layer's heads split over M model ranks where they
+divide:
 
     torchrun --nproc-per-node D -m pygat_tpu_torch.cli.train --dataset cora \
         --model GAT_sparse --mesh D,1 --partition ring
-    torchrun --nproc-per-node D -m pygat_tpu_torch.cli.train --no-cuda \
-        --mesh D,1    # on the CPU, a gloo group
+    torchrun --nproc-per-node 4 -m pygat_tpu_torch.cli.train --dataset cora \
+        --model GATv2_sparse --mesh 2,2
+    torchrun --nproc-per-node 4 -m pygat_tpu_torch.cli.train --no-cuda \
+        --model GAT --mesh 2,2    # on the CPU, a gloo group
 
 ``--epoch-chunk K`` with K > 1 runs ``fit_transductive_fast``: K epochs per
 host sync, on CUDA as replays of one captured CUDA graph. As in the JAX
@@ -29,12 +33,17 @@ counts the kernel launches made through their wrappers.
 from the launcher's environment (``torchrun``: NCCL on CUDA, gloo with
 ``--no-cuda``); without one, or with another size, it raises.
 ``--distributed`` asks for the group explicitly (a mesh of every rank
-when ``--mesh`` is absent). Each rank holds one node shard and runs the
-ring attention (``PYGAT_RING_HALO=1``: the direct halo exchange);
-``--partition gspmd``, the default, runs the ring too (torch has no
-GSPMD) and says so; ``--partition ring`` without a mesh raises. Rank 0 alone prints the epochs and writes the
-checkpoints. Not ported yet, each raising with the ROADMAP item that
-ports it: ``M > 1`` and the dense types under a mesh (item 18).
+when ``--mesh`` is absent). Each data rank holds one node shard; the
+sparse types run the ring attention over the data group
+(``PYGAT_RING_HALO=1``: the direct halo exchange), the dense types the
+attention of the shard's receiver rows against every sender, whose
+projections are gathered over the data group. ``--partition gspmd``, the
+default, runs the same (torch has no GSPMD) and says so; ``--partition
+ring`` without a mesh raises. With ``M > 1`` each rank holds, updates and
+computes its heads of every layer whose head count divides by M (one line
+says which parameters are split), and the heads are combined over the
+model group. Rank 0 alone prints the epochs and writes the checkpoints,
+in the one-device format.
 
 ``--reorder`` relabels the citation graph in reverse Cuthill-McKee order
 (the port's host library, ``pygat_tpu_torch/native.py``) before the
@@ -55,8 +64,6 @@ import time
 
 import numpy as np
 import torch.distributed as dist
-
-from pygat_tpu_torch.parallel.mesh import ITEM_18
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -106,8 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "receiver's senders near it in id order)")
     p.add_argument("--mesh", type=str, default=None, metavar="D,M",
                    help="train over a process group of D*M ranks (from "
-                        "torchrun's environment): D node shards on the "
-                        "ring; M > 1 is not ported yet")
+                        "torchrun's environment): D node shards, each "
+                        "layer's heads split over M model ranks")
     p.add_argument("--partition", type=str, default="gspmd",
                    choices=["gspmd", "ring"],
                    help="with --mesh: ring = the ring exchange of node "
@@ -137,16 +144,6 @@ def _reject_unported(args) -> None:
             and not args.distributed):
         raise SystemExit(f"--partition {args.partition} partitions a mesh: "
                          "it needs --mesh D,M (or --distributed)")
-    n_model = parse_mesh(args.mesh)[1] if args.mesh else 1
-    unported = [
-        (n_model > 1, f"--mesh with M = {n_model}", ITEM_18),
-        ((args.mesh is not None or args.distributed)
-         and not args.model.endswith("_sparse"),
-         f"--model {args.model} under a mesh", ITEM_18),
-    ]
-    for bad, flag, item in unported:
-        if bad:
-            raise SystemExit(f"{flag} is not ported yet ({item})")
 
 
 def parse_mesh(text: str) -> tuple[int, int]:
@@ -254,8 +251,9 @@ def _fit(args, mesh) -> int:
         print(f"mesh: data={mesh.n_data} model={mesh.n_model} "
               f"partition={args.partition} rank={mesh.rank}")
         if args.partition == "gspmd" and main_rank:
-            print("--partition gspmd runs the ring: torch has no GSPMD, and "
-                  "the JAX package's two mechanisms compute the same thing")
+            print("--partition gspmd runs the ring (the dense types: receiver "
+                  "rows): torch has no GSPMD, and the JAX package's two "
+                  "mechanisms compute the same thing")
 
     print(f"start training on {device}")
     t0 = time.time()

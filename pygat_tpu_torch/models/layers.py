@@ -2,9 +2,12 @@
 
 * :func:`gat_v1_dense` / :func:`gat_v2_dense`: masked ``[N, N]`` attention
   (reference layers.py:8-67, 179-232), GATv2 with the reference's [N, 1]
-  logit quirk. A layer's heads run batched: with stacked ``[H, ...]``
-  leaves (and ``[H, ...]`` masks) every product carries a leading head
-  axis, as the JAX package's ``vmap`` gives;
+  logit quirk, each the two halves :func:`dense_project` (the receivers'
+  projections) and :func:`dense_attend` (their attention over a sender
+  table, which the dense types by receiver rows gather between the two).
+  A layer's heads run batched: with stacked ``[H, ...]`` leaves (and
+  ``[H, ...]`` masks) every product carries a leading head axis, as the
+  JAX package's ``vmap`` gives;
 * :func:`gat_v1_sparse` / :func:`gat_v2_sparse`: single-head edge-list
   attention over :func:`~pygat_tpu_torch.ops.segment.segment_softmax_stable`
   (no model path calls them; tests hold them to the reference's goldens);
@@ -162,15 +165,19 @@ def apply_mask(x: torch.Tensor, keep: torch.Tensor | None,
 
 def draw_masks(gen: torch.Generator, layer_type: str, drop: float, *, n: int,
                f_in: int, f_out: int, e: int, heads: int | None = None,
-               train: bool = True) -> DropoutMasks:
+               train: bool = True, n_send: int | None = None
+               ) -> DropoutMasks:
     """A layer's keep masks drawn from ``gen`` in site order (input,
     projection, second projection, attention), with a leading ``[heads]``
-    when given: one draw per site for all heads."""
+    when given: one draw per site for all heads. A dense layer's attention
+    is ``[n, n_send]`` (default ``n_send = n``; fewer receiver rows than
+    senders by receiver rows)."""
     if not train or drop <= 0.0:
         return NO_MASKS
     lead = () if heads is None else (heads,)
     keep = 1.0 - drop
-    att = lead + ((e,) if layer_type.endswith("_sparse") else (n, n))
+    att = lead + ((e,) if layer_type.endswith("_sparse")
+                  else (n, n if n_send is None else n_send))
     return DropoutMasks(
         m_in=_keep(gen, keep, lead + (n, f_in)),
         m_proj=_keep(gen, keep, lead + (n, f_out)),
@@ -212,6 +219,45 @@ def _vec(a: torch.Tensor) -> torch.Tensor:
     return a.unsqueeze(-1)
 
 
+def dense_project(params: V1Params | V2Params, h: torch.Tensor,
+                  m: DropoutMasks, *, alpha: float, drop: float):
+    """The first half of a dense layer over the receiver rows ``h``
+    [n, F_in]: (the dropped input, the receiver logit term [.., n, 1], the
+    sender table [.., n, F_out]). GATv1: ``wh @ a_dst`` and ``wh``; GATv2
+    (the reference's per-receiver logit): ``leaky_relu(wh1 + wh2) @ a``
+    and ``wh2``, the projection it aggregates."""
+    if isinstance(params, V2Params):
+        f_in = h.shape[-1]
+        h = apply_mask(h, m.m_in, drop)
+        wh1 = apply_mask(h @ params.W[..., :f_in, :], m.m_proj, drop)
+        wh2 = apply_mask(h @ params.W[..., f_in:, :], m.m_proj2, drop)
+        return h, leaky_relu(wh1 + wh2, alpha) @ _vec(params.a), wh2
+    f_out = params.W.shape[-1]
+    h = apply_mask(h, m.m_in, drop)
+    wh = apply_mask(h @ params.W, m.m_proj, drop)
+    return h, wh @ _vec(params.a[..., :f_out]), wh
+
+
+def dense_attend(params: V1Params | V2Params, h: torch.Tensor,
+                 recv: torch.Tensor, table: torch.Tensor,
+                 adj_mask: torch.Tensor, m_att: torch.Tensor | None, *,
+                 alpha: float, drop: float, concat: bool) -> torch.Tensor:
+    """The second half: the receivers' masked row softmax over every sender
+    of ``table`` [.., N_send, F_out] (``adj_mask`` [n, N_send]; GATv1's
+    logit ``leaky_relu(recv + table @ a_src)``, GATv2's ``recv`` broadcast
+    along the row), dropped by ``m_att``, the aggregation, and the skip of
+    the dropped input ``h`` and the ELU of :func:`_finish`:
+    ``[.., n, F_out]``."""
+    if isinstance(params, V2Params):
+        e = recv  # [.., n, 1], constant along each row
+    else:
+        e_j = table @ _vec(params.a[..., table.shape[-1]:])  # sender term
+        e = leaky_relu(recv + e_j.transpose(-1, -2), alpha)  # e[i, j]
+    att = torch.softmax(torch.where(adj_mask, e, NEG_INF), dim=-1)
+    att = apply_mask(att, m_att, drop)
+    return _finish(att @ table, h, params.skip, concat)
+
+
 def gat_v1_dense(
     params: V1Params,
     h: torch.Tensor,  # [N, F_in]
@@ -224,17 +270,11 @@ def gat_v1_dense(
     train: bool,
 ) -> torch.Tensor:
     """Dense GATv1 (reference layers.py:8-67): ``[.., N, F_out]``."""
-    f_out = params.W.shape[-1]
     m = _coerce_masks(masks, "GAT", drop, train, h.shape[-2], h.shape[-1],
-                      f_out, 0)
-    h = apply_mask(h, m.m_in, drop)
-    wh = apply_mask(h @ params.W, m.m_proj, drop)
-    e_i = wh @ _vec(params.a[..., :f_out])  # [.., N, 1] receiver term
-    e_j = wh @ _vec(params.a[..., f_out:])  # [.., N, 1] sender term
-    e = leaky_relu(e_i + e_j.transpose(-1, -2), alpha)  # e[i, j]
-    att = torch.softmax(torch.where(adj_mask, e, NEG_INF), dim=-1)
-    att = apply_mask(att, m.m_att, drop)
-    return _finish(att @ wh, h, params.skip, concat)
+                      params.W.shape[-1], 0)
+    h, recv, wh = dense_project(params, h, m, alpha=alpha, drop=drop)
+    return dense_attend(params, h, recv, wh, adj_mask, m.m_att, alpha=alpha,
+                        drop=drop, concat=concat)
 
 
 def gat_v2_dense(
@@ -253,16 +293,11 @@ def gat_v2_dense(
     against the adjacency mask, so the row softmax is uniform over the
     neighbours; it aggregates the right projection Wh2 (reference
     layers.py:212-220). The sparse GATv2 aggregates the left one."""
-    f_in = h.shape[-1]
-    m = _coerce_masks(masks, "GATv2", drop, train, h.shape[-2], f_in,
+    m = _coerce_masks(masks, "GATv2", drop, train, h.shape[-2], h.shape[-1],
                       params.W.shape[-1], 0)
-    h = apply_mask(h, m.m_in, drop)
-    wh1 = apply_mask(h @ params.W[..., :f_in, :], m.m_proj, drop)
-    wh2 = apply_mask(h @ params.W[..., f_in:, :], m.m_proj2, drop)
-    e = leaky_relu(wh1 + wh2, alpha) @ _vec(params.a)  # [.., N, 1]
-    att = torch.softmax(torch.where(adj_mask, e, NEG_INF), dim=-1)
-    att = apply_mask(att, m.m_att, drop)
-    return _finish(att @ wh2, h, params.skip, concat)
+    h, recv, wh2 = dense_project(params, h, m, alpha=alpha, drop=drop)
+    return dense_attend(params, h, recv, wh2, adj_mask, m.m_att,
+                        alpha=alpha, drop=drop, concat=concat)
 
 
 # ---------------------------------------------------------------------------
@@ -356,8 +391,11 @@ def gat_v2_sparse(
     return _finish(h_prime, h, params.skip, concat)
 
 
-def _heads_tail(out, params: V1Params | V2Params, h, x_h, concat: bool):
-    """Shared skip/ELU/concat-or-mean tail: ``out`` is [N, H, F_out]."""
+def _heads_tail(out, params: V1Params | V2Params, h, x_h, concat: bool,
+                head_sum: bool = False):
+    """Shared skip/ELU/concat-or-mean tail: ``out`` is [N, H, F_out]; a
+    final layer's heads are averaged, or with ``head_sum`` summed (a model
+    rank's share of the mean over every rank's heads)."""
     n, n_heads, f_out = out.shape
     if params.skip is not None:
         if x_h is not None:
@@ -366,7 +404,7 @@ def _heads_tail(out, params: V1Params | V2Params, h, x_h, concat: bool):
             out = out + torch.einsum("nf,hfo->nho", h, params.skip)
     if concat:
         return F.elu(out).reshape(n, n_heads * f_out)
-    return out.mean(dim=1)
+    return out.sum(dim=1) if head_sum else out.mean(dim=1)
 
 
 def _att_keepq(gen, keep: float, n_slots: int, n_heads: int,
@@ -418,6 +456,7 @@ def gat_v1_sparse_heads(
     concat: bool,
     train: bool,
     plan: BandPlan | CscCsrPlans | None = None,
+    head_sum: bool = False,
 ) -> torch.Tensor:
     """Head-batched sparse GATv1: the fused attention op (over the receiver
     stream, the banded order of a band ``plan``, or the corner plans) where
@@ -427,7 +466,7 @@ def gat_v1_sparse_heads(
     Heads stay folded into the minor axis (``[N, H*F_out]`` projections,
     per-edge factors ``[E, H]`` fused, ``[H, E]`` unfused). Returns
     ``[N, H*F_out]`` (ELU'd head concat) when ``concat`` else the head mean
-    ``[N, F_out]``.
+    ``[N, F_out]`` (with ``head_sum`` the head sum).
     """
     n_heads, f_in, f_out = params.W.shape
     n = h.shape[0]
@@ -466,7 +505,7 @@ def gat_v1_sparse_heads(
             bound = leaky_relu(f_dst + m_src[:, None], alpha)
         out = _unfused_aggregate(gathered, logits, bound, graph, gen, keep,
                                  use_drop, n_heads, f_out)
-        return _heads_tail(out, params, h, x_h, concat)
+        return _heads_tail(out, params, h, x_h, concat, head_sum)
 
     f_dst_n = torch.einsum("nho,ho->nh", wh3, params.a[:, :f_out])  # [N, H]
     # Softmax stabilization without a segment max: the softmax is invariant
@@ -495,7 +534,7 @@ def gat_v1_sparse_heads(
             graph.stream_walk, graph.sender_walk,
         )
     out = softmax_div(agg.view(n, n_heads, f_out), den)
-    return _heads_tail(out, params, h, x_h, concat)
+    return _heads_tail(out, params, h, x_h, concat, head_sum)
 
 
 def gat_v2_sparse_heads(
@@ -509,6 +548,7 @@ def gat_v2_sparse_heads(
     concat: bool,
     train: bool,
     plan: BandPlan | CscCsrPlans | None = None,
+    head_sum: bool = False,
 ) -> torch.Tensor:
     """Head-batched sparse GATv2, fused or unfused as
     :func:`gat_v1_sparse_heads`: LeakyReLU before the a-projection
@@ -572,7 +612,7 @@ def gat_v2_sparse_heads(
                               params.a)  # [H, E]
         out = _unfused_aggregate(gather_senders(whi, graph), logits, ub.t(),
                                  graph, gen, keep, use_drop, n_heads, f_out)
-        return _heads_tail(out, params, h, x_h, concat)
+        return _heads_tail(out, params, h, x_h, concat, head_sum)
     keepq = _att_keepq(gen, keep, _slots(graph, plan), n_heads, use_drop,
                        whi.device)
     if isinstance(plan, BandPlan):
@@ -589,4 +629,4 @@ def gat_v2_sparse_heads(
             graph.stream_walk, graph.sender_walk,
         )
     out = softmax_div(agg.view(n, n_heads, f_out), den)
-    return _heads_tail(out, params, h, x_h, concat)
+    return _heads_tail(out, params, h, x_h, concat, head_sum)

@@ -41,7 +41,7 @@ backward: a received buffer's gradient goes back by the opposite shift.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -342,6 +342,7 @@ class ShardBlocks(NamedTuple):
     recv_walks: tuple  # per src shard, over n_local rows
     send_walks: tuple  # per src shard, the sender view over n_local rows
     halo_walks: tuple  # per src shard over h_rows rows (None on the diagonal)
+    group: Any = None  # the ring's process group (None: every rank)
 
     @property
     def block_edges(self) -> int:
@@ -369,9 +370,11 @@ class ShardBlocks(NamedTuple):
                      self.send_walks[src])
 
 
-def shard_blocks(part: EdgePartition, dst: int, device) -> ShardBlocks:
+def shard_blocks(part: EdgePartition, dst: int, device,
+                 group=None) -> ShardBlocks:
     """Shard ``dst``'s blocks of a stream-aligned ``part`` on ``device``,
-    with their walks."""
+    with their walks; the ring runs over ``group`` (a mesh's data group;
+    None: every rank), whose rank ``dst`` holds them."""
     if not part.has_stream:
         raise ValueError("the ring needs a stream-aligned partition "
                          "(n_local a multiple of 128; see repad_citation)")
@@ -411,7 +414,7 @@ def shard_blocks(part: EdgePartition, dst: int, device) -> ShardBlocks:
         chunk=dev(part.chunk[dst]), s_slot=dev(part.s_slot[dst]),
         s_local=dev(part.s_local[dst]), s_chunk=dev(part.s_chunk[dst]),
         recv_walks=recv_walks, send_walks=send_walks, halo_walks=halo_walks,
-        **halo)
+        group=group, **halo)
 
 
 # ---------------------------------------------------------------------------
@@ -579,9 +582,10 @@ def ring_hop_v2(acc, wi_buf, wj_buf, k: int, blocks: ShardBlocks, wi_local,
 
 
 def _check_group(blocks: ShardBlocks) -> None:
-    if col.axis_size() != blocks.n_shards or col.axis_index() != blocks.dst:
+    size, me = col.axis_size(blocks.group), col.axis_index(blocks.group)
+    if size != blocks.n_shards or me != blocks.dst:
         raise ValueError(f"blocks of shard {blocks.dst} of {blocks.n_shards} "
-                         f"on rank {col.axis_index()} of {col.axis_size()}")
+                         f"on rank {me} of the ring's {size}")
 
 
 def _finite_or_zero(x):
@@ -610,7 +614,7 @@ def ring_gat_attention(f_dst, whf, a_src, blocks: ShardBlocks, *,
         f_src = (whf.view(n, h, f) * a_src).sum(-1)
         m_loc = torch.where(blocks.node_mask[:, None], f_src,
                             float("-inf")).amax(dim=0)
-        m_src = _finite_or_zero(col.all_reduce_max(m_loc))
+        m_src = _finite_or_zero(col.all_reduce_max(m_loc, blocks.group))
         bound = leaky_relu(f_dst + m_src, alpha)
     acc = ring_hop_v1(torch.zeros(n, hf + h, device=whf.device), whf, 0,
                       blocks, f_dst, bound, a_src, att_keep, alpha=alpha)
@@ -618,13 +622,13 @@ def ring_gat_attention(f_dst, whf, a_src, blocks: ShardBlocks, *,
         for k in range(1, d):
             # the rows of mine that shard me + k references, sent by k
             buf = whf[blocks.halo_idx[(me + k) % d].long()]
-            buf = col.ppermute_ring(buf, k)
+            buf = col.ppermute_ring(buf, k, blocks.group)
             acc = ring_hop_v1(acc, buf, k, blocks, f_dst, bound, a_src,
                               att_keep, alpha=alpha, halo=True)
     else:
         w_buf = whf
         for k in range(1, d):
-            w_buf = col.ppermute_ring(w_buf, 1)
+            w_buf = col.ppermute_ring(w_buf, 1, blocks.group)
             acc = ring_hop_v1(acc, w_buf, k, blocks, f_dst, bound, a_src,
                               att_keep, alpha=alpha)
     out = softmax_div(acc[:, :hf].reshape(n, h, f), acc[:, hf:])
@@ -647,9 +651,9 @@ def ring_gat_attention_v2(whi, whj, a, blocks: ShardBlocks, *, alpha: float,
         nm = blocks.node_mask[:, None]
         big = float("inf")
         mq_max = _finite_or_zero(col.all_reduce_max(
-            torch.where(nm, whj, -big).amax(dim=0))).view(h, f)
+            torch.where(nm, whj, -big).amax(dim=0), blocks.group)).view(h, f)
         mq_min = _finite_or_zero(col.all_reduce_min(
-            torch.where(nm, whj, big).amin(dim=0))).view(h, f)
+            torch.where(nm, whj, big).amin(dim=0), blocks.group)).view(h, f)
         wi3 = whi.view(n, h, f)
         ub = (leaky_relu(wi3 + mq_max, alpha) * a.clamp(min=0.0)).sum(-1)
         ub = ub + (leaky_relu(wi3 + mq_min, alpha) * a.clamp(max=0.0)).sum(-1)
@@ -659,14 +663,14 @@ def ring_gat_attention_v2(whi, whj, a, blocks: ShardBlocks, *, alpha: float,
         wiwj = torch.cat([whi, whj], dim=1)
         for k in range(1, d):
             buf = col.ppermute_ring(
-                wiwj[blocks.halo_idx[(me + k) % d].long()], k)
+                wiwj[blocks.halo_idx[(me + k) % d].long()], k, blocks.group)
             acc = ring_hop_v2(acc, buf[:, :hf], buf[:, hf:], k, blocks, whi,
                               ub, a, att_keep, alpha=alpha, halo=True)
     else:
         wi_buf, wj_buf = whi, whj
         for k in range(1, d):
-            wi_buf = col.ppermute_ring(wi_buf, 1)
-            wj_buf = col.ppermute_ring(wj_buf, 1)
+            wi_buf = col.ppermute_ring(wi_buf, 1, blocks.group)
+            wj_buf = col.ppermute_ring(wj_buf, 1, blocks.group)
             acc = ring_hop_v2(acc, wi_buf, wj_buf, k, blocks, whi, ub, a,
                               att_keep, alpha=alpha)
     out = softmax_div(acc[:, :hf].reshape(n, h, f), acc[:, hf:])

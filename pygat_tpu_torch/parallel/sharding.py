@@ -1,11 +1,18 @@
-"""The data-axis half of ``pygat_tpu/parallel/sharding.py``: which node rows
-and which split indices are this rank's.
+"""Which part of each array is this rank's (port of
+``pygat_tpu/parallel/sharding.py``).
 
 Where the JAX package places one array over the mesh with a
-``PartitionSpec``, each rank of the port holds its own part: node shard
-``r`` is rows ``r * n_local .. (r + 1) * n_local - 1``, the shard whose
-edges into it the ring partition gives rank ``r``. The head axis (the
-``model`` half: ``param_pspecs``, ``head_leaf_spec``) is ROADMAP item 18.
+``PartitionSpec``, each rank of the port holds its own part:
+
+* the ``data`` half: node shard ``d`` (the rank's data index) is rows ``d
+  * n_local .. (d + 1) * n_local - 1``, the shard whose edges into it the
+  ring partition gives that data index;
+* the ``model`` half: a head-stacked ``[H, ...]`` leaf whose H divides by
+  ``n_model`` is split on its head axis (:func:`split_leaf`, decided from
+  the shape alone as ``head_leaf_spec`` decides), and model index ``m``
+  holds heads ``m * H/M .. (m + 1) * H/M - 1`` (:func:`head_slice`); every
+  other leaf is replicated. Adam's moments mirror their parameters' shapes
+  and follow them; its step counter, a scalar, is replicated.
 """
 
 from __future__ import annotations
@@ -26,13 +33,57 @@ class ShardIdx(NamedTuple):
     count: int
 
 
+def split_leaf(shape, n_model: int) -> bool:
+    """Whether a leaf of ``shape`` is split on the model axis: the JAX
+    ``head_leaf_spec`` (``pygat_tpu/parallel/sharding.py:55-64``) shards a
+    leaf of at least one dimension whose leading size is a multiple of
+    ``n_model > 1`` and not smaller than it; scalars and other leading
+    sizes replicate."""
+    shape = tuple(shape)
+    return (len(shape) > 0 and n_model > 1 and shape[0] % n_model == 0
+            and shape[0] >= n_model)
+
+
+def param_split(params, n_model: int) -> list[tuple]:
+    """:func:`split_leaf` of every leaf of ``params`` (full-size, any
+    array with a ``shape``), layer by layer, None where a leaf is None:
+    the counterpart of ``param_pspecs``."""
+    return [tuple(None if t is None else split_leaf(t.shape, n_model)
+                  for t in layer) for layer in params]
+
+
+def head_rows(t, m: int, n_model: int):
+    """Model index ``m``'s rows of the head axis of ``t`` (any array), or
+    ``t`` itself where the leaf is not split."""
+    if not split_leaf(t.shape, n_model):
+        return t
+    k = t.shape[0] // n_model
+    return t[m * k:(m + 1) * k]
+
+
+def head_slice(params, m: int, n_model: int) -> list:
+    """Model index ``m``'s heads of ``params`` (full-size) on a model axis
+    of ``n_model``: each split leaf's rows ``m * H/M .. (m + 1) * H/M -
+    1``, each replicated leaf as it is (the same objects). The leaves are
+    the same kind as the input's: slices of tensors are views (the caller
+    clones what it trains), of numpy arrays numpy arrays."""
+    return [_like(layer, [None if t is None else head_rows(t, m, n_model)
+                          for t in layer]) for layer in params]
+
+
+def _like(layer, leaves):
+    """``leaves`` in ``layer``'s container (a NamedTuple or a tuple)."""
+    return type(layer)(*leaves) if hasattr(layer, "_fields") else tuple(leaves)
+
+
 def node_range(mesh: Mesh, n_pad: int) -> tuple[int, int]:
-    """(first, end) of this rank's node rows."""
+    """(first, end) of this rank's node rows (by its data index)."""
     if n_pad % mesh.n_data:
         raise ValueError(f"N_pad={n_pad} not divisible by {mesh.n_data} "
                          "shards")
     n_local = n_pad // mesh.n_data
-    return mesh.rank * n_local, (mesh.rank + 1) * n_local
+    d = mesh.data_index
+    return d * n_local, (d + 1) * n_local
 
 
 def shard_index(idx: torch.Tensor, mesh: Mesh, n_pad: int) -> ShardIdx:

@@ -49,8 +49,9 @@ def epoch_runners(cfg, data, n_epochs, plans=None, ring=None):
     and eval forward, no host sync), ``chunk`` a :class:`ChunkedEpochs` of
     ``n_epochs`` with no epoch budget, whose ``run()`` is the fast loop's
     chunk; both over the banded order of ``plans`` when one is given, or
-    over the ring with ``ring`` (``train.loop._ring_setup``'s loss; ``data``
-    then this rank's share)."""
+    over the ring with ``ring`` (``train.loop._ring_setup``'s loss, or
+    ``_dense_setup``'s; ``data`` then this rank's share, and with a model
+    axis the state this rank's heads)."""
     from pygat_tpu_torch.models.gat import init_gat
     from pygat_tpu_torch.train.loop import ChunkedEpochs, make_transductive_steps
     from pygat_tpu_torch.train.state import init_state, make_optimizer
@@ -59,11 +60,20 @@ def epoch_runners(cfg, data, n_epochs, plans=None, ring=None):
     device = data.features.device
     args = (data.features, data.graph, data.labels)
 
+    mesh = getattr(ring, "mesh", None)
+
     def fresh_state(capturable):
         params = init_gat(cfg, make_generator("cpu", 72), device=device)
-        return init_state(
+        state = init_state(
             params, make_optimizer(params, 0.005, 5e-4, capturable=capturable),
             make_generator(device, 73))
+        if mesh is None or mesh.n_model == 1:
+            return state
+        from pygat_tpu_torch.parallel.distributed import slice_state
+        from pygat_tpu_torch.train.loop import _dropout_generator
+
+        state.generator = _dropout_generator(device, 72, mesh)
+        return slice_state(state, mesh.model_index, mesh.n_model)
 
     state = fresh_state(False)
     train_step, eval_step = make_transductive_steps(cfg, plans, ring)

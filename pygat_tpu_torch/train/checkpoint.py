@@ -53,10 +53,13 @@ def save(ckpt_dir: str, epoch: int, tag: str, state: TrainState,
     return path
 
 
-def _load_leaves(z, leaves: list[torch.Tensor]) -> None:
+def _load_leaves(z, leaves: list[torch.Tensor], select=None) -> None:
     """Copy ``leaf_0 .. leaf_{n-1}`` of an open checkpoint into ``leaves``
-    (in place), after checking every shape."""
+    (in place), after checking every shape; ``select(i, array)`` (when
+    given) takes the part of leaf ``i`` that its template holds."""
     arrays = [z[f"leaf_{i}"] for i in range(len(leaves))]
+    if select is not None:
+        arrays = [select(i, a) for i, a in enumerate(arrays)]
     for i, (old, arr) in enumerate(zip(leaves, arrays)):
         if tuple(arr.shape) != tuple(old.shape):
             raise ValueError(f"leaf {i}: shape {arr.shape} != template {tuple(old.shape)}")
@@ -65,8 +68,12 @@ def _load_leaves(z, leaves: list[torch.Tensor]) -> None:
             old.copy_(torch.from_numpy(arr))
 
 
-def restore(path: str, like: TrainState) -> tuple[TrainState, dict]:
-    """Load into ``like`` (in place); returns (state, header)."""
+def restore(path: str, like: TrainState, select=None
+            ) -> tuple[TrainState, dict]:
+    """Load into ``like`` (in place); returns (state, header). ``select``:
+    as :func:`_load_leaves` (a model rank's heads of a whole checkpoint).
+    The generator's state goes into ``like``'s generator, or its shared
+    one under a model axis."""
     with np.load(path) as z:
         header = json.loads(bytes(z["header"]).decode())
         leaves = tensor_leaves(like)
@@ -74,18 +81,19 @@ def restore(path: str, like: TrainState) -> tuple[TrainState, dict]:
             raise ValueError(
                 f"checkpoint has {header['n_leaves']} leaves, template has {len(leaves)}"
             )
-        _load_leaves(z, leaves)
-        like.generator.set_state(torch.from_numpy(z["generator"].copy()))
+        _load_leaves(z, leaves, select)
+        gen = getattr(like.generator, "shared", like.generator)
+        gen.set_state(torch.from_numpy(z["generator"].copy()))
     like.step = int(header["step"])
     return like, header
 
 
-def restore_params(path: str, into) -> None:
+def restore_params(path: str, into, select=None) -> None:
     """Load only the parameter leaves of a checkpoint (they come first) into
     the parameter set ``into`` (in place); optimizer state and generator are
-    left alone."""
+    left alone. ``select``: as :func:`_load_leaves`."""
     with np.load(path) as z:
-        _load_leaves(z, parameters(into))
+        _load_leaves(z, parameters(into), select)
 
 
 def list_checkpoints(ckpt_dir: str, tag: str) -> list[tuple[int, str]]:

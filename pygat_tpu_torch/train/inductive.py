@@ -51,21 +51,29 @@ from pygat_tpu_torch.parallel.collectives import (
 )
 from pygat_tpu_torch.parallel.distributed import (
     all_reduce_grads,
-    shard_train_state,
+    restore_params_split,
+    restore_state,
+    save_state,
 )
 from pygat_tpu_torch.parallel.mesh import Mesh
-from pygat_tpu_torch.train.loop import FitResult, _dropout_generator
+from pygat_tpu_torch.train.loop import (
+    FitResult,
+    _dropout_generator,
+    shard_state,
+)
 from pygat_tpu_torch.train.metrics import bce_with_logits, f1_counts, micro_f1
 from pygat_tpu_torch.train.state import TrainState, init_state, make_optimizer
 from pygat_tpu_torch.utils.platform import make_generator, resolve_device
 
 
-def _make_loss(cfg: GATConfig):
+def _make_loss(cfg: GATConfig, mesh: Mesh | None = None):
     """``loss(params, x, graph, y, gen, train) -> (loss, f1, out)``: mean
-    BCE over the graph's real rows and their micro-F1."""
+    BCE over the graph's real rows and their micro-F1. ``mesh``: a mesh
+    with a model axis, whose ranks hold their heads of ``params``."""
+    model = mesh if mesh is not None and mesh.n_model > 1 else None
 
     def _loss(params, x, graph, y, gen, train):
-        out = apply_gat(params, cfg, x, graph, gen, train=train)
+        out = apply_gat(params, cfg, x, graph, gen, train=train, mesh=model)
         mask = graph.node_mask
         loss = bce_with_logits(out, y, mask=mask)
         with torch.no_grad():
@@ -259,13 +267,16 @@ def _batch_slots(n_graphs: int, batch_size: int, order: np.ndarray
                     live.reshape(nb, batch_size)))
 
 
-def banked_eval(cfg: GATConfig, bank, batch_size: int):
+def banked_eval(cfg: GATConfig, bank, batch_size: int,
+                mesh: Mesh | None = None):
     """``eval_bank(params) -> (losses [nb], f1s [nb], tp, fp, fn)``: a whole
     split of ``bank`` in order (the padding slots of the last batch repeat
-    its first graphs), without dropout or autograd, as device tensors."""
+    its first graphs), without dropout or autograd, as device tensors.
+    ``mesh``: as :func:`_make_loss` (every rank of the model group calls
+    it together)."""
     from pygat_tpu_torch.data.ppi import assemble_banked_batch
 
-    _loss = _make_loss(cfg)
+    _loss = _make_loss(cfg, mesh)
     slots = _batch_slots(bank.n_graphs, batch_size, np.arange(bank.n_graphs))
 
     @torch.no_grad()
@@ -337,8 +348,8 @@ class BankedEpochs:
         self._bank = bank_train
         self._b = batch_size
         self._seed = seed
-        self._loss = _make_loss(cfg)
-        self._eval_val = banked_eval(cfg, bank_val, batch_size)
+        self._loss = _make_loss(cfg, mesh)
+        self._eval_val = banked_eval(cfg, bank_val, batch_size, mesh)
         self._max_epochs = max_epochs
         self._patience = patience
         self.best_val = torch.full((), float("inf"), device=dev)
@@ -382,7 +393,7 @@ class BankedEpochs:
                 # every rank evaluated the same bank with the same
                 # parameters; the mean makes the early-stop and best-epoch
                 # decisions the same bits on every card
-                loss_val = all_reduce_mean(loss_val)
+                loss_val = all_reduce_mean(loss_val, self._mesh.data_group)
             # epochs past the budget never update the best model
             improved = (loss_val < self.best_val) & (epoch < self._max_epochs)
             if self._patience is not None:
@@ -410,7 +421,7 @@ class BankedEpochs:
         losses, f1s = [], []
         for ids, weight in superstep_slots(len(slots), self._n_data):
             wsum = max(float(weight.sum()), 1.0)
-            mine = ([mesh.rank] if mesh is not None
+            mine = ([mesh.data_index] if mesh is not None
                     else range(self._n_data))
             state.optimizer.zero_grad(set_to_none=True)
             total, parts = 0.0, []
@@ -424,8 +435,8 @@ class BankedEpochs:
             total.backward()
             stats = torch.stack(parts).sum(0) / wsum
             if mesh is not None:
-                all_reduce_grads(state.params)
-                stats = all_reduce_sum(stats)
+                all_reduce_grads(state.params, mesh.data_group)
+                stats = all_reduce_sum(stats, mesh.data_group)
             state.optimizer.step()
             state.step += 1
             losses.append(stats[0])
@@ -482,12 +493,14 @@ def fit_inductive_banked(
     from the newest ones.
 
     ``mesh`` (every rank of the group calls this; ``device`` defaults to
-    the mesh's) trains data-parallel: one batch a rank a step, the
-    gradients all-reduced, rank 0's parameters broadcast first, each rank's
-    dropout from its own generator (seeded with (``seed + 1``, rank)), and
-    only rank 0 writing checkpoints (in the one-device format). ``dp=D``
-    without a mesh runs the same arithmetic in one process
-    (:class:`BankedEpochs`)."""
+    the mesh's) trains data-parallel: one batch a data rank a step, the
+    gradients all-reduced over the data group, rank 0's parameters
+    broadcast first, each data rank's dropout from its own generator
+    (seeded with (``seed + 1``, data index)), and only rank 0 writing
+    checkpoints (in the one-device format). With a model axis each rank
+    holds and computes its heads of every split layer (``apply_gat(mesh=)``)
+    and draws their masks from a generator of its own. ``dp=D`` without a
+    mesh runs the same arithmetic in one process (:class:`BankedEpochs`)."""
     from pygat_tpu_torch.data.ppi import bank_bounds, build_bank
 
     if mesh is not None and dp is not None and dp != mesh.n_data:
@@ -496,9 +509,6 @@ def fit_inductive_banked(
                             else mesh.device)
     logger = logger or TrainLogger()
     state = _init(cfg, seed, lr, weight_decay, init_params, device)
-    if mesh is not None:
-        state.generator = _dropout_generator(device, seed, mesh)
-        shard_train_state(state, mesh)
     writes = mesh is None or mesh.is_main
     best_tag = dataset_tag + "-best"
 
@@ -514,10 +524,9 @@ def fit_inductive_banked(
         if found is not None:
             state, resumed = ckpt.restore(found[1], like=state)
             history = [float(v) for v in resumed.get("history", [])]
-            if mesh is not None:
-                shard_train_state(state, mesh)
-                state.generator = _dropout_generator(device, seed, mesh,
-                                                     len(history))
+    if mesh is not None:
+        state.generator = _dropout_generator(device, seed, mesh, len(history))
+        state = shard_state(state, mesh, logger)
     chunk = BankedEpochs(cfg, state, bank_tr, bank_va, batch_size,
                          n_epochs=epoch_chunk, seed=seed, max_epochs=epochs,
                          patience=patience, n_data=dp or 1, mesh=mesh)
@@ -527,7 +536,7 @@ def fit_inductive_banked(
         chunk.set_best(best_val, best_epoch)
         bfound = ckpt.latest(checkpoint_dir, best_tag)
         if bfound is not None and best_epoch >= 0:
-            ckpt.restore_params(bfound[1], into=chunk.best_params)
+            restore_params_split(bfound[1], state, chunk.best_params)
         logger.log("resume", epoch=len(history) - 1, best=best_val,
                    path=found[1])
 
@@ -549,18 +558,20 @@ def fit_inductive_banked(
             if epoch_idx - int(np.argmin(history)) >= patience:
                 stopped = True
                 break
-        if checkpoint_dir and writes:
+        if checkpoint_dir:
             # chunk-boundary checkpoint with full resume bookkeeping
             be = int(chunk.best_epoch)
             last = len(history) - 1
-            ckpt.save(checkpoint_dir, last, dataset_tag, state,
-                      extra={"best": float(chunk.best_val), "best_epoch": be,
-                             "history": history})
-            ckpt.rotate_below_best(checkpoint_dir, dataset_tag, last)
+            save_state(mesh, checkpoint_dir, last, dataset_tag, state,
+                       extra={"best": float(chunk.best_val),
+                              "best_epoch": be, "history": history})
+            if writes:
+                ckpt.rotate_below_best(checkpoint_dir, dataset_tag, last)
             if be >= 0:
-                ckpt.save(checkpoint_dir, be, best_tag, state,
-                          params=chunk.best_params)
-                ckpt.rotate_except(checkpoint_dir, best_tag, be)
+                save_state(mesh, checkpoint_dir, be, best_tag, state,
+                           params=chunk.best_params)
+                if writes:
+                    ckpt.rotate_except(checkpoint_dir, best_tag, be)
 
     # the returned state carries the best parameters (and the last Adam
     # moments), as the JAX package's does
@@ -570,7 +581,7 @@ def fit_inductive_banked(
             p.copy_(best)
     best_epoch = int(chunk.best_epoch)
 
-    losses_t, _, tp, fp, fn = banked_eval(cfg, bank_te, batch_size)(
+    losses_t, _, tp, fp, fn = banked_eval(cfg, bank_te, batch_size, mesh)(
         state.params)
     test_loss = float(losses_t.mean())
     tp, fp, fn = float(tp), float(fp), float(fn)
@@ -695,7 +706,7 @@ def _stacked_train_epoch(state: TrainState, stacked: StackedBatches, loss_fn,
     stats, weights = [], []
     n_data = 1 if mesh is None else mesh.n_data
     for ids, weight in superstep_slots(stacked.n_batches, n_data):
-        j = 0 if mesh is None else mesh.rank
+        j = 0 if mesh is None else mesh.data_index
         wsum = max(float(weight.sum()), 1.0)
         x, g, y = stacked.batch(int(ids[j]))
         state.optimizer.zero_grad(set_to_none=True)
@@ -703,8 +714,8 @@ def _stacked_train_epoch(state: TrainState, stacked: StackedBatches, loss_fn,
         (loss * (float(weight[j]) / wsum)).backward()
         step = torch.stack([loss.detach(), f1]) * float(weight[j])
         if mesh is not None:
-            all_reduce_grads(state.params)
-            step = all_reduce_sum(step)
+            all_reduce_grads(state.params, mesh.data_group)
+            step = all_reduce_sum(step, mesh.data_group)
         state.optimizer.step()
         state.step += 1
         stats.append(step)
@@ -767,25 +778,21 @@ def fit_inductive_fast(
     gradients all-reduced, rank 0's parameters broadcast first, each rank's
     dropout from its own generator, and rank 0 alone writing checkpoints.
     The logged train metrics are the weighted means over the slots; every
-    rank evaluates every validation and test batch. A mesh with a model
-    axis (``n_model > 1``) raises (ROADMAP item 18)."""
+    rank evaluates every validation and test batch. With a model axis the
+    data index deals the batches and the model index names the heads, as
+    in :func:`fit_inductive_banked`."""
     from pygat_tpu_torch.data.ppi import batch_bounds, make_batches
     from pygat_tpu_torch.parallel.collectives import barrier
-    from pygat_tpu_torch.parallel.mesh import ITEM_18
 
-    if mesh is not None and mesh.n_model != 1:
-        raise NotImplementedError(
-            f"fit_inductive_fast over a mesh with n_model={mesh.n_model} is "
-            f"not ported yet ({ITEM_18})")
     device = resolve_device(device if device is not None or mesh is None
                             else mesh.device)
     logger = logger or TrainLogger()
     state = _init(cfg, seed, lr, weight_decay, init_params, device)
     if mesh is not None:
         state.generator = _dropout_generator(device, seed, mesh)
-        shard_train_state(state, mesh)
+        state = shard_state(state, mesh, logger)
     writes = mesh is None or mesh.is_main
-    loss_fn = _make_loss(cfg)
+    loss_fn = _make_loss(cfg, mesh)
 
     bounds = [batch_bounds(g, batch_size)
               for g in (data.train, data.valid, data.test)]
@@ -825,8 +832,8 @@ def fit_inductive_fast(
         t0 = time.time()
         history.append(loss_val)
 
-        if checkpoint_dir and writes:
-            ckpt.save(checkpoint_dir, epoch, dataset_tag, state)
+        if checkpoint_dir:
+            save_state(mesh, checkpoint_dir, epoch, dataset_tag, state)
         if loss_val < best:
             best = loss_val
             best_epoch = epoch
@@ -847,8 +854,8 @@ def fit_inductive_fast(
                                    keep_epoch=epoch)
         if mesh is not None:
             barrier()  # every rank reads the best checkpoint rank 0 wrote
-        state, _ = ckpt.restore(
-            ckpt.best_path(checkpoint_dir, dataset_tag, best_epoch), like=state)
+        state, _ = restore_state(
+            ckpt.best_path(checkpoint_dir, dataset_tag, best_epoch), state)
 
     te = _stacked_eval(state.params, stacked(data.test), loss_fn)
     te = np.asarray(te.cpu(), np.float64)

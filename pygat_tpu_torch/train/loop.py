@@ -11,10 +11,13 @@ host once per chunk of epochs: :class:`ChunkedEpochs` keeps the per-epoch
 metrics and the best model on the device and, on CUDA, captures one epoch
 in a CUDA graph and replays it (what ``lax.scan`` under ``jit`` gives the
 JAX package). With ``mesh=`` both loops train over a process group: each
-rank holds one node shard and runs the ring attention of
-:mod:`~pygat_tpu_torch.parallel` (:func:`_ring_setup`), the losses and
-metrics are reduced over the ranks, the gradients all-reduced before Adam,
-and rank 0 alone writes checkpoints. Both loops on one device ask
+data rank holds one node shard and runs the ring attention of
+:mod:`~pygat_tpu_torch.parallel` (:func:`_ring_setup`), or for the dense
+types its receiver rows' attention (:func:`_dense_setup`); with a model
+axis each rank holds and computes its heads of every split layer. The
+losses and metrics are reduced over the data group, the gradients
+all-reduced over it before Adam, and rank 0 alone writes checkpoints (the
+heads gathered first). Both loops on one device ask
 :func:`~pygat_tpu_torch.ops.banded.maybe_plan_large` for a large-N plan, as
 the JAX package's do: past 300k padded nodes (or with ``PYGAT_BAND=on``)
 it returns a band plan, and every layer then runs over the banded order;
@@ -36,6 +39,7 @@ from pygat_tpu_torch.data.citation import CitationDataset, interleave_citation
 from pygat_tpu_torch.graph import Graph
 from pygat_tpu_torch.models.gat import (
     GATConfig,
+    HeadGenerators,
     apply_gat,
     init_gat,
     parameters,
@@ -47,18 +51,29 @@ from pygat_tpu_torch.ops.stream import TILE
 from pygat_tpu_torch.parallel.collectives import all_reduce_max, barrier
 from pygat_tpu_torch.parallel.distributed import (
     all_reduce_grads,
+    restore_params_split,
+    restore_state,
+    save_state,
     shard_train_state,
 )
-from pygat_tpu_torch.parallel.mesh import ITEM_18, Mesh
+from pygat_tpu_torch.parallel.mesh import Mesh
 from pygat_tpu_torch.parallel.partition import partition_edges, shard_blocks
-from pygat_tpu_torch.parallel.ring_model import RingLoss, ring_halo_default
-from pygat_tpu_torch.parallel.sharding import shard_transductive_data
+from pygat_tpu_torch.parallel.ring_model import (
+    DenseRowsLoss,
+    RingLoss,
+    ring_halo_default,
+)
+from pygat_tpu_torch.parallel.sharding import (
+    node_range,
+    shard_transductive_data,
+)
 from pygat_tpu_torch.train import checkpoint as ckpt
 from pygat_tpu_torch.train.logging import TrainLogger
 from pygat_tpu_torch.train.metrics import accuracy, log_logits, nll_loss
 from pygat_tpu_torch.train.state import (
     TrainState,
     init_state,
+    leaf_split,
     make_optimizer,
     tensor_leaves,
 )
@@ -111,7 +126,7 @@ def make_transductive_steps(cfg: GATConfig,
                                state.generator, True)
         loss.backward()
         if ring is not None:
-            all_reduce_grads(state.params)
+            all_reduce_grads(state.params, ring.group)
         state.optimizer.step()
         state.step += 1
         return state, loss.detach(), acc, out.detach()
@@ -140,54 +155,135 @@ def _plan_large(data: CitationDataset, logger: TrainLogger):
 
 
 def _dropout_generator(device, seed: int, mesh: Mesh | None,
-                       epoch: int = 0) -> torch.Generator:
+                       epoch: int = 0):
     """The dropout generator: seeded with ``seed + 1`` on one device; under
-    a mesh with (``seed + 1``, rank, ``epoch``), so each rank draws its own
-    masks (a resumed run's ``epoch`` reseeds it)."""
+    a mesh with (``seed + 1``, data index, ``epoch``), so each data rank
+    draws its own masks (a resumed run's ``epoch`` reseeds it). With a
+    model axis a :class:`~pygat_tpu_torch.models.gat.HeadGenerators` pair:
+    that generator, shared by the model group (replicated layers), and
+    one seeded with (``seed + 1``, data index, ``epoch``, model index + 1)
+    for the rank's heads."""
     if mesh is None:
         return make_generator(device, seed + 1)
-    ss = np.random.SeedSequence([seed + 1, mesh.rank, epoch])
-    return make_generator(device, int(ss.generate_state(1, np.uint64)[0]
-                                      >> np.uint64(1)))
+
+    def seeded(*words):
+        ss = np.random.SeedSequence([seed + 1, mesh.data_index, epoch, *words])
+        return make_generator(device, int(ss.generate_state(1, np.uint64)[0]
+                                          >> np.uint64(1)))
+
+    if mesh.n_model == 1:
+        return seeded()
+    return HeadGenerators(seeded(), seeded(mesh.model_index + 1))
 
 
-def _ring_setup(cfg: GATConfig, data: CitationDataset, mesh: Mesh,
-                logger: TrainLogger):
-    """(this rank's share of ``data``, its :class:`RingLoss`) for the ring
-    (port of the JAX ``_ring_setup``, loop.py:104-135): repad the graph to a
-    multiple of ``128 * D`` rows, so each shard's range is whole 128-row
-    tiles; deal the real nodes over the shards (``interleave_citation``),
-    which balances the partition's blocks; build the partition and put this
-    rank's blocks and walks on its device; keep this rank's node rows. The
-    ring keeps the stream kernels under distribution."""
-    if not cfg.is_sparse:
-        raise NotImplementedError(
-            f"the ring implements the sparse layer types; {cfg.layer_type} "
-            f"under a mesh is not ported yet ({ITEM_18})")
-    t0 = time.perf_counter()
+def _generators(gen) -> list[torch.Generator]:
+    """The torch generators of ``gen`` (one, or a HeadGenerators pair)."""
+    return list(gen) if isinstance(gen, HeadGenerators) else [gen]
+
+
+def _shard_rows(data: CitationDataset, mesh: Mesh):
+    """(this rank's rows of ``data``, the interleaved whole dataset): the
+    graph repadded to a multiple of ``128 * D`` rows, so each shard's range
+    is whole 128-row tiles, and the real nodes dealt over the shards
+    (``interleave_citation``), which balances the ring's blocks and the
+    dense path's rows."""
     d = mesh.n_data
     unit = TILE * d
     n_pad = data.graph.num_nodes_padded
     want = -(-max(n_pad, int(data.graph.n_node) + 1) // unit) * unit
     data = interleave_citation(data, d, n_pad=want)
+    return shard_transductive_data(data, mesh), data
+
+
+def _ring_setup(cfg: GATConfig, data: CitationDataset, mesh: Mesh,
+                logger: TrainLogger):
+    """(this rank's share of ``data``, its :class:`RingLoss`) for the ring
+    (port of the JAX ``_ring_setup``, loop.py:104-135): the rows of
+    :func:`_shard_rows`; build the partition and put this rank's blocks and
+    walks on its device, the ring running over the data group. The ring
+    keeps the stream kernels under distribution."""
+    if not cfg.is_sparse:
+        raise ValueError(f"the ring implements the sparse layer types; "
+                         f"{cfg.layer_type} runs by rows (_dense_setup)")
+    t0 = time.perf_counter()
+    d = mesh.n_data
+    local, data = _shard_rows(data, mesh)
     part = partition_edges(data.graph, d)
-    blocks = shard_blocks(part, mesh.rank, mesh.device)
-    local = shard_transductive_data(data, mesh)
-    logger.log("ring", shards=d, rank=mesh.rank, n_pad=want,
+    blocks = shard_blocks(part, mesh.data_index, mesh.device,
+                          mesh.data_group)
+    logger.log("ring", shards=d, rank=mesh.rank, n_pad=part.n_local * d,
                n_local=part.n_local, block_edges=part.block_edges,
                live_edges=int(part.edge_mask.sum()), h_rows=part.h_rows,
                halo=ring_halo_default(), seconds=time.perf_counter() - t0)
-    return local, RingLoss(cfg, blocks)
+    return local, RingLoss(cfg, blocks, mesh=mesh if mesh.n_model > 1
+                           else None)
+
+
+def rows_neighborhood(graph: Graph, lo: int, hi: int) -> torch.Tensor:
+    """Rows ``lo .. hi - 1`` of the graph's dense neighbourhood mask
+    (``to_dense(binary=True) > 0``), [hi - lo, N_pad] bool, built from the
+    edge list without the whole [N_pad, N_pad] matrix."""
+    rcv, snd = graph.receivers.long(), graph.senders.long()
+    mine = graph.edge_mask & (rcv >= lo) & (rcv < hi)
+    nb = torch.zeros(hi - lo, graph.num_nodes_padded, dtype=torch.bool,
+                     device=rcv.device)
+    nb[rcv[mine] - lo, snd[mine]] = True
+    return nb
+
+
+def _dense_setup(cfg: GATConfig, data: CitationDataset, mesh: Mesh,
+                 logger: TrainLogger):
+    """(this rank's share of ``data``, its
+    :class:`~pygat_tpu_torch.parallel.ring_model.DenseRowsLoss`) for the
+    dense types under a mesh: the rows of :func:`_shard_rows` (the ring's
+    layout, so the loss and the early stop are the ring's), and the rank's
+    rows of the dense neighbourhood mask; torch has no GSPMD, so the rank
+    computes its receiver rows' attention against every sender."""
+    t0 = time.perf_counter()
+    local, data = _shard_rows(data, mesh)
+    lo, hi = node_range(mesh, data.graph.num_nodes_padded)
+    nb = rows_neighborhood(data.graph, lo, hi).to(mesh.device)
+    logger.log("dense_rows", shards=mesh.n_data, rank=mesh.rank,
+               n_pad=data.graph.num_nodes_padded, n_local=hi - lo,
+               live_edges=int(nb.sum()), seconds=time.perf_counter() - t0)
+    return local, DenseRowsLoss(cfg, nb, mesh)
 
 
 def _enter_mesh(cfg, data, state, mesh, logger):
-    """(data, ring loss) of a run over ``mesh`` (``data`` and None without
-    one); replicates ``state`` from rank 0."""
+    """(data, sharded loss, state) of a run over ``mesh``: the ring for the
+    sparse types, receiver rows for the dense ones (``data``, None and
+    ``state`` without a mesh); ``state`` replicated from rank 0, and with a
+    model axis this rank's heads of it."""
     if mesh is None:
-        return data, None
-    data, ring = _ring_setup(cfg, data, mesh, logger)
-    shard_train_state(state, mesh)
-    return data, ring
+        return data, None, state
+    setup = _ring_setup if cfg.is_sparse else _dense_setup
+    data, loss = setup(cfg, data, mesh, logger)
+    return data, loss, shard_state(state, mesh, logger)
+
+
+def shard_state(state: TrainState, mesh: Mesh, logger: TrainLogger
+                ) -> TrainState:
+    """``state`` replicated from rank 0, and with a model axis this rank's
+    heads of it, logged once (``model_axis``: which parameters are split
+    and which replicated, and the bytes of this rank's split state,
+    parameters and Adam moments, against the whole)."""
+    state = shard_train_state(state, mesh)
+    if mesh.n_model > 1 and mesh.is_main:
+        logger.log("model_axis", **_split_report(state, mesh))
+    return state
+
+
+def _split_report(state: TrainState, mesh: Mesh) -> dict:
+    names = [f"{k}{i}" for i, lp in enumerate(state.params)
+             for k, t in zip(lp._fields, lp) if t is not None]
+    flags = list(state.split) or [False] * len(names)
+    leaves = tensor_leaves(state)
+    split_bytes = sum(t.numel() * t.element_size()
+                      for t, f in zip(leaves, leaf_split(state)) if f)
+    return dict(split=[n for n, f in zip(names, flags) if f],
+                replicated=[n for n, f in zip(names, flags) if not f],
+                split_state_bytes=split_bytes,
+                whole_split_state_bytes=split_bytes * mesh.n_model)
 
 
 @dataclass
@@ -228,12 +324,15 @@ def fit_transductive(
 
     ``mesh`` (a :class:`~pygat_tpu_torch.parallel.mesh.Mesh` of the
     process group; every rank calls this with the whole ``data`` on its
-    device) trains over the ring, for either of the JAX package's
-    partitions (torch has no GSPMD; the JAX package's two compute the same
-    thing). Every rank then takes the same early-stop and best-epoch
-    decisions from the reduced validation loss; rank 0 writes the
-    checkpoints, in the single-device format, so a run resumes on one
-    device or under a mesh. Each rank draws its own dropout masks.
+    device) trains over the ring (the sparse types) or by receiver rows
+    (the dense ones), for either of the JAX package's partitions (torch
+    has no GSPMD; the JAX package's two compute the same thing), with each
+    rank's heads of every split layer when the mesh has a model axis.
+    Every rank then takes the same early-stop and best-epoch decisions
+    from the reduced validation loss; rank 0 writes the checkpoints, in
+    the single-device format (every rank gathers the heads with it), so a
+    run resumes on one device or under any mesh. Each data rank draws its
+    own dropout masks (:func:`_dropout_generator`).
 
     Runs on the device of ``data``. Parameters are drawn from a CPU
     generator seeded with ``seed`` (the same initial weights on every
@@ -269,7 +368,7 @@ def fit_transductive(
             logger.log("resume", epoch=header["epoch"],
                        best=header.get("best"), path=path,
                        from_best=(header["epoch"] == header.get("best_epoch")))
-    data, ring = _enter_mesh(cfg, data, state, mesh, logger)
+    data, ring, state = _enter_mesh(cfg, data, state, mesh, logger)
     plans = _plan_large(data, logger) if mesh is None else None
     train_step, eval_step = make_transductive_steps(cfg, plans, ring)
 
@@ -315,10 +414,10 @@ def fit_transductive(
             bad_counter = 0
         else:
             bad_counter += 1
-        if checkpoint_dir and writes:
-            ckpt.save(checkpoint_dir, epoch, dataset_tag, state,
-                      extra={"best": best, "best_epoch": best_epoch,
-                             "bad": bad_counter})
+        if checkpoint_dir:
+            save_state(mesh, checkpoint_dir, epoch, dataset_tag, state,
+                       extra={"best": best, "best_epoch": best_epoch,
+                              "bad": bad_counter})
         # >= (not ==): a resumed patience-stopped run restores bad_counter
         # already at the limit and must stop again, not train past it
         if bad_counter >= patience:
@@ -333,9 +432,8 @@ def fit_transductive(
             ckpt.rotate_above_best(checkpoint_dir, dataset_tag, best_epoch,
                                    keep_epoch=epoch)
         barrier()  # every rank reads the best checkpoint rank 0 wrote
-        state, _ = ckpt.restore(
-            ckpt.best_path(checkpoint_dir, dataset_tag, best_epoch), like=state
-        )
+        state, _ = restore_state(
+            ckpt.best_path(checkpoint_dir, dataset_tag, best_epoch), state)
 
     test_loss, test_acc, _ = eval_step(state.params, x, g, labels, data.idx_test)
     logger.log("test", loss=float(test_loss), accuracy=float(test_acc))
@@ -431,7 +529,7 @@ class ChunkedEpochs:
                                           idx_train, state.generator, True)
         loss_tr.backward()
         if self._ring is not None:
-            all_reduce_grads(state.params)
+            all_reduce_grads(state.params, self._ring.group)
         state.optimizer.step()
         self._step += 1
         with torch.no_grad():
@@ -469,7 +567,8 @@ class ChunkedEpochs:
         # parameters' AccumulateGrad nodes alive on this stream, and the
         # captured backward would then sync with it and break the capture
         saved = [t.detach().clone() for t in carry]
-        gen_state = state.generator.get_state()
+        gens = _generators(state.generator)
+        gen_state = [g.get_state() for g in gens]
         # one eager epoch on a side stream builds and loads the kernels and
         # settles the allocator and the library workspaces; then undo it
         side = torch.cuda.Stream()
@@ -481,14 +580,16 @@ class ChunkedEpochs:
             for t, old in zip(carry, saved):
                 t.copy_(old)
         del saved
-        state.generator.set_state(gen_state)
+        for g, st in zip(gens, gen_state):
+            g.set_state(st)
         before = build.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(state.generator)
+        for g in gens:
+            graph.register_generator_state(g)
         if self._ring is not None:
             # the collectives may refuse the capture: keep what to put back
             saved = [t.detach().clone() for t in carry]
-            gen_state = state.generator.get_state()
+            gen_state = [g.get_state() for g in gens]
             error = None
             try:
                 with torch.cuda.graph(graph):
@@ -502,7 +603,8 @@ class ChunkedEpochs:
                 with torch.no_grad():
                     for t, old in zip(carry, saved):
                         t.copy_(old)
-                state.generator.set_state(gen_state)
+                for g, st in zip(gens, gen_state):
+                    g.set_state(st)
                 self.capture_error = error
                 return
             del saved
@@ -600,7 +702,7 @@ def fit_transductive_fast(
             if mesh is not None:
                 state.generator = _dropout_generator(device, seed, mesh,
                                                      len(history))
-    data, ring = _enter_mesh(cfg, data, state, mesh, logger)
+    data, ring, state = _enter_mesh(cfg, data, state, mesh, logger)
     x, g, labels = data.features, data.graph, data.labels
     plans = _plan_large(data, logger) if mesh is None else None
     chunk = ChunkedEpochs(cfg, state, x, g, labels, data.idx_train,
@@ -613,7 +715,7 @@ def fit_transductive_fast(
         chunk.set_best(best_val, best_epoch)
         bfound = ckpt.latest(checkpoint_dir, best_tag)
         if bfound is not None and best_epoch >= 0:
-            ckpt.restore_params(bfound[1], into=chunk.best_params)
+            restore_params_split(bfound[1], state, chunk.best_params)
         logger.log("resume", epoch=len(history) - 1, best=best_val,
                    path=found[1])
 
@@ -639,20 +741,22 @@ def fit_transductive_fast(
                 break
             if epoch_idx + 1 >= epochs:
                 break
-        if checkpoint_dir and writes:
+        if checkpoint_dir:
             # chunk-boundary checkpoint with full resume bookkeeping: the
             # header carries the history (patience state) and the best val;
             # the best parameters refresh in the {tag}-best file
             be = int(chunk.best_epoch)
             last = len(history) - 1
-            ckpt.save(checkpoint_dir, last, dataset_tag, state,
-                      extra={"best": float(chunk.best_val), "best_epoch": be,
-                             "history": history})
-            ckpt.rotate_below_best(checkpoint_dir, dataset_tag, last)
+            save_state(mesh, checkpoint_dir, last, dataset_tag, state,
+                       extra={"best": float(chunk.best_val),
+                              "best_epoch": be, "history": history})
+            if writes:
+                ckpt.rotate_below_best(checkpoint_dir, dataset_tag, last)
             if be >= 0:
-                ckpt.save(checkpoint_dir, be, best_tag, state,
-                          params=chunk.best_params)
-                ckpt.rotate_except(checkpoint_dir, best_tag, be)
+                save_state(mesh, checkpoint_dir, be, best_tag, state,
+                           params=chunk.best_params)
+                if writes:
+                    ckpt.rotate_except(checkpoint_dir, best_tag, be)
 
     # the returned state carries the best parameters (and the last Adam
     # moments), as the JAX package's does; the {tag}-best file of the last

@@ -15,6 +15,7 @@ step needs (``fit_transductive_fast``); it computes the same update.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 
@@ -26,10 +27,19 @@ Params = list[V1Params | V2Params]
 
 @dataclass
 class TrainState:
+    """``generator`` draws the dropout masks: one ``torch.Generator``, or
+    under a model axis a :class:`~pygat_tpu_torch.models.gat.
+    HeadGenerators` pair. ``split`` says, per parameter (the order of
+    :func:`~pygat_tpu_torch.models.gat.parameters`), whether this state
+    holds only model index ``model[0]``'s heads of it, of ``model[1]``
+    model ranks (empty: the whole model)."""
+
     step: int
     params: Params
     optimizer: torch.optim.Adam
-    generator: torch.Generator  # dropout masks
+    generator: Any  # dropout masks
+    split: tuple = ()
+    model: tuple = (0, 1)
 
 
 def make_optimizer(params: Params, lr: float, weight_decay: float, *,
@@ -56,6 +66,18 @@ def init_state(params: Params, optimizer: torch.optim.Adam,
                 st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
     return TrainState(step=0, params=params, optimizer=optimizer,
                       generator=generator)
+
+
+def leaf_split(state: TrainState) -> list[bool]:
+    """Per tensor of :func:`tensor_leaves`, whether it holds the model
+    rank's heads only: a split parameter and its Adam moments (the step
+    counter, a scalar, is whole)."""
+    flags = list(state.split) or [False] * len(parameters(state.params))
+    out = list(flags)
+    for p, flag in zip(parameters(state.params), flags):
+        st = state.optimizer.state[p]
+        out += [flag and st[k].ndim > 0 for k in sorted(st)]
+    return out
 
 
 def tensor_leaves(state: TrainState, params: Params | None = None

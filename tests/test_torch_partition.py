@@ -343,8 +343,8 @@ def test_collectives_without_a_group():
 
 def test_launcher_checks(monkeypatch):
     """No launcher environment: a single-process run (False); a partial
-    one raises; a mesh needs a group of the right size, and one model
-    rank."""
+    one raises; a mesh, with a model axis or without, needs a process
+    group."""
     for v in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(v, raising=False)
     assert tmesh.initialize_distributed(cpu=True) is False
@@ -353,22 +353,22 @@ def test_launcher_checks(monkeypatch):
         tmesh.initialize_distributed(cpu=True)
     with pytest.raises(RuntimeError, match="process group"):
         tmesh.make_mesh(2, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(RuntimeError, match="needs a process group of 4"):
         tmesh.make_mesh(2, 2, device="cpu")
 
 
 @pytest.mark.parametrize("cli,argv,what", [
     (tcli, ["--mesh", "2,1"], "process group"),
     (tcli, ["--distributed"], "process group"),
-    (tcli, ["--mesh", "2,2"], "item 18"),
-    (tcli, ["--mesh", "2,1", "--model", "GAT"], "item 18"),
+    (tcli, ["--mesh", "2,2"], "process group"),
+    (tcli, ["--mesh", "2,1", "--model", "GAT"], "process group"),
     (tcli, ["--reorder", "--mesh", "2,1"], "process group"),
     (tcli, ["--partition", "ring"], "needs --mesh"),
     (tcli_ppi, ["--mesh", "2,1", "--model", "GAT_sparse"], "--epoch-scan"),
     (tcli_ppi, ["--mesh", "2,1", "--model", "GATv2", "--epoch-scan"],
-     "item 18"),
+     "process group"),
     (tcli_ppi, ["--mesh", "4,2", "--model", "GAT_sparse", "--epoch-scan"],
-     "item 18"),
+     "process group"),
 ], ids=["no_group", "distributed_no_group", "model_axis", "dense",
         "reorder", "partition_no_mesh", "ppi_per_batch", "ppi_dense", "ppi_model_axis"])
 def test_clis_refuse_what_is_not_there(monkeypatch, cli, argv, what):

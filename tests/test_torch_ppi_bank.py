@@ -145,12 +145,15 @@ def test_banked_resume_continues_exactly(data, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "GAT_sparse", "--mesh", "2,2", "--epoch-scan"], "item 18"),
-    (["--model", "GAT", "--distributed", "--epoch-scan"], "item 18"),
+    (["--model", "GAT_sparse", "--mesh", "2,2", "--epoch-scan"],
+     "process group"),
+    (["--model", "GAT", "--distributed", "--epoch-scan"], "process group"),
     (["--model", "GAT_sparse", "--platform", "cpu"], "no counterpart"),
 ], ids=["mesh", "distributed", "platform"])
 def test_cli_rejects_unported_flags(argv, item):
-    """Flags whose machinery is not ported raise, naming what ports them."""
+    """Flags that cannot run here raise, saying why: a mesh (a model axis,
+    the dense layer) with no process group behind it, and the JAX
+    platform switch."""
     with pytest.raises(SystemExit, match=item):
         train_ppi.main(argv + ["--no-cuda"])
 

@@ -255,7 +255,8 @@ def test_profiling_trace_top_ops_and_step_timer(small, tmp_path):
 def test_graft_entry_matches_jax():
     """The port's entry() on the CPU: the same graph and features as the
     JAX entry() and, on the JAX entry's parameters, the same forward
-    within 1e-5 of its largest output; dryrun_multichip raises."""
+    within 1e-5 of its largest output; dryrun_multichip without a process
+    group raises, as make_mesh does."""
     import __graft_entry__ as jentry
 
     jfn, (jparams, jx, jgraph, jrng) = jentry.entry()
@@ -277,5 +278,5 @@ def test_graft_entry_matches_jax():
     assert got.shape == want.shape == (2816, 7)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * float(np.abs(want).max()))
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(RuntimeError, match="process group of 4 ranks"):
         graft_entry.dryrun_multichip(4)

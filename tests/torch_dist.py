@@ -188,16 +188,17 @@ def ring_steps(rank, world, spec, cases, steps):
     return got
 
 
-def cli_runs(rank, world, runs, tmp_dir):
+def cli_runs(rank, world, runs, tmp_dir, tag="run"):
     """Each ``(argv, env)`` of ``runs`` through ``cli.train.main`` on this
-    rank's gloo group; returns rank 0's epoch records of each run."""
+    rank's gloo group; returns rank 0's epoch records of each run (logged
+    to ``{tag}{i}-{rank}.jsonl`` in ``tmp_dir``)."""
     import json
 
     from pygat_tpu_torch.cli.train import main
 
     recs = []
     for i, (argv, env) in enumerate(runs):
-        jsonl = os.path.join(str(tmp_dir), f"run{i}-{rank}.jsonl")
+        jsonl = os.path.join(str(tmp_dir), f"{tag}{i}-{rank}.jsonl")
         old = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         try:
@@ -223,13 +224,17 @@ def cli_runs(rank, world, runs, tmp_dir):
 
 
 def group_work(rank, world, ring_spec, cases, steps, runs, ppi_spec,
-               tmp_dir):
+               tmp_dir, model_cases=(), model_runs=()):
     """One group's whole share of a test module: :func:`ring_steps`,
     :func:`cli_runs`, with ``ppi_spec`` :func:`banked_dp` (and in a group
     of 2 :func:`fast_dp`), the error of a
     mesh one rank larger than the group, and the ranks' agreement on a
-    capture that held everywhere and on one the last rank refused (one
-    spawn a module and group size)."""
+    capture that held everywhere and on one the last rank refused; then
+    the same group as a mesh with a model axis (``(1, 2)`` on 2 ranks,
+    ``(2, 2)`` on 4): :func:`model_axis_steps` of ``model_cases``, the CLI
+    runs ``model_runs``, and with ``ppi_spec`` the banked loop (and in a
+    group of 2 the stacked one) at that mesh (one spawn a module and group
+    size)."""
     from pygat_tpu_torch.parallel.mesh import make_mesh
     from pygat_tpu_torch.train.loop import _agree_on_capture
 
@@ -238,23 +243,133 @@ def group_work(rank, world, ring_spec, cases, steps, runs, ppi_spec,
         wrong_size = None
     except RuntimeError as exc:
         wrong_size = str(exc)
-    return dict(ring=ring_steps(rank, world, ring_spec, cases, steps),
-                cli=cli_runs(rank, world, runs, tmp_dir),
-                ppi=None if ppi_spec is None
-                else banked_dp(rank, world, ppi_spec),
-                ppi_fast=None if ppi_spec is None or world != 2
-                else fast_dp(rank, world, ppi_spec),
-                wrong_size=wrong_size,
-                capture=[_agree_on_capture(None, "cpu"), _agree_on_capture(
-                    "RuntimeError: refused" if rank == world - 1 else None,
-                    "cpu")])
+    out = dict(ring=ring_steps(rank, world, ring_spec, cases, steps),
+               cli=cli_runs(rank, world, runs, tmp_dir),
+               ppi=None if ppi_spec is None
+               else banked_dp(rank, world, ppi_spec),
+               ppi_fast=None if ppi_spec is None or world != 2
+               else fast_dp(rank, world, ppi_spec),
+               wrong_size=wrong_size,
+               capture=[_agree_on_capture(None, "cpu"), _agree_on_capture(
+                   "RuntimeError: refused" if rank == world - 1 else None,
+                   "cpu")])
+    mesh = (world // 2, 2)
+    out["model"] = dict(
+        steps=model_axis_steps(rank, world, ring_spec, model_cases, steps,
+                               tmp_dir),
+        cli=cli_runs(rank, world, model_runs, tmp_dir, "model-run"),
+        ppi=None if ppi_spec is None
+        else banked_dp(rank, world, ppi_spec, mesh),
+        ppi_fast=None if ppi_spec is None or world != 2
+        else fast_dp(rank, world, ppi_spec, mesh))
+    return out
 
 
-def banked_dp(rank, world, spec):
-    """``fit_inductive_banked(mesh=)`` on the spec's tiny PPI data; returns
-    the validation history, the best epoch and the final parameters."""
+def _whole(mesh, tensors, flags):
+    """The whole-model numpy arrays of this rank's ``tensors``: each split
+    one gathered over the model group."""
+    from pygat_tpu_torch.parallel import collectives as col
+
+    return [(col.all_gather(t.detach(), mesh.model_group) if f
+             else t.detach()).numpy().copy() for t, f in zip(tensors, flags)]
+
+
+def model_axis_steps(rank, world, spec, cases, steps, tmp_dir):
+    """Per case (layer type, halo) on the mesh ``(world // 2, 2)``: the
+    sparse types over the ring, the dense ones by receiver rows, from the
+    spec's ``mparams`` (``mcfg``, dropout off). Returns this rank's rows of
+    the forward, its loss, the whole gradients and the whole parameters
+    after one Adam step (split leaves gathered over the model group), its
+    own leaves after ``steps`` steps and which are split; for the first
+    case also a checkpoint written under the mesh (``save_state``) read
+    back whole on one device and as this rank's share."""
     import torch
+    import torch.distributed as dist
 
+    from pygat_tpu_torch.models.gat import GATConfig, parameters
+    from pygat_tpu_torch.parallel.distributed import (
+        all_reduce_grads,
+        restore_state,
+        save_state,
+        shard_train_state,
+    )
+    from pygat_tpu_torch.parallel.mesh import make_mesh
+    from pygat_tpu_torch.parallel.ring_model import DenseRowsLoss, RingLoss
+    from pygat_tpu_torch.train import checkpoint as ckpt
+    from pygat_tpu_torch.train.logging import TrainLogger
+    from pygat_tpu_torch.train.loop import _dense_setup, _ring_setup
+    from pygat_tpu_torch.train.state import (
+        init_state,
+        leaf_split,
+        make_optimizer,
+        tensor_leaves,
+    )
+
+    mesh = make_mesh(world // 2, 2, device="cpu")
+    ds = _dataset(spec)
+    quiet = TrainLogger(stream=open(os.devnull, "w"))
+    setups, got = {}, {}
+    for i, (lt, halo) in enumerate(cases):
+        cfg = GATConfig(layer_type=lt, **spec["mcfg"])
+        if cfg.is_sparse not in setups:
+            setup = _ring_setup if cfg.is_sparse else _dense_setup
+            setups[cfg.is_sparse] = setup(cfg, ds, mesh, quiet)
+        local, base = setups[cfg.is_sparse]
+        loss_fn = (RingLoss(cfg, base.blocks, halo, mesh) if cfg.is_sparse
+                   else DenseRowsLoss(cfg, base.neighborhood, mesh))
+        whole = _params(cfg, spec["mparams"][lt])
+        state = shard_train_state(init_state(
+            whole, make_optimizer(whole, spec["lr"], spec["wd"]),
+            torch.Generator()), mesh)
+        flags = state.split
+        rec = {"split": flags}
+        for step in range(steps):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, _, out = loss_fn(state.params, local.features, None,
+                                   local.labels, local.idx_train, None, True)
+            loss.backward()
+            all_reduce_grads(state.params, loss_fn.group)
+            if step == 0:
+                rec["out"] = out.detach().numpy()
+                rec["loss"] = float(loss)
+                rec["grads"] = _whole(mesh, [p.grad for p in
+                                             parameters(state.params)], flags)
+            state.optimizer.step()
+            if step == 0:
+                rec["params1"] = _whole(mesh, parameters(state.params), flags)
+        rec["local_last"] = [p.detach().numpy().copy()
+                             for p in parameters(state.params)]
+        if i == 0:
+            d = os.path.join(str(tmp_dir), f"model-ckpt-{world}")
+            save_state(mesh, d, 0, "m", state)
+            dist.barrier()
+            path = ckpt.best_path(d, "m", 0)
+            one = _params(cfg, spec["mparams"][lt])
+            one_state = init_state(one, make_optimizer(one, 1.0, 0.0),
+                                   torch.Generator())
+            ckpt.restore(path, like=one_state)
+            rec["ckpt_whole"] = [t.detach().numpy().copy()
+                                 for t in tensor_leaves(one_state)]
+            rec["ckpt_whole_want"] = _whole(
+                mesh, tensor_leaves(state), leaf_split(state))
+            fresh = _params(cfg, spec["mparams"][lt])
+            mine = shard_train_state(init_state(
+                fresh, make_optimizer(fresh, 1.0, 0.0), torch.Generator()),
+                mesh)
+            restore_state(path, mine)
+            rec["ckpt_mine"] = all(
+                torch.equal(a, b) for a, b in zip(tensor_leaves(mine),
+                                                  tensor_leaves(state)))
+        got[(lt, halo)] = rec
+    quiet.stream.close()
+    return got
+
+
+def banked_dp(rank, world, spec, mesh_shape=None):
+    """``fit_inductive_banked(mesh=)`` on the spec's tiny PPI data, over a
+    mesh of ``mesh_shape`` (default ``(world, 1)``); returns the
+    validation history, the best epoch and the final parameters (whole:
+    split leaves gathered over the model group)."""
     from pygat_tpu_torch.data import ppi as tppi
     from pygat_tpu_torch.models.gat import GATConfig, parameters
     from pygat_tpu_torch.parallel.mesh import make_mesh
@@ -262,25 +377,31 @@ def banked_dp(rank, world, spec):
     from pygat_tpu_torch.train.logging import TrainLogger
     from tests.torch_ppi_data import synth_ppi
 
-    mesh = make_mesh(world, 1, device="cpu")
+    mesh = make_mesh(*(mesh_shape or (world, 1)), device="cpu")
     cfg = GATConfig(**spec["cfg"])
     with open(os.devnull, "w") as quiet:
         res = fit_inductive_banked(
             cfg, synth_ppi(tppi.PPIGraph, tppi.PPIData), mesh=mesh,
             init_params=_params(cfg, spec["params"]),
             logger=TrainLogger(stream=quiet), **spec["kw"])
-    with torch.no_grad():
-        final = [p.numpy().copy() for p in parameters(res.state.params)]
     return dict(history=res.history, best_epoch=res.best_epoch,
-                params=final, test_loss=res.test_loss)
+                params=_final(mesh, res.state), test_loss=res.test_loss,
+                local=[p.detach().numpy().copy()
+                       for p in parameters(res.state.params)])
 
 
-def fast_dp(rank, world, spec):
+def _final(mesh, state):
+    from pygat_tpu_torch.models.gat import parameters
+
+    flags = state.split or [False] * len(parameters(state.params))
+    return _whole(mesh, parameters(state.params), flags)
+
+
+def fast_dp(rank, world, spec, mesh_shape=None):
     """``fit_inductive_fast(mesh=)`` on the spec's tiny PPI data for the
-    epochs of ``spec["fast_kw"]``; returns the validation history, the best
-    epoch, the test loss and the final parameters."""
-    import torch
-
+    epochs of ``spec["fast_kw"]``, over a mesh of ``mesh_shape`` (default
+    ``(world, 1)``); returns the validation history, the best epoch, the
+    test loss and the final parameters (whole)."""
     from pygat_tpu_torch.data import ppi as tppi
     from pygat_tpu_torch.models.gat import GATConfig, parameters
     from pygat_tpu_torch.parallel.mesh import make_mesh
@@ -288,15 +409,15 @@ def fast_dp(rank, world, spec):
     from pygat_tpu_torch.train.logging import TrainLogger
     from tests.torch_ppi_data import synth_ppi
 
-    mesh = make_mesh(world, 1, device="cpu")
+    mesh = make_mesh(*(mesh_shape or (world, 1)), device="cpu")
     cfg = GATConfig(**spec["cfg"])
     with open(os.devnull, "w") as quiet:
         res = fit_inductive_fast(
             cfg, synth_ppi(tppi.PPIGraph, tppi.PPIData), mesh=mesh,
             init_params=_params(cfg, spec["params"]),
             logger=TrainLogger(stream=quiet), **spec["fast_kw"])
-    with torch.no_grad():
-        final = [p.numpy().copy() for p in parameters(res.state.params)]
     return dict(history=res.history, best_epoch=res.best_epoch,
-                params=final, test_loss=res.test_loss,
-                test_acc=res.test_acc)
+                params=_final(mesh, res.state), test_loss=res.test_loss,
+                test_acc=res.test_acc,
+                local=[p.detach().numpy().copy()
+                       for p in parameters(res.state.params)])
