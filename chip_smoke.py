@@ -8,9 +8,9 @@ of which prints its seconds:
 
 1. print the card (``nvidia-smi`` name and power limit), CUDA and nvcc
    versions;
-2. build the fourteen CUDA kernel libraries (sixteen kernels: the ring's
-   per-hop forwards sit in the stream forwards' sources) from
-   ``pygat_tpu_torch/csrc`` and print
+2. build the seventeen CUDA kernel libraries (twenty-one kernels: the
+   ring's per-hop forwards sit in the stream forwards' sources, f32 and
+   one-limb) from ``pygat_tpu_torch/csrc`` and print
    the build seconds and the compiler's register / shared-memory report;
 3. hold each kernel against its plain PyTorch version on the card, at every
    shape the GAT_sparse and GATv2_sparse paths give it: the stream kernels
@@ -202,7 +202,27 @@ of which prints its seconds:
     four row x head pieces against the single-device dense model; the H/M
     launches timed beside the full-H ones and their bounds; the phase
     fails past MODEL_AXIS_BUDGET_S seconds;
-13. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+13. the ``fastest`` precision mode (one bf16 limb, ``PYGAT_STREAM_PRECISION=
+    fastest``; every earlier phase runs under the unset default,
+    ``high``): the one-limb kernels of rows 1-3 (``stream_scatter_bf16``,
+    ``fused_v1_bf16``, ``fused_v2_bf16``, and the ring's hop forms
+    ``fused_v1_parts_bf16``, ``fused_v2_parts_bf16``) against their plain
+    versions under "fastest" in f64 at the Cora, Pubmed, 524k and PPI
+    shapes and on one Cora ring hop (the segment sums and den to
+    KERNEL_RTOL, the fused forwards' out to FASTEST_RTOL of the same sum
+    over |message|), called twice (equal bit for bit) and timed beside the
+    f32 kernels at the same shapes, their bf16 casts and their bounds with
+    bf16 data and table bytes; Cora GAT_sparse and GATv2_sparse through
+    the CLI under "fastest" by both loops (one run a subprocess with the
+    environment variable) and through the ring CLI at world size 1, each
+    with the counters set to 0 just before and read just after: finite,
+    falling losses, the one-limb kernels launched and the f32 ones not;
+    FASTEST_STEPS Adam steps without dropout within FASTEST_STEPS_RTOL of
+    the same steps under "high"; both Cora models card vs CPU under
+    "fastest" (FASTEST_RTOL); the band plan and the corner plans raise;
+    the Cora epoch of both models by both loops in both modes, in turns;
+    the phase fails past FASTEST_BUDGET_S seconds;
+14. print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 The script imports nothing of JAX or of the JAX package, needs no network
 and starts no process other than ``nvidia-smi``, ``nvcc``, the host C++
@@ -302,7 +322,26 @@ REORDER_BUDGET_S = 60.0
 MODEL_AXIS_M = (2, 4)
 MODEL_AXIS_STEPS = 3
 MODEL_AXIS_BUDGET_S = 90.0
+# the fastest precision mode (phase 13): a one-limb message rounded from an
+# f32 value that differs in its last bit (another exp, another order of
+# the logit's terms) may land on the neighbouring bf16 value, one bf16
+# step away, at most 2^-7 of the message; so the fused forwards' out is
+# held to FASTEST_RTOL of the same sum over |message|, the whole model
+# card vs CPU to FASTEST_RTOL of its scale (den and the segment sums, whose
+# inputs round alike on both sides, to KERNEL_RTOL). FASTEST_STEPS Adam
+# steps without dropout under "fastest" against the same steps under
+# "high": each loss within FASTEST_STEPS_RTOL, relative (bf16 operands and
+# messages, about 2^-9 relative each, through two layers and a softmax).
+FASTEST_RTOL = 2.0 ** -7
+FASTEST_STEPS = 3
+FASTEST_STEPS_RTOL = 2.0 ** -7
+FASTEST_BUDGET_S = 150.0
 REPLACES = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
+            "stream_scatter_bf16": "pygat_tpu/ops/stream.py:153",
+            "fused_v1_bf16": "pygat_tpu/ops/fused_stream.py:134",
+            "fused_v2_bf16": "pygat_tpu/ops/fused_stream.py:207",
+            "fused_v1_parts_bf16": "pygat_tpu/ops/fused_stream.py:134",
+            "fused_v2_parts_bf16": "pygat_tpu/ops/fused_stream.py:207",
             "corner_permute": "pygat_tpu/ops/corner.py:216",
             "fused_v1_window": "pygat_tpu/ops/fused_stream.py:134",
             "fused_v2_window": "pygat_tpu/ops/fused_stream.py:207",
@@ -413,19 +452,21 @@ def _scatter_call(case, g, fn, **kw):
               slot=g.c_slot, **kw)
 
 
-def _check_scatter(case, g, kernel_cases):
-    """A segment-sum case of ``g`` (:func:`_scatter_cases`) against its
-    plain version in f64, to KERNEL_RTOL of the same sums over |data|, and
-    called again, equal bit for bit; appended to ``kernel_cases``."""
+def _check_scatter(case, g, kernel_cases, precision="high"):
+    """A segment-sum case of ``g`` (:func:`_scatter_cases`) at
+    ``precision`` against its plain version in f64, to KERNEL_RTOL of the
+    same sums over |data|, and called again, equal bit for bit; appended
+    to ``kernel_cases`` (under ``stream_scatter_bf16`` for "fastest")."""
     import torch
 
     from pygat_tpu_torch.ops.stream import stream_scatter, stream_scatter_plain
 
-    got = _scatter_call(case, g, stream_scatter)
-    want = _scatter_call(case, g, stream_scatter_plain, f64=True)
+    kw = dict(precision=precision)
+    got = _scatter_call(case, g, stream_scatter, **kw)
+    want = _scatter_call(case, g, stream_scatter_plain, f64=True, **kw)
     mag = _scatter_call(dict(case, data=case["data"].abs()), g,
-                        stream_scatter_plain)
-    again = _scatter_call(case, g, stream_scatter)
+                        stream_scatter_plain, **kw)
+    again = _scatter_call(case, g, stream_scatter, **kw)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("kernel output is not finite")
@@ -433,46 +474,97 @@ def _check_scatter(case, g, kernel_cases):
     err = float(diff.max())
     worst = float((diff / (KERNEL_RTOL * mag + 1e-30)).max())
     repeat = torch.equal(got, again)
-    case.update(max_abs_err=err, bitwise_repeat=repeat)
-    print(f"  stream_scatter {case['dataset']} {case['path']} {case['side']} "
+    case.update(max_abs_err=err, bitwise_repeat=repeat, precision=precision)
+    name = "stream_scatter" if precision == "high" else "stream_scatter_bf16"
+    print(f"  {name} {case['dataset']} {case['path']} {case['side']} "
           f"L={case['L']}: max_abs_err {err:.3e}, worst element at "
           f"{worst:.3f} of its allowance; a second call "
           f"{'' if repeat else 'NOT '}equal bit for bit")
     if worst > 1.0 or not repeat:
-        raise AssertionError("stream_scatter disagrees with its plain version")
-    kernel_cases["stream_scatter"].append(case)
+        raise AssertionError(f"{name} disagrees with its plain version")
+    kernel_cases[name].append(case)
 
 
-def _stream_kernel_cases(name, g, heads, feats, gen, fused, kernel_cases):
+def _fastest_out_err(out, plain, args):
+    """(max |error|, the worst element's share of its allowance) of a
+    one-limb forward's ``out`` against its plain version under "fastest"
+    in f64: FASTEST_RTOL of the same sum over |message| (however many of a
+    row's messages land on their neighbouring bf16 values), and
+    KERNEL_RTOL of it for the order of the f32 sum."""
+    want, _ = plain(*args, f64=True, precision="fastest")
+    mag, _ = plain(*args, f64=True, precision="fastest", magnitude=True)
+    if not bool(out.isfinite().all()):
+        raise AssertionError("kernel output is not finite")
+    diff = (out - want).abs()
+    allowed = (FASTEST_RTOL + KERNEL_RTOL) * mag + 1e-30
+    return float(diff.max()), float((diff / allowed).max())
+
+
+def _stream_kernel_cases(name, g, heads, feats, gen, fused, kernel_cases,
+                         precision="high"):
     """The receiver stream's kernels at one graph's layer widths against
     their plain versions: the segment sums of :func:`_scatter_cases` over
     the graph's walks to KERNEL_RTOL of the same sums over |data| (their
     plain version in f64), the fused forwards over the graph's walk to
-    KERNEL_RTOL of their largest output (their plain versions in f64);
+    KERNEL_RTOL of their largest output (their plain versions in f64; under
+    "fastest" their out to FASTEST_RTOL of the same sum over |message|);
     each, called again, equal bit for bit. Appends each case to
-    ``kernel_cases``."""
+    ``kernel_cases`` (the one-limb kernels' names under "fastest")."""
     import torch
 
     for case in _scatter_cases(name, g, heads, feats, gen):
-        _check_scatter(case, g, kernel_cases)
+        _check_scatter(case, g, kernel_cases, precision)
+    kw = dict(precision=precision)
     for kname, (kernel, plain, make_inputs) in fused.items():
+        kname += "" if precision == "high" else "_bf16"
         for h, f in zip(heads, feats):
             args = make_inputs(g, h, f, gen)
-            out, den = kernel(*args, walk=g.stream_walk)
-            out_p, den_p = plain(*args, f64=True)
+            out, den = kernel(*args, walk=g.stream_walk, **kw)
+            out_p, den_p = plain(*args, f64=True, **kw)
             torch.cuda.synchronize()
-            e1, a1 = _max_err(out, out_p)
+            if precision == "high":
+                e1, a1 = _max_err(out, out_p)
+                held, note = e1 <= a1, f"allowed {a1:.3e}"
+            else:
+                e1, share = _fastest_out_err(out, plain, args)
+                held = share <= 1.0
+                note = f"worst element at {share:.3f} of its allowance"
             e2, a2 = _max_err(den, den_p)
-            again = kernel(*args, walk=g.stream_walk)
+            again = kernel(*args, walk=g.stream_walk, **kw)
             repeat = torch.equal(out, again[0]) and torch.equal(den, again[1])
             print(f"  {kname} {name} H={h} F={f}: max_abs_err out {e1:.3e} "
-                  f"(allowed {a1:.3e}), den {e2:.3e} (allowed {a2:.3e}); a "
+                  f"({note}), den {e2:.3e} (allowed {a2:.3e}); a "
                   f"second call {'' if repeat else 'NOT '}equal bit for bit")
-            if e1 > a1 or e2 > a2 or not repeat:
+            if not held or e2 > a2 or not repeat:
                 raise AssertionError(f"{kname} disagrees with its plain version")
             kernel_cases[kname].append(dict(
                 dataset=name, H=h, F=f, args=args, max_abs_err=max(e1, e2),
-                bitwise_repeat=repeat, n_live=int((g.r_local < 128).sum())))
+                bitwise_repeat=repeat, n_live=int((g.r_local < 128).sum()),
+                precision=precision))
+
+
+def _one_limb_kernel_ms(kname, args, walk, n_rows, **kw):
+    """Device ms of a one-limb fused kernel alone: its entry point on the
+    bf16 copies of the sender tables that its wrapper would make (made
+    once here), ``args`` the wrapper's (``kname``: fused_v1, fused_v2,
+    fused_v1_parts, fused_v2_parts)."""
+    import torch
+
+    from pygat_tpu_torch.ops import fused_stream as fs
+
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    alpha = args[-1]
+    if kname.startswith("fused_v1"):
+        tables, a = (bf(args[0]), *args[1:6]), args[3]
+    elif kname == "fused_v2":
+        whi, whj, ub, a, keepq, senders = args[:6]
+        tables = (whi, bf(whi), bf(whj), ub, a, keepq, senders)
+    else:
+        wi_local, ub, wi_buf, wj_buf, a, keepq, senders = args[:7]
+        tables = (wi_local, bf(wi_buf), bf(wj_buf), ub, a, keepq, senders)
+    wrapper = getattr(fs, kname + "_bf16")
+    return _time_ms(lambda: fs.launch_tile_fused(wrapper, tables, a, n_rows,
+                                                 walk, alpha), **kw)
 
 
 def _time_scatter(case, g):
@@ -486,11 +578,34 @@ def _time_scatter(case, g):
     kw = (dict(calls=BIG_CALLS, replays=BIG_REPLAYS)
           if case["dataset"] == "large" else {})
     n_pad, width = g.num_nodes_padded, case["L"]
-    case["ms"] = _time_ms(lambda: _scatter_call(case, g, stream_scatter), **kw)
+    prec = case.get("precision", "high")
+    one = prec == "fastest"
+    case["ms"] = _time_ms(lambda: _scatter_call(case, g, stream_scatter,
+                                                precision=prec), **kw)
     case["plain_ms"] = _time_ms(
-        lambda: _scatter_call(case, g, stream_scatter_plain), **kw)
+        lambda: _scatter_call(case, g, stream_scatter_plain, precision=prec),
+        **kw)
+    if one:  # the f32 kernel at the same shape, the wrapper's bf16 cast,
+        # and the one-limb kernel alone on a bf16 copy made once
+        from pygat_tpu_torch.ops.stream import (
+            launch_tile_sum,
+            stream_scatter_bf16,
+        )
+
+        case["f32_ms"] = _time_ms(
+            lambda: _scatter_call(case, g, stream_scatter), **kw)
+        case["cast_ms"] = _time_ms(
+            lambda: case["data"].to(torch.bfloat16), **kw)
+        d16 = case["data"].to(torch.bfloat16)
+        recv = case["side"] == "recv"
+        walk = g.stream_walk if recv else g.sender_walk
+        case["kernel_ms"] = _time_ms(lambda: launch_tile_sum(
+            stream_scatter_bf16, d16, None if recv else g.c_slot, walk,
+            n_pad), **kw)
+        del d16
     # one PyTorch call computing the same sums: index_add_ into a zeroed
-    # buffer with one scratch row taking the dead slots
+    # buffer with one scratch row taking the dead slots (of the data rounded
+    # to bf16 under "fastest")
     if case["side"] == "recv":
         idx = torch.where(g.r_local < 128,
                           g.r_chunk.long().repeat_interleave(256) * 128
@@ -498,16 +613,23 @@ def _time_scatter(case, g):
     else:
         idx = g.senders.long()
     lib_out = torch.zeros(n_pad + 1, width, device="cuda")
+    src = case["data"].to(torch.bfloat16).float() if one else case["data"]
     case["library_ms"] = _time_ms(
-        lambda: lib_out.index_add_(0, idx, case["data"]), **kw)
-    del idx, lib_out
+        lambda: lib_out.index_add_(0, idx, src), **kw)
+    del idx, lib_out, src
     idx_words = g.r_local.numel() + g.r_chunk.numel() + (
         g.c_slot.numel() if case["side"] == "send" else 0)
-    n_bytes = 4 * (case["n_live"] * width + idx_words + n_pad * width)
+    # the live slots' data once (bf16 under "fastest"), the index words,
+    # the f32 sums written
+    n_bytes = ((2 if one else 4) * case["n_live"] * width
+               + 4 * (idx_words + n_pad * width))
     case["bound_ms"], case["bound_by"] = _bound(n_bytes, case["n_live"] * width)
-    print(f"  stream_scatter {case['dataset']} {case['path']} "
-          f"{case['side']} L={width}: "
-          f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
+    f32 = (f" (the kernel alone {case['kernel_ms']:.4f} ms), f32 kernel "
+           f"{case['f32_ms']:.4f} ms, bf16 cast {case['cast_ms']:.4f} ms"
+           if one else "")
+    print(f"  stream_scatter{'_bf16' if one else ''} {case['dataset']} "
+          f"{case['path']} {case['side']} L={width}: "
+          f"{case['ms']:.4f} ms{f32}, plain {case['plain_ms']:.4f} ms, "
           f"index_add_ {case['library_ms']:.4f} ms, bound "
           f"{case['bound_ms']:.5f} ms ({case['bound_by']})")
 
@@ -516,31 +638,53 @@ def _time_fused(kname, kernel, plain, case, g):
     """Time a fused-forward case of :func:`_stream_kernel_cases` over
     ``g``'s walk: the kernel, its plain version and the byte bound, into
     ``case`` (no one PyTorch call computes it)."""
+    import torch
+
     args = case["args"]
     kw = (dict(calls=BIG_CALLS, replays=BIG_REPLAYS)
           if case["dataset"] == "large" else {})
     n_pad, h, f = g.num_nodes_padded, case["H"], case["F"]
-    case["ms"] = _time_ms(lambda: kernel(*args, walk=g.stream_walk), **kw)
-    case["plain_ms"] = _time_ms(lambda: plain(*args), **kw)
+    prec = case.get("precision", "high")
+    one = prec == "fastest"
+    case["ms"] = _time_ms(lambda: kernel(*args, walk=g.stream_walk,
+                                         precision=prec), **kw)
+    case["plain_ms"] = _time_ms(lambda: plain(*args, precision=prec), **kw)
     case["library_ms"] = None
+    v1 = kname.startswith("fused_v1")
+    if one:  # the f32 kernel at the same shape, the wrapper's bf16 casts,
+        # and the one-limb kernel alone
+        case["f32_ms"] = _time_ms(lambda: kernel(*args, walk=g.stream_walk),
+                                  **kw)
+        tables = args[:1] if v1 else args[:2]
+        case["cast_ms"] = _time_ms(
+            lambda: [t.to(torch.bfloat16) for t in tables], **kw)
+        case["kernel_ms"] = _one_limb_kernel_ms(
+            kname.replace("_bf16", ""), args, g.stream_walk, n_pad, **kw)
     n_live = case["n_live"]
     index_words = 2 * g.num_edges_padded + g.r_chunk.numel()
-    if kname == "fused_v1":
-        n_bytes = 4 * (n_pad * h * f + 2 * n_pad * h + h * f
-                       + n_live * h + index_words
-                       + n_pad * (h * f + h))
+    # a sender table's value: 4 bytes, 2 in its one-limb bf16 copy
+    tb = 2 if one else 4
+    if v1:
+        n_bytes = tb * n_pad * h * f + 4 * (
+            2 * n_pad * h + h * f + n_live * h + index_words
+            + n_pad * (h * f + h))
         n_flops = n_live * (4 * h * f + 6 * h)
     else:
         # each input once: the node tables whi and whj (their gathered rows
-        # are re-read from L2, not from memory), ub, a, a live slot's keep
-        # factors, the index words; out and den written
-        n_bytes = 4 * (2 * n_pad * h * f + n_pad * h + h * f
-                       + n_live * h + index_words
-                       + n_pad * (h * f + h))
+        # are re-read from L2, not from memory; under "fastest" whi in f32
+        # for the receivers and both in bf16 for the senders), ub, a, a
+        # live slot's keep factors, the index words; out and den written
+        n_bytes = ((4 + 2 if one else 4) * n_pad * h * f
+                   + tb * n_pad * h * f
+                   + 4 * (n_pad * h + h * f + n_live * h + index_words
+                          + n_pad * (h * f + h)))
         n_flops = n_live * (6 * h * f + 6 * h)
     case["bound_ms"], case["bound_by"] = _bound(n_bytes, n_flops)
+    f32 = (f" (the kernel alone {case['kernel_ms']:.4f} ms), f32 kernel "
+           f"{case['f32_ms']:.4f} ms, bf16 casts {case['cast_ms']:.4f} ms"
+           if one else "")
     print(f"  {kname} {case['dataset']} H={h} F={f}: "
-          f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
+          f"{case['ms']:.4f} ms{f32}, plain {case['plain_ms']:.4f} ms, "
           f"bound {case['bound_ms']:.5f} ms ({case['bound_by']})")
 
 
@@ -597,11 +741,12 @@ def _fused_v2_inputs(g, h, f, gen, plan=None):
     return (whi, whj, ub, a) + _tail(g, plan, e, h, gen)
 
 
-def _card_vs_cpu(label, cfg, x, graph, plan=None):
+def _card_vs_cpu(label, cfg, x, graph, plan=None, rtol=MODEL_RTOL):
     """Forward and gradients of the model ``cfg`` on the card against the
     same model on the CPU (kernels against plain versions, end to end),
     the loss summing sin of the outputs of the graph's real rows, over the
-    band plan or the corner plans ``plan`` when one is given."""
+    band plan or the corner plans ``plan`` when one is given; within
+    ``rtol`` of the scale (:func:`_check_grads`)."""
     import torch
 
     from pygat_tpu_torch.models.gat import apply_gat, init_gat, parameters
@@ -623,10 +768,10 @@ def _card_vs_cpu(label, cfg, x, graph, plan=None):
     scale = max(1.0, float(out_p.abs().max()))
     err = float((out_c - out_p).abs().max())
     print(f"{label}, forward card vs CPU: max_abs_err "
-          f"{err:.3e} (allowed {MODEL_RTOL * scale:.3e})")
-    if err > MODEL_RTOL * scale:
+          f"{err:.3e} (allowed {rtol * scale:.3e})")
+    if err > rtol * scale:
         raise AssertionError("model forward on the card disagrees with the CPU")
-    _check_grads(cfg, grads_c, grads_p, "card vs CPU")
+    _check_grads(cfg, grads_c, grads_p, "card vs CPU", rtol)
 
 
 def _zero_grads(cfg):
@@ -639,26 +784,26 @@ def _zero_grads(cfg):
     return [False, True] + [False] * cfg.skip_connection
 
 
-def _check_grads(cfg, got, want, what):
-    """Raise unless each gradient in ``got`` is within MODEL_RTOL of the
+def _check_grads(cfg, got, want, what, rtol=MODEL_RTOL):
+    """Raise unless each gradient in ``got`` is within ``rtol`` of the
     largest magnitude of its ``want``; a gradient that is zero in exact
     arithmetic (:func:`_zero_grads`), rounding noise on either side, is
-    held on both to MODEL_RTOL of the model's largest gradient instead."""
+    held on both to ``rtol`` of the model's largest gradient instead."""
     zero = _zero_grads(cfg)
     top = max(float(g.abs().max()) for g in want)
     for i, (gc, gp) in enumerate(zip(got, want)):
         if zero is not None and zero[i % len(zero)]:
             worst = max(float(gc.abs().max()), float(gp.abs().max()))
             print(f"  grad {i} {tuple(gp.shape)} (zero in exact arithmetic): "
-                  f"largest {worst:.3e} (allowed {MODEL_RTOL * top:.3e})")
-            if not worst <= MODEL_RTOL * top:
+                  f"largest {worst:.3e} (allowed {rtol * top:.3e})")
+            if not worst <= rtol * top:
                 raise AssertionError(f"model gradient {i} is not zero")
             continue
         gscale = max(1e-30, float(gp.abs().max()))
         gerr = float((gc - gp).abs().max())
         print(f"  grad {i} {tuple(gp.shape)}: max_abs_err {gerr:.3e} "
-              f"(allowed {MODEL_RTOL * gscale:.3e})")
-        if not (gerr <= MODEL_RTOL * gscale):
+              f"(allowed {rtol * gscale:.3e})")
+        if not (gerr <= rtol * gscale):
             raise AssertionError(f"model gradient disagrees, {what}")
 
 
@@ -2548,20 +2693,25 @@ def _hop_args(blocks, dst, k, halo, t, keep):
     return fused_v2_parts, fused_v2_parts_plain, args, b.walk, b
 
 
-def _hop_check(kernel, plain, args, walk):
-    """One hop's launch against its f64 plain version, and a second launch:
-    (worst error over its KERNEL_RTOL allowance, max |error|, whether the
+def _hop_check(kernel, plain, args, walk, precision="high"):
+    """One hop's launch at ``precision`` against its f64 plain version, and
+    a second launch: (worst error over its allowance, KERNEL_RTOL; under
+    "fastest" out's as :func:`_fastest_out_err`; max |error|, whether the
     second call is equal bit for bit)."""
     import torch
 
-    out, den = kernel(*args, walk=walk)
-    out_p, den_p = plain(*args, f64=True)
-    again = kernel(*args, walk=walk)
+    out, den = kernel(*args, walk=walk, precision=precision)
+    out_p, den_p = plain(*args, f64=True, precision=precision)
+    again = kernel(*args, walk=walk, precision=precision)
     torch.cuda.synchronize()
-    e1, a1 = _max_err(out, out_p)
+    if precision == "high":
+        e1, a1 = _max_err(out, out_p)
+        w1 = e1 / a1
+    else:
+        e1, w1 = _fastest_out_err(out, plain, args)
     e2, a2 = _max_err(den, den_p)
     repeat = torch.equal(out, again[0]) and torch.equal(den, again[1])
-    return max(e1 / a1, e2 / a2), max(e1, e2), repeat
+    return max(w1, e2 / a2), max(e1, e2), repeat
 
 
 def _check_ring_hops(name, rp, h, f, v2, gen, kernel_cases):
@@ -2742,11 +2892,14 @@ def _block_scatter_cases(name, rp, widths, gen, kernel_cases):
 
 
 def _time_ring_hop(name, rp, t, h, f, exchange, kernel_cases, single_ms,
-                   big=False):
+                   big=False, precision="high"):
     """Hop 1 into shard 0 (the rotation's full shard, or the halo buffer)
-    of the parts kernel of tables ``t``: held to its f64 plain version and
-    called again (equal bit for bit), then its time, its plain version's,
-    its bound, and row 2 or 3's single-device time on the same graph."""
+    of the parts kernel of tables ``t`` at ``precision``: held to its f64
+    plain version and called again (equal bit for bit), then its time, its
+    plain version's, its bound, and row 2 or 3's single-device time on the
+    same graph; under "fastest" (the one-limb kernel) also the f32
+    kernel's time, the bf16 casts' and the kernel's alone, and the bound
+    with bf16 sender rows."""
     import torch
 
     blocks = rp["blocks"]
@@ -2754,15 +2907,18 @@ def _time_ring_hop(name, rp, t, h, f, exchange, kernel_cases, single_ms,
     kernel, plain, args, walk, b = _hop_args(blocks, 0, 1,
                                              exchange == "halo", t, keep)
     v2 = "whi" in t
-    kname = "fused_v2_parts" if v2 else "fused_v1_parts"
-    worst, err, repeat = _hop_check(kernel, plain, args, walk)
+    one = precision == "fastest"
+    kname = ("fused_v2_parts" if v2 else "fused_v1_parts") + (
+        "_bf16" if one else "")
+    worst, err, repeat = _hop_check(kernel, plain, args, walk, precision)
     if worst > 1.0 or not repeat:
         raise AssertionError(f"{kname} {name} {exchange} hop disagrees with "
                              f"its plain version (worst at {worst:.3f} of "
                              f"its allowance, repeat {repeat})")
     kw = dict(calls=BIG_CALLS, replays=BIG_REPLAYS) if big else {}
-    ms = _time_ms(lambda: kernel(*args, walk=walk), **kw)
-    plain_ms = _time_ms(lambda: plain(*args), **kw)
+    ms = _time_ms(lambda: kernel(*args, walk=walk, precision=precision),
+                  **kw)
+    plain_ms = _time_ms(lambda: plain(*args, precision=precision), **kw)
     n_local, n_buf, hf = blocks[0].n_local, b.n_rows, h * f
     live = int(b.mask.sum())
     # the rows the hop reads: its live slots' senders in the sender
@@ -2770,24 +2926,36 @@ def _time_ring_hop(name, rp, t, h, f, exchange, kernel_cases, single_ms,
     n_snd = int(torch.unique(b.senders[b.mask]).numel())
     n_rcv = int(torch.unique(b.recv[b.mask]).numel())
     index_words = 2 * b.recv.shape[0] + b.chunk.shape[0]
-    # each input once: those rows of the sender table(s) and of the
-    # receiver tables, a, a live slot's keep factors, the index words; out
-    # and den written, all n_local rows
-    n_bytes = 4 * ((2 if v2 else 1) * n_snd * hf
-                   + (n_rcv * (hf + h) if v2 else 2 * n_rcv * h)
-                   + hf + live * h + index_words + n_local * (hf + h))
+    # each input once: those rows of the sender table(s) (bf16 under
+    # "fastest") and of the receiver tables, a, a live slot's keep factors,
+    # the index words; out and den written, all n_local rows
+    n_bytes = ((2 if one else 4) * (2 if v2 else 1) * n_snd * hf
+               + 4 * ((n_rcv * (hf + h) if v2 else 2 * n_rcv * h)
+                      + hf + live * h + index_words + n_local * (hf + h)))
     n_flops = live * ((6 if v2 else 4) * hf + 6 * h)
     bound_ms, bound_by = _bound(n_bytes, n_flops)
     case = dict(dataset=name, H=h, F=f, path=f"{exchange} hop", n_buf=n_buf,
                 live=live, senders_read=n_snd, receivers_read=n_rcv, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None, single_device_ms=single_ms, max_abs_err=err,
-                bitwise_repeat=repeat)
+                bitwise_repeat=repeat, precision=precision)
+    extra = ""
+    if one:
+        tables = args[2:4] if v2 else args[:1]
+        case.update(
+            f32_ms=_time_ms(lambda: kernel(*args, walk=walk), **kw),
+            cast_ms=_time_ms(lambda: [x.to(torch.bfloat16) for x in tables],
+                             **kw),
+            kernel_ms=_one_limb_kernel_ms(kname.replace("_bf16", ""), args,
+                                          walk, n_local, **kw))
+        extra = (f" (the kernel alone {case['kernel_ms']:.4f} ms), f32 "
+                 f"kernel {case['f32_ms']:.4f} ms, bf16 casts "
+                 f"{case['cast_ms']:.4f} ms")
     kernel_cases[kname].append(case)
     print(f"  {kname} {name} H={h} F={f} {exchange} hop (n_buf {n_buf}, "
           f"{live} live slots, {n_snd} senders and {n_rcv} receivers read; "
           f"worst at {worst:.3f} of its allowance, a second call equal bit "
-          f"for bit): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"for bit): {ms:.4f} ms{extra}, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.5f} ms ({bound_by}); one device's row "
           f"{'3' if v2 else '2'} on the whole graph "
           f"{'not measured' if single_ms is None else f'{single_ms:.4f} ms'}")
@@ -3732,6 +3900,295 @@ def _model_axis_phase(datasets, ppi, gen, fused, kernel_cases, counters,
     return out
 
 
+# -- phase 13: the fastest precision mode -------------------------------------
+
+
+@contextlib.contextmanager
+def _precision(name):
+    """The stream sums' module default (``PYGAT_STREAM_PRECISION``) set to
+    ``name`` in the body, and restored after it."""
+    from pygat_tpu_torch.ops import segment
+
+    old = segment._STREAM_PRECISION
+    segment._STREAM_PRECISION = name
+    try:
+        yield
+    finally:
+        segment._STREAM_PRECISION = old
+
+
+def _want_fastest(fused_name, epochs, fast):
+    """The wrapper launches of a Cora run of the CLI under "fastest": as
+    phase 4 states for the f32 kernels, on the one-limb ones."""
+    if fast:  # warm-up epoch + captured epoch, and the test forward
+        return {fused_name: 2 * 4 + 2, "stream_scatter_bf16": 2 * 4}
+    return {fused_name: 2 * 2 * epochs + 2,
+            "stream_scatter_bf16": 2 * 2 * epochs}
+
+
+def _fastest_clis(counters, jsonl, path_launches, path_replayed):
+    """Cora GAT_sparse and GATv2_sparse through the CLI under "fastest" by
+    both loops, and through the ring CLI at world size 1 (GAT_sparse by
+    the per-epoch loop, GATv2_sparse by the fast loop), each with the
+    counters set to 0 just before and read just after: finite, falling
+    training losses, the one-limb kernels launched as many times as the
+    f32 ones are under "high", the f32 kernels not at all. The GATv2_sparse
+    fast loop runs as a subprocess given ``PYGAT_STREAM_PRECISION=fastest``
+    (the environment variable reaches the main path), and its printed
+    counts are read."""
+    runs = []
+    for lt, fused_name in (("GAT_sparse", "fused_v1_bf16"),
+                           ("GATv2_sparse", "fused_v2_bf16")):
+        base = ["--dataset", "cora", "--model", lt]
+        runs.append((f"cora {lt}, per-epoch loop, fastest", fused_name,
+                     V1_EPOCHS, base, False))
+        runs.append((f"cora {lt}, fast loop, fastest", fused_name,
+                     TRAIN_EPOCHS, base + ["--epoch-chunk", str(EPOCH_CHUNK)],
+                     lt == "GATv2_sparse"))
+    for label, fused_name, epochs, argv, subprocess_run in runs:
+        fast = "fast loop" in label
+        if subprocess_run:
+            got, losses, replays, captured = _cli_fastest(argv, epochs, jsonl)
+        else:
+            with _precision("fastest"):
+                got, losses, replays, captured, _ = _train_cli(
+                    argv, epochs, counters, jsonl)
+        want = _want_fastest(fused_name, epochs, fast)
+        on = {k: v for k, v in got.items() if v}
+        print(f"phase 13: {label}{' (subprocess)' if subprocess_run else ''}:"
+              f" wrapper launches {on}; {replays} CUDA graph replays, each "
+              f"launching { {k: v for k, v in captured.items() if v} }; "
+              f"train losses {[round(v, 4) for v in losses]}", flush=True)
+        if on != want:
+            raise AssertionError(f"{label}: launches {on}, want {want}")
+        one_replay = {k: v for k, v in captured.items() if v}
+        if fast and (replays != epochs or one_replay != {
+                fused_name: 4, "stream_scatter_bf16": 4}):
+            raise AssertionError(f"{label}: {replays} replays of {captured}")
+        if not fast and replays:
+            raise AssertionError(f"{label}: CUDA graph replays in the "
+                                 "per-epoch loop")
+        path_launches[label] = {k: got.get(k, 0) for k in counters}
+        path_replayed[label] = {k: replays * captured.get(k, 0)
+                                for k in counters}
+    for lt, parts in (("GAT_sparse", "fused_v1_parts_bf16"),
+                      ("GATv2_sparse", "fused_v2_parts_bf16")):
+        fast = lt == "GATv2_sparse"
+        label = (f"ring {lt} at world size 1, "
+                 f"{'fast' if fast else 'per-epoch'} loop, fastest")
+        argv = ["--dataset", "cora", "--model", lt, "--mesh", "1,1",
+                "--partition", "ring", "--distributed"]
+        if fast:
+            argv += ["--epoch-chunk", str(EPOCH_CHUNK)]
+        with _one_rank(), _precision("fastest"):
+            got, losses, replays, captured, text = _train_cli(
+                argv, TRAIN_EPOCHS, counters, jsonl)
+        on = {k: v for k, v in got.items() if v}
+        print(f"phase 13: {label}: wrapper launches {on}; {replays} CUDA "
+              f"graph replays, each launching "
+              f"{ {k: v for k, v in captured.items() if v} }; train losses "
+              f"{[round(v, 4) for v in losses]}", flush=True)
+        if "mesh: data=1 model=1" not in text:
+            raise AssertionError(f"{label}: the CLI did not run on a mesh")
+        if set(on) != {parts, "stream_scatter_bf16"}:
+            raise AssertionError(f"{label}: launches {on}")
+        path_launches[label] = got
+        path_replayed[label] = {k: replays * captured.get(k, 0)
+                                for k in counters}
+
+
+def _cli_fastest(argv, epochs, jsonl):
+    """``PYGAT_STREAM_PRECISION=fastest python -m pygat_tpu_torch.cli.train
+    argv`` as a subprocess. Returns (the launch counts the CLI printed,
+    train losses, its CUDA graph replays, the launches one replay holds)."""
+    if os.path.exists(jsonl):
+        os.remove(jsonl)
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pygat_tpu_torch.cli.train", *argv, "--epochs",
+         str(epochs), "--no-checkpoint", "--log-every", "1", "--jsonl",
+         jsonl],
+        cwd=root, env=dict(os.environ, PYGAT_STREAM_PRECISION="fastest"),
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the fastest CLI returned {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    counts = re.search(r"Kernel launches: (\{.*\})", proc.stdout)
+    replay = re.search(r"CUDA graph replays: (\d+), each launching (\{.*\})",
+                       proc.stdout)
+    if counts is None or "start training on cuda" not in proc.stdout:
+        raise AssertionError("the fastest CLI did not run on CUDA or print "
+                             "its launches:\n" + proc.stdout[-3000:])
+    with open(jsonl) as fh:
+        recs = [json.loads(line) for line in fh]
+    losses = [r["loss_train"] for r in recs if r["kind"] == "epoch"]
+    if len(losses) != epochs or not all(math.isfinite(v) for v in losses):
+        raise AssertionError("train losses missing or not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("training loss did not fall")
+    if replay is None:
+        return json.loads(counts.group(1)), losses, 0, {}
+    return (json.loads(counts.group(1)), losses, int(replay.group(1)),
+            json.loads(replay.group(2)))
+
+
+def _fastest_hops(cora, gen, kernel_cases):
+    """One ring hop of each model under "fastest" (:func:`_time_ring_hop`:
+    hop 1 into shard 0 of Cora's RING_SHARDS-shard blocks, rotation, the
+    preset's layer-1 width; out held to FASTEST_RTOL of the same sum over
+    |message|)."""
+    from pygat_tpu_torch.models.presets import PRESETS
+
+    rp = _ring_partition("cora", cora, phase=13)
+    h, f = PRESETS["cora"]["nheads"][0], PRESETS["cora"]["nfeats"][1]
+    for v2 in (False, True):
+        _time_ring_hop("cora", rp, _ring_tables(rp["il"], h, f, v2, gen), h,
+                       f, "rotation", kernel_cases, None,
+                       precision="fastest")
+    del rp
+
+
+def _fastest_steps(cfg, cora):
+    """FASTEST_STEPS Adam steps of Cora's model ``cfg`` without dropout
+    from the same parameters under "high" and under "fastest": each
+    step's loss, by precision."""
+    import torch
+
+    from pygat_tpu_torch.models.gat import init_gat
+    from pygat_tpu_torch.train.loop import make_transductive_steps
+    from pygat_tpu_torch.train.state import init_state, make_optimizer
+    from pygat_tpu_torch.utils.platform import make_generator
+
+    cfg = cfg._replace(dropout=0.0)
+    out = {}
+    for prec in ("high", "fastest"):
+        with _precision(prec):
+            params = init_gat(cfg, make_generator("cpu", 72), device="cuda")
+            state = init_state(params, make_optimizer(params, 0.005, 5e-4),
+                               make_generator("cuda", 73))
+            train_step, _ = make_transductive_steps(cfg)
+            losses = []
+            for _ in range(FASTEST_STEPS):
+                state, loss, _, _ = train_step(state, cora.features,
+                                               cora.graph, cora.labels,
+                                               cora.idx_train)
+                losses.append(float(loss))
+        out[prec] = losses
+    torch.cuda.synchronize()
+    return out
+
+
+def _fastest_raises(cfg, cora, plans):
+    """Under "fastest" the model over the band plan and over the corner
+    plans raises NotImplementedError naming ROADMAP item 9 (their one-limb
+    kernels are not ported; nothing runs "high" in their place)."""
+    from pygat_tpu_torch.models.gat import apply_gat, init_gat
+    from pygat_tpu_torch.utils.platform import make_generator
+
+    params = init_gat(cfg, make_generator("cpu", 72), device="cuda")
+    for over, plan in plans.items():
+        with _precision("fastest"):
+            try:
+                apply_gat(params, cfg, cora.features, cora.graph, None,
+                          train=False, plans=plan)
+            except NotImplementedError as exc:
+                if "item 9" not in str(exc):
+                    raise
+                print(f"phase 13: Cora {cfg.layer_type} over the {over} "
+                      f"under 'fastest' raises: {exc}")
+                continue
+        raise AssertionError(f"'fastest' over the {over} did not raise")
+
+
+def _fastest_phase(datasets, large, ppi, gen, plans, kernel_cases, counters,
+                   jsonl, path_launches, path_replayed):
+    """Phase 13, the fastest precision mode (module docstring). Returns its
+    numbers."""
+    import torch
+
+    from pygat_tpu_torch.data.ppi import batch_bounds, make_batches
+    from pygat_tpu_torch.models.presets import PRESETS
+    from pygat_tpu_torch.ops.fused_stream import (
+        fused_v1,
+        fused_v1_plain,
+        fused_v2,
+        fused_v2_plain,
+    )
+
+    cora = datasets["cora"]
+    fused = {"fused_v1": (fused_v1, fused_v1_plain, _fused_inputs),
+             "fused_v2": (fused_v2, fused_v2_plain, _fused_v2_inputs)}
+    ppi_fused = dict(fused, fused_v2=(fused_v2, fused_v2_plain,
+                                      _fused_v2_exact_inputs))
+    bounds = [batch_bounds(s, 2) for s in (ppi.train, ppi.valid, ppi.test)]
+    pb = next(make_batches(ppi.train, 2, n_pad=max(b[0] for b in bounds),
+                           e_pad=max(b[1] for b in bounds), shuffle=True,
+                           seed=72, device="cuda"))
+    heads, feats = PRESETS["cora"]["nheads"], PRESETS["cora"]["nfeats"]
+    graphs = {
+        "cora": (cora.graph, heads, feats[1:], fused),
+        "pubmed": (datasets["pubmed"].graph, PRESETS["pubmed"]["nheads"],
+                   PRESETS["pubmed"]["nfeats"][1:], fused),
+        "large": (large.graph, heads, (feats[1], large.num_classes), fused),
+        "ppi batch": (pb.batch.graph, *zip(*PPI_WIDTHS), ppi_fused),
+    }
+    names = ("stream_scatter_bf16", "fused_v1_bf16", "fused_v2_bf16")
+    for name, (g, hs, fs_, fz) in graphs.items():
+        _stream_kernel_cases(name, g, hs, fs_, gen, fz, kernel_cases,
+                             precision="fastest")
+        for case in kernel_cases["stream_scatter_bf16"]:
+            if case["dataset"] == name:
+                _time_scatter(case, g)
+                del case["data"]
+        for kname in names[1:]:
+            kernel, plain, _ = fz[kname[:-len("_bf16")]]
+            for case in kernel_cases[kname]:
+                if case["dataset"] == name:
+                    _time_fused(kname, kernel, plain, case, g)
+                    del case["args"]
+        torch.cuda.empty_cache()
+    del pb, graphs
+    _fastest_hops(cora, gen, kernel_cases)
+    torch.cuda.empty_cache()
+
+    _fastest_clis(counters, jsonl, path_launches, path_replayed)
+    out = {"steps": {}, "epoch_ms": {}}
+    for lt in ("GAT_sparse", "GATv2_sparse"):
+        cfg = _preset_cfg("cora", lt, cora)
+        steps = _fastest_steps(cfg, cora)
+        worst = max(abs(a - b) / abs(b)
+                    for a, b in zip(steps["fastest"], steps["high"]))
+        out["steps"][lt] = dict(steps, worst_relative=worst)
+        print(f"phase 13: Cora {lt}, {FASTEST_STEPS} Adam steps without "
+              f"dropout: losses under 'fastest' {steps['fastest']}, under "
+              f"'high' {steps['high']}; worst relative difference "
+              f"{worst:.3e} (allowed {FASTEST_STEPS_RTOL:.3e})", flush=True)
+        if not worst <= FASTEST_STEPS_RTOL:
+            raise AssertionError("the 'fastest' steps stray from 'high'")
+        with _precision("fastest"):
+            _card_vs_cpu(f"phase 13: Cora {lt} under 'fastest'", cfg,
+                         cora.features, cora.graph, rtol=FASTEST_RTOL)
+        _fastest_raises(cfg, cora, plans)
+        # the Cora epoch in both modes, in turns
+        runs = {}
+        for prec in ("high", "fastest", "fastest", "high"):
+            with _precision(prec):
+                samples, fast = _epoch_ms(cfg, cora)
+            runs.setdefault(prec, []).append(
+                (samples[len(samples) // 2], fast[len(fast) // 2]))
+        out["epoch_ms"][lt] = {
+            prec: {"per_epoch_loop_ms": [r[0] for r in rs],
+                   "fast_loop_ms": [r[1] for r in rs]}
+            for prec, rs in runs.items()}
+        print(f"phase 13: Cora {lt} epoch, host clock (medians, in turns "
+              "high, fastest, fastest, high): "
+              + "; ".join(f"{prec}: per-epoch loop "
+                          f"{[round(r[0], 4) for r in rs]} ms, fast loop "
+                          f"{[round(r[1], 4) for r in rs]} ms"
+                          for prec, rs in runs.items()), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4264,7 +4721,25 @@ def main() -> int:
                              "budget")
     phase_done(12, t0)
 
-    # -- phase 13: the kernels line ---------------------------------------------
+    # -- phase 13: the fastest precision mode ---------------------------------
+    # the one-limb kernels at the main path's shapes against their plain
+    # versions and timed, the CLIs under "fastest" with the counters set to
+    # 0 just before each run and read just after, the steps against
+    # "high", card vs CPU, the plans that raise, the Cora epochs
+    t0 = time.perf_counter()
+    fastest = _fastest_phase(
+        datasets, large, ppi, gen,
+        {"band plan": cora_plan, "corner plans": cora_corner}, kernel_cases,
+        counters, jsonl, path_launches, path_replayed)
+    fastest_s = time.perf_counter() - t0
+    print(f"phase 13: fastest-mode phase {fastest_s:.1f} s (budget "
+          f"{FASTEST_BUDGET_S:.0f} s)", flush=True)
+    if fastest_s > FASTEST_BUDGET_S:
+        raise AssertionError("the fastest-mode phase took longer than its "
+                             "budget")
+    phase_done(13, t0)
+
+    # -- phase 14: the kernels line -------------------------------------------
     launches = {name: sum(v[name] for v in path_launches.values())
                 for name in counters}
     replayed = {name: sum(v[name] for v in path_replayed.values())
@@ -4286,16 +4761,16 @@ def main() -> int:
         # graph for bcsr_attention (one forward at H = 8, F = 8, no
         # dropout mask); every shape is
         # listed under "cases". "launches" sums the wrapper's count over the
-        # main-path runs of phases 4, 6 to 12 (one by one under
+        # main-path runs of phases 4, 6 to 13 (one by one under
         # "launches_by_path"); "replayed_launches" are those of the fast
         # loop's CUDA graph replays, replays x launches captured.
-        main_set = "cora" if name in ("stream_scatter", "fused_v1",
-                                      "fused_v2", "fused_v1_parts",
-                                      "fused_v2_parts") else "large"
+        main_set = "cora" if name.replace("_bf16", "") in (
+            "stream_scatter", "fused_v1", "fused_v2", "fused_v1_parts",
+            "fused_v2_parts") else "large"
         main_cases = [c for c in cases if c["dataset"] == main_set
                       and not c.get("dropout")
                       and c.get("path") not in ("unfused", "ring")]
-        if name.endswith("_parts"):  # one rotation hop, timed
+        if "_parts" in name:  # one rotation hop, timed
             main_cases = [c for c in main_cases
                           if c.get("path") == "rotation hop"]
         lib = [c["library_ms"] for c in main_cases]
@@ -4303,6 +4778,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"pygat_tpu_torch/csrc/{build.WRAPPERS[name].source}.cu",
             "replaces": REPLACES[name],
+            "precision": "fastest" if name.endswith("_bf16") else "high",
             "launches": launches[name],
             "launches_by_path": {k: v[name] for k, v in path_launches.items()},
             "replayed_launches": replayed[name],
@@ -4325,7 +4801,9 @@ def main() -> int:
                                          "max_abs_err", "split_at",
                                          "bitwise_repeat", "hops", "n_buf",
                                          "live", "senders_read",
-                                         "receivers_read", "single_device_ms")
+                                         "receivers_read", "single_device_ms",
+                                         "precision", "kernel_ms", "f32_ms",
+                                         "cast_ms")
                        if k in c}
                       for c in cases],
         })
@@ -4344,6 +4822,7 @@ def main() -> int:
                       "ring": ring,
                       "reorder": reorder,
                       "model_axis": model_axis,
+                      "fastest": fastest,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -81,10 +81,21 @@
 // pygat_tpu_torch/tools/banded_ab.py times these kernels in every order
 // against another checkout's, and their time by altered copies (--ablate).
 //
+// The one-limb instantiations (fused_v1_bf16.cu, fused_v2_bf16.cu: the
+// TPU kernels at two_limb=False, precision="fastest", as their interpret
+// mode computes) read the sender-side rows from a bf16 copy of the node
+// table(s) that the wrapper makes once a call (the TPU kernels' bf16
+// window, at half the gather bytes), and round at the reference's points:
+// a enters the logit as bf16; v2's LeakyReLU'd pre-sum is rounded to bf16
+// before its product with a (the receiver's whi[r] stays f32); each
+// message row(s) * num * keepq is rounded to bf16 before it is added;
+// exp, num, den and both accumulators stay f32 (kOne below).
+//
 // Bound on the H100: bytes of the function (each node table once, or over
-// a window its live rows once; the per-node head terms; a live slot's keep
-// factors; the edge order's index words; out and den once); about 4 HF
-// (v1) or 6 HF (v2) FLOPs per live slot. The walk's words and row_ptr are
+// a window its live rows once, 2 bytes a value for a one-limb sender
+// table; the per-node head terms; a live slot's keep factors; the edge
+// order's index words; out and den once); about 4 HF (v1) or 6 HF (v2)
+// FLOPs per live slot. The walk's words and row_ptr are
 // the kernel's own layout and not counted. Sender rows that neighbouring
 // tiles share (a band plan's window of w tiles, a clustered graph's
 // stream) come from L2 after their first touch; a window's rows are read
@@ -93,6 +104,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "tile_pieces.cuh"
 
@@ -109,10 +121,13 @@ constexpr int TF_SPLIT = 32;     // longest run a unit walks alone
 // si = whi at the sender (the node tables, the window's two column halves,
 // or a ring hop's sender buffers), xr = whi (the receiver's rows: the same
 // table as si on one device, this shard's block in a ring hop), fd unused,
-// shift = ub. s_stride is read over a window only (SlotWalk).
-struct FusedArgs {
-  const float* sj;
-  const float* si;
+// shift = ub. s_stride is read over a window only (SlotWalk). S, the
+// type of the sender-side rows: float, or __nv_bfloat16 in the one-limb
+// instantiations.
+template <class S>
+struct FusedArgsT {
+  const S* sj;
+  const S* si;
   int s_stride;        // row stride of sj and si
   const float* xr;     // [N, HF]
   const float* fd;
@@ -130,6 +145,12 @@ struct FusedArgs {
   float* part_den;  // [n_split, 128, H]
   int hpb, Q, P;    // heads a block, lanes a head, lanes a unit
 };
+using FusedArgs = FusedArgsT<float>;
+
+// the one-limb instantiation: bf16 sender rows, rounded logit operands and
+// messages
+template <class S>
+constexpr bool kOne = std::is_same<S, __nv_bfloat16>::value;
 
 // Walk policies: by walk position k, the slot's sender-side row and its
 // row of keepq; kWindow: the sender-side rows (sj, and si for v2's whi)
@@ -169,8 +190,8 @@ struct Lane {
 // Adds the slots at walk positions [lo, hi), all of receiver row r, into
 // acc (the message, this lane's columns) and dsum (the denominator, the
 // lane's head), in position order; the unit's lanes call it together.
-template <int C, bool kVec, bool kV2, class Walk>
-__device__ __forceinline__ void walk_run(const FusedArgs& p, const Walk& w,
+template <int C, bool kVec, bool kV2, class Walk, class S>
+__device__ __forceinline__ void walk_run(const FusedArgsT<S>& p, const Walk& w,
                                          const Lane<C>& ln, long long r,
                                          int lo, int hi, float (&acc)[C],
                                          float& dsum) {
@@ -214,7 +235,9 @@ __device__ __forceinline__ void walk_run(const FusedArgs& p, const Walk& w,
         for (int i = 0; i < C; ++i) {
           if constexpr (kV2) {
             const float x = rv[i] + vj[u][i];
-            part = fmaf(x >= 0.f ? x : p.alpha * x, ln.a[i], part);
+            float pre = x >= 0.f ? x : p.alpha * x;
+            if constexpr (kOne<S>) pre = bf16_round(pre);
+            part = fmaf(pre, ln.a[i], part);
           } else {
             part = fmaf(vj[u][i], ln.a[i], part);
           }
@@ -231,10 +254,15 @@ __device__ __forceinline__ void walk_run(const FusedArgs& p, const Walk& w,
         const float q = num * kq[u];
 #pragma unroll
         for (int i = 0; i < C; ++i) {
+          float v;
           if constexpr (kV2)
-            acc[i] = fmaf(vi[u][i], q, acc[i]);
+            v = vi[u][i];
           else
-            acc[i] = fmaf(vj[u][i], q, acc[i]);
+            v = vj[u][i];
+          if constexpr (kOne<S>)
+            acc[i] += bf16_round(v * q);  // the message, rounded, then added
+          else
+            acc[i] = fmaf(v, q, acc[i]);
         }
         dsum += num;
       }
@@ -245,9 +273,9 @@ __device__ __forceinline__ void walk_run(const FusedArgs& p, const Walk& w,
 // gridDim = (n_tiles + n_split, head groups, B); blockDim = 128 / B units
 // of P lanes. kSplit: runs longer than TF_SPLIT slots may occur (the
 // walk's max_run says so), and are cut into segments.
-template <int C, bool kVec, bool kV2, bool kSplit, class Walk>
+template <int C, bool kVec, bool kV2, bool kSplit, class Walk, class S>
 __global__ void __launch_bounds__(TF_THREADS)
-tile_fused_kernel(const FusedArgs p, const Walk w) {
+tile_fused_kernel(const FusedArgsT<S> p, const Walk w) {
   const int P = p.P, H = p.H, F = p.F;
   const int units = blockDim.x / P;
   const int unit = threadIdx.x / P;
@@ -264,6 +292,10 @@ tile_fused_kernel(const FusedArgs p, const Walk w) {
   ln.umask = P == 32 ? 0xffffffffu
                      : ((1u << P) - 1) << ((threadIdx.x & 31) & ~(P - 1));
   load_cols<C, false>(p.a + ln.col, ln.nf, ln.a);
+  if constexpr (kOne<S>) {  // a enters the logit as bf16
+#pragma unroll
+    for (int i = 0; i < C; ++i) ln.a[i] = bf16_round(ln.a[i]);
+  }
 
   // the block's chunk range (tile_pieces.cuh) and the unit's row's run
   // within it
@@ -351,17 +383,19 @@ tile_fused_kernel(const FusedArgs p, const Walk w) {
     (tr.piece < 0 ? p.den : p.part_den)[row * H + ln.h] = dsum;
 }
 
-template <int C, bool kVec, bool kV2, class Walk>
-void launch_split(const FusedArgs& p, const Walk& w, bool split, dim3 grid,
-                  int threads, cudaStream_t st) {
+template <int C, bool kVec, bool kV2, class Walk, class S>
+void launch_split(const FusedArgsT<S>& p, const Walk& w, bool split,
+                  dim3 grid, int threads, cudaStream_t st) {
   if (split)
-    tile_fused_kernel<C, kVec, kV2, true><<<grid, threads, 0, st>>>(p, w);
+    tile_fused_kernel<C, kVec, kV2, true, Walk, S>
+        <<<grid, threads, 0, st>>>(p, w);
   else
-    tile_fused_kernel<C, kVec, kV2, false><<<grid, threads, 0, st>>>(p, w);
+    tile_fused_kernel<C, kVec, kV2, false, Walk, S>
+        <<<grid, threads, 0, st>>>(p, w);
 }
 
-template <int C, bool kV2, class Walk>
-int launch_c(const FusedArgs& p, const Walk& w, bool vec, bool split,
+template <int C, bool kV2, class Walk, class S>
+int launch_c(const FusedArgsT<S>& p, const Walk& w, bool vec, bool split,
              dim3 grid, int threads, cudaStream_t st) {
   if constexpr (C % 4 == 0) {
     if (vec) {
@@ -378,8 +412,8 @@ int launch_c(const FusedArgs& p, const Walk& w, bool vec, bool split,
 // if any tile is split, adds the pieces into out and den. Returns the first
 // CUDA error, or cudaGetLastError() after the launches
 // (cudaErrorInvalidValue when F > 256).
-template <bool kV2, class Walk>
-int launch_tile_fused(FusedArgs p, Walk w, int max_run, void* stream) {
+template <bool kV2, class Walk, class S>
+int launch_tile_fused(FusedArgsT<S> p, Walk w, int max_run, void* stream) {
   if (p.n_tiles <= 0 || p.H <= 0) return 0;
   if (p.F <= 0 || p.F > TF_MAX_F)
     return static_cast<int>(cudaErrorInvalidValue);

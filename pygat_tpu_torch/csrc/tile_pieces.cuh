@@ -1,6 +1,7 @@
 // The tile ranges and split tiles of the tile-owner kernels (shared by
 // tile_spmm.cuh, tile_fused.cuh and tile_sum.cuh), and the lane column
-// loads and stores of the last two.
+// loads and stores of the last two (loads from f32 rows, or from bf16 rows
+// for their one-limb instantiations, widened to f32 exactly).
 //
 // An edge order is cut into chunks of EC = 256 slots; every chunk writes one
 // 128-row output tile, and the chunks of tile t are the contiguous range
@@ -14,6 +15,8 @@
 // sum stays reproducible.
 
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "slot_rows.cuh"
 
@@ -90,6 +93,38 @@ __device__ __forceinline__ void load_cols(const float* __restrict__ src,
 #pragma unroll
     for (int i = 0; i < C; ++i) v[i] = i < nf ? __ldg(src + i) : 0.f;
   }
+}
+
+// The same from a bf16 row (kVec: 4 values, 8 bytes, a load; nf a
+// multiple of 4). A bf16 value is the top half of the f32 of the same
+// value, so the widening is a shift.
+template <int C, bool kVec>
+__device__ __forceinline__ void load_cols(
+    const __nv_bfloat16* __restrict__ src, int nf, float (&v)[C]) {
+  if constexpr (kVec) {
+#pragma unroll
+    for (int j = 0; j < C / 4; ++j) {
+      uint2 t = make_uint2(0u, 0u);
+      if (4 * j < nf) t = __ldg(reinterpret_cast<const uint2*>(src) + j);
+      v[4 * j] = __uint_as_float(t.x << 16);
+      v[4 * j + 1] = __uint_as_float(t.x & 0xffff0000u);
+      v[4 * j + 2] = __uint_as_float(t.y << 16);
+      v[4 * j + 3] = __uint_as_float(t.y & 0xffff0000u);
+    }
+  } else {
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+      v[i] = i < nf
+                 ? __uint_as_float(static_cast<unsigned>(__ldg(u + i)) << 16)
+                 : 0.f;
+  }
+}
+
+// x rounded to the nearest bf16 (ties to even), as an f32: the one-limb
+// kernels' rounding of a logit operand or a message before its sum.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 template <int C, bool kVec>

@@ -58,9 +58,16 @@
 // pygat_tpu_torch/tools/spmm_ab.py times both kernels against another
 // checkout's, and their time by altered copies of this body (--ablate).
 //
-// Bound on the H100: bytes: the data rows of the live slots once, their
-// index words, [N_pad, L] written once; one add per float. The walk's
-// row_ptr and tile ranges are the kernel's own layout and not counted.
+// The data rows are f32, or bf16 in the one-limb instantiation
+// (stream_scatter_bf16.cu: the TPU kernel's two_limb=False, whose producer
+// rounds the data to bf16 before the scatter): each bf16 value widens to
+// its f32 exactly and is summed in f32, so the sums are those of the
+// rounded data in the walk's order.
+//
+// Bound on the H100: bytes: the data rows of the live slots once (4 bytes
+// a value, 2 in bf16), their index words, [N_pad, L] f32 written once; one
+// add per value. The walk's row_ptr and tile ranges are the kernel's own
+// layout and not counted.
 
 #pragma once
 
@@ -78,8 +85,9 @@ constexpr int TS_MAX_P = 32;     // lanes a unit
 constexpr int TS_SPLIT = 32;     // longest run a unit walks alone
 constexpr int TS_SEG = 8;        // positions of a long run's segment
 
-struct SumArgs {
-  const float* data;   // [*, L]
+template <class T>  // float, or __nv_bfloat16 (one limb)
+struct SumArgsT {
+  const T* data;       // [*, L]
   const int* rows;     // data row by walk position, or null: the position
   const int* row_ptr;  // [n_tiles * 129 + 1] first position of each key
   const int* tile_ptr;
@@ -89,12 +97,13 @@ struct SumArgs {
   float* part;  // [n_split, 128, L]
   int P;        // lanes a unit
 };
+using SumArgs = SumArgsT<float>;
 
 // Adds the data rows of walk positions [lo, hi) into acc (this lane's
 // columns col .. col + nf - 1), in position order; the unit's lanes call it
 // together.
-template <int C, bool kVec>
-__device__ __forceinline__ void sum_run(const SumArgs& p, int col, int nf,
+template <int C, bool kVec, class T>
+__device__ __forceinline__ void sum_run(const SumArgsT<T>& p, int col, int nf,
                                         int lo, int hi, float (&acc)[C]) {
   for (int k0 = lo; k0 < hi; k0 += TS_BATCH) {
     const int n = min(TS_BATCH, hi - k0);  // the same for the unit
@@ -120,9 +129,9 @@ __device__ __forceinline__ void sum_run(const SumArgs& p, int col, int nf,
 // gridDim = (n_tiles + n_split, column slabs, B); blockDim = 128 / B units
 // of P lanes. kSplit: runs longer than TS_SPLIT positions may occur (the
 // walk's max_run says so), and are cut into segments.
-template <int C, bool kVec, bool kSplit>
+template <int C, bool kVec, bool kSplit, class T>
 __global__ void __launch_bounds__(kSplit ? TS_SPLIT_THREADS : TS_THREADS)
-    tile_sum_kernel(const SumArgs p) {
+    tile_sum_kernel(const SumArgsT<T> p) {
   const int P = p.P;
   const int units = blockDim.x / P;
   const int unit = threadIdx.x / P;
@@ -213,17 +222,17 @@ __global__ void __launch_bounds__(kSplit ? TS_SPLIT_THREADS : TS_THREADS)
                       acc);
 }
 
-template <int C, bool kVec>
-void launch_sum_split(const SumArgs& p, bool split, dim3 grid, int threads,
-                      cudaStream_t st) {
+template <int C, bool kVec, class T>
+void launch_sum_split(const SumArgsT<T>& p, bool split, dim3 grid,
+                      int threads, cudaStream_t st) {
   if (split)
-    tile_sum_kernel<C, kVec, true><<<grid, threads, 0, st>>>(p);
+    tile_sum_kernel<C, kVec, true, T><<<grid, threads, 0, st>>>(p);
   else
-    tile_sum_kernel<C, kVec, false><<<grid, threads, 0, st>>>(p);
+    tile_sum_kernel<C, kVec, false, T><<<grid, threads, 0, st>>>(p);
 }
 
-template <int C>
-int launch_sum_c(const SumArgs& p, bool vec, bool split, dim3 grid,
+template <int C, class T>
+int launch_sum_c(const SumArgsT<T>& p, bool vec, bool split, dim3 grid,
                  int threads, cudaStream_t st) {
   if constexpr (C % 4 == 0) {
     if (vec) {
@@ -239,7 +248,8 @@ int launch_sum_c(const SumArgs& p, bool vec, bool split, dim3 grid,
 // segments when the walk's longest run, max_run, exceeds TS_SPLIT), then,
 // if any tile is split, adds the pieces into out. Returns the first CUDA
 // error, or cudaGetLastError() after the launches.
-inline int launch_tile_sum(SumArgs p, int max_run, void* stream) {
+template <class T>
+int launch_tile_sum(SumArgsT<T> p, int max_run, void* stream) {
   if (p.n_tiles <= 0 || p.L <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int width = p.L < TS_MAX_P * TS_MAX_C ? p.L : TS_MAX_P * TS_MAX_C;

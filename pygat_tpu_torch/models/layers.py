@@ -36,6 +36,14 @@ plans, opt-in) it runs over the receiver stream's slots with sender windows
 built by expand and corner-turn, and draws the stream path's keep mask at
 the stream path's site: the same generator gives both paths the same masks.
 The unfused branch ignores ``plan``, as in the JAX package.
+
+Both sparse branches run at the stream sums' module default precision
+(:func:`~pygat_tpu_torch.ops.segment.stream_precision`, set by
+``PYGAT_STREAM_PRECISION``: ``'high'``, or ``'fastest'``, one bf16 limb),
+as the reference passes ``segment._STREAM_PRECISION``: the fused attention
+op over the receiver stream and the unfused branch's sums. Over a band
+plan or the corner plans ``'fastest'`` raises ``NotImplementedError``:
+their one-limb kernels are not ported yet (ROADMAP item 9).
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ from pygat_tpu_torch.ops.segment import (
     segment_sum,
     segment_sum_receivers,
     sorted_segment_sum,
+    stream_precision,
     take_receivers,
     take_senders,
 )
@@ -423,6 +432,22 @@ def _slots(graph: Graph, plan: BandPlan | CscCsrPlans | None) -> int:
     return plan.num_slots if isinstance(plan, BandPlan) else graph.num_edges_padded
 
 
+def _fused_precision(plan: BandPlan | CscCsrPlans | None) -> str:
+    """The fused attention's precision, the stream sums' module default;
+    raises ``NotImplementedError`` for ``'fastest'`` over a band plan or
+    the corner plans, whose one-limb kernels are not ported (it never runs
+    them at ``'high'`` instead)."""
+    precision = stream_precision()
+    if plan is not None and precision == "fastest":
+        over = ("a band plan" if isinstance(plan, BandPlan)
+                else "the corner plans")
+        raise NotImplementedError(
+            f"precision='fastest' (PYGAT_STREAM_PRECISION) over {over} is "
+            "not ported yet (ROADMAP Queue 1, item 9: the fastest precision "
+            "mode); use 'high' there")
+    return precision
+
+
 def _unfused_aggregate(gathered, logits, bound, graph: Graph, gen, keep,
                        use_drop: bool, n_heads: int, f_out: int):
     """The unfused branch's softmax and aggregation: numerators ``exp(logit
@@ -441,7 +466,8 @@ def _unfused_aggregate(gathered, logits, bound, graph: Graph, gen, keep,
          ).reshape(e_pad, hf),
         num.t(),
     ], dim=1)
-    agg = segment_sum_receivers(msgs, graph)  # [N, HF + H]
+    agg = segment_sum_receivers(msgs, graph,
+                                precision=stream_precision())  # [N, HF + H]
     return softmax_div(agg[:, :hf].reshape(-1, n_heads, f_out), agg[:, hf:])
 
 
@@ -518,6 +544,7 @@ def gat_v1_sparse_heads(
                             float("-inf")).amax(dim=0)
         m_src = torch.where(torch.isfinite(m_src), m_src, 0.0)
         bound = leaky_relu(f_dst_n + m_src[None, :], alpha)
+    precision = _fused_precision(plan)
     keepq = _att_keepq(gen, keep, _slots(graph, plan), n_heads, use_drop,
                        wh.device)
     if isinstance(plan, BandPlan):
@@ -531,7 +558,7 @@ def gat_v1_sparse_heads(
             wh, f_dst_n, bound, params.a[:, f_out:], keepq,
             graph.senders, graph.receivers, graph.r_local, graph.r_chunk,
             graph.c_slot, graph.c_local, graph.c_chunk, alpha,
-            graph.stream_walk, graph.sender_walk,
+            graph.stream_walk, graph.sender_walk, precision,
         )
     out = softmax_div(agg.view(n, n_heads, f_out), den)
     return _heads_tail(out, params, h, x_h, concat, head_sum)
@@ -613,6 +640,7 @@ def gat_v2_sparse_heads(
         out = _unfused_aggregate(gather_senders(whi, graph), logits, ub.t(),
                                  graph, gen, keep, use_drop, n_heads, f_out)
         return _heads_tail(out, params, h, x_h, concat, head_sum)
+    precision = _fused_precision(plan)
     keepq = _att_keepq(gen, keep, _slots(graph, plan), n_heads, use_drop,
                        whi.device)
     if isinstance(plan, BandPlan):
@@ -626,7 +654,7 @@ def gat_v2_sparse_heads(
             whi, whj, ub, params.a, keepq,
             graph.senders, graph.receivers, graph.r_local, graph.r_chunk,
             graph.c_slot, graph.c_local, graph.c_chunk, alpha,
-            graph.stream_walk, graph.sender_walk,
+            graph.stream_walk, graph.sender_walk, precision,
         )
     out = softmax_div(agg.view(n, n_heads, f_out), den)
     return _heads_tail(out, params, h, x_h, concat, head_sum)

@@ -52,6 +52,14 @@ ENTRY_POINTS = {
     "panel_spmm": ("pygat_panel_spmm", [_P] * 9 + [_I] * 4 + [_P] * 3),
     "bcsr_attention": ("pygat_bcsr_attention",
                        [_P] * 9 + [_I] * 5 + [_F] + [_P] * 8),
+    # the one-limb instantiations of the first three (precision="fastest"):
+    # bf16 data or sender tables, the rest as theirs
+    "stream_scatter_bf16": ("pygat_stream_scatter_bf16",
+                            [_P] * 5 + [_I] * 4 + [_P] * 3),
+    "fused_v1_bf16": ("pygat_fused_v1_bf16",
+                      [_P] * 9 + [_I] * 5 + [_F] + [_P] * 5),
+    "fused_v2_bf16": ("pygat_fused_v2_bf16",
+                      [_P] * 10 + [_I] * 5 + [_F] + [_P] * 5),
 }
 SOURCES = tuple(ENTRY_POINTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -40,6 +40,21 @@ reference's segmented-scan lowering, which here computes the same sums as
 backward keeps that choice, since PyTorch runs a backward later, and on
 CUDA in another thread, where the scope is gone.
 
+The stream sums' precision is the reference's switch: ``precision=`` of
+:func:`segment_sum_receivers` / :func:`segment_sum_senders` (``'high'``,
+f32 sums, or ``'fastest'``, the data rounded to one bf16 limb and summed in
+f32: kernel ``csrc/stream_scatter_bf16.cu`` on the card), and where a call
+names none, the module default ``_STREAM_PRECISION``, read once from
+``PYGAT_STREAM_PRECISION`` at import (the sparse layers and the ring read
+it too, and the gathers' backward sums take the value it had when their
+forward ran). The ``index_add_`` branch sums in f32 whatever the precision,
+as the reference's scatter does. One deliberate difference: the unset
+default is ``'high'`` here, where the reference's is ``'fastest'``. The
+reference's ``auto`` runs no stream kernel off the TPU, so on the CPU it
+sums in f32 whatever the variable says; the port's ``auto`` runs the
+stream sums everywhere, and a ``'fastest'`` default would round on the CPU
+where the reference does not.
+
 Edge data may be [E_pad] or [E_pad, ...]; trailing dimensions are summed
 as columns.
 """
@@ -52,7 +67,7 @@ import os
 
 import torch
 
-from pygat_tpu_torch.ops.stream import stream_scatter
+from pygat_tpu_torch.ops.stream import check_precision, stream_scatter
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -199,6 +214,19 @@ def current_impl() -> str:
     return _impl_override.get() or _segment_impl
 
 
+# the stream sums' precision where a caller names none (module docstring)
+_STREAM_PRECISION = os.environ.get("PYGAT_STREAM_PRECISION", "high")
+
+
+def stream_precision(precision: str | None = None) -> str:
+    """``precision``, or the module default ``_STREAM_PRECISION`` when it is
+    None; raises ``ValueError`` unless the result is ``'high'`` or
+    ``'fastest'``."""
+    if precision is None:
+        return check_precision("PYGAT_STREAM_PRECISION", _STREAM_PRECISION)
+    return check_precision("precision", precision)
+
+
 def stream_enabled() -> bool:
     """Whether the stream segment sums are the active lowering."""
     impl = current_impl()
@@ -213,74 +241,80 @@ def stream_enabled() -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _receiver_sum(data: torch.Tensor, graph, stream: bool) -> torch.Tensor:
+def _receiver_sum(data: torch.Tensor, graph, stream: bool,
+                  precision: str) -> torch.Tensor:
     n_pad = graph.num_nodes_padded
     if not stream or graph.r_local is None:
         return segment_sum(data, graph.receivers, n_pad)
     flat = data.reshape(data.shape[0], -1).contiguous()
     out = stream_scatter(flat, graph.r_local, graph.r_chunk, n_pad,
-                         walk=graph.stream_walk)
+                         walk=graph.stream_walk, precision=precision)
     return out.reshape((n_pad,) + tuple(data.shape[1:]))
 
 
-def _sender_sum(data: torch.Tensor, graph, stream: bool) -> torch.Tensor:
+def _sender_sum(data: torch.Tensor, graph, stream: bool,
+                precision: str) -> torch.Tensor:
     n_pad = graph.num_nodes_padded
     if not stream or graph.c_local is None:
         return segment_sum(data, graph.senders, n_pad, sorted_ids=False)
     flat = data.reshape(data.shape[0], -1).contiguous()
     out = stream_scatter(flat, graph.c_local, graph.c_chunk, n_pad,
-                         slot=graph.c_slot, walk=graph.sender_walk)
+                         slot=graph.c_slot, walk=graph.sender_walk,
+                         precision=precision)
     return out.reshape((n_pad,) + tuple(data.shape[1:]))
 
 
 class _SumReceivers(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, graph):
+    def forward(ctx, data, graph, precision):
         ctx.graph = graph
-        return _receiver_sum(data, graph, stream_enabled())
+        return _receiver_sum(data, graph, stream_enabled(), precision)
 
     @staticmethod
     def backward(ctx, g):
-        return g[ctx.graph.receivers.long()], None
+        return g[ctx.graph.receivers.long()], None, None
 
 
 class _SumSenders(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, graph):
+    def forward(ctx, data, graph, precision):
         ctx.graph = graph
-        return _sender_sum(data, graph, stream_enabled())
+        return _sender_sum(data, graph, stream_enabled(), precision)
 
     @staticmethod
     def backward(ctx, g):
-        return g[ctx.graph.senders.long()], None
+        return g[ctx.graph.senders.long()], None, None
 
 
 class _GatherReceivers(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, graph):
         ctx.graph, ctx.stream = graph, stream_enabled()
+        ctx.precision = stream_precision()
         return x[graph.receivers.long()]
 
     @staticmethod
     def backward(ctx, g):
-        return _receiver_sum(g, ctx.graph, ctx.stream), None
+        return _receiver_sum(g, ctx.graph, ctx.stream, ctx.precision), None
 
 
 class _GatherSenders(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, graph):
         ctx.graph, ctx.stream = graph, stream_enabled()
+        ctx.precision = stream_precision()
         return x[graph.senders.long()]
 
     @staticmethod
     def backward(ctx, g):
-        return _sender_sum(g, ctx.graph, ctx.stream), None
+        return _sender_sum(g, ctx.graph, ctx.stream, ctx.precision), None
 
 
 class _GatherReceiversHN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, graph):
         ctx.graph, ctx.stream = graph, stream_enabled()
+        ctx.precision = stream_precision()
         return x[:, graph.receivers.long()]
 
     @staticmethod
@@ -288,7 +322,8 @@ class _GatherReceiversHN(torch.autograd.Function):
         graph = ctx.graph
         if ctx.stream and graph.r_local is not None:
             # [H, E] -> a contiguous [E, H] for the stream sum, and back
-            return _receiver_sum(g.t().contiguous(), graph, True).t(), None
+            return _receiver_sum(g.t().contiguous(), graph, True,
+                                 ctx.precision).t(), None
         out = torch.zeros(g.shape[0], graph.num_nodes_padded, dtype=g.dtype,
                           device=g.device)
         return out.index_add_(1, graph.receivers.long(), g), None
@@ -310,16 +345,21 @@ class _Take(torch.autograd.Function):
         return segment_sum(g, idx, ctx.num_segments), None, None
 
 
-def segment_sum_receivers(data: torch.Tensor, graph) -> torch.Tensor:
+def segment_sum_receivers(data: torch.Tensor, graph, *,
+                          precision: str | None = None) -> torch.Tensor:
     """Sum edge ``data`` [E_pad, ...] per receiver -> [N_pad, ...]; the
-    gradient is ``g[graph.receivers]``."""
-    return _SumReceivers.apply(data, graph)
+    gradient is ``g[graph.receivers]``. ``precision``: ``'high'`` or
+    ``'fastest'`` for the stream sum (None: the module default,
+    ``PYGAT_STREAM_PRECISION``)."""
+    return _SumReceivers.apply(data, graph, stream_precision(precision))
 
 
-def segment_sum_senders(data: torch.Tensor, graph) -> torch.Tensor:
+def segment_sum_senders(data: torch.Tensor, graph, *,
+                        precision: str | None = None) -> torch.Tensor:
     """Sum edge ``data`` [E_pad, ...] per sender -> [N_pad, ...]; the
-    gradient is ``g[graph.senders]``."""
-    return _SumSenders.apply(data, graph)
+    gradient is ``g[graph.senders]``. ``precision`` as
+    :func:`segment_sum_receivers`."""
+    return _SumSenders.apply(data, graph, stream_precision(precision))
 
 
 def gather_receivers(x: torch.Tensor, graph) -> torch.Tensor:

@@ -19,9 +19,16 @@ Three parts:
   :func:`stream_sender_segment_sum`, whose backward is a gather, as in the
   reference's custom VJPs.
 
-The kernel accumulates in f32 (the reference's ``high`` contract). The
-reference's ``fastest`` mode (one bf16 limb) is not ported: the ops that
-take a ``precision`` check it with :func:`require_high`.
+The stream ops take the reference's two precisions (:func:`check_precision`):
+``'high'`` sums the f32 data in f32 (the reference's two bf16 limbs carry
+about 16 mantissa bits; the port keeps all 24), and ``'fastest'``, the
+reference's one bf16 limb, rounds each value to bf16 (to nearest, ties to
+even, as the reference's producer does) and sums the rounded values in
+f32: on a CUDA tensor through the one-limb kernel
+``csrc/stream_scatter_bf16.cu``, which reads the bf16 copy the wrapper
+makes, counted by :func:`stream_scatter_bf16`. The ops whose one-limb
+kernels are not ported yet (the band plan's, the corner path's, the SpMM
+ops') check their ``precision`` with :func:`require_high`.
 """
 
 from __future__ import annotations
@@ -259,6 +266,19 @@ def launch_tile_sum(wrapper, data: torch.Tensor, rows, walk: StreamWalk,
     return out
 
 
+PRECISIONS = ("high", "fastest")
+
+
+def check_precision(what: str, precision: str) -> str:
+    """``precision`` if it is one of the stream ops' two, ``'high'`` (f32
+    sums) or ``'fastest'`` (one bf16 limb); raises ``ValueError`` on any
+    other."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"{what}: unknown precision {precision!r} (one of "
+                         f"{', '.join(map(repr, PRECISIONS))})")
+    return precision
+
+
 def require_high(what: str, precision: str) -> None:
     """Raise unless ``precision`` is ``'high'``, the one precision the port
     has (f32 sums; the reference's two bf16 limbs, about 1e-5)."""
@@ -304,6 +324,7 @@ def stream_scatter_plain(
     *,
     slot: torch.Tensor | None = None,
     f64: bool = False,
+    precision: str = "high",
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`stream_scatter` (``index_add_``).
 
@@ -312,15 +333,19 @@ def stream_scatter_plain(
     sums in float64 and returns float32: the kernel's oracle, since
     ``index_add_``'s own float32 sum of a hub's row (atomics on the card,
     in an order that changes from call to call) is off by up to about 1e-5
-    of it."""
+    of it. Under ``precision='fastest'`` the data are rounded to bf16
+    first, then summed in f32 (or f64)."""
+    check_precision("stream_scatter", precision)
     _check_args(data, local, chunk_tile, n_pad, slot)
     rows = chunk_tile.long().repeat_interleave(EC) * TILE + local.long()
     rows = torch.where(local < TILE, rows, n_pad)
     src = data if slot is None else data[slot.long()]
-    dtype = torch.float64 if f64 else data.dtype
+    if precision == "fastest":
+        src = src.to(torch.bfloat16)
+    dtype = torch.float64 if f64 else torch.float32
     out = torch.zeros(n_pad + 1, data.shape[1], dtype=dtype,
                       device=data.device)
-    return out.index_add_(0, rows, src.to(dtype))[:n_pad].to(data.dtype)
+    return out.index_add_(0, rows, src.to(dtype))[:n_pad].to(torch.float32)
 
 
 @build.counted
@@ -332,6 +357,7 @@ def stream_scatter(
     *,
     slot: torch.Tensor | None = None,  # [E_s] int32 data row per slot
     walk: StreamWalk | None = None,
+    precision: str = "high",
 ) -> torch.Tensor:
     """Segment-sum stream-ordered ``data`` into ``[n_pad, L]`` f32.
 
@@ -339,13 +365,17 @@ def stream_scatter(
     ``graph.stream_walk`` for the receiver stream, ``graph.sender_walk``
     for the CSC stream, a band plan's receiver walk for its banded order.
     On a CUDA tensor this launches ``csrc/stream_scatter.cu`` over the walk
-    (and counts the launch in ``stream_scatter.launches``), whose result is
-    the same bit for bit from call to call, and raises without a walk; on a
-    CPU tensor it runs :func:`stream_scatter_plain`. Not differentiable:
-    use the autograd Functions below.
+    (and counts the launch in ``stream_scatter.launches``), or under
+    ``precision='fastest'`` ``csrc/stream_scatter_bf16.cu`` on a bf16 copy
+    of ``data`` (counted in ``stream_scatter_bf16.launches``), whose result
+    is the same bit for bit from call to call, and raises without a walk;
+    on a CPU tensor it runs :func:`stream_scatter_plain`. Not
+    differentiable: use the autograd Functions below.
     """
+    check_precision("stream_scatter", precision)
     if data.device.type == "cpu":
-        return stream_scatter_plain(data, local, chunk_tile, n_pad, slot=slot)
+        return stream_scatter_plain(data, local, chunk_tile, n_pad, slot=slot,
+                                    precision=precision)
     if data.device.type != "cuda":
         raise ValueError(f"stream_scatter: unsupported device {data.device}")
     _check_args(data, local, chunk_tile, n_pad, slot)
@@ -353,9 +383,22 @@ def stream_scatter(
     if walk.order is not None and slot is not None:
         raise ValueError("stream_scatter: a walk with its own order takes no "
                          "slot map")
-    return launch_tile_sum(stream_scatter, data,
-                           slot if walk.order is None else walk.order, walk,
-                           n_pad)
+    rows = slot if walk.order is None else walk.order
+    if precision == "fastest":
+        return launch_tile_sum(stream_scatter_bf16, data.to(torch.bfloat16),
+                               rows, walk, n_pad)
+    return launch_tile_sum(stream_scatter, data, rows, walk, n_pad)
+
+
+@build.counted
+def stream_scatter_bf16(data, local, chunk_tile, n_pad: int, *,
+                        slot: torch.Tensor | None = None,
+                        walk: StreamWalk | None = None) -> torch.Tensor:
+    """:func:`stream_scatter` under ``precision='fastest'``, whose launches
+    of the one-limb kernel ``csrc/stream_scatter_bf16.cu`` (the TPU
+    kernel's ``two_limb=False`` instantiation) this wrapper counts."""
+    return stream_scatter(data, local, chunk_tile, n_pad, slot=slot,
+                          walk=walk, precision="fastest")
 
 
 # ---------------------------------------------------------------------------
@@ -365,52 +408,58 @@ def stream_scatter(
 
 class _StreamSegmentSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, segment_ids, local, chunk_tile, n_pad, walk):
+    def forward(ctx, data, segment_ids, local, chunk_tile, n_pad, walk,
+                precision):
         ctx.save_for_backward(segment_ids)
         return stream_scatter(data.contiguous(), local, chunk_tile, n_pad,
-                              walk=walk)
+                              walk=walk, precision=precision)
 
     @staticmethod
     def backward(ctx, g):
         (segment_ids,) = ctx.saved_tensors
-        return g[segment_ids.long()], None, None, None, None, None
+        return (g[segment_ids.long()],) + (None,) * 6
 
 
 def stream_segment_sum(data, segment_ids, local, chunk_tile, n_pad: int,
-                       walk: StreamWalk | None = None):
+                       walk: StreamWalk | None = None,
+                       precision: str = "high"):
     """Receiver-side segment sum of stream-ordered ``data`` [E_s, L].
 
     ``segment_ids`` (the padded receivers) are used only by the backward
     gather; the forward trusts the stream layout. ``walk``
-    (``graph.stream_walk``) is the kernel's, needed on CUDA tensors.
+    (``graph.stream_walk``) is the kernel's, needed on CUDA tensors;
+    ``precision`` as :func:`stream_scatter` (the backward, a gather, is
+    exact either way).
     """
     return _StreamSegmentSum.apply(data, segment_ids, local, chunk_tile, n_pad,
-                                   walk)
+                                   walk, precision)
 
 
 class _StreamSenderSegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, senders, c_slot, c_local, c_chunk_tile, n_pad,
-                walk):
+                walk, precision):
         ctx.save_for_backward(senders)
         return stream_scatter(data.contiguous(), c_local, c_chunk_tile, n_pad,
-                              slot=c_slot, walk=walk)
+                              slot=c_slot, walk=walk, precision=precision)
 
     @staticmethod
     def backward(ctx, g):
         (senders,) = ctx.saved_tensors
-        return g[senders.long()], None, None, None, None, None, None
+        return (g[senders.long()],) + (None,) * 7
 
 
 def stream_sender_segment_sum(data, senders, c_slot, c_local, c_chunk_tile,
-                              n_pad: int, walk: StreamWalk | None = None):
+                              n_pad: int, walk: StreamWalk | None = None,
+                              precision: str = "high"):
     """Per-sender segment sum of edge ``data`` [E_pad, L].
 
     ``c_slot`` maps sender-sorted stream positions to edge indices (clipped
     to >= 0; dead slots are killed by ``c_local == DEAD``). The kernel reads
     ``data[c_slot[k]]`` itself, so no stream-ordered copy is made. ``walk``
     (``graph.sender_walk``, the CSC stream's) is the kernel's, needed on
-    CUDA tensors. The gradient with respect to ``data`` is ``g[senders]``.
+    CUDA tensors; ``precision`` as :func:`stream_scatter`. The gradient
+    with respect to ``data`` is ``g[senders]``.
     """
     return _StreamSenderSegmentSum.apply(data, senders, c_slot, c_local,
-                                         c_chunk_tile, n_pad, walk)
+                                         c_chunk_tile, n_pad, walk, precision)

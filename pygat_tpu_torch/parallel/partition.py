@@ -431,35 +431,41 @@ def _sum_rows(data, rows, n_rows):
 
 class _BlockRecvReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, blk, stream):
+    def forward(ctx, data, blk, stream, precision):
         ctx.blk = blk
         if stream:
             return stream_scatter(data.contiguous(), blk.local, blk.chunk,
-                                  blk.n_local, walk=blk.walk)
+                                  blk.n_local, walk=blk.walk,
+                                  precision=precision)
         return _sum_rows(data, blk.recv, blk.n_local)
 
     @staticmethod
     def backward(ctx, g):
-        return g[ctx.blk.recv.long()], None, None
+        return g[ctx.blk.recv.long()], None, None, None
 
 
-def block_recv_reduce(data: torch.Tensor, blk: Block,
-                      stream: bool) -> torch.Tensor:
+def block_recv_reduce(data: torch.Tensor, blk: Block, stream: bool,
+                      precision: str | None = None) -> torch.Tensor:
     """Per-receiver sum of block ``data`` [E_blk, L] into [n_local, L]:
-    row 1 over the block's receiver walk with ``stream``, else
-    ``index_add_``. Its gradient is the gather at the receivers."""
-    return _BlockRecvReduce.apply(data, blk, stream)
+    row 1 over the block's receiver walk with ``stream`` (at ``precision``,
+    by default the stream sums' module default, as the reference's
+    ``_stream_args``), else ``index_add_``. Its gradient is the gather at
+    the receivers."""
+    return _BlockRecvReduce.apply(data, blk, stream,
+                                  segment.stream_precision(precision))
 
 
 class _BlockTakeReceivers(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, blk, stream):
         ctx.blk, ctx.stream = blk, stream
+        ctx.precision = segment.stream_precision()
         return x[blk.recv.long()]
 
     @staticmethod
     def backward(ctx, g):
-        return block_recv_reduce(g, ctx.blk, ctx.stream), None, None
+        return (block_recv_reduce(g, ctx.blk, ctx.stream, ctx.precision),
+                None, None)
 
 
 def block_take_receivers(x: torch.Tensor, blk: Block,
@@ -472,6 +478,7 @@ class _BlockTakeSenders(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, blk, stream):
         ctx.blk, ctx.stream = blk, stream
+        ctx.precision = segment.stream_precision()
         return x[blk.senders.long()]
 
     @staticmethod
@@ -480,7 +487,8 @@ class _BlockTakeSenders(torch.autograd.Function):
         if ctx.stream:
             dx = stream_scatter(g.contiguous(), blk.s_local, blk.s_chunk,
                                 blk.n_rows, slot=blk.s_slot,
-                                walk=blk.sender_walk)
+                                walk=blk.sender_walk,
+                                precision=ctx.precision)
         else:
             dx = _sum_rows(g, blk.senders, blk.n_rows)
         return dx, None, None
@@ -535,7 +543,7 @@ def ring_hop_v1(acc, w_buf, k: int, blocks: ShardBlocks, f_dst, bound,
         agg, den = fused_v1_attention_parts(
             f_dst, bound, w_buf, a_src, keep_k, blk.senders, blk.recv,
             blk.local, blk.chunk, blk.s_slot, blk.s_local, blk.s_chunk,
-            alpha, blk.walk, blk.sender_walk)
+            alpha, blk.walk, blk.sender_walk, segment.stream_precision())
         return acc + torch.cat([agg, den], dim=1)
     w_g = block_take_senders(w_buf, blk, stream)  # [E, HF]
     l_src = (w_g.view(-1, h, f) * a_src).sum(-1)
@@ -565,7 +573,7 @@ def ring_hop_v2(acc, wi_buf, wj_buf, k: int, blocks: ShardBlocks, wi_local,
         agg, den = fused_v2_attention_parts(
             wi_local, ub, wi_buf, wj_buf, a, keep_k, blk.senders, blk.recv,
             blk.local, blk.chunk, blk.s_slot, blk.s_local, blk.s_chunk,
-            alpha, blk.walk, blk.sender_walk)
+            alpha, blk.walk, blk.sender_walk, segment.stream_precision())
         return acc + torch.cat([agg, den], dim=1)
     wj_g = block_take_senders(wj_buf, blk, stream)
     wiub_e = block_take_receivers(torch.cat([wi_local, ub], dim=1), blk,

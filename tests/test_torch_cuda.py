@@ -48,7 +48,12 @@ The receiver stream's kernels also run at the PPI preset's widths on a
 block-diagonal batch (the fused forwards at H 4 F 256 and H 6 F 121, the
 segment sums at L = 726 to 2,048), and a batch assembled from a PPI bank
 on the card carries walks equal to those built from its fields.
-chip_smoke.py covers the main path's full-size shapes.
+The one-limb instantiations of the receiver stream's kernels (``precision=
+"fastest"``: ``stream_scatter_bf16.cu``, ``fused_v1_bf16.cu``,
+``fused_v2_bf16.cu``) run in every order and at the same odd widths,
+against their plain versions under "fastest" in f64, counted apart from
+the f32 kernels, capturable, and card against CPU through the autograd
+Functions. chip_smoke.py covers the main path's full-size shapes.
 """
 
 from __future__ import annotations
@@ -2211,3 +2216,193 @@ def test_fit_inductive_fast_card_vs_cpu(cuda, layer_type):
     for ref in (cpu, per_batch):
         np.testing.assert_allclose(card.history, ref.history, rtol=1e-4)
         assert card.best_epoch == ref.best_epoch
+
+
+# -- the one-limb kernels (precision="fastest") -------------------------------
+
+# A one-limb message rounded from an f32 value that differs in its last bit
+# (another exp, another order of the logit's terms) may land on the
+# neighbouring bf16 value, one bf16 step away: at most 2^-7 of the
+# message. The fused forwards' out is held to that share of the same sum
+# over |message| (``magnitude=True``; however many of a row's messages
+# flip), plus RTOL of it for the order of the f32 sum; den and the segment
+# sums, whose inputs round alike on both sides, to RTOL.
+FASTEST_RTOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("kind", ["graph", "empty_tile", "hub"])
+@pytest.mark.parametrize("width", [1, 7, 8, 64, 130, 300])
+def test_stream_scatter_bf16_kernel_matches_plain(cuda, width, kind):
+    """``stream_scatter_bf16.cu`` in each of the graph's orders against the
+    plain version of the same bf16-rounded data summed in f64, to RTOL of
+    the same sums over |data|; counted apart from the f32 kernel; two
+    calls equal bit for bit."""
+    g = _hub(cuda) if kind == "hub" else _graph(cuda, kind == "empty_tile")
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    data = torch.randn(g.num_edges_padded, width, generator=gen, device=cuda)
+    data_c = torch.randn(g.c_local.numel(), width, generator=gen, device=cuda)
+    n_pad = g.num_nodes_padded
+    orders = [(data, (g.r_local, g.r_chunk, n_pad), {}, g.stream_walk),
+              (data, (g.c_local, g.c_chunk, n_pad), dict(slot=g.c_slot),
+               g.sender_walk),
+              (data_c, (g.c_local, g.c_chunk, n_pad), {}, g.sender_walk)]
+    before = (st.stream_scatter.launches, st.stream_scatter_bf16.launches)
+    for d, lay, kw, walk in orders:
+        got = st.stream_scatter(d, *lay, walk=walk, precision="fastest",
+                                **kw)
+        again = st.stream_scatter_bf16(d, *lay, walk=walk, **kw)
+        want = st.stream_scatter_plain(d, *lay, f64=True, precision="fastest",
+                                       **kw)
+        mag = st.stream_scatter_plain(d.abs(), *lay, precision="fastest", **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.equal(got, again)
+        assert bool(((got - want).abs() <= RTOL * mag + 1e-30).all())
+        high = st.stream_scatter_plain(d, *lay, f64=True, **kw)
+        assert float((got - high).abs().max()) > 1e-5 * float(mag.max())
+    assert (st.stream_scatter.launches,
+            st.stream_scatter_bf16.launches) == (before[0], before[1] + 6)
+
+
+def _bf16_cases(g, which, h, f, gen, device):
+    """(kernel, bf16 wrapper, plain, args) of a one-limb stream forward:
+    row 2 or 3 on the graph, or its ring-hop form over a sender table of
+    other rows (the graph's table with one row more)."""
+    if which.startswith("v1"):
+        args = _fused_args(g, h, f, gen, device)
+        if which == "v1":
+            return fs.fused_v1, fs.fused_v1_bf16, fs.fused_v1_plain, args
+        wh, f_dst, bound, a_src, *tail = args
+        w_buf = torch.cat([wh, wh[:1]])
+        return (fs.fused_v1_parts, fs.fused_v1_parts_bf16,
+                fs.fused_v1_parts_plain, [w_buf, f_dst, bound, a_src, *tail])
+    args = _fused_v2_args(g, h, f, gen, device)
+    if which == "v2":
+        return fs.fused_v2, fs.fused_v2_bf16, fs.fused_v2_plain, args
+    whi, whj, ub, a, *tail = args
+    return (fs.fused_v2_parts, fs.fused_v2_parts_bf16, fs.fused_v2_parts_plain,
+            [whi, ub, torch.cat([whi, whi[:1]]), torch.cat([whj, whj[:1]]),
+             a, *tail])
+
+
+@pytest.mark.parametrize("h,f", [(8, 8), (1, 7), (3, 5), (2, 130), (1, 256)])
+@pytest.mark.parametrize("which", ["v1", "v2", "v1_parts", "v2_parts"])
+@pytest.mark.parametrize("kind", ["hub", "empty_tile"])
+def test_fused_bf16_kernels_match_plain(cuda, kind, which, h, f):
+    """``fused_v1_bf16.cu`` / ``fused_v2_bf16.cu`` (through the stream
+    forwards and the ring's hop forms) against their plain versions under
+    'fastest' in f64: out to FASTEST_RTOL of the same sum over |message|,
+    den to RTOL; each launch counted on its one-limb wrapper only; two
+    calls equal bit for bit; apart from the f32 kernel's result."""
+    g = _hub(cuda) if kind == "hub" else _graph(cuda, True)
+    gen = torch.Generator(device=cuda).manual_seed(10 * h + f)
+    kernel, bf16, plain, args = _bf16_cases(g, which, h, f, gen, cuda)
+    counts = (kernel.launches, bf16.launches)
+    out, den = kernel(*args, walk=g.stream_walk, precision="fastest")
+    again = bf16(*args, walk=g.stream_walk)
+    torch.cuda.synchronize()
+    assert (kernel.launches, bf16.launches) == (counts[0], counts[1] + 2)
+    assert torch.equal(out, again[0]) and torch.equal(den, again[1])
+    out_p, den_p = plain(*args, f64=True, precision="fastest")
+    mag, _ = plain(*args, f64=True, precision="fastest", magnitude=True)
+    assert torch.isfinite(out).all()
+    allowed = (FASTEST_RTOL + RTOL) * mag + 1e-30
+    assert bool(((out - out_p).abs() <= allowed).all())
+    _close(den, den_p)
+    out_h, _ = kernel(*args, walk=g.stream_walk)
+    assert float((out - out_h).abs().max()) > 1e-5 * float(mag.max())
+    if kind == "empty_tile":
+        assert float(out[128:256].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("which", ["v1", "v2"])
+def test_fused_bf16_launch_is_capturable(cuda, which):
+    """A one-limb launch inside CUDA-graph capture (the table's bf16 cast
+    captured with it) replays to the plain version's result on fresh
+    inputs."""
+    g = _graph(cuda, False)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    kernel, _, plain, args = _bf16_cases(g, which, 8, 8, gen, cuda)
+    kernel(*args, walk=g.stream_walk, precision="fastest")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, den = kernel(*args, walk=g.stream_walk, precision="fastest")
+    args[0].copy_(torch.randn(args[0].shape, generator=gen, device=cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    out_p, den_p = plain(*args, f64=True, precision="fastest")
+    mag, _ = plain(*args, f64=True, precision="fastest", magnitude=True)
+    allowed = (FASTEST_RTOL + RTOL) * mag + 1e-30
+    assert bool(((out - out_p).abs() <= allowed).all())
+    _close(den, den_p)
+
+
+@pytest.mark.parametrize("which", ["v1", "v2"])
+def test_fused_bf16_attention_gradients_card_vs_cpu(cuda, which):
+    """The autograd Functions under 'fastest' on the card (one-limb
+    forward, one-limb segment sums in the backward) against the same
+    Functions on the CPU: out to FASTEST_RTOL of its scale, the gradients
+    to FASTEST_RTOL of theirs."""
+    g = _graph(cuda, False)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    _, _, _, args = _bf16_cases(g, which, 4, 8, gen, cuda)
+    gc = torch.Generator(device=cuda).manual_seed(7)
+    g_out = torch.randn(g.num_nodes_padded, 32, generator=gc, device=cuda)
+    g_den = torch.randn(g.num_nodes_padded, 4, generator=gc, device=cuda)
+    op = fs.fused_v1_attention if which == "v1" else fs.fused_v2_attention
+    res = {}
+    for dev in ("cuda", "cpu"):
+        gd = g.to(dev)
+        x0, x1, shift, x3, keepq = (t.to(dev) for t in args[:5])
+        leaves = [t.clone().requires_grad_() for t in (x0, x1, x3)]
+        before = build.launch_counts()
+        out, den = op(leaves[0], leaves[1], shift, leaves[2], keepq,
+                      gd.senders, gd.receivers, gd.r_local, gd.r_chunk,
+                      gd.c_slot, gd.c_local, gd.c_chunk, 0.2,
+                      gd.stream_walk, gd.sender_walk, precision="fastest")
+        grads = torch.autograd.grad((out, den), leaves,
+                                    (g_out.to(dev), g_den.to(dev)))
+        if dev == "cuda":
+            launched = {k: v - before[k]
+                        for k, v in build.launch_counts().items()
+                        if v - before[k]}
+            assert launched == {f"fused_{which}_bf16": 1,
+                                "stream_scatter_bf16": 2}
+        res[dev] = [t.detach().cpu() for t in (out, den, *grads)]
+    for got, want in zip(res["cuda"], res["cpu"]):
+        scale = max(1e-30, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= FASTEST_RTOL * scale
+
+
+def test_bf16_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
+    """Under 'fastest' on a CUDA tensor the wrappers launch the one-limb
+    kernels or raise: never the plain version, never the f32 kernel."""
+    g = _graph(cuda, False)
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for mod, name in ((st, "stream_scatter_plain"), (fs, "fused_v1_plain"),
+                      (fs, "fused_v2_plain"), (fs, "fused_v1_parts_plain"),
+                      (fs, "fused_v2_parts_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    n_pad = g.num_nodes_padded
+    data = torch.zeros(g.num_edges_padded, 3, device=cuda)
+    with pytest.raises(ValueError, match="walk"):
+        st.stream_scatter(data, g.r_local, g.r_chunk, n_pad,
+                          precision="fastest")
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    before = build.launch_counts()
+    for which in ("v1", "v2", "v1_parts", "v2_parts"):
+        kernel, _, _, args = _bf16_cases(g, which, 2, 3, gen, cuda)
+        kernel(*args, walk=g.stream_walk, precision="fastest")
+        with pytest.raises(ValueError, match="walk"):
+            kernel(*args, precision="fastest")
+    st.stream_scatter(data, g.r_local, g.r_chunk, n_pad, walk=g.stream_walk,
+                      precision="fastest")
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in build.launch_counts().items()
+                if v - before[k]}
+    assert launched == {"fused_v1_bf16": 1, "fused_v2_bf16": 1,
+                        "fused_v1_parts_bf16": 1, "fused_v2_parts_bf16": 1,
+                        "stream_scatter_bf16": 1}
