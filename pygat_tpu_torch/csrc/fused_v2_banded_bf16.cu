@@ -1,0 +1,39 @@
+// Fused GATv2 attention forward over a band plan from bf16 sender tables,
+// for Hopper (sm_90a): the one-limb instantiation of fused_v2_banded.cu.
+//
+// Replaces the Pallas TPU kernel pygat_tpu/ops/banded.py::
+// _make_v2_banded_kernel at two_limb=False (launched by _banded_grid_call
+// under precision="fastest"), which selects each chunk's sender
+// [whj | whi] rows from one bf16 window, adds whj[s] to the receiver's f32
+// whi[r], rounds the LeakyReLU'd sum and a to bf16 for the logit, and adds
+// each message whi[s] * num * keepq rounded to bf16 into f32: the rounding
+// points of the stream's one-limb kernel (fused_v2_bf16.cu). Here the
+// wrapper (ops/banded.py fused_v2_banded) casts whj and whi to bf16 once a
+// call, and the tile-owner body tile_fused.cuh walks the plan's walk as
+// fused_v2_banded.cu does, gathering the sender rows at 2 bytes a value
+// (tile_fused.cuh describes the kernel, its rounding and what bounds it).
+
+#include "tile_fused.cuh"
+
+// whi [N, H*F] f32 (the receiver's rows); whi_s and whj [N, H*F] bf16 (the
+// sender's rows: the message and the logit's); ub, a (f32, rounded to
+// bf16 in the kernel), keepq, rows, order, row_ptr, tile_ptr, split_at,
+// n_tiles, n_split, max_run, H, F, alpha, out, den, part_out, part_den as
+// in fused_v2_banded.cu. Launches on `stream`; returns the first CUDA
+// error, or cudaGetLastError() after the launches (cudaErrorInvalidValue
+// when F > 256).
+extern "C" int pygat_fused_v2_banded_bf16(
+    const float* whi, const __nv_bfloat16* whi_s, const __nv_bfloat16* whj,
+    const float* ub, const float* a, const float* keepq, const int* rows,
+    const int* order, const int* row_ptr, const int* tile_ptr,
+    const int* split_at, int n_tiles, int n_split, int max_run, int H, int F,
+    float alpha, float* out, float* den, float* part_out, float* part_den,
+    void* stream) {
+  const int hf = H * F;
+  return launch_tile_fused<true>(
+      FusedArgsT<__nv_bfloat16>{whj, whi_s, hf, whi, nullptr, ub, a, keepq,
+                                row_ptr, tile_ptr, split_at, n_tiles,
+                                n_split, H, F, alpha, out, den, part_out,
+                                part_den, 0, 0, 0},
+      BandWalk{rows, order}, max_run, stream);
+}

@@ -1,8 +1,8 @@
 // How a slot of a chunked edge order finds its node row, and the row
 // gather built on it (shared by expand.cu, banded_take.cu,
-// corner_permute.cu and the SpMM body of tile_spmm.cuh; the tile-owner
-// bodies tile_fused.cuh and tile_sum.cuh take EC and TILE from here and
-// walk rows of their own).
+// banded_take_bf16.cu, corner_permute.cu and the SpMM body of
+// tile_spmm.cuh; the tile-owner bodies tile_fused.cuh and tile_sum.cuh
+// take EC and TILE from here and walk rows of their own).
 //
 // Every edge order of the port is cut into chunks of EC = 256 slots. A slot
 // names a node row in one of three ways:
@@ -26,6 +26,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -81,34 +82,37 @@ struct PanelRows {
 // corner-turn pass, whose tile count may be odd), block b passing b as the
 // chunk to the row policy. Each thread writes the elements i, i + ROWS, ...
 // of the block's [ROWS, L] output, so the stores are coalesced and a row's
-// L floats are read by neighbouring threads. Offsets are 64-bit: E * L
-// passes 2^31 at 1M nodes.
-template <int ROWS, class Rows>
+// L values are read by neighbouring threads. Offsets are 64-bit: E * L
+// passes 2^31 at 1M nodes. T is the element type: float (rows 4, 5 and
+// 10), or __nv_bfloat16 (row 5's one-limb gather, banded_take_bf16.cu);
+// the copy is element by element, so a bf16 row of odd length needs no
+// alignment.
+template <int ROWS, class Rows, class T>
 __global__ void __launch_bounds__(ROWS)
-gather_rows_kernel(const float* __restrict__ table, Rows rows, int L,
-                   float* __restrict__ out) {
+gather_rows_kernel(const T* __restrict__ table, Rows rows, int L,
+                   T* __restrict__ out) {
   __shared__ int s_row[ROWS];
   const long long k0 = static_cast<long long>(blockIdx.x) * ROWS;
   s_row[threadIdx.x] = rows(k0 + threadIdx.x, blockIdx.x);
   __syncthreads();
-  float* o = out + k0 * L;
+  T* o = out + k0 * L;
   const int n = ROWS * L;
 #pragma unroll 4
   for (int i = threadIdx.x; i < n; i += ROWS) {
     const int k = i / L;
     const int r = s_row[k];
     o[i] = r >= 0 ? __ldg(table + static_cast<long long>(r) * L + (i - k * L))
-                  : 0.f;
+                  : static_cast<T>(0.f);
   }
 }
 
 // n_blocks blocks of ROWS rows (EC: one per chunk).
-template <int ROWS = EC, class Rows>
-int launch_gather_rows(const float* table, Rows rows, int n_blocks, int L,
-                       float* out, void* stream) {
+template <int ROWS = EC, class Rows, class T>
+int launch_gather_rows(const T* table, Rows rows, int n_blocks, int L,
+                       T* out, void* stream) {
   if (n_blocks <= 0 || L <= 0) return 0;
-  gather_rows_kernel<ROWS, Rows><<<n_blocks, ROWS, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  gather_rows_kernel<ROWS, Rows, T><<<n_blocks, ROWS, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
       table, rows, L, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -81,10 +81,12 @@
 // pygat_tpu_torch/tools/banded_ab.py times these kernels in every order
 // against another checkout's, and their time by altered copies (--ablate).
 //
-// The one-limb instantiations (fused_v1_bf16.cu, fused_v2_bf16.cu: the
-// TPU kernels at two_limb=False, precision="fastest", as their interpret
-// mode computes) read the sender-side rows from a bf16 copy of the node
-// table(s) that the wrapper makes once a call (the TPU kernels' bf16
+// The one-limb instantiations (fused_v1_bf16.cu, fused_v2_bf16.cu,
+// fused_v1_window_bf16.cu, fused_v2_window_bf16.cu,
+// fused_v1_banded_bf16.cu, fused_v2_banded_bf16.cu: the TPU kernels at
+// two_limb=False, precision="fastest", as their interpret mode computes)
+// read the sender-side rows from a bf16 copy of the node table(s) or of
+// the window that the wrapper makes once a call (the TPU kernels' bf16
 // window, at half the gather bytes), and round at the reference's points:
 // a enters the logit as bf16; v2's LeakyReLU'd pre-sum is rounded to bf16
 // before its product with a (the receiver's whi[r] stays f32); each

@@ -58,9 +58,10 @@
 // pygat_tpu_torch/tools/spmm_ab.py times both kernels against another
 // checkout's, and their time by altered copies of this body (--ablate).
 //
-// The data rows are f32, or bf16 in the one-limb instantiation
-// (stream_scatter_bf16.cu: the TPU kernel's two_limb=False, whose producer
-// rounds the data to bf16 before the scatter): each bf16 value widens to
+// The data rows are f32, or bf16 in the one-limb instantiations
+// (stream_scatter_bf16.cu, banded_sender_sum_bf16.cu: the TPU kernels at
+// two_limb=False / exact=False, which round the data to bf16 before the
+// one-hot matmul that sums it): each bf16 value widens to
 // its f32 exactly and is summed in f32, so the sums are those of the
 // rounded data in the walk's order.
 //

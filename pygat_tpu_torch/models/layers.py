@@ -41,9 +41,8 @@ Both sparse branches run at the stream sums' module default precision
 (:func:`~pygat_tpu_torch.ops.segment.stream_precision`, set by
 ``PYGAT_STREAM_PRECISION``: ``'high'``, or ``'fastest'``, one bf16 limb),
 as the reference passes ``segment._STREAM_PRECISION``: the fused attention
-op over the receiver stream and the unfused branch's sums. Over a band
-plan or the corner plans ``'fastest'`` raises ``NotImplementedError``:
-their one-limb kernels are not ported yet (ROADMAP item 9).
+op in every order (the receiver stream, a band plan, the corner plans)
+and the unfused branch's sums.
 """
 
 from __future__ import annotations
@@ -432,22 +431,6 @@ def _slots(graph: Graph, plan: BandPlan | CscCsrPlans | None) -> int:
     return plan.num_slots if isinstance(plan, BandPlan) else graph.num_edges_padded
 
 
-def _fused_precision(plan: BandPlan | CscCsrPlans | None) -> str:
-    """The fused attention's precision, the stream sums' module default;
-    raises ``NotImplementedError`` for ``'fastest'`` over a band plan or
-    the corner plans, whose one-limb kernels are not ported (it never runs
-    them at ``'high'`` instead)."""
-    precision = stream_precision()
-    if plan is not None and precision == "fastest":
-        over = ("a band plan" if isinstance(plan, BandPlan)
-                else "the corner plans")
-        raise NotImplementedError(
-            f"precision='fastest' (PYGAT_STREAM_PRECISION) over {over} is "
-            "not ported yet (ROADMAP Queue 1, item 9: the fastest precision "
-            "mode); use 'high' there")
-    return precision
-
-
 def _unfused_aggregate(gathered, logits, bound, graph: Graph, gen, keep,
                        use_drop: bool, n_heads: int, f_out: int):
     """The unfused branch's softmax and aggregation: numerators ``exp(logit
@@ -544,15 +527,17 @@ def gat_v1_sparse_heads(
                             float("-inf")).amax(dim=0)
         m_src = torch.where(torch.isfinite(m_src), m_src, 0.0)
         bound = leaky_relu(f_dst_n + m_src[None, :], alpha)
-    precision = _fused_precision(plan)
+    precision = stream_precision()
     keepq = _att_keepq(gen, keep, _slots(graph, plan), n_heads, use_drop,
                        wh.device)
     if isinstance(plan, BandPlan):
         agg, den = fused_v1_attention_banded(
-            wh, f_dst_n, bound, params.a[:, f_out:], keepq, plan, alpha)
+            wh, f_dst_n, bound, params.a[:, f_out:], keepq, plan, alpha,
+            precision)
     elif plan is not None:
         agg, den = fused_v1_attention_corner(
-            wh, f_dst_n, bound, params.a[:, f_out:], keepq, graph, plan, alpha)
+            wh, f_dst_n, bound, params.a[:, f_out:], keepq, graph, plan, alpha,
+            precision)
     else:
         agg, den = fused_v1_attention(
             wh, f_dst_n, bound, params.a[:, f_out:], keepq,
@@ -640,15 +625,15 @@ def gat_v2_sparse_heads(
         out = _unfused_aggregate(gather_senders(whi, graph), logits, ub.t(),
                                  graph, gen, keep, use_drop, n_heads, f_out)
         return _heads_tail(out, params, h, x_h, concat, head_sum)
-    precision = _fused_precision(plan)
+    precision = stream_precision()
     keepq = _att_keepq(gen, keep, _slots(graph, plan), n_heads, use_drop,
                        whi.device)
     if isinstance(plan, BandPlan):
         agg, den = fused_v2_attention_banded(whi, whj, ub, params.a, keepq,
-                                             plan, alpha)
+                                             plan, alpha, precision)
     elif plan is not None:
         agg, den = fused_v2_attention_corner(whi, whj, ub, params.a, keepq,
-                                             graph, plan, alpha)
+                                             graph, plan, alpha, precision)
     else:
         agg, den = fused_v2_attention(
             whi, whj, ub, params.a, keepq,

@@ -38,6 +38,20 @@ Three parts:
   :func:`~pygat_tpu_torch.ops.stream.stream_scatter` sums per receiver and
   :func:`banded_sender_sum` per sender.
 
+The kernels and the two attention ops take the reference's ``precision``.
+Under ``'fastest'`` (one bf16 limb) the fused forwards round as the
+receiver stream's do (:mod:`~pygat_tpu_torch.ops.fused_stream`), and the
+wrappers launch the one-limb kernels on bf16 copies they make once a call:
+``csrc/banded_take_bf16.cu`` (the table's rows rounded, as bf16),
+``csrc/banded_sender_sum_bf16.cu`` (the data rounded, summed in f32),
+``csrc/fused_v1_banded_bf16.cu`` and ``csrc/fused_v2_banded_bf16.cu``,
+counted by :func:`banded_take_bf16`, :func:`banded_sender_sum_bf16`,
+:func:`fused_v1_banded_bf16` and :func:`fused_v2_banded_bf16`. The
+attention backward then recomputes its sender rows rounded to bf16 (the
+reference's ``exact=False`` take; the receiver stream's and the corner
+path's backwards take them unrounded) and runs both sums in one limb. The
+SpMM op stays at ``'high'`` (ROADMAP Queue 1, item 9).
+
 The plan's fields that the kernels and plain versions read (``band``,
 ``s_loc``, ``r_local``, ``r_chunk``, and the port's own ``tile_ptr`` and
 ``split_at``: each tile's chunk range and the cuts of a hub's tile) are
@@ -84,6 +98,7 @@ from pygat_tpu_torch.ops.stream import (
     StreamWalk,
     build_stream_layout,
     build_stream_walk,
+    check_precision,
     launch_tile_sum,
     require_high,
     stream_scatter,
@@ -432,30 +447,52 @@ def _check_table(what: str, table: torch.Tensor, plan: BandPlan) -> None:
                          f"float32, got {table.dtype} {tuple(table.shape)}")
 
 
-def banded_take_plain(table: torch.Tensor, plan: BandPlan) -> torch.Tensor:
-    """Plain PyTorch version of :func:`banded_take` (a row gather)."""
+def banded_take_plain(table: torch.Tensor, plan: BandPlan, *,
+                      precision: str = "high") -> torch.Tensor:
+    """Plain PyTorch version of :func:`banded_take` (a row gather; under
+    ``precision='fastest'`` of the table rounded to bf16, in bf16)."""
+    check_precision("banded_take", precision)
     _check_table("banded_take", table, plan)
+    if precision == "fastest":
+        table = table.to(torch.bfloat16)
     live = (plan.s_loc < plan.w * TILE)[:, None]
     return torch.where(live, table[banded_senders(plan, 0)], 0.0)
 
 
 @build.counted
-def banded_take(table: torch.Tensor, plan: BandPlan) -> torch.Tensor:
+def banded_take(table: torch.Tensor, plan: BandPlan, *,
+                precision: str = "high") -> torch.Tensor:
     """``table`` [N_pad, L] f32 rows at every slot's sender in banded order,
-    [E_b, L], zeros at dead slots, bit-exact. On a CUDA tensor this
-    launches ``csrc/banded_take.cu`` (counted in ``banded_take.launches``);
-    on a CPU tensor it runs :func:`banded_take_plain`. Not
-    differentiable."""
+    [E_b, L], zeros at dead slots, bit-exact; under
+    ``precision='fastest'`` (the reference's ``exact=False``) the rows of
+    the table rounded to bf16 (to nearest, ties to even), as bf16. On a
+    CUDA tensor this launches ``csrc/banded_take.cu`` (counted in
+    ``banded_take.launches``), or under ``'fastest'``
+    ``csrc/banded_take_bf16.cu`` on a bf16 copy of the table (counted in
+    ``banded_take_bf16.launches``); on a CPU tensor it runs
+    :func:`banded_take_plain`. Not differentiable."""
+    check_precision("banded_take", precision)
     if table.device.type == "cpu":
-        return banded_take_plain(table, plan)
+        return banded_take_plain(table, plan, precision=precision)
     if table.device.type != "cuda":
         raise ValueError(f"banded_take: unsupported device {table.device}")
     _check_table("banded_take", table, plan)
-    out = torch.empty(plan.num_slots, table.shape[1], dtype=torch.float32,
+    wrapper = banded_take
+    if precision == "fastest":
+        table, wrapper = table.to(torch.bfloat16), banded_take_bf16
+    out = torch.empty(plan.num_slots, table.shape[1], dtype=table.dtype,
                       device=table.device)
-    build.launch(banded_take, table, plan.band, plan.s_loc, plan.num_chunks,
+    build.launch(wrapper, table, plan.band, plan.s_loc, plan.num_chunks,
                  plan.w, table.shape[1], out)
     return out
+
+
+@build.counted
+def banded_take_bf16(table: torch.Tensor, plan: BandPlan) -> torch.Tensor:
+    """:func:`banded_take` under ``precision='fastest'``, whose launches of
+    the one-limb kernel ``csrc/banded_take_bf16.cu`` (the TPU kernel's
+    ``exact=False`` instantiation) this wrapper counts."""
+    return banded_take(table, plan, precision="fastest")
 
 
 def _check_data(what: str, data: torch.Tensor, plan: BandPlan) -> None:
@@ -467,12 +504,18 @@ def _check_data(what: str, data: torch.Tensor, plan: BandPlan) -> None:
 
 
 def banded_sender_sum_plain(data: torch.Tensor, plan: BandPlan, *,
-                            f64: bool = False) -> torch.Tensor:
+                            f64: bool = False,
+                            precision: str = "high") -> torch.Tensor:
     """Plain PyTorch version of :func:`banded_sender_sum` (``index_add_``;
     dead slots add into a scratch row past the output). ``f64=True`` sums
     in float64 and returns float32 (the kernel's oracle, as
-    :func:`~pygat_tpu_torch.ops.stream.stream_scatter_plain`'s)."""
+    :func:`~pygat_tpu_torch.ops.stream.stream_scatter_plain`'s). Under
+    ``precision='fastest'`` the data are rounded to bf16 first, then summed
+    in f32 (or f64)."""
+    check_precision("banded_sender_sum", precision)
     _check_data("banded_sender_sum", data, plan)
+    if precision == "fastest":
+        data = data.to(torch.bfloat16)
     dtype = torch.float64 if f64 else torch.float32
     out = torch.zeros(plan.n_pad + 1, data.shape[1], dtype=dtype,
                       device=data.device)
@@ -481,23 +524,40 @@ def banded_sender_sum_plain(data: torch.Tensor, plan: BandPlan, *,
 
 
 @build.counted
-def banded_sender_sum(data: torch.Tensor, plan: BandPlan) -> torch.Tensor:
+def banded_sender_sum(data: torch.Tensor, plan: BandPlan, *,
+                      precision: str = "high") -> torch.Tensor:
     """Per-sender segment sum of banded-order ``data`` [E_b, L] f32 into
-    [N_pad, L]: row n sums the live slots whose sender is n. On a CUDA
-    tensor this launches ``csrc/banded_sender_sum.cu`` over the plan's
+    [N_pad, L]: row n sums the live slots whose sender is n; under
+    ``precision='fastest'`` the data rounded to bf16, summed in f32. On a
+    CUDA tensor this launches ``csrc/banded_sender_sum.cu`` over the plan's
     sender walk (:attr:`BandPlan.sender_walk`; counted in
-    ``banded_sender_sum.launches``), whose result is the same bit for bit
-    from call to call, and raises without the walk; on a CPU tensor it runs
-    :func:`banded_sender_sum_plain`. Not differentiable."""
+    ``banded_sender_sum.launches``), or under ``'fastest'``
+    ``csrc/banded_sender_sum_bf16.cu`` on a bf16 copy of the data (counted
+    in ``banded_sender_sum_bf16.launches``), whose result is the same bit
+    for bit from call to call, and raises without the walk; on a CPU tensor
+    it runs :func:`banded_sender_sum_plain`. Not differentiable."""
+    check_precision("banded_sender_sum", precision)
     if data.device.type == "cpu":
-        return banded_sender_sum_plain(data, plan)
+        return banded_sender_sum_plain(data, plan, precision=precision)
     if data.device.type != "cuda":
         raise ValueError(f"banded_sender_sum: unsupported device {data.device}")
     _check_data("banded_sender_sum", data, plan)
     walk = stream_walk_arg("banded_sender_sum", plan.sender_walk, plan.n_pad,
                            plan.band)
+    if precision == "fastest":
+        return launch_tile_sum(banded_sender_sum_bf16,
+                               data.to(torch.bfloat16), walk.order, walk,
+                               plan.n_pad)
     return launch_tile_sum(banded_sender_sum, data, walk.order, walk,
                            plan.n_pad)
+
+
+@build.counted
+def banded_sender_sum_bf16(data: torch.Tensor, plan: BandPlan) -> torch.Tensor:
+    """:func:`banded_sender_sum` under ``precision='fastest'``, whose
+    launches of the one-limb kernel ``csrc/banded_sender_sum_bf16.cu`` (the
+    TPU kernel's ``exact=False`` instantiation) this wrapper counts."""
+    return banded_sender_sum(data, plan, precision="fastest")
 
 
 def _check_values(what: str, values_b: torch.Tensor, plan: BandPlan) -> None:
@@ -529,13 +589,15 @@ def _receiver_walk(what: str, plan: BandPlan) -> StreamWalk:
                       order=walk.order)
 
 
-def _receiver_sum(data: torch.Tensor, plan: BandPlan) -> torch.Tensor:
+def _receiver_sum(data: torch.Tensor, plan: BandPlan,
+                  precision: str = "high") -> torch.Tensor:
     """The receiver-side segment sum of banded-order ``data`` [E_b, L]
-    (``stream_scatter`` over the plan's receiver walk on CUDA)."""
+    (``stream_scatter`` at ``precision`` over the plan's receiver walk on
+    CUDA)."""
     walk = (None if data.device.type == "cpu"
             else _receiver_walk("stream_scatter", plan))
     return stream_scatter(data, plan.r_local, plan.r_chunk, plan.n_pad,
-                          walk=walk)
+                          walk=walk, precision=precision)
 
 
 def banded_weighted_sum_plain(values_b: torch.Tensor, x: torch.Tensor,
@@ -580,13 +642,16 @@ def banded_weighted_sum(values_b: torch.Tensor, x: torch.Tensor,
 
 
 def fused_v1_banded_plain(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
-                          alpha: float, *, f64: bool = False):
+                          alpha: float, *, f64: bool = False,
+                          precision: str = "high", magnitude: bool = False):
     """Plain PyTorch version of :func:`fused_v1_banded`: the receiver
-    stream's plain version over the banded slots (``f64`` as there)."""
+    stream's plain version over the banded slots (``f64``, ``precision``
+    and ``magnitude`` as there)."""
     _check_table("fused_v1_banded", wh, plan)
     return fused_v1_plain(wh, f_dst, bound, a_src, keepq,
                           banded_senders(plan, plan.n_pad - 1).int(),
-                          plan.r_local, plan.r_chunk, alpha, f64=f64)
+                          plan.r_local, plan.r_chunk, alpha, f64=f64,
+                          precision=precision, magnitude=magnitude)
 
 
 def _launch_banded(wrapper, tensors, a, plan: BandPlan, alpha: float):
@@ -602,54 +667,97 @@ def _launch_banded(wrapper, tensors, a, plan: BandPlan, alpha: float):
 
 @build.counted
 def fused_v1_banded(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
-                    alpha: float):
+                    alpha: float, *, precision: str = "high"):
     """(out [N, HF], den [N, H]) of the fused GATv1 forward over the banded
-    slots (``keepq`` [E_b, H]). On a CUDA tensor this launches
-    ``csrc/fused_v1_banded.cu`` (counted in ``fused_v1_banded.launches``),
-    whose result is the same bit for bit from call to call; on a CPU tensor
-    it runs :func:`fused_v1_banded_plain`. The first CUDA call on a plan
-    builds its walk (:attr:`BandPlan.spmm_walk`), so it must not be inside
-    a CUDA-graph capture."""
+    slots (``keepq`` [E_b, H]), at ``precision`` (``'fastest'``: the
+    rounding points of :func:`~pygat_tpu_torch.ops.fused_stream.fused_v1`).
+    On a CUDA tensor this launches ``csrc/fused_v1_banded.cu`` (counted in
+    ``fused_v1_banded.launches``), or under ``'fastest'``
+    ``csrc/fused_v1_banded_bf16.cu`` on a bf16 copy of ``wh`` (counted in
+    ``fused_v1_banded_bf16.launches``), whose result is the same bit for
+    bit from call to call; on a CPU tensor it runs
+    :func:`fused_v1_banded_plain`. The first CUDA call on a plan builds its
+    walk (:attr:`BandPlan.spmm_walk`), so it must not be inside a
+    CUDA-graph capture."""
+    check_precision("fused_v1_banded", precision)
     if wh.device.type == "cpu":
         return fused_v1_banded_plain(wh, f_dst, bound, a_src, keepq, plan,
-                                     alpha)
+                                     alpha, precision=precision)
     if wh.device.type != "cuda":
         raise ValueError(f"fused_v1_banded: unsupported device {wh.device}")
     _check_table("fused_v1_banded", wh, plan)
     _check_fused_args("fused_v1_banded", (wh,), (f_dst, bound), a_src, keepq,
                       plan.s_loc, plan.r_local, plan.r_chunk)
+    if precision == "fastest":
+        return _launch_banded(fused_v1_banded_bf16, (
+            wh.to(torch.bfloat16), f_dst, bound, a_src, keepq), a_src, plan,
+            alpha)
     return _launch_banded(fused_v1_banded, (wh, f_dst, bound, a_src, keepq),
                           a_src, plan, alpha)
 
 
+@build.counted
+def fused_v1_banded_bf16(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
+                         alpha: float):
+    """:func:`fused_v1_banded` under ``precision='fastest'``, whose launches
+    of the one-limb kernel ``csrc/fused_v1_banded_bf16.cu`` (the TPU
+    kernel's ``two_limb=False`` instantiation) this wrapper counts."""
+    return fused_v1_banded(wh, f_dst, bound, a_src, keepq, plan, alpha,
+                           precision="fastest")
+
+
 def fused_v2_banded_plain(whi, whj, ub, a, keepq, plan: BandPlan,
-                          alpha: float, *, f64: bool = False):
+                          alpha: float, *, f64: bool = False,
+                          precision: str = "high", magnitude: bool = False):
     """Plain PyTorch version of :func:`fused_v2_banded`: the receiver
-    stream's plain version over the banded slots (``f64`` as there)."""
+    stream's plain version over the banded slots (``f64``, ``precision``
+    and ``magnitude`` as there)."""
     _check_table("fused_v2_banded", whi, plan)
     return fused_v2_plain(whi, whj, ub, a, keepq,
                           banded_senders(plan, plan.n_pad - 1).int(),
-                          plan.r_local, plan.r_chunk, alpha, f64=f64)
+                          plan.r_local, plan.r_chunk, alpha, f64=f64,
+                          precision=precision, magnitude=magnitude)
 
 
 @build.counted
-def fused_v2_banded(whi, whj, ub, a, keepq, plan: BandPlan, alpha: float):
+def fused_v2_banded(whi, whj, ub, a, keepq, plan: BandPlan, alpha: float, *,
+                    precision: str = "high"):
     """(out [N, HF], den [N, H]) of the fused GATv2 forward over the banded
-    slots (``keepq`` [E_b, H]). On a CUDA tensor this launches
-    ``csrc/fused_v2_banded.cu`` (counted in ``fused_v2_banded.launches``),
+    slots (``keepq`` [E_b, H]), at ``precision`` (``'fastest'``: the
+    rounding points of :func:`~pygat_tpu_torch.ops.fused_stream.fused_v2`).
+    On a CUDA tensor this launches ``csrc/fused_v2_banded.cu`` (counted in
+    ``fused_v2_banded.launches``), or under ``'fastest'``
+    ``csrc/fused_v2_banded_bf16.cu`` on bf16 copies of ``whj`` and ``whi``
+    for the sender's rows (counted in ``fused_v2_banded_bf16.launches``),
     whose result is the same bit for bit from call to call; on a CPU tensor
     it runs :func:`fused_v2_banded_plain`. The first CUDA call on a plan
     builds its walk (:attr:`BandPlan.spmm_walk`), so it must not be inside
     a CUDA-graph capture."""
+    check_precision("fused_v2_banded", precision)
     if whi.device.type == "cpu":
-        return fused_v2_banded_plain(whi, whj, ub, a, keepq, plan, alpha)
+        return fused_v2_banded_plain(whi, whj, ub, a, keepq, plan, alpha,
+                                     precision=precision)
     if whi.device.type != "cuda":
         raise ValueError(f"fused_v2_banded: unsupported device {whi.device}")
     _check_table("fused_v2_banded", whi, plan)
     _check_fused_args("fused_v2_banded", (whi, whj), (ub,), a, keepq,
                       plan.s_loc, plan.r_local, plan.r_chunk)
+    if precision == "fastest":
+        return _launch_banded(fused_v2_banded_bf16, (
+            whi, whi.to(torch.bfloat16), whj.to(torch.bfloat16), ub, a,
+            keepq), a, plan, alpha)
     return _launch_banded(fused_v2_banded, (whi, whj, ub, a, keepq), a, plan,
                           alpha)
+
+
+@build.counted
+def fused_v2_banded_bf16(whi, whj, ub, a, keepq, plan: BandPlan,
+                         alpha: float):
+    """:func:`fused_v2_banded` under ``precision='fastest'``, whose launches
+    of the one-limb kernel ``csrc/fused_v2_banded_bf16.cu`` (the TPU
+    kernel's ``two_limb=False`` instantiation) this wrapper counts."""
+    return fused_v2_banded(whi, whj, ub, a, keepq, plan, alpha,
+                           precision="fastest")
 
 
 # ---------------------------------------------------------------------------
@@ -659,26 +767,27 @@ def fused_v2_banded(whi, whj, ub, a, keepq, plan: BandPlan, alpha: float):
 
 class _FusedV1AttentionBanded(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, wh, f_dst, bound, a_src, keepq, plan, alpha):
+    def forward(ctx, wh, f_dst, bound, a_src, keepq, plan, alpha, precision):
         wh, f_dst, bound, a_src, keepq = (
             t.contiguous() for t in (wh, f_dst, bound, a_src, keepq))
         out, den = fused_v1_banded(wh, f_dst, bound, a_src, keepq, plan,
-                                   alpha)
+                                   alpha, precision=precision)
         ctx.save_for_backward(wh, f_dst, bound, a_src, keepq)
-        ctx.plan, ctx.alpha = plan, alpha
+        ctx.plan, ctx.alpha, ctx.precision = plan, alpha, precision
         return out, den
 
     @staticmethod
     def backward(ctx, g_out, g_den):
         wh, f_dst, bound, a_src, keepq = ctx.saved_tensors
-        plan, alpha = ctx.plan, ctx.alpha
+        plan, alpha, precision = ctx.plan, ctx.alpha, ctx.precision
         h, f = a_src.shape
         hf = h * f
 
         # recompute the per-slot pipeline in banded order, lane-minor:
-        # sender rows by the banded take, the four receiver-side operands
-        # by one expand
-        g_w = banded_take(wh, plan)  # [E_b, HF]
+        # sender rows by the banded take (rounded to bf16 under 'fastest',
+        # as the reference's exact=False take), the four receiver-side
+        # operands by one expand
+        g_w = banded_take(wh, plan, precision=precision).float()  # [E_b, HF]
         abd = _block_diag_a(a_src)  # [HF, H]
         exp_bd = _expand_bd(h, f, device=wh.device)  # [H, HF]
         eall = expand(torch.cat([f_dst, bound, g_out, g_den], dim=1),
@@ -691,43 +800,50 @@ class _FusedV1AttentionBanded(torch.autograd.Function):
 
         dqnum = (dmsg * g_w) @ exp_bd.T  # per-head sums over F
         draw = (dqnum * keepq + dden) * num * torch.where(raw >= 0, 1.0, alpha)
-        df_dst = _receiver_sum(draw, plan)
+        df_dst = _receiver_sum(draw, plan, precision)
         dgathered = dmsg * (qnum @ exp_bd) + draw @ abd.T  # [E_b, HF]
-        dwh = banded_sender_sum(dgathered, plan)
+        dwh = banded_sender_sum(dgathered, plan, precision=precision)
         da = (g_w * (draw @ exp_bd)).sum(0).reshape(h, f)
-        return dwh, df_dst, None, da, None, None, None
+        return dwh, df_dst, None, da, None, None, None, None
 
 
 def fused_v1_attention_banded(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
-                              alpha: float):
+                              alpha: float, precision: str = "high"):
     """Differentiable fused GATv1 attention over the banded order: (out
     [N, HF], den [N, H]). ``keepq`` is [plan.num_slots, H], drawn over the
     banded slots; ``bound`` must be detached. Gradients flow to ``wh``,
-    ``f_dst`` and ``a_src``."""
+    ``f_dst`` and ``a_src``. ``precision`` is the forward's and the
+    backward's: under ``'fastest'`` the backward recomputes the sender rows
+    rounded to bf16 (the reference's ``exact=False`` banded take, where the
+    receiver stream's backward takes them unrounded) and runs both segment
+    sums in one limb."""
+    check_precision("fused_v1_attention_banded", precision)
     return _FusedV1AttentionBanded.apply(wh, f_dst, bound, a_src, keepq, plan,
-                                         alpha)
+                                         alpha, precision)
 
 
 class _FusedV2AttentionBanded(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, whi, whj, ub, a, keepq, plan, alpha):
+    def forward(ctx, whi, whj, ub, a, keepq, plan, alpha, precision):
         whi, whj, ub, a, keepq = (
             t.contiguous() for t in (whi, whj, ub, a, keepq))
-        out, den = fused_v2_banded(whi, whj, ub, a, keepq, plan, alpha)
+        out, den = fused_v2_banded(whi, whj, ub, a, keepq, plan, alpha,
+                                   precision=precision)
         ctx.save_for_backward(whi, whj, ub, a, keepq)
-        ctx.plan, ctx.alpha = plan, alpha
+        ctx.plan, ctx.alpha, ctx.precision = plan, alpha, precision
         return out, den
 
     @staticmethod
     def backward(ctx, g_out, g_den):
         whi, whj, ub, a, keepq = ctx.saved_tensors
-        plan, alpha = ctx.plan, ctx.alpha
+        plan, alpha, precision = ctx.plan, ctx.alpha, ctx.precision
         h, f = a.shape
         hf = h * f
 
-        # one banded take of both sender operands, one expand of the four
-        # receiver-side ones
-        gj, gi = banded_take(torch.cat([whj, whi], dim=1), plan).split(hf, 1)
+        # one banded take of both sender operands (rounded to bf16 under
+        # 'fastest'), one expand of the four receiver-side ones
+        gj, gi = banded_take(torch.cat([whj, whi], dim=1), plan,
+                             precision=precision).float().split(hf, 1)
         eall = expand(torch.cat([whi, ub, g_out, g_den], dim=1),
                       plan.r_local, plan.r_chunk)  # [E_b, 2HF + 2H]
         wi_e, ub_e, dmsg, dden = eall.split([hf, h, hf, h], dim=1)
@@ -745,20 +861,25 @@ class _FusedV2AttentionBanded(torch.autograd.Function):
 
         # receiver side: dwhi from the logit path; sender side: one sum for
         # dwhj (logit path) and the message half of dwhi
-        dwhi_e = _receiver_sum(dpre, plan)
+        dwhi_e = _receiver_sum(dpre, plan, precision)
         red = banded_sender_sum(torch.cat([dpre, dmsg * (qnum @ exp_bd)], 1),
-                                plan)
+                                plan, precision=precision)
         da = (pre * (dlogits @ exp_bd)).sum(0).reshape(h, f)
-        return dwhi_e + red[:, hf:], red[:, :hf], None, da, None, None, None
+        return (dwhi_e + red[:, hf:], red[:, :hf], None, da, None, None, None,
+                None)
 
 
 def fused_v2_attention_banded(whi, whj, ub, a, keepq, plan: BandPlan,
-                              alpha: float):
+                              alpha: float, precision: str = "high"):
     """Differentiable fused GATv2 attention over the banded order: (out
     [N, HF], den [N, H]). ``keepq`` is [plan.num_slots, H], drawn over the
     banded slots; ``ub`` must be detached. Gradients flow to ``whi``,
-    ``whj`` and ``a``."""
-    return _FusedV2AttentionBanded.apply(whi, whj, ub, a, keepq, plan, alpha)
+    ``whj`` and ``a``. ``precision`` as :func:`fused_v1_attention_banded`
+    (under ``'fastest'`` both recomputed sender operands, ``whj`` and
+    ``whi``, are rounded)."""
+    check_precision("fused_v2_attention_banded", precision)
+    return _FusedV2AttentionBanded.apply(whi, whj, ub, a, keepq, plan, alpha,
+                                         precision)
 
 
 # ---------------------------------------------------------------------------

@@ -60,6 +60,20 @@ ENTRY_POINTS = {
                       [_P] * 9 + [_I] * 5 + [_F] + [_P] * 5),
     "fused_v2_bf16": ("pygat_fused_v2_bf16",
                       [_P] * 10 + [_I] * 5 + [_F] + [_P] * 5),
+    # and of rows 5, 6, 8 and the window forms of rows 2, 3 (the band plan
+    # and the corner plans under "fastest")
+    "banded_take_bf16": ("pygat_banded_take_bf16",
+                         [_P] * 3 + [_I] * 3 + [_P] * 2),
+    "banded_sender_sum_bf16": ("pygat_banded_sender_sum_bf16",
+                               [_P] * 5 + [_I] * 4 + [_P] * 3),
+    "fused_v1_banded_bf16": ("pygat_fused_v1_banded_bf16",
+                             [_P] * 10 + [_I] * 5 + [_F] + [_P] * 5),
+    "fused_v2_banded_bf16": ("pygat_fused_v2_banded_bf16",
+                             [_P] * 11 + [_I] * 5 + [_F] + [_P] * 5),
+    "fused_v1_window_bf16": ("pygat_fused_v1_window_bf16",
+                             [_P] * 8 + [_I] * 5 + [_F] + [_P] * 5),
+    "fused_v2_window_bf16": ("pygat_fused_v2_window_bf16",
+                             [_P] * 8 + [_I] * 5 + [_F] + [_P] * 5),
 }
 SOURCES = tuple(ENTRY_POINTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

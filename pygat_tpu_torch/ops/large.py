@@ -212,16 +212,17 @@ def gather_corner(x: torch.Tensor, graph, plan_fwd: CornerPlan) -> torch.Tensor:
     return apply_passes(ex, plan_fwd)[:graph.num_edges_padded]
 
 
-def scatter_corner(g_e: torch.Tensor, graph, plan_inv: CornerPlan) -> torch.Tensor:
+def scatter_corner(g_e: torch.Tensor, graph, plan_inv: CornerPlan,
+                   precision: str = "high") -> torch.Tensor:
     """Per-sender segment sum [N_pad, L] of receiver-stream-ordered ``g_e``
-    [E_s, L]: padded to E_s2 rows, the inverse passes to CSC order, and the
-    stream segment sum over the CSC stream, whose dead slots drop the rows
-    that land on them."""
+    [E_s, L]: padded to E_s2 rows, the inverse passes to CSC order (exact
+    f32 moves), and the stream segment sum at ``precision`` over the CSC
+    stream, whose dead slots drop the rows that land on them."""
     e_s2 = graph.c_local.shape[0]
     g_p = F.pad(g_e, (0, 0, 0, e_s2 - g_e.shape[0]))
     return stream_scatter(apply_passes(g_p, plan_inv), graph.c_local,
                           graph.c_chunk, graph.num_nodes_padded,
-                          walk=graph.sender_walk)
+                          walk=graph.sender_walk, precision=precision)
 
 
 def corner_spmm_backward(g, v, rows, graph, plan_inv: CornerPlan):

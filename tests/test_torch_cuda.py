@@ -53,7 +53,16 @@ The one-limb instantiations of the receiver stream's kernels (``precision=
 ``fused_v2_bf16.cu``) run in every order and at the same odd widths,
 against their plain versions under "fastest" in f64, counted apart from
 the f32 kernels, capturable, and card against CPU through the autograd
-Functions. chip_smoke.py covers the main path's full-size shapes.
+Functions; those of the band plan and the corner plans
+(``banded_take_bf16.cu``, ``banded_sender_sum_bf16.cu``,
+``fused_v1_banded_bf16.cu``, ``fused_v2_banded_bf16.cu``,
+``fused_v1_window_bf16.cu``, ``fused_v2_window_bf16.cu``) on Cora's and
+the hub's band plans and on corner plans with several passes, at widths of
+7 and 14 among others, against their plain versions under "fastest" in
+f64, two calls bit for bit; and one Cora training step under "fastest"
+over each order launches only the one-limb kernels (with expand and the
+corner passes, f32 moves in both modes). chip_smoke.py covers the main
+path's full-size shapes.
 """
 
 from __future__ import annotations
@@ -2406,3 +2415,188 @@ def test_bf16_wrappers_raise_instead_of_falling_back(cuda, monkeypatch):
     assert launched == {"fused_v1_bf16": 1, "fused_v2_bf16": 1,
                         "fused_v1_parts_bf16": 1, "fused_v2_parts_bf16": 1,
                         "stream_scatter_bf16": 1}
+
+
+# -- the one-limb kernels over a band plan and the corner plans ---------------
+
+
+@pytest.mark.parametrize("width", [4, 7, 14, 64])
+@pytest.mark.parametrize("kind", ["cora", "hub"])
+def test_banded_bf16_kernels_match_plain(cuda, kind, width):
+    """``banded_take_bf16.cu`` equal to its plain version under 'fastest'
+    (the table's rows rounded to bf16, zeros at dead slots), and
+    ``banded_sender_sum_bf16.cu`` against the plain version of the same
+    rounded data summed in f64, to RTOL of the same sums over |data|, on
+    Cora's band plan and the hub's (its tile cut into pieces, its long run
+    into segments); each counted apart from the f32 kernel; two calls equal
+    bit for bit."""
+    g, plan = _band(cuda, kind)
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    table = torch.randn(plan.n_pad, width, generator=gen, device=cuda)
+    data = torch.randn(plan.num_slots, width, generator=gen, device=cuda)
+    before = build.launch_counts()
+    got_t = bd.banded_take(table, plan, precision="fastest")
+    again_t = bd.banded_take_bf16(table, plan)
+    got_s = bd.banded_sender_sum(data, plan, precision="fastest")
+    again_s = bd.banded_sender_sum_bf16(data, plan)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in build.launch_counts().items()
+                if v - before[k]}
+    assert launched == {"banded_take_bf16": 2, "banded_sender_sum_bf16": 2}
+    assert got_t.dtype == torch.bfloat16
+    assert torch.equal(got_t, again_t) and torch.equal(got_s, again_s)
+    assert torch.equal(got_t, bd.banded_take_plain(table, plan,
+                                                   precision="fastest"))
+    want = bd.banded_sender_sum_plain(data, plan, f64=True,
+                                      precision="fastest")
+    mag = bd.banded_sender_sum_plain(data.abs(), plan, precision="fastest")
+    assert torch.isfinite(got_s).all()
+    assert bool(((got_s - want).abs() <= RTOL * mag + 1e-30).all())
+    high = bd.banded_sender_sum_plain(data, plan, f64=True)
+    assert float((got_s - high).abs().max()) > 1e-5 * float(mag.max())
+
+
+def _bf16_forward_cases(kind, which, h, f, gen, device):
+    """(kernel, bf16 wrapper, plain, args, call keywords) of a one-limb
+    banded forward on ``kind``'s band plan, or of a one-limb window forward
+    over the corner plans (``kind`` 'corner')."""
+    if kind == "corner":
+        g, plans = _corner(device)
+        args = _window_args(g, plans, h, f, gen, device, which)
+        kernel, plain = WINDOW_FUSED[which]
+        bf16 = (fc.fused_v1_window_bf16 if which == 0
+                else fc.fused_v2_window_bf16)
+        return kernel, bf16, plain, args, dict(walk=g.stream_walk)
+    g, plan = _band(device, kind)
+    kernel, plain, make_args = BANDED_FUSED[which]
+    bf16 = bd.fused_v1_banded_bf16 if which == 0 else bd.fused_v2_banded_bf16
+    return kernel, bf16, plain, make_args(g, plan, h, f, gen, device), {}
+
+
+@pytest.mark.parametrize("h,f", [(8, 8), (1, 7), (2, 7), (1, 256)])
+@pytest.mark.parametrize("which", [0, 1], ids=["v1", "v2"])
+@pytest.mark.parametrize("kind", ["cora", "hub", "corner"])
+def test_fused_banded_and_window_bf16_kernels_match_plain(cuda, kind, which,
+                                                          h, f):
+    """``fused_v1_banded_bf16.cu`` / ``fused_v2_banded_bf16.cu`` on Cora's
+    and the hub's band plans, and ``fused_v1_window_bf16.cu`` /
+    ``fused_v2_window_bf16.cu`` over corner plans with several passes,
+    against their plain versions under 'fastest' in f64: out to
+    FASTEST_RTOL of the same sum over |message|, den to RTOL; each launch
+    counted on its one-limb wrapper only; two calls equal bit for bit;
+    apart from the f32 kernel's result."""
+    gen = torch.Generator(device=cuda).manual_seed(10 * h + f)
+    kernel, bf16, plain, args, kw = _bf16_forward_cases(kind, which, h, f,
+                                                        gen, cuda)
+    counts = (kernel.launches, bf16.launches)
+    out, den = kernel(*args, precision="fastest", **kw)
+    again = bf16(*args, **kw)
+    torch.cuda.synchronize()
+    assert (kernel.launches, bf16.launches) == (counts[0], counts[1] + 2)
+    assert torch.equal(out, again[0]) and torch.equal(den, again[1])
+    out_p, den_p = plain(*args, f64=True, precision="fastest")
+    mag, _ = plain(*args, f64=True, precision="fastest", magnitude=True)
+    assert torch.isfinite(out).all()
+    assert float(den_p.max()) >= 1.0  # the comparison is not idle
+    allowed = (FASTEST_RTOL + RTOL) * mag + 1e-30
+    assert bool(((out - out_p).abs() <= allowed).all())
+    _close(den, den_p)
+    out_h, _ = kernel(*args, **kw)
+    assert float((out - out_h).abs().max()) > 1e-5 * float(mag.max())
+
+
+@pytest.mark.parametrize("over", ["band plan", "corner plans"])
+@pytest.mark.parametrize("layer_type", ["GAT_sparse", "GATv2_sparse"])
+def test_fastest_training_step_over_each_order(cuda, layer_type, over,
+                                               monkeypatch):
+    """One Adam step of the Cora preset under the 'fastest' module default
+    over Cora's band plan or its corner plans launches only the one-limb
+    kernels of its order (and the f32 moves of both modes: expand and the
+    corner passes), as many as the f32 ones under 'high'; its loss is
+    finite and within FASTEST_RTOL of the CPU's step."""
+    from pygat_tpu_torch.data.citation import load_citation
+    from pygat_tpu_torch.models.gat import init_gat
+    from pygat_tpu_torch.models.presets import PRESETS
+    from pygat_tpu_torch.ops import segment as sg
+    from pygat_tpu_torch.train.loop import make_transductive_steps
+    from pygat_tpu_torch.train.state import init_state, make_optimizer
+    from pygat_tpu_torch.utils.platform import make_generator
+
+    data = load_citation("cora", device=cuda)
+    plan = (bd.build_band_plan(data.graph, w=4) if over == "band plan"
+            else large.plan_csc_to_csr(data.graph))
+    cfg = GATConfig(layer_type=layer_type, **PRESETS["cora"])
+    cfg = cfg._replace(nfeats=(int(data.features.shape[1]),) + cfg.nfeats[1:],
+                       dropout=0.0)
+    v = "v2" if layer_type == "GATv2_sparse" else "v1"
+    if over == "band plan":
+        want = {f"fused_{v}_banded_bf16": 2, "banded_take_bf16": 2,
+                "expand": 2, "stream_scatter_bf16": 2,
+                "banded_sender_sum_bf16": 2}
+    else:
+        k_f, k_i = len(plan.fwd.passes), len(plan.inv.passes)
+        want = {f"fused_{v}_window_bf16": 2, "expand": 6,
+                "corner_permute": 2 * (2 * k_f + k_i),
+                "stream_scatter_bf16": 4}
+    monkeypatch.setattr(sg, "_STREAM_PRECISION", "fastest")
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        params = init_gat(cfg, make_generator("cpu", 72), device=dev)
+        state = init_state(params, make_optimizer(params, 0.005, 5e-4),
+                           make_generator(dev, 73))
+        train_step, _ = make_transductive_steps(cfg, plan.to(dev))
+        before = build.launch_counts()
+        _, loss, _, _ = train_step(state, data.features.to(dev),
+                                   data.graph.to(dev), data.labels.to(dev),
+                                   data.idx_train.to(dev))
+        losses[dev] = float(loss)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = {k: n - before[k]
+                        for k, n in build.launch_counts().items()
+                        if n - before[k]}
+            assert launched == want
+    assert np.isfinite(losses["cuda"])
+    assert abs(losses["cuda"] - losses["cpu"]) <= FASTEST_RTOL * abs(
+        losses["cpu"])
+
+
+def test_plan_bf16_wrappers_never_call_plain_on_the_card(cuda, monkeypatch):
+    """Under 'fastest' on CUDA tensors the band plan's and the corner
+    plans' wrappers launch their one-limb kernels, never a plain version
+    and never the f32 kernel."""
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    calls = []
+    for kind in ("cora", "corner"):
+        for which in (0, 1):
+            kernel, _, _, args, kw = _bf16_forward_cases(kind, which, 2, 3,
+                                                         gen, cuda)
+            calls.append(lambda k=kernel, a=args, w=kw: k(
+                *a, precision="fastest", **w))
+    g, plan = _band(cuda, "cora")
+    table = torch.randn(plan.n_pad, 5, generator=gen, device=cuda)
+    data = torch.randn(plan.num_slots, 5, generator=gen, device=cuda)
+    calls += [lambda: bd.banded_take(table, plan, precision="fastest"),
+              lambda: bd.banded_sender_sum(data, plan, precision="fastest")]
+    for mod, name in ((bd, "banded_take_plain"),
+                      (bd, "banded_sender_sum_plain"),
+                      (bd, "fused_v1_banded_plain"),
+                      (bd, "fused_v2_banded_plain"),
+                      (fc, "fused_v1_window_plain"),
+                      (fc, "fused_v2_window_plain"),
+                      (fs, "fused_v1_plain"), (fs, "fused_v2_plain"),
+                      (st, "stream_scatter_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    before = build.launch_counts()
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in build.launch_counts().items()
+                if v - before[k]}
+    assert launched == {"fused_v1_banded_bf16": 1, "fused_v2_banded_bf16": 1,
+                        "fused_v1_window_bf16": 1, "fused_v2_window_bf16": 1,
+                        "banded_take_bf16": 1, "banded_sender_sum_bf16": 1}

@@ -4,9 +4,9 @@ the JAX package's, which runs its Pallas kernels in interpret mode under
 (the stream segment sums, both sides), rows 2 and 3 (the fused GATv1 and
 GATv2 attention, forward and VJP), the unfused segment sums, and the whole
 2-layer GAT_sparse and GATv2_sparse models (forward and parameter
-gradients, dropout off); and the errors: ``fastest`` over a band plan or
-the corner plans raises ``NotImplementedError``, an unknown precision
-``ValueError``.
+gradients, dropout off); and the errors: an unknown precision raises
+``ValueError``. The band plan and the corner plans under ``fastest`` are
+tests/test_torch_fastest_large.py's.
 
 Both packages round at the same points (the operands and the messages to
 bf16, to nearest with ties to even; the sums in f32), so they differ only
@@ -34,9 +34,7 @@ from pygat_tpu_torch.graph import build_graph as tbuild_graph
 from pygat_tpu_torch.models import gat as tgat
 from pygat_tpu_torch.models import layers as tlayers
 from pygat_tpu_torch.models.convert import params_from_jax
-from pygat_tpu_torch.ops import banded as tbanded
 from pygat_tpu_torch.ops import fused_stream as tfs
-from pygat_tpu_torch.ops import large as tlarge
 from pygat_tpu_torch.ops import segment as tseg
 from pygat_tpu_torch.ops import stream as tstream
 
@@ -420,21 +418,6 @@ def _layer_call(layer_type, gt, plan):
         layer = tlayers.gat_v2_sparse_heads
     return layer(params, x, gt, None, alpha=ALPHA, drop=0.0, concat=True,
                  train=False, plan=plan)
-
-
-@pytest.mark.parametrize("layer_type", ["GAT_sparse", "GATv2_sparse"])
-@pytest.mark.parametrize("over", ["band plan", "corner plans"])
-def test_fastest_over_band_and_corner_plans_raises(graphs, layer_type, over,
-                                                   monkeypatch):
-    """Over a band plan or the corner plans 'fastest' raises, naming
-    ROADMAP item 9, and never runs 'high' instead; 'high' runs there."""
-    _, gt = graphs
-    plan = (tbanded.build_band_plan(gt, w=2) if over == "band plan"
-            else tlarge.plan_csc_to_csr(gt))
-    assert torch.isfinite(_layer_call(layer_type, gt, plan)).all()
-    monkeypatch.setattr(tseg, "_STREAM_PRECISION", "fastest")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _layer_call(layer_type, gt, plan)
 
 
 def test_unknown_precision_raises(graphs, monkeypatch):
