@@ -8,7 +8,7 @@ of which prints its seconds:
 
 1. print the card (``nvidia-smi`` name and power limit), CUDA and nvcc
    versions;
-2. build the twenty-three CUDA kernel libraries (twenty-seven kernels:
+2. build the twenty-five CUDA kernel libraries (twenty-nine kernels:
    the ring's per-hop forwards sit in the stream forwards' sources, f32
    and one-limb) from ``pygat_tpu_torch/csrc`` and print
    the build seconds and the compiler's register / shared-memory report;
@@ -82,8 +82,22 @@ of which prints its seconds:
    their plain versions, there and on a small graph with a hub whose tile
    the kernels split, each called twice (the two results equal bit for
    bit), and timed beside them, their bounds and ``torch.sparse.mm`` over
-   the same weighted graph; the panel layouts' set-up seconds and the
-   phase's peak device memory;
+   the same weighted graph; then, with the counters set to 0 just before
+   and read just after, the ops that take a precision under "fastest" (one
+   bf16 limb: ``panel_spmm_graph`` with and without ``plans=``,
+   ``spmm_corner_graph``, ``spmm_banded`` fused and two-pass) forward and
+   backward on the same graphs, held to the plain SpMM under each route's
+   rounding, each call launching the one-limb kernels as its route states
+   and no f32 SpMM kernel or sum; the one-limb SpMM kernels
+   (``spmm_banded_bf16``, ``panel_spmm_bf16``) against their plain
+   versions under "fastest" in f64, to KERNEL_RTOL of the same sums over
+   |message|, at L = 128 there and on the hub graph and at SPMM_ODD_L
+   (scalar loads) on Pubmed and the hub, each called twice (equal bit for
+   bit), and timed beside the f32 kernel, their bf16 cast, the kernel
+   alone, their bound with bf16 x and ``torch.sparse.mm`` in f32 and (where
+   PyTorch runs it on the card) in bf16; the panel layouts' set-up
+   seconds and the phase's peak device memory; the phase fails past
+   SPMM_BUDGET_S seconds;
 7. the BCSR path (``pygat_tpu_torch.legacy_bcsr``, which no model
    reaches): the Cora and Pubmed stand-ins, the 524k graph and the hub
    graph, each tiled once (its seconds printed, and its walk's: the
@@ -235,8 +249,7 @@ of which prints its seconds:
     plan and the corner plans, FASTEST_STEPS Adam steps of each Cora model
     without dropout within FASTEST_STEPS_RTOL of the same steps under
     "high", and the model card vs CPU under "fastest" (FASTEST_RTOL); the
-    SpMM ops (``spmm_banded``, ``panel_spmm_graph``, ``spmm_corner_graph``)
-    raise under "fastest", naming ROADMAP item 9; the Cora epoch of both
+    SpMM ops under "fastest" run in phase 6; the Cora epoch of both
     models by both loops in both modes, and the 524k fast-loop epoch of
     both models in both modes over both orders, in turns; the phase fails
     past FASTEST_BUDGET_S seconds;
@@ -298,6 +311,11 @@ BIG_CALLS, BIG_REPLAYS = 5, 4  # _time_ms at the large graph's shapes
 # makes the overflow pass run
 SPMM_L = 128
 SPMM_P_MAX = 8
+# the one-limb SpMM kernels also at an odd width, whose rows they read by
+# scalars; and the phase's budget on the card (about 5 s without the
+# one-limb path and kernels, about 15 s with them)
+SPMM_ODD_L = 7
+SPMM_BUDGET_S = 60.0
 # the BCSR path: the preset widths (heads, features) of each graph's layers
 # (Pubmed's layer 1 and, at the Pubmed preset's 8 output heads, its output
 # layer; the 524k graph and the hub graph have the Cora preset's layer 1),
@@ -369,6 +387,8 @@ REPLACES = {"stream_scatter": "pygat_tpu/ops/stream.py:153",
             "fused_v2_banded_bf16": "pygat_tpu/ops/banded.py:1046",
             "fused_v1_window_bf16": "pygat_tpu/ops/fused_stream.py:134",
             "fused_v2_window_bf16": "pygat_tpu/ops/fused_stream.py:207",
+            "spmm_banded_bf16": "pygat_tpu/ops/banded.py:744",
+            "panel_spmm_bf16": "pygat_tpu/ops/panel.py:141",
             "corner_permute": "pygat_tpu/ops/corner.py:216",
             "fused_v1_window": "pygat_tpu/ops/fused_stream.py:134",
             "fused_v2_window": "pygat_tpu/ops/fused_stream.py:207",
@@ -1822,13 +1842,14 @@ def _spmm_routes(label, spec, inp):
                {"stream_scatter": 2})]
     for name, lay in spec["layouts"].items():
         routes.append((f"panel_spmm_graph ({name} layout)",
-                       lambda v, d, lay=lay: ops.panel_spmm_graph(v, d, g,
-                                                                  lay),
+                       lambda v, d, lay=lay: ops.panel_spmm_graph(
+                           v, d, g, lay, precision="high"),
                        inp["w"], {"panel_spmm": 1}))
         if name == label:
             routes.append((f"panel_spmm_graph ({name} layout, plans=)",
                            lambda v, d, lay=lay: ops.panel_spmm_graph(
-                               v, d, g, lay, plans=plans), inp["w"],
+                               v, d, g, lay, plans=plans, precision="high"),
+                           inp["w"],
                            {"panel_spmm": 1, "expand": 2,
                             "corner_permute": k_f + k_i,
                             "stream_scatter": 1}))
@@ -1843,11 +1864,13 @@ def _spmm_routes(label, spec, inp):
         inp["vals_b"], inp["perm"] = vals_b, perm
         routes += [
             ("spmm_banded (fused)",
-             lambda v, d: ops.spmm_banded(v, d, plan), vals_b,
+             lambda v, d: ops.spmm_banded(v, d, plan, precision="high"),
+             vals_b,
              {"spmm_banded": 1, "banded_take": 1, "expand": 1,
               "banded_sender_sum": 1}),
             ("spmm_banded (two-pass)",
-             lambda v, d: ops.spmm_banded(v, d, plan, fused=False), vals_b,
+             lambda v, d: ops.spmm_banded(v, d, plan, fused=False,
+                                          precision="high"), vals_b,
              {"banded_take": 2, "stream_scatter": 1, "expand": 1,
               "banded_sender_sum": 1})]
     return routes
@@ -1980,9 +2003,10 @@ def _spmm_kernel_cases(specs, inputs):
                 plain=lambda plan=plan, inp=inp: banded_weighted_sum_plain(
                     inp["vals_b"], inp["x"], plan),
                 ops={"op": lambda plan=plan, inp=inp: ops.spmm_banded(
-                         inp["vals_b"], inp["x"], plan),
+                         inp["vals_b"], inp["x"], plan, precision="high"),
                      "two_pass": lambda plan=plan, inp=inp: ops.spmm_banded(
-                         inp["vals_b"], inp["x"], plan, fused=False)},
+                         inp["vals_b"], inp["x"], plan, fused=False,
+                         precision="high")},
                 mag=lambda plan=plan, inp=inp: banded_weighted_sum_plain(
                     inp["vals_b"].abs(), inp["x"].abs(), plan),
                 lib=lib, x=inp["x"], split_at=plan.split_at.numel(),
@@ -2004,7 +2028,7 @@ def _spmm_kernel_cases(specs, inputs):
                 mag=lambda args=args, inp=inp: panel_weighted_sum_plain(
                     inp["w"].abs(), inp["x"].abs(), *args),
                 ops={"op": lambda g=g, lay=lay, inp=inp: ops.panel_spmm_graph(
-                         inp["w"], inp["x"], g, lay),
+                         inp["w"], inp["x"], g, lay, precision="high"),
                      "spmm_graph": lambda g=g, inp=inp: ops.spmm_graph(
                          inp["w"], inp["x"], g)},
                 lib=lib, x=inp["x"], split_at=lay.split_at.numel(),
@@ -2067,6 +2091,341 @@ def _time_spmm(case):
               f"{name} {case[f'{name}_ms']:.4f} ms" for name in case["ops"]),
           flush=True)
     for k in ("run", "plain", "lib", "x", "ops"):
+        case.pop(k)
+
+
+def _spmm_fastest_routes(label, spec, inp):
+    """(route, op of (values, x), values, launches one forward and backward
+    make, how the route rounds) of every SpMM op under "fastest" on graph
+    ``label``: the panel layouts with and without the corner backward, the
+    corner plans, and the band plan's fused and two-pass forms (values in
+    banded order, as :func:`_spmm_routes` leaves them in ``inp``). The
+    rounding is :func:`_spmm_plain_rounded`'s keywords."""
+    from pygat_tpu_torch import ops
+
+    g, plans = spec["graph"], spec["corner"]
+    k = len(plans.fwd.passes) + len(plans.inv.passes)
+    routes = []
+    for name, lay in spec["layouts"].items():
+        routes.append((f"panel_spmm_graph ({name} layout)",
+                       lambda v, d, lay=lay: ops.panel_spmm_graph(
+                           v, d, g, lay, precision="fastest"),
+                       inp["w"], {"panel_spmm_bf16": 1},
+                       dict(layout=lay, one_limb_dx=False)))
+        if name == label:
+            routes.append((f"panel_spmm_graph ({name} layout, plans=)",
+                           lambda v, d, lay=lay: ops.panel_spmm_graph(
+                               v, d, g, lay, plans=plans,
+                               precision="fastest"), inp["w"],
+                           {"panel_spmm_bf16": 1, "expand": 2,
+                            "corner_permute": k, "stream_scatter_bf16": 1},
+                           dict(layout=lay)))
+    routes.append(("spmm_corner_graph",
+                   lambda v, d: ops.spmm_corner_graph(v, d, g, plans,
+                                                      precision="fastest"),
+                   inp["w"], {"expand": 2, "corner_permute": k,
+                              "stream_scatter_bf16": 2},
+                   dict(round_rows=False)))
+    plan = spec["band"]
+    if plan is not None:
+        routes += [
+            ("spmm_banded (fused)",
+             lambda v, d: ops.spmm_banded(v, d, plan, precision="fastest"),
+             inp["vals_b"], {"spmm_banded_bf16": 1, "banded_take_bf16": 1,
+                             "expand": 1, "banded_sender_sum_bf16": 1},
+             dict(round_values=True, banded=True)),
+            ("spmm_banded (two-pass)",
+             lambda v, d: ops.spmm_banded(v, d, plan, fused=False,
+                                          precision="fastest"),
+             inp["vals_b"], {"banded_take_bf16": 2, "stream_scatter_bf16": 1,
+                             "expand": 1, "banded_sender_sum_bf16": 1},
+             dict(banded=True))]
+    return routes
+
+
+def _spmm_plain_rounded(g, w, x, ct, *, round_rows=True, round_values=False,
+                        banded=False, layout=None, one_limb_dx=True):
+    """(out, d values, d x) of the SpMM for the cotangent ``ct`` in plain
+    PyTorch on the card (row gathers, ``index_add_``), each message rounded
+    to bf16 as a route under "fastest" forms it: ``v * bf16(x)``
+    (``round_rows``; the corner route's ``v * x`` without), ``bf16(v)`` with
+    ``round_values`` (the fused banded form); over a panel ``layout`` the
+    overflow slots' messages stay f32 over the unrounded x. d values reads
+    x's rows rounded to bf16 over a band plan (``banded``: the reference's
+    rounded take), else unrounded; d x sums bf16-rounded ``v * ct[r]`` per
+    sender (``one_limb_dx``), or f32 ones (the panel backward without
+    plans, f32 as the reference's)."""
+    import torch
+
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+
+    s, r = g.senders.long(), g.receivers.long()
+    v = torch.where(g.edge_mask, w, 0.0)
+    xs = x[s]
+    msgs = bf((bf(v) if round_values else v)[:, None]
+              * (bf(xs) if round_rows else xs))
+    if layout is not None:
+        fits = (layout.g_idx < layout.n_panels * 128) & (g.r_local < 128)
+        msgs = torch.where(fits[:, None], msgs, v[:, None] * xs)
+    out = torch.zeros_like(x).index_add_(0, r, msgs)
+    del msgs
+    g_r = ct[r]
+    rows = bf(xs) if banded else xs
+    dv = torch.where(g.edge_mask, (g_r * rows).sum(-1), 0.0)
+    del rows, xs
+    d_msgs = v[:, None] * g_r
+    if one_limb_dx:
+        d_msgs = bf(d_msgs)
+    return out, dv, torch.zeros_like(x).index_add_(0, s, d_msgs)
+
+
+def _spmm_fastest_path(specs, inputs, counters):
+    """The SpMM path under "fastest" (one bf16 limb): every op of the
+    family that takes a precision, forward and backward, at SPMM_L on each
+    graph, through the entry points a user calls, each held to the plain
+    SpMM under the route's own rounding (:func:`_spmm_plain_rounded`) to
+    KERNEL_RTOL of max(1, max |want|): both sides round each message alike,
+    so only the order of the f32 sums differs. Each call's launches
+    (forward and backward) must be as the route states: the one-limb SpMM
+    kernels and segment sums, never an f32 one. Returns the route errors."""
+    import torch
+
+    errors = {}
+    for label, spec in specs.items():
+        g, inp = spec["graph"], inputs[label]
+        w, x, ct = inp["w"], inp["x"], inp["ct"]
+        for route, fn, vals, want, rounding in _spmm_fastest_routes(
+                label, spec, inp):
+            before = {k: f.launches for k, f in counters.items()}
+            got = _vjp(fn, vals, x, ct)
+            torch.cuda.synchronize()
+            made = {k: f.launches - before[k] for k, f in counters.items()
+                    if f.launches != before[k]}
+            if vals is not w:  # banded order: the values' gradient to edges
+                live = inp["perm"] >= 0
+                dv = torch.zeros_like(w).index_put_(
+                    (inp["perm"][live],), got[1][live])
+                got = (got[0], dv, got[2])
+            plain = _spmm_plain_rounded(g, w, x, ct, **rounding)
+            checks = [(what, _held(a, b)) for what, a, b in zip(
+                ("out", "d values", "d x"), got, plain)]
+            errors[f"{label} {route}"] = max(c[1][0] for c in checks)
+            print(f"  {label} {route} under 'fastest': launches {made}; "
+                  + "; ".join(f"{what} vs plain (same rounding) {e:.3e} "
+                              f"(allowed {a:.3e})"
+                              for what, (e, a, _) in checks), flush=True)
+            if made != want:
+                raise AssertionError(f"{label} {route} under 'fastest': "
+                                     f"launches {made}, want {want}")
+            if not all(ok for _, (_, _, ok) in checks):
+                raise AssertionError(f"{label} {route} under 'fastest' "
+                                     "disagrees")
+            del got, plain
+    return errors
+
+
+def _sparse_mm_bf16(lib, x):
+    """``torch.sparse.mm`` of the CSR ``lib`` and ``x`` in bf16 (values
+    and x cast once), and None where PyTorch runs no bf16 sparse product
+    on the card (it raises then)."""
+    import torch
+
+    lib16 = torch.sparse_csr_tensor(
+        lib.crow_indices(), lib.col_indices(),
+        lib.values().to(torch.bfloat16), size=lib.shape)
+    x16 = x.to(torch.bfloat16)
+    try:
+        torch.sparse.mm(lib16, x16)
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        print(f"  torch.sparse.mm in bf16 does not run here: "
+              f"{str(exc).splitlines()[0]}", flush=True)
+        return None
+    return lambda: torch.sparse.mm(lib16, x16)
+
+
+def _spmm_fastest_kernel_cases(specs, inputs):
+    """Rows 7 and 9 one-limb (``spmm_banded_bf16``, ``panel_spmm_bf16``)
+    at the SpMM path's shapes at SPMM_L (the 524k band plan; the Pubmed
+    layout and both 524k layouts; the hub's band plan and layout) and at
+    SPMM_ODD_L, whose rows the kernels read by scalars (the Pubmed layout,
+    the hub's band plan and layout), each held against its plain version
+    under "fastest" in f64 to KERNEL_RTOL of the same sums over |message|
+    (both sides round each message alike, so only the order of the sums
+    differs), and called twice: the two results must agree bit for bit.
+    Each case carries what ``_time_spmm_fastest`` times."""
+    import torch
+
+    from pygat_tpu_torch.ops import build
+    from pygat_tpu_torch.ops.banded import (
+        banded_weighted_sum,
+        banded_weighted_sum_bf16,
+        banded_weighted_sum_plain,
+    )
+    from pygat_tpu_torch.ops.panel import (
+        panel_weighted_sum,
+        panel_weighted_sum_bf16,
+        panel_weighted_sum_plain,
+    )
+    from pygat_tpu_torch import ops
+
+    cases = []
+    for label, spec in specs.items():
+        g, inp = spec["graph"], inputs[label]
+        n_pad, e_s = g.num_nodes_padded, g.num_edges_padded
+        widths = (SPMM_L,) if label == "large" else (SPMM_L, SPMM_ODD_L)
+        for width in widths:
+            x = inp["x"] if width == SPMM_L else inp["x"][:, :width].contiguous()
+            lib = _library_csr(g, inp["w"])
+            plan = spec["band"]
+            if plan is not None:
+                vb = inp["vals_b"]
+                walk = plan.spmm_walk
+                n_split = plan.split_at.numel()
+                bargs = (vb, x, plan)
+                cases.append(dict(
+                    kernel="spmm_banded_bf16", dataset=label, L=width,
+                    n_live=int((plan.s_loc < plan.w * 128).sum()),
+                    run=lambda a=bargs: banded_weighted_sum(
+                        *a, precision="fastest"),
+                    twin=lambda a=bargs: banded_weighted_sum_bf16(*a),
+                    f32=lambda a=bargs: banded_weighted_sum(*a),
+                    plain=lambda a=bargs: banded_weighted_sum_plain(
+                        *a, precision="fastest"),
+                    oracle=lambda a=bargs: banded_weighted_sum_plain(
+                        *a, precision="fastest", f64=True),
+                    mag=lambda a=bargs: banded_weighted_sum_plain(
+                        *a, precision="fastest", magnitude=True),
+                    op=lambda a=bargs: ops.spmm_banded(*a),
+                    entry=(banded_weighted_sum_bf16,
+                           lambda x16, out, part, vb=vb, walk=walk,
+                           plan=plan, n_split=n_split, width=width: (
+                               vb, x16, walk.rows, walk.local, walk.order,
+                               plan.tile_ptr, plan.split_at,
+                               plan.n_pad // 128, n_split, width, out,
+                               part)),
+                    lib=lib, x=x, split_at=n_split,
+                    n_bytes=(4 * (3 * plan.num_slots + 2 * plan.num_chunks
+                                  + plan.n_pad * width)
+                             + 2 * plan.n_pad * width)))
+            for name, lay in spec["layouts"].items():
+                if width != SPMM_L and name.startswith("large"):
+                    continue
+                largs = (inp["w"], x, lay.panel_tiles, lay.g_idx,
+                         g.edge_mask, g.r_local, g.r_chunk, lay.tile_ptr,
+                         lay.split_at)
+                fits = ((lay.g_idx < lay.n_panels * 128) & (g.r_local < 128)
+                        & g.edge_mask)
+                n_split = lay.split_at.numel()
+                cases.append(dict(
+                    kernel="panel_spmm_bf16", dataset=name, L=width,
+                    P=lay.n_panels, n_live=int(fits.sum()),
+                    run=lambda a=largs: panel_weighted_sum(
+                        *a, precision="fastest"),
+                    twin=lambda a=largs: panel_weighted_sum_bf16(*a),
+                    f32=lambda a=largs: panel_weighted_sum(*a),
+                    plain=lambda a=largs: panel_weighted_sum_plain(
+                        *a, precision="fastest"),
+                    oracle=lambda a=largs: panel_weighted_sum_plain(
+                        *a, precision="fastest", f64=True),
+                    mag=lambda a=largs: panel_weighted_sum_plain(
+                        *a, precision="fastest", magnitude=True),
+                    op=lambda g=g, lay=lay, w=inp["w"], x=x:
+                        ops.panel_spmm_graph(w, x, g, lay),
+                    entry=(panel_weighted_sum_bf16,
+                           lambda x16, out, part, a=largs, lay=lay,
+                           n_split=n_split, width=width, n_pad=n_pad: (
+                               a[0], a[4], x16, *a[2:4], *a[5:],
+                               n_pad // 128, n_split, lay.n_panels, width,
+                               out, part)),
+                    lib=lib, x=x, split_at=n_split,
+                    n_bytes=(4 * (3 * e_s + g.r_chunk.numel()
+                                  + lay.panel_tiles.numel() + n_pad * width)
+                             + e_s + 2 * n_pad * width)))
+    for case in cases:
+        counts = build.launch_counts()
+        got, again = case["run"](), case["twin"]()
+        torch.cuda.synchronize()
+        made = {k: v - counts[k] for k, v in build.launch_counts().items()
+                if v != counts[k]}
+        if made != {case["kernel"]: 2}:
+            raise AssertionError(f"{case['kernel']}: launched {made}")
+        want, mag = case.pop("oracle")(), case.pop("mag")()
+        err = float((got - want).abs().max())
+        worst = float(((got - want).abs()
+                       / (KERNEL_RTOL * mag + 1e-30)).max())
+        case["max_abs_err"] = err
+        case["bitwise_repeat"] = bool(torch.equal(got, again))
+        case["precision"] = "fastest"
+        shape = f"L={case['L']}" + (f" P={case['P']}" if "P" in case else "")
+        print(f"  {case['kernel']} {case['dataset']} {shape} "
+              f"({case['split_at']} extra pieces of split tiles): kernel vs "
+              f"plain under 'fastest' in f64 max_abs_err {err:.3e}, worst "
+              f"element at {worst:.3f} of KERNEL_RTOL of its sum over "
+              f"|message|; two calls equal bit for bit: "
+              f"{case['bitwise_repeat']}", flush=True)
+        if not (bool(torch.isfinite(got).all()) and worst <= 1.0):
+            raise AssertionError(f"{case['kernel']} disagrees with its plain "
+                                 "version under 'fastest'")
+        if not case["bitwise_repeat"]:
+            raise AssertionError(f"{case['kernel']}: two calls on the same "
+                                 "inputs differ")
+        del got, again, want, mag
+    return cases
+
+
+def _time_spmm_fastest(case):
+    """Device ms of a one-limb SpMM case: the wrapper with its bf16 cast of
+    x (``ms``), the kernel alone on a bf16 copy made once (``kernel_ms``),
+    the cast alone (``cast_ms``), the f32 kernel at the same shape
+    (``f32_ms``), the plain version under "fastest" (``plain_ms``), the
+    op's forward around it (``op_ms``), and ``torch.sparse.mm`` of the same
+    weighted graph in f32 (``library_f32_ms``) and in bf16
+    (``library_bf16_ms``, None where PyTorch runs none on the card);
+    ``library_ms`` is the bf16 one where it runs, else the f32 one. The
+    bound: the f32 kernel's bytes with x read in bf16 (2 bytes a value);
+    two FLOPs per live slot and column."""
+    import torch
+
+    from pygat_tpu_torch.ops import build
+
+    big = case["dataset"].startswith("large")
+    kw = dict(calls=BIG_CALLS, replays=BIG_REPLAYS) if big else {}
+    x = case["x"]
+    case["ms"] = _time_ms(case["run"], **kw)
+    case["f32_ms"] = _time_ms(case["f32"], **kw)
+    case["cast_ms"] = _time_ms(lambda: x.to(torch.bfloat16), **kw)
+    wrapper, args = case["entry"]
+    n_split = case["split_at"]
+    x16 = x.to(torch.bfloat16)
+    out = torch.empty(x.shape, device="cuda")
+    part = (torch.empty(n_split, 128, x.shape[1], device="cuda")
+            if n_split else None)
+    c_args = args(x16, out, part)
+    case["kernel_ms"] = _time_ms(lambda: build.launch(wrapper, *c_args), **kw)
+    case["plain_ms"] = _time_ms(case["plain"], **kw)
+    case["op_ms"] = _time_ms(case["op"], **kw)
+    lib = case["lib"]
+    case["library_f32_ms"] = _time_ms(lambda: torch.sparse.mm(lib, x), **kw)
+    lib16 = _sparse_mm_bf16(lib, x)
+    case["library_bf16_ms"] = (None if lib16 is None
+                               else _time_ms(lib16, **kw))
+    case["library_ms"] = (case["library_f32_ms"] if lib16 is None
+                          else case["library_bf16_ms"])
+    case["bound_ms"], case["bound_by"] = _bound(
+        case["n_bytes"], 2 * case["n_live"] * case["L"])
+    shape = f"L={case['L']}" + (f" P={case['P']}" if "P" in case else "")
+    bf16_lib = ("not run" if lib16 is None
+                else f"{case['library_bf16_ms']:.4f} ms")
+    print(f"  {case['kernel']} {case['dataset']} {shape}: wrapper with its "
+          f"bf16 cast {case['ms']:.4f} ms (the kernel alone "
+          f"{case['kernel_ms']:.4f} ms, the cast {case['cast_ms']:.4f} ms), "
+          f"f32 kernel {case['f32_ms']:.4f} ms, plain {case['plain_ms']:.4f} "
+          f"ms, op forward {case['op_ms']:.4f} ms, torch.sparse.mm f32 "
+          f"{case['library_f32_ms']:.4f} ms, bf16 {bf16_lib}, bound (bf16 x) "
+          f"{case['bound_ms']:.5f} ms ({case['bound_by']})", flush=True)
+    for k in ("run", "twin", "f32", "plain", "op", "entry", "lib", "x"):
         case.pop(k)
 
 
@@ -4275,40 +4634,6 @@ def _fastest_steps(cfg, cora, plan=None):
     return out
 
 
-def _fastest_spmm_raises(cora, plans):
-    """Under "fastest" the SpMM ops (``spmm_banded``, ``panel_spmm_graph``,
-    ``spmm_corner_graph``; rows 7 and 9, which no model path reaches) raise
-    NotImplementedError naming ROADMAP item 9: their one-limb kernels are
-    not ported, and nothing runs "high" in their place."""
-    import torch
-
-    from pygat_tpu_torch.ops.banded import spmm_banded
-    from pygat_tpu_torch.ops.large import spmm_corner_graph
-    from pygat_tpu_torch.ops.panel import build_panel_layout, panel_spmm_graph
-
-    g = cora.graph
-    band, corner = plans["cora, band plan"], plans["cora, corner plans"]
-    x = torch.ones(g.num_nodes_padded, 8, device="cuda")
-    values = g.edge_weight
-    calls = {
-        "spmm_banded": lambda: spmm_banded(
-            torch.ones(band.num_slots, device="cuda"), x, band,
-            precision="fastest"),
-        "panel_spmm_graph": lambda: panel_spmm_graph(
-            values, x, g, build_panel_layout(g), precision="fastest"),
-        "spmm_corner_graph": lambda: spmm_corner_graph(
-            values, x, g, corner, precision="fastest")}
-    for name, call in calls.items():
-        try:
-            call()
-        except NotImplementedError as exc:
-            if "item 9" not in str(exc):
-                raise
-            print(f"phase 13: {name} under 'fastest' raises: {exc}")
-            continue
-        raise AssertionError(f"{name} under 'fastest' did not raise")
-
-
 def _fastest_plan_kernels(datasets, large, gen, plans, kernel_cases):
     """The one-limb kernels of the band plan and the corner plans at the
     main path's shapes, held to their plain versions under "fastest" in f64
@@ -4548,7 +4873,6 @@ def _fastest_phase(datasets, large, ppi, gen, plans, kernel_cases, counters,
                           f"{[round(r[0], 4) for r in rs]} ms, fast loop "
                           f"{[round(r[1], 4) for r in rs]} ms"
                           for prec, rs in runs.items()), flush=True)
-    _fastest_spmm_raises(cora, plans)
     # the 524k epoch in both modes over both orders, the kernels' inputs
     # freed first
     for cases in kernel_cases.values():
@@ -4978,6 +5302,18 @@ def main() -> int:
     print(f"phase 6: SpMM path: wrapper launches "
           f"{ {k: v for k, v in path_launches['spmm'].items() if v} }",
           flush=True)
+    # the same ops under "fastest" (one bf16 limb), the counters set to 0
+    # just before and read just after
+    for fn in counters.values():
+        fn.launches = 0
+    fastest_route_errors = _spmm_fastest_path(spmm_specs, spmm_inputs,
+                                              counters)
+    path_launches["spmm fastest"] = {name: fn.launches
+                                     for name, fn in counters.items()}
+    path_replayed["spmm fastest"] = dict.fromkeys(counters, 0)
+    print(f"phase 6: SpMM path under 'fastest': wrapper launches "
+          f"{ {k: v for k, v in path_launches['spmm fastest'].items() if v} }",
+          flush=True)
     spmm_specs["hub"] = _hub_spec()
     spmm_inputs["hub"] = _spmm_inputs(spmm_specs["hub"]["graph"], 19)
     spmm_inputs["hub"]["vals_b"], _ = _banded_values(
@@ -4986,11 +5322,19 @@ def main() -> int:
     for case in spmm_cases:
         _time_spmm(case)
         kernel_cases[case["kernel"]].append(case)
+    for case in _spmm_fastest_kernel_cases(spmm_specs, spmm_inputs):
+        _time_spmm_fastest(case)
+        kernel_cases[case["kernel"]].append(case)
     spmm_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"phase 6: SpMM phase peak allocated {spmm_peak_gib:.2f} GiB",
           flush=True)
     del spmm_specs, spmm_inputs
     torch.cuda.empty_cache()
+    spmm_s = time.perf_counter() - t0
+    print(f"phase 6: SpMM phase {spmm_s:.1f} s (budget {SPMM_BUDGET_S:.0f} "
+          "s)", flush=True)
+    if spmm_s > SPMM_BUDGET_S:
+        raise AssertionError("the SpMM phase took longer than its budget")
     phase_done(6, t0)
 
     # -- phase 7: the BCSR path -------------------------------------------------
@@ -5098,8 +5442,8 @@ def main() -> int:
     # the band plans, the corner windows) against their plain versions and
     # timed, the CLIs and the 524k trainers under "fastest" with the
     # counters set to 0 just before each run and read just after, the steps
-    # against "high" and card vs CPU in every order, the SpMM ops that
-    # raise, the Cora and 524k epochs
+    # against "high" and card vs CPU in every order, the Cora and 524k
+    # epochs (the SpMM ops under "fastest" are phase 6's)
     t0 = time.perf_counter()
     fastest = _fastest_phase(
         datasets, large, ppi, gen,
@@ -5180,7 +5524,8 @@ def main() -> int:
                                          "live", "senders_read",
                                          "receivers_read", "single_device_ms",
                                          "precision", "kernel_ms", "f32_ms",
-                                         "cast_ms")
+                                         "cast_ms", "library_f32_ms",
+                                         "library_bf16_ms")
                        if k in c}
                       for c in cases],
         })
@@ -5192,6 +5537,9 @@ def main() -> int:
                                   "large_corner_plans": corner_plan_s,
                                   **spmm_setup, **bcsr_setup},
                       "spmm": {"route_max_abs_err": route_errors,
+                               "fastest_route_max_abs_err":
+                                   fastest_route_errors,
+                               "seconds": spmm_s,
                                "peak_allocated_gib": spmm_peak_gib},
                       "bcsr": {"route_max_abs_err": bcsr_errors},
                       "ppi": {"epoch_s": ppi_epoch_s, "setup_s": ppi_setup},

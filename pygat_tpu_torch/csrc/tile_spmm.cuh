@@ -59,10 +59,27 @@
 // --ablate; NVIDIA H100 80GB HBM3, 700.00 W) skipping the row loads saves
 // 36–38 % of the time, L = 64 in place of 128 saves 8–12 %, and skipping
 // the shared-memory adds 4–5 %.
+//
+// The one-limb instantiations (spmm_banded_bf16.cu, panel_spmm_bf16.cu: the
+// TPU kernels at exact=False / two_limb=False, precision="fastest", as
+// their interpret mode computes) read x from a bf16 copy that the wrapper
+// makes once a call (T = __nv_bfloat16: 4 values, 8 bytes, a lane's load
+// where L % 4 == 0 and the rows are 8-byte aligned, else scalar loads; the
+// bits are widened where they are added, so the batch's loads stay in
+// flight together), and form each message as the reference does
+// (OneLimbMsg): the product w * v in f32 (__fmul_rn: an FMA would skip the
+// rounding), rounded to bf16 (to nearest, ties to even; two messages a
+// conversion), and only then added into the run's f32 sum. Row 7 folds its
+// value into the bf16 select one-hot, so its value is rounded to bf16 once,
+// when the slot is staged (kRoundW); row 9 scales the bf16 rows by its f32
+// value. The f32 instantiations (ExactMsg) fuse w * v into the run's sum.
+// The rounding costs the one-limb kernels more than the halved row bytes
+// save (PERF.md §6).
 
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "tile_pieces.cuh"
 
@@ -73,6 +90,39 @@ constexpr int TS_SLAB = 128;   // columns per block: 32 lanes x 4
 constexpr int TS_GROUP = 64;   // slots a warp's two ballots cover
 constexpr int TS_BATCH = 8;    // slot rows a warp has in flight
 constexpr unsigned FULL = 0xffffffffu;
+
+// Message policies: the staged weight of a slot's value, what a lane's four
+// row values become before they are added (prepare), the first message of
+// a run and a message added into it.
+struct ExactMsg {  // 'high': f32 rows, w * v fused into the run's sum
+  __device__ static float weight(float w) { return w; }
+  __device__ static void prepare(float, float (&)[4]) {}
+  __device__ static float first(float w, float v) { return w * v; }
+  __device__ static float add(float w, float v, float sum) {
+    return fmaf(w, v, sum);
+  }
+};
+
+template <bool kRoundW>  // row 7: the value rounded to bf16 when staged
+struct OneLimbMsg {  // 'fastest': bf16(f32 w * v), then added in f32
+  __device__ static float weight(float w) {
+    return kRoundW ? bf16_round(w) : w;
+  }
+  // the four messages, rounded two to a conversion
+  __device__ static void prepare(float w, float (&v)[4]) {
+#pragma unroll
+    for (int h = 0; h < 4; h += 2) {
+      const __nv_bfloat162 p =
+          __floats2bfloat162_rn(__fmul_rn(w, v[h]), __fmul_rn(w, v[h + 1]));
+      v[h] = __low2float(p);
+      v[h + 1] = __high2float(p);
+    }
+  }
+  __device__ static float first(float, float m) { return m; }
+  __device__ static float add(float, float m, float sum) {
+    return __fadd_rn(sum, m);
+  }
+};
 
 // The value of the slot at position k of the walk, and whether it is kept:
 // the slot is order[k] (order null: k itself), its value vals[slot], kept
@@ -93,7 +143,8 @@ struct SlotValues {
 };
 
 // The four columns lane `lane` covers in a slab of `cols` columns: 4 * lane
-// .. 4 * lane + 3 (kVec), or lane + 32 q (scalar).
+// .. 4 * lane + 3 (kVec), or lane + 32 q (scalar); from f32 rows, or (the
+// overload below) the bits of bf16 rows, which row_values widens.
 template <bool kVec>
 __device__ __forceinline__ void load_row(const float* __restrict__ src,
                                          int lane, int cols, float v[4]) {
@@ -109,6 +160,52 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src,
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       if (lane + 32 * q < cols) v[q] = __ldg(src + lane + 32 * q);
+  }
+}
+
+// A bf16 row's bits, as loaded: kVec, the lane's four values packed in
+// v[0], v[1] (8 bytes, one load); scalar, one value in the low half of
+// each v[q]. They are widened where they are added (row_values), not here:
+// a widening beside its load waits for the load inside the batch's
+// warp-uniform branch, and the batch's row loads no longer overlap (the
+// one-limb kernel then took 1.54x the f32 kernel's time at 524k, L = 128:
+// chip_smoke.py phase 6).
+template <bool kVec>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ src,
+                                         int lane, int cols, float v[4]) {
+  if constexpr (kVec) {
+    if (4 * lane < cols) {
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(src) + lane);
+      v[0] = __uint_as_float(t.x);
+      v[1] = __uint_as_float(t.y);
+    }
+  } else {
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (lane + 32 * q < cols)
+        v[q] = __uint_as_float(static_cast<unsigned>(__ldg(u + lane + 32 * q)));
+  }
+}
+
+// The four f32 values of a lane's loaded row: an f32 row's as they are; a
+// bf16 row's bits widened (a bf16 value is the top half of the f32 of the
+// same value, so the widening is exact).
+template <bool kVec, class T>
+__device__ __forceinline__ void row_values(const float (&v)[4],
+                                           float (&m)[4]) {
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) m[q] = v[q];
+  } else if constexpr (kVec) {
+    const unsigned a = __float_as_uint(v[0]), b = __float_as_uint(v[1]);
+    m[0] = __uint_as_float(a << 16);
+    m[1] = __uint_as_float(a & 0xffff0000u);
+    m[2] = __uint_as_float(b << 16);
+    m[3] = __uint_as_float(b & 0xffff0000u);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) m[q] = __uint_as_float(__float_as_uint(v[q]) << 16);
   }
 }
 
@@ -147,10 +244,10 @@ constexpr size_t TS_STAGE_BYTES = 2 * sizeof(Stage);
 // slot g + j, resp. g + 32 + j, of the staged chunk), in slot order, and
 // issues their row loads; returns how many. The positions come first, so
 // that the staged words and the rows of the batch are all read at once.
-template <bool kVec>
+template <bool kVec, class T>
 __device__ __forceinline__ int issue_batch(unsigned& m0, unsigned& m1,
                                            const Stage& st, int g,
-                                           const float* __restrict__ x,
+                                           const T* __restrict__ x,
                                            int L, int c0, int lane, int cols,
                                            float (&v)[TS_BATCH][4],
                                            float (&wu)[TS_BATCH],
@@ -181,8 +278,9 @@ __device__ __forceinline__ int issue_batch(unsigned& m0, unsigned& m1,
 }
 
 // Adds the n loaded rows, in slot order: a run of equal local rows sums in
-// `sum`, and reaches the accumulator when the row changes.
-template <bool kVec>
+// `sum`, and reaches the accumulator when the row changes; Msg forms each
+// message and adds it. T: the type of the rows' values (row_values).
+template <bool kVec, class Msg, class T>
 __device__ __forceinline__ void add_batch(int n, const float (&v)[TS_BATCH][4],
                                           const float (&wu)[TS_BATCH],
                                           const int (&lu)[TS_BATCH], int& cur,
@@ -191,14 +289,17 @@ __device__ __forceinline__ void add_batch(int n, const float (&v)[TS_BATCH][4],
 #pragma unroll
   for (int u = 0; u < TS_BATCH; ++u) {
     if (u >= n) break;
+    float m[4];
+    row_values<kVec, T>(v[u], m);
+    Msg::prepare(wu[u], m);
     if (lu[u] != cur) {
       if (cur >= 0) add_row<kVec>(acc + cur * cols, lane, cols, sum);
       cur = lu[u];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) sum[q] = wu[u] * v[u][q];
+      for (int q = 0; q < 4; ++q) sum[q] = Msg::first(wu[u], m[q]);
     } else {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) sum[q] = fmaf(wu[u], v[u][q], sum[q]);
+      for (int q = 0; q < 4; ++q) sum[q] = Msg::add(wu[u], m[q], sum[q]);
     }
   }
 }
@@ -219,8 +320,9 @@ __device__ __forceinline__ SlotWords load_words(Rows rows, SlotValues w,
 
 // Stages slot t of a chunk for block b of the B = 2^lb that share its
 // tile: the rows r with r % (8 B) in [8 b, 8 b + 8) are the block's, warp
-// r % 8 adding them into accumulator row (r / (8 B)) * 8 + r % 8.
-template <class Rows>
+// r % 8 adding them into accumulator row (r / (8 B)) * 8 + r % 8. The
+// staged weight is Msg's.
+template <class Msg, class Rows>
 __device__ __forceinline__ void stage_slot(Stage& st, Rows rows,
                                            const SlotWords& sw, int chunk,
                                            int t, int b, int lb) {
@@ -236,15 +338,16 @@ __device__ __forceinline__ void stage_slot(Stage& st, Rows rows,
   }
   st.row[t] = row;
   st.loc[t] = q;
-  st.w[t] = sw.val;
+  st.w[t] = Msg::weight(sw.val);
   st.owner[t] = static_cast<signed char>(owner);
 }
 
 // 8 warps a block, three blocks per SM; gridDim.z = B blocks share a
-// tile's rows
-template <bool kVec, class Rows>
+// tile's rows; T, the type of x's rows (float, or __nv_bfloat16 in the
+// one-limb instantiations); Msg, how a message is formed and added
+template <bool kVec, class Rows, class T, class Msg>
 __global__ void __launch_bounds__(TS_WARPS * 32, 3)
-tile_spmm_kernel(const float* __restrict__ x, Rows rows, SlotValues w,
+tile_spmm_kernel(const T* __restrict__ x, Rows rows, SlotValues w,
                  const int* __restrict__ local,
                  const int* __restrict__ tile_ptr,
                  const int* __restrict__ split_at, int n_tiles, int n_split,
@@ -273,7 +376,7 @@ tile_spmm_kernel(const float* __restrict__ x, Rows rows, SlotValues w,
 
   for (int i = t; i < n_rows * cols; i += THREADS) acc[i] = 0.f;
   if (c_lo < c_hi)
-    stage_slot(stage[0], rows,
+    stage_slot<Msg>(stage[0], rows,
                load_words(rows, w, local, static_cast<long long>(c_lo) * EC + t),
                c_lo, t, b, lb);
   __syncthreads();
@@ -298,11 +401,12 @@ tile_spmm_kernel(const float* __restrict__ x, Rows rows, SlotValues w,
         int lu[TS_BATCH];
         const int n = issue_batch<kVec>(m0, m1, st, g, x, L, c0, lane, cols,
                                         v, wu, lu);
-        add_batch<kVec>(n, v, wu, lu, cur, sum, acc, lane, cols);
+        add_batch<kVec, Msg, T>(n, v, wu, lu, cur, sum, acc, lane, cols);
       }
     }
     // the other buffer was last read before the previous barrier
-    if (more) stage_slot(stage[(c + 1 - c_lo) & 1], rows, next, c + 1, t, b, lb);
+    if (more)
+      stage_slot<Msg>(stage[(c + 1 - c_lo) & 1], rows, next, c + 1, t, b, lb);
     __syncthreads();
   }
   if (cur >= 0) add_row<kVec>(acc + cur * cols, lane, cols, sum);
@@ -329,23 +433,26 @@ tile_spmm_kernel(const float* __restrict__ x, Rows rows, SlotValues w,
 // One block per tile (and per 128 columns), plus one per extra piece of a
 // split tile, on `stream`; then, if any tile is split, the combine. part is
 // [n_split, 128, L] f32 scratch (unused when n_split is 0). Returns the
-// first CUDA error, or cudaGetLastError() after the launches.
-template <class Rows>
-int launch_tile_spmm(const float* x, Rows rows, SlotValues w, const int* local,
+// first CUDA error, or cudaGetLastError() after the launches. x's rows are
+// f32 or bf16 (T); Msg as tile_spmm_kernel's (ExactMsg for f32 rows).
+template <class Msg = ExactMsg, class T, class Rows>
+int launch_tile_spmm(const T* x, Rows rows, SlotValues w, const int* local,
                      const int* tile_ptr, const int* split_at, int n_tiles,
                      int n_split, int L, float* out, float* part,
                      void* stream) {
   if (n_tiles <= 0 || L <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto aligned = [](const void* p) {
-    return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+  const auto aligned = [](const void* p, std::uintptr_t to) {
+    return reinterpret_cast<std::uintptr_t>(p) % to == 0;
   };
-  const bool vec = L % 4 == 0 && aligned(x) && aligned(out) &&
-                   (n_split == 0 || aligned(part));
+  // a lane's four values of x in one load (16 bytes of f32, 8 of bf16),
+  // and float4 stores of the output
+  const bool vec = L % 4 == 0 && aligned(x, 4 * sizeof(T)) &&
+                   aligned(out, 16) && (n_split == 0 || aligned(part, 16));
   const int slab = L < TS_SLAB ? L : TS_SLAB;
   const size_t smem = sizeof(float) * TILE * slab;
-  auto kernel = vec ? tile_spmm_kernel<true, Rows>
-                    : tile_spmm_kernel<false, Rows>;
+  auto kernel = vec ? tile_spmm_kernel<true, Rows, T, Msg>
+                    : tile_spmm_kernel<false, Rows, T, Msg>;
   cudaError_t e = cudaSuccess;
   // above 48 KB of shared memory, the static staging's included, a kernel
   // must opt in. The attribute is set on the current device only, so it is

@@ -29,7 +29,8 @@ Three parts:
   tile-owner body ``csrc/tile_fused.cuh``, replace
   ``_make_v1_banded_kernel`` and ``_make_v2_banded_kernel``),
   and :func:`banded_weighted_sum` (``csrc/spmm_banded.cu``, replaces
-  ``_make_spmm_banded_kernel``);
+  ``_make_spmm_banded_kernel``, on the tile-owner body
+  ``csrc/tile_spmm.cuh``);
 * the differentiable ops :func:`fused_v1_attention_banded`,
   :func:`fused_v2_attention_banded` and :func:`spmm_banded`, whose backward
   is the math of the reference's custom VJPs: :func:`banded_take`
@@ -38,19 +39,21 @@ Three parts:
   :func:`~pygat_tpu_torch.ops.stream.stream_scatter` sums per receiver and
   :func:`banded_sender_sum` per sender.
 
-The kernels and the two attention ops take the reference's ``precision``.
+The kernels and the three ops take the reference's ``precision``.
 Under ``'fastest'`` (one bf16 limb) the fused forwards round as the
 receiver stream's do (:mod:`~pygat_tpu_torch.ops.fused_stream`), and the
 wrappers launch the one-limb kernels on bf16 copies they make once a call:
 ``csrc/banded_take_bf16.cu`` (the table's rows rounded, as bf16),
 ``csrc/banded_sender_sum_bf16.cu`` (the data rounded, summed in f32),
-``csrc/fused_v1_banded_bf16.cu`` and ``csrc/fused_v2_banded_bf16.cu``,
-counted by :func:`banded_take_bf16`, :func:`banded_sender_sum_bf16`,
-:func:`fused_v1_banded_bf16` and :func:`fused_v2_banded_bf16`. The
-attention backward then recomputes its sender rows rounded to bf16 (the
-reference's ``exact=False`` take; the receiver stream's and the corner
-path's backwards take them unrounded) and runs both sums in one limb. The
-SpMM op stays at ``'high'`` (ROADMAP Queue 1, item 9).
+``csrc/fused_v1_banded_bf16.cu``, ``csrc/fused_v2_banded_bf16.cu`` and
+``csrc/spmm_banded_bf16.cu`` (each message ``bf16(v) * bf16(x)`` rounded
+to bf16, summed in f32), counted by :func:`banded_take_bf16`,
+:func:`banded_sender_sum_bf16`, :func:`fused_v1_banded_bf16`,
+:func:`fused_v2_banded_bf16` and :func:`banded_weighted_sum_bf16`. The
+attention and SpMM backwards then recompute their sender rows rounded to
+bf16 (the reference's ``exact=False`` take; the receiver stream's and the
+corner path's backwards take them unrounded) and run their sums in one
+limb. :func:`spmm_banded` defaults to ``'fastest'``, as the reference's.
 
 The plan's fields that the kernels and plain versions read (``band``,
 ``s_loc``, ``r_local``, ``r_chunk``, and the port's own ``tile_ptr`` and
@@ -100,11 +103,11 @@ from pygat_tpu_torch.ops.stream import (
     build_stream_walk,
     check_precision,
     launch_tile_sum,
-    require_high,
     stream_scatter,
     stream_scatter_plain,
     stream_walk_arg,
     tile_ranges,
+    weighted_messages,
 )
 
 # the fields of a BandPlan that live on the device
@@ -601,44 +604,74 @@ def _receiver_sum(data: torch.Tensor, plan: BandPlan,
 
 
 def banded_weighted_sum_plain(values_b: torch.Tensor, x: torch.Tensor,
-                              plan: BandPlan) -> torch.Tensor:
+                              plan: BandPlan, *, precision: str = "high",
+                              f64: bool = False,
+                              magnitude: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`banded_weighted_sum` (a row gather
-    and ``index_add_``)."""
+    and ``index_add_``). Under ``precision='fastest'`` each message is the
+    kernel's, ``bf16(v) * bf16(x)`` rounded to bf16
+    (:func:`~pygat_tpu_torch.ops.stream.weighted_messages`); ``f64=True``
+    sums the messages, still formed in f32, in float64 and returns float32
+    (the kernel's oracle); ``magnitude=True`` sums their magnitudes (its
+    allowance)."""
+    check_precision("spmm_banded", precision)
     _check_table("spmm_banded", x, plan)
     _check_values("spmm_banded", values_b, plan)
     live = (plan.s_loc < plan.w * TILE) & (plan.r_local < TILE)
-    msgs = torch.where(live[:, None],
-                       values_b[:, None] * x[banded_senders(plan, 0)], 0.0)
-    return stream_scatter_plain(msgs, plan.r_local, plan.r_chunk, plan.n_pad)
+    msgs = weighted_messages(values_b, x[banded_senders(plan, 0)],
+                             precision=precision, round_values=True,
+                             magnitude=magnitude)
+    return stream_scatter_plain(torch.where(live[:, None], msgs, 0.0),
+                                plan.r_local, plan.r_chunk, plan.n_pad,
+                                f64=f64)
 
 
 @build.counted(kernel="spmm_banded")
 def banded_weighted_sum(values_b: torch.Tensor, x: torch.Tensor,
-                        plan: BandPlan) -> torch.Tensor:
+                        plan: BandPlan, *,
+                        precision: str = "high") -> torch.Tensor:
     """[N_pad, L] f32: per receiver, the sum of ``values_b[k] *
     x[sender(k)]`` over the live banded slots ``k`` (``values_b`` [E_b] f32
-    in banded order, ``x`` [N_pad, L] f32); dead slots add nothing. On a
-    CUDA tensor this launches ``csrc/spmm_banded.cu`` (counted in
-    ``banded_weighted_sum.launches``), whose result is the same bit for bit
-    from call to call; on a CPU tensor it runs
+    in banded order, ``x`` [N_pad, L] f32); dead slots add nothing. Under
+    ``precision='fastest'`` (the reference's ``exact=False``) each message
+    is ``bf16(v) * bf16(x)`` rounded to bf16, and the messages are summed in
+    f32. On a CUDA tensor this launches ``csrc/spmm_banded.cu`` (counted in
+    ``banded_weighted_sum.launches``), or under ``'fastest'``
+    ``csrc/spmm_banded_bf16.cu`` on a bf16 copy of ``x`` (counted in
+    ``banded_weighted_sum_bf16.launches``), whose result is the same bit
+    for bit from call to call; on a CPU tensor it runs
     :func:`banded_weighted_sum_plain`. The first CUDA call on a plan builds
     its walk (:attr:`BandPlan.spmm_walk`), so it must not be inside a
     CUDA-graph capture. Not differentiable."""
+    check_precision("spmm_banded", precision)
     if x.device.type == "cpu":
-        return banded_weighted_sum_plain(values_b, x, plan)
+        return banded_weighted_sum_plain(values_b, x, plan,
+                                         precision=precision)
     if x.device.type != "cuda":
         raise ValueError(f"spmm_banded: unsupported device {x.device}")
     _check_table("spmm_banded", x, plan)
     _check_values("spmm_banded", values_b, plan)
     walk = _walk("spmm_banded", plan)
+    wrapper = banded_weighted_sum
+    if precision == "fastest":
+        x, wrapper = x.to(torch.bfloat16), banded_weighted_sum_bf16
     width, n_split = x.shape[1], plan.split_at.shape[0]
     out = torch.empty(plan.n_pad, width, dtype=torch.float32, device=x.device)
     part = (torch.empty(n_split, TILE, width, dtype=torch.float32,
                         device=x.device) if n_split else None)
-    build.launch(banded_weighted_sum, values_b, x, walk.rows, walk.local,
+    build.launch(wrapper, values_b, x, walk.rows, walk.local,
                  walk.order, plan.tile_ptr,
                  plan.split_at, plan.n_pad // TILE, n_split, width, out, part)
     return out
+
+
+@build.counted(kernel="spmm_banded_bf16")
+def banded_weighted_sum_bf16(values_b: torch.Tensor, x: torch.Tensor,
+                             plan: BandPlan) -> torch.Tensor:
+    """:func:`banded_weighted_sum` under ``precision='fastest'``, whose
+    launches of the one-limb kernel ``csrc/spmm_banded_bf16.cu`` (the TPU
+    kernel's ``exact=False`` instantiation) this wrapper counts."""
+    return banded_weighted_sum(values_b, x, plan, precision="fastest")
 
 
 def fused_v1_banded_plain(wh, f_dst, bound, a_src, keepq, plan: BandPlan,
@@ -889,29 +922,37 @@ def fused_v2_attention_banded(whi, whj, ub, a, keepq, plan: BandPlan,
 
 class _SpmmBanded(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, values_b, x, plan, fused):
+    def forward(ctx, values_b, x, plan, fused, precision):
         values_b, x = values_b.contiguous(), x.contiguous()
         ctx.save_for_backward(values_b, x)
-        ctx.plan = plan
+        ctx.plan, ctx.precision = plan, precision
         if fused:
-            return banded_weighted_sum(values_b, x, plan)
-        return _receiver_sum(values_b[:, None] * banded_take(x, plan), plan)
+            return banded_weighted_sum(values_b, x, plan, precision=precision)
+        # the two-pass form: the take rounds x under 'fastest', the values
+        # stay f32, and the receiver sum rounds each message
+        rows = banded_take(x, plan, precision=precision).float()
+        return _receiver_sum(values_b[:, None] * rows, plan, precision)
 
     @staticmethod
     def backward(ctx, g_out):
         values_b, x = ctx.saved_tensors
-        plan = ctx.plan
+        plan, precision = ctx.plan, ctx.precision
         # dvals[k] = <g_out[recv(k)], x[send(k)]>: both rows are zero at a
-        # dead slot, so dvals vanishes there
+        # dead slot, so dvals vanishes there; under 'fastest' x's rows are
+        # the rounded ones (the reference's exact=False take)
         ge = expand(g_out.contiguous(), plan.r_local, plan.r_chunk)
-        dvals = (banded_take(x, plan) * ge).sum(1)
-        # dx: per-sender sum of vals * g_out[recv]
-        dx = banded_sender_sum(values_b[:, None] * ge, plan)
-        return dvals, dx, None, None
+        dvals = (banded_take(x, plan, precision=precision).float()
+                 * ge).sum(1)
+        # dx: per-sender sum of vals * g_out[recv], in one limb under
+        # 'fastest'
+        dx = banded_sender_sum(values_b[:, None] * ge, plan,
+                               precision=precision)
+        return dvals, dx, None, None, None
 
 
 def spmm_banded(values_b: torch.Tensor, x: torch.Tensor, plan: BandPlan, *,
-                precision: str = "high", fused: bool = True) -> torch.Tensor:
+                precision: str = "fastest",
+                fused: bool = True) -> torch.Tensor:
     """``out[i] = sum over the banded slots k with receiver i of
     values_b[k] * x[sender(k)]`` (``values_b`` [E_b] f32 in banded order,
     dead slots ignored; ``x`` [N_pad, L] f32, any L). ``fused=True`` runs
@@ -920,7 +961,12 @@ def spmm_banded(values_b: torch.Tensor, x: torch.Tensor, plan: BandPlan, *,
     two-pass form (:func:`banded_take`, then the stream segment sum).
     Differentiable in ``values_b`` and ``x`` with either form (the
     reference's VJP: ``banded_take`` and ``expand`` for the values, the
-    banded sender sum for ``x``). ``precision``: 'high' only (the reference
-    defaults to 'fastest', which is not ported: ROADMAP Queue 1, item 9)."""
-    require_high("spmm_banded", precision)
-    return _SpmmBanded.apply(values_b, x, plan, bool(fused))
+    banded sender sum for ``x``). ``precision`` is the reference's, whose
+    default, ``'fastest'`` (one bf16 limb), this keeps: the fused form
+    sums ``bf16(bf16(v) * bf16(x))`` per receiver in f32, the two-pass form
+    ``bf16(v * bf16(x))`` (its values stay f32), both as the reference's
+    interpret mode rounds; the backward takes x's rows rounded to bf16 for
+    the values and sums per sender in one limb. ``'high'`` sums f32
+    messages in f32."""
+    check_precision("spmm_banded", precision)
+    return _SpmmBanded.apply(values_b, x, plan, bool(fused), precision)

@@ -74,6 +74,11 @@ ENTRY_POINTS = {
                              [_P] * 8 + [_I] * 5 + [_F] + [_P] * 5),
     "fused_v2_window_bf16": ("pygat_fused_v2_window_bf16",
                              [_P] * 8 + [_I] * 5 + [_F] + [_P] * 5),
+    # and of the SpMM kernels, rows 7 and 9 (the SpMM ops under "fastest")
+    "spmm_banded_bf16": ("pygat_spmm_banded_bf16",
+                         [_P] * 7 + [_I] * 3 + [_P] * 3),
+    "panel_spmm_bf16": ("pygat_panel_spmm_bf16",
+                        [_P] * 9 + [_I] * 4 + [_P] * 3),
 }
 SOURCES = tuple(ENTRY_POINTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -49,7 +49,7 @@ from pygat_tpu_torch.ops.stream import (
     DEAD,
     EC,
     TILE,
-    require_high,
+    check_precision,
     stream_scatter,
 )
 
@@ -225,34 +225,37 @@ def scatter_corner(g_e: torch.Tensor, graph, plan_inv: CornerPlan,
                           walk=graph.sender_walk, precision=precision)
 
 
-def corner_spmm_backward(g, v, rows, graph, plan_inv: CornerPlan):
+def corner_spmm_backward(g, v, rows, graph, plan_inv: CornerPlan,
+                         precision: str = "high"):
     """(d values, d x) of ``out = stream_scatter(v * rows)`` over the corner
     plans for the cotangent ``g`` [N_pad, L]: ``rows`` [E_s, L] are the
     sender rows in receiver-stream order, ``v`` the masked values. The
     cotangent per edge comes from one expand, the sender sum from
-    :func:`scatter_corner`: no row gather by edge index."""
+    :func:`scatter_corner` at ``precision`` (one limb under 'fastest'; d
+    values is f32 either way): no row gather by edge index."""
     g_e = expand(g.contiguous(), graph.r_local, graph.r_chunk)
     dvalues = torch.where(graph.edge_mask, (g_e * rows).sum(-1), 0.0)
-    return dvalues, scatter_corner(v[:, None] * g_e, graph, plan_inv)
+    return dvalues, scatter_corner(v[:, None] * g_e, graph, plan_inv,
+                                   precision)
 
 
 class _SpmmCorner(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, values, x, graph, plans):
+    def forward(ctx, values, x, graph, plans, precision):
         turned = gather_corner(x.contiguous(), graph, plans.fwd)
         v = torch.where(graph.edge_mask, values, 0.0)
         out = stream_scatter(v[:, None] * turned, graph.r_local,
                              graph.r_chunk, graph.num_nodes_padded,
-                             walk=graph.stream_walk)
+                             walk=graph.stream_walk, precision=precision)
         ctx.save_for_backward(v, turned)
-        ctx.graph, ctx.plans = graph, plans
+        ctx.graph, ctx.plans, ctx.precision = graph, plans, precision
         return out
 
     @staticmethod
     def backward(ctx, g):
         v, turned = ctx.saved_tensors
-        return corner_spmm_backward(g, v, turned, ctx.graph,
-                                    ctx.plans.inv) + (None, None)
+        return corner_spmm_backward(g, v, turned, ctx.graph, ctx.plans.inv,
+                                    ctx.precision) + (None, None, None)
 
 
 def spmm_corner_graph(values: torch.Tensor, x: torch.Tensor, graph,
@@ -268,9 +271,11 @@ def spmm_corner_graph(values: torch.Tensor, x: torch.Tensor, graph,
 
     ``mode`` (the reference's permute select, 'onehot' or 'take') has no
     counterpart: the kernel copies rows exactly either way. ``precision``
-    is 'high', as the reference's default here; 'fastest' is not ported
-    (ROADMAP Queue 1, item 9)."""
-    require_high("spmm_corner_graph", precision)
+    is 'high' by default, as the reference's here; under 'fastest' the
+    receiver sum rounds each message ``v * x[s]`` (x unrounded: the passes
+    move rows exactly) to bf16 and sums in f32, and the backward's sender
+    sum runs in one limb, as the reference's interpret mode does."""
+    check_precision("spmm_corner_graph", precision)
     if mode not in (None, "onehot", "take"):
         raise ValueError(f"spmm_corner_graph: unknown mode {mode!r}")
-    return _SpmmCorner.apply(values, x, graph, plans)
+    return _SpmmCorner.apply(values, x, graph, plans, precision)

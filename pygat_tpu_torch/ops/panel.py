@@ -20,7 +20,9 @@ Three parts:
 * :func:`panel_weighted_sum`, the SpMM over the slots that fit their
   panels: on a CUDA tensor it launches the hand-written kernel
   ``csrc/panel_spmm.cu`` (replaces ``pygat_tpu/ops/panel.py::
-  _make_spmm_kernel``), on a CPU tensor it runs
+  _make_spmm_kernel``), or under ``precision='fastest'``
+  ``csrc/panel_spmm_bf16.cu`` on a bf16 copy of ``x`` (counted by
+  :func:`panel_weighted_sum_bf16`), on a CPU tensor it runs
   :func:`panel_weighted_sum_plain`, the plain PyTorch version that is also
   the kernel's oracle;
 * the differentiable ops :func:`panel_spmm` and :func:`panel_spmm_graph`:
@@ -31,9 +33,13 @@ Three parts:
   the corner plans (:func:`~pygat_tpu_torch.ops.large.gather_corner` and
   :func:`~pygat_tpu_torch.ops.large.corner_spmm_backward`).
 
-The port has only the reference's ``high`` contract (f32 sums): the ops
-default to ``precision="high"`` where the reference defaults to
-``"fastest"``, and ``"fastest"`` raises (ROADMAP Queue 1, item 9).
+The ops take the reference's two precisions and default, as the
+reference's ``panel_spmm_graph`` does, to ``"fastest"`` (one bf16 limb):
+each message ``w * bf16(x)`` (``w`` the masked f32 value) formed in f32
+and rounded to bf16, the messages summed in f32, the overflow slots in
+f32 over the unrounded ``x``; the backward without ``plans`` is f32 (the
+reference's ``_panel_bwd`` ignores the precision), with ``plans`` its
+sender sum runs in one limb. ``"high"`` sums f32 messages in f32.
 """
 
 from __future__ import annotations
@@ -54,9 +60,10 @@ from pygat_tpu_torch.ops.stream import (
     DEAD,
     EC,
     TILE,
-    require_high,
+    check_precision,
     stream_scatter_plain,
     tile_ranges,
+    weighted_messages,
 )
 
 _LANE = 128
@@ -191,11 +198,18 @@ def _check_args(values, x, panel_tiles, g_idx, edge_mask, r_local, r_chunk,
 
 
 def panel_weighted_sum_plain(values, x, panel_tiles, g_idx, edge_mask,
-                             r_local, r_chunk, tile_ptr,
-                             split_at) -> torch.Tensor:
+                             r_local, r_chunk, tile_ptr, split_at, *,
+                             precision: str = "high", f64: bool = False,
+                             magnitude: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`panel_weighted_sum`: the panel row
     of every slot that fits, a row gather, and ``index_add_`` (the tile
-    ranges are checked, not used)."""
+    ranges are checked, not used). Under ``precision='fastest'`` each
+    message is the kernel's, ``w * bf16(x)`` formed in f32 and rounded to
+    bf16 (:func:`~pygat_tpu_torch.ops.stream.weighted_messages`);
+    ``f64=True`` sums the messages, still formed in f32, in float64 and
+    returns float32 (the kernel's oracle); ``magnitude=True`` sums their
+    magnitudes (its allowance)."""
+    check_precision("panel_spmm", precision)
     _check_args(values, x, panel_tiles, g_idx, edge_mask, r_local, r_chunk,
                 tile_ptr, split_at)
     p = panel_tiles.shape[1]
@@ -204,40 +218,63 @@ def panel_weighted_sum_plain(values, x, panel_tiles, g_idx, edge_mask,
     tile = r_chunk.long().repeat_interleave(EC)
     rows = panel_tiles[tile, gi // TILE].long() * TILE + gi % TILE
     w = torch.where(edge_mask, values, 0.0)
-    msgs = torch.where(take[:, None], w[:, None] * x[rows], 0.0)
-    return stream_scatter_plain(msgs, r_local, r_chunk, x.shape[0])
+    msgs = weighted_messages(w, x[rows], precision=precision,
+                             magnitude=magnitude)
+    return stream_scatter_plain(torch.where(take[:, None], msgs, 0.0),
+                                r_local, r_chunk, x.shape[0], f64=f64)
 
 
 @build.counted(kernel="panel_spmm")
 def panel_weighted_sum(values, x, panel_tiles, g_idx, edge_mask, r_local,
-                       r_chunk, tile_ptr, split_at) -> torch.Tensor:
+                       r_chunk, tile_ptr, split_at, *,
+                       precision: str = "high") -> torch.Tensor:
     """[N_pad, L] f32: over the receiver stream, the sum per receiver of
     ``values[k] * x[panel_tiles[r_chunk[k // EC], g // 128] * 128 + g %
     128]`` for the slots ``k`` whose ``g = g_idx[k]`` is below ``P * 128``
     and whose ``edge_mask`` is true; dead and overflow slots add nothing.
-    ``tile_ptr`` and ``split_at`` are :func:`~pygat_tpu_torch.ops.stream.
-    tile_ranges` of ``r_chunk`` and ``r_local`` (the layout's fields). On a
-    CUDA tensor this launches ``csrc/panel_spmm.cu`` (counted in
-    ``panel_weighted_sum.launches``), whose result is the same bit for bit
-    from call to call; on a CPU tensor it runs
+    Under ``precision='fastest'`` (the reference's ``two_limb=False``)
+    each message ``w * bf16(x)`` is rounded to bf16 and the messages are
+    summed in f32. ``tile_ptr`` and ``split_at`` are
+    :func:`~pygat_tpu_torch.ops.stream.tile_ranges` of ``r_chunk`` and
+    ``r_local`` (the layout's fields). On a CUDA tensor this launches
+    ``csrc/panel_spmm.cu`` (counted in ``panel_weighted_sum.launches``), or
+    under ``'fastest'`` ``csrc/panel_spmm_bf16.cu`` on a bf16 copy of ``x``
+    (counted in ``panel_weighted_sum_bf16.launches``), whose result is the
+    same bit for bit from call to call; on a CPU tensor it runs
     :func:`panel_weighted_sum_plain`. Not differentiable."""
+    check_precision("panel_spmm", precision)
     if x.device.type == "cpu":
         return panel_weighted_sum_plain(values, x, panel_tiles, g_idx,
                                         edge_mask, r_local, r_chunk, tile_ptr,
-                                        split_at)
+                                        split_at, precision=precision)
     if x.device.type != "cuda":
         raise ValueError(f"panel_spmm: unsupported device {x.device}")
     _check_args(values, x, panel_tiles, g_idx, edge_mask, r_local, r_chunk,
                 tile_ptr, split_at)
     n_pad, width = x.shape
+    wrapper = panel_weighted_sum
+    if precision == "fastest":
+        x, wrapper = x.to(torch.bfloat16), panel_weighted_sum_bf16
     n_split = split_at.shape[0]
     out = torch.empty(n_pad, width, dtype=torch.float32, device=x.device)
     part = (torch.empty(n_split, TILE, width, dtype=torch.float32,
                         device=x.device) if n_split else None)
-    build.launch(panel_weighted_sum, values, edge_mask, x, panel_tiles, g_idx,
+    build.launch(wrapper, values, edge_mask, x, panel_tiles, g_idx,
                  r_local, r_chunk, tile_ptr, split_at, n_pad // TILE, n_split,
                  panel_tiles.shape[1], width, out, part)
     return out
+
+
+@build.counted(kernel="panel_spmm_bf16")
+def panel_weighted_sum_bf16(values, x, panel_tiles, g_idx, edge_mask,
+                            r_local, r_chunk, tile_ptr,
+                            split_at) -> torch.Tensor:
+    """:func:`panel_weighted_sum` under ``precision='fastest'``, whose
+    launches of the one-limb kernel ``csrc/panel_spmm_bf16.cu`` (the TPU
+    kernel's ``two_limb=False`` instantiation) this wrapper counts."""
+    return panel_weighted_sum(values, x, panel_tiles, g_idx, edge_mask,
+                              r_local, r_chunk, tile_ptr, split_at,
+                              precision="fastest")
 
 
 # ---------------------------------------------------------------------------
@@ -246,12 +283,16 @@ def panel_weighted_sum(values, x, panel_tiles, g_idx, edge_mask, r_local,
 
 
 def _panel_fwd(values, dense, panel_tiles, g_idx, overflow_edges, senders,
-               receivers, edge_mask, r_local, r_chunk, tile_ptr, split_at):
-    """The kernel over the slots that fit their panels, then the overflow
-    slots ``overflow_edges`` (entries on a dead slot add zero) by a row
-    gather and ``index_add_``; an empty overflow list adds nothing."""
+               receivers, edge_mask, r_local, r_chunk, tile_ptr, split_at,
+               precision):
+    """The kernel over the slots that fit their panels at ``precision``,
+    then the overflow slots ``overflow_edges`` (entries on a dead slot add
+    zero) by a row gather and ``index_add_`` in f32 over the unrounded
+    ``dense``, as the reference's XLA pass; an empty overflow list adds
+    nothing."""
     out = panel_weighted_sum(values, dense, panel_tiles, g_idx, edge_mask,
-                             r_local, r_chunk, tile_ptr, split_at)
+                             r_local, r_chunk, tile_ptr, split_at,
+                             precision=precision)
     if overflow_edges.numel():
         ov = overflow_edges.long()
         w_ov = torch.where(edge_mask[ov], values[ov], 0.0)
@@ -264,48 +305,52 @@ class _PanelSpmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, values, dense, panel_tiles, g_idx, overflow_edges,
                 senders, receivers, edge_mask, r_local, r_chunk, tile_ptr,
-                split_at):
+                split_at, precision):
         values, dense = values.contiguous(), dense.contiguous()
         ctx.save_for_backward(values, dense, senders, receivers, edge_mask)
         return _panel_fwd(values, dense, panel_tiles, g_idx, overflow_edges,
                           senders, receivers, edge_mask, r_local, r_chunk,
-                          tile_ptr, split_at)
+                          tile_ptr, split_at, precision)
 
     @staticmethod
     def backward(ctx, g):
-        return spmm_backward(g, *ctx.saved_tensors) + (None,) * 10
+        # f32 at either precision, as the reference's _panel_bwd
+        return spmm_backward(g, *ctx.saved_tensors) + (None,) * 11
 
 
 class _PanelSpmmCorner(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, values, dense, graph, layout, overflow_edges, plans):
+    def forward(ctx, values, dense, graph, layout, overflow_edges, plans,
+                precision):
         values, dense = values.contiguous(), dense.contiguous()
         ctx.save_for_backward(values, dense)
-        ctx.graph, ctx.plans = graph, plans
+        ctx.graph, ctx.plans, ctx.precision = graph, plans, precision
         return _panel_fwd(values, dense, layout.panel_tiles, layout.g_idx,
                           overflow_edges, graph.senders, graph.receivers,
                           graph.edge_mask, graph.r_local, graph.r_chunk,
-                          layout.tile_ptr, layout.split_at)
+                          layout.tile_ptr, layout.split_at, precision)
 
     @staticmethod
     def backward(ctx, g):
         values, dense = ctx.saved_tensors
         graph, plans = ctx.graph, ctx.plans
-        rows = gather_corner(dense, graph, plans.fwd)  # dense[senders]
+        # dense[senders], exact at either precision (the reference's passes
+        # in interpret mode); the sender sum at the forward's precision
+        rows = gather_corner(dense, graph, plans.fwd)
         v = torch.where(graph.edge_mask, values, 0.0)
-        return corner_spmm_backward(g, v, rows, graph,
-                                    plans.inv) + (None,) * 4
+        return corner_spmm_backward(g, v, rows, graph, plans.inv,
+                                    ctx.precision) + (None,) * 5
 
 
 def _check_options(what: str, precision: str, mode: str) -> None:
-    require_high(what, precision)
+    check_precision(what, precision)
     if mode not in _MODES:
         raise ValueError(f"{what}: unknown mode {mode!r}")
 
 
 def panel_spmm(values, dense, panel_tiles, g_idx, overflow_edges, senders,
                receivers, edge_mask, r_local, r_chunk, p: int | None = None,
-               precision: str = "high", mode: str = "onehot", *,
+               precision: str = "fastest", mode: str = "onehot", *,
                tile_ptr: torch.Tensor, split_at: torch.Tensor):
     """``out[N_pad, L]``: the receiver segment sum of ``values *
     dense[senders]`` through the panels (``values`` [E_s] f32 in the
@@ -317,20 +362,20 @@ def panel_spmm(values, dense, panel_tiles, g_idx, overflow_edges, senders,
     in ``values`` and ``dense`` (the SpMM backward: row gathers and
     ``index_add_``). ``p`` must be ``panel_tiles.shape[1]`` when given. ``mode`` (the reference's one-hot or take select) has no
     counterpart: the kernel reads rows natively and computes the same sum
-    either way. ``precision``: 'high' only (the reference defaults to
-    'fastest', which is not ported: ROADMAP Queue 1, item 9)."""
+    either way. ``precision`` as the module docstring says (``'fastest'``
+    by default, as the reference's graph-level op)."""
     _check_options("panel_spmm", precision, mode)
     if p is not None and p != panel_tiles.shape[1]:
         raise ValueError(f"panel_spmm: p={p} but panel_tiles has "
                          f"{panel_tiles.shape[1]} panels")
     return _PanelSpmm.apply(values, dense, panel_tiles, g_idx, overflow_edges,
                             senders, receivers, edge_mask, r_local, r_chunk,
-                            tile_ptr, split_at)
+                            tile_ptr, split_at, precision)
 
 
 def panel_spmm_graph(values, dense, graph, layout: PanelLayout, *,
                      plans: CscCsrPlans | None = None,
-                     precision: str = "high", mode: str = "onehot"):
+                     precision: str = "fastest", mode: str = "onehot"):
     """Graph-level :func:`panel_spmm` (``values`` in the graph's stream edge
     order); only the layout's ``n_overflow`` real overflow slots are
     added, so a layout without overflow runs the kernel alone. ``plans``
@@ -338,14 +383,14 @@ def panel_spmm_graph(values, dense, graph, layout: PanelLayout, *,
     forward): ``expand`` of the cotangent, the sender rows by
     :func:`~pygat_tpu_torch.ops.large.gather_corner` and the sender sum by
     :func:`~pygat_tpu_torch.ops.large.scatter_corner`. ``mode`` and
-    ``precision`` as :func:`panel_spmm` ('high' by default, where the
-    reference defaults to 'fastest')."""
+    ``precision`` as :func:`panel_spmm` ('fastest' by default, as the
+    reference's)."""
     _check_options("panel_spmm_graph", precision, mode)
     overflow = layout.overflow_edges[:layout.n_overflow]
     if plans is not None:
         return _PanelSpmmCorner.apply(values, dense, graph, layout, overflow,
-                                      plans)
+                                      plans, precision)
     return _PanelSpmm.apply(values, dense, layout.panel_tiles, layout.g_idx,
                             overflow, graph.senders, graph.receivers,
                             graph.edge_mask, graph.r_local, graph.r_chunk,
-                            layout.tile_ptr, layout.split_at)
+                            layout.tile_ptr, layout.split_at, precision)

@@ -26,9 +26,10 @@ reference's one bf16 limb, rounds each value to bf16 (to nearest, ties to
 even, as the reference's producer does) and sums the rounded values in
 f32: on a CUDA tensor through the one-limb kernel
 ``csrc/stream_scatter_bf16.cu``, which reads the bf16 copy the wrapper
-makes, counted by :func:`stream_scatter_bf16`. The ops whose one-limb
-kernels are not ported yet (the band plan's, the corner path's, the SpMM
-ops') check their ``precision`` with :func:`require_high`.
+makes, counted by :func:`stream_scatter_bf16`. Every op of the port that
+takes a precision checks it with :func:`check_precision`; the SpMM
+kernels' plain versions form their one-limb messages with
+:func:`weighted_messages`.
 """
 
 from __future__ import annotations
@@ -279,16 +280,25 @@ def check_precision(what: str, precision: str) -> str:
     return precision
 
 
-def require_high(what: str, precision: str) -> None:
-    """Raise unless ``precision`` is ``'high'``, the one precision the port
-    has (f32 sums; the reference's two bf16 limbs, about 1e-5)."""
-    if precision == "fastest":
-        raise NotImplementedError(
-            f"{what}: precision='fastest' (one bf16 limb) is not ported yet "
-            "(ROADMAP Queue 1, item 9: the fastest precision mode); use "
-            "'high'")
-    if precision != "high":
-        raise ValueError(f"{what}: unknown precision {precision!r}")
+def weighted_messages(values: torch.Tensor, rows: torch.Tensor, *,
+                      precision: str = "high", round_values: bool = False,
+                      magnitude: bool = False) -> torch.Tensor:
+    """``values[:, None] * rows`` [E, L] f32, the messages of a weighted
+    sum (the SpMM kernels' plain versions). Under ``precision='fastest'``
+    each message is formed as the one-limb kernels and the reference form
+    it: the rows rounded to bf16 (to nearest, ties to even), with
+    ``round_values`` the values too (the fused banded SpMM folds them into
+    its bf16 select one-hot), the product in f32, rounded to bf16. Under
+    ``'high'`` the f32 product. ``magnitude=True`` returns each message's
+    magnitude: the allowance of the kernels' oracle."""
+    if check_precision("weighted_messages", precision) == "fastest":
+        rows = rows.to(torch.bfloat16).float()
+        if round_values:
+            values = values.to(torch.bfloat16).float()
+        msgs = (values[:, None] * rows).to(torch.bfloat16).float()
+    else:
+        msgs = values[:, None] * rows
+    return msgs.abs() if magnitude else msgs
 
 
 # ---------------------------------------------------------------------------

@@ -1353,14 +1353,17 @@ SPMM_ROUTES = {
     "spmm": lambda v, x, g, p: ops.spmm(v, x, g.senders, g.receivers,
                                         g.edge_mask),
     "spmm_graph": lambda v, x, g, p: ops.spmm_graph(v, x, g),
-    "panel": lambda v, x, g, p: ops.panel_spmm_graph(v, x, g, p[1]),
-    "panel_capped": lambda v, x, g, p: ops.panel_spmm_graph(v, x, g, p[1]),
-    "panel_corner": lambda v, x, g, p: ops.panel_spmm_graph(v, x, g, p[1],
-                                                            plans=p[2]),
+    "panel": lambda v, x, g, p: ops.panel_spmm_graph(v, x, g, p[1],
+                                                     precision="high"),
+    "panel_capped": lambda v, x, g, p: ops.panel_spmm_graph(
+        v, x, g, p[1], precision="high"),
+    "panel_corner": lambda v, x, g, p: ops.panel_spmm_graph(
+        v, x, g, p[1], plans=p[2], precision="high"),
     "corner": lambda v, x, g, p: ops.spmm_corner_graph(v, x, g, p[2]),
-    "banded": lambda v, x, g, p: ops.spmm_banded(v, x, p[0]),
-    "banded_two_pass": lambda v, x, g, p: ops.spmm_banded(v, x, p[0],
-                                                          fused=False),
+    "banded": lambda v, x, g, p: ops.spmm_banded(v, x, p[0],
+                                                 precision="high"),
+    "banded_two_pass": lambda v, x, g, p: ops.spmm_banded(
+        v, x, p[0], fused=False, precision="high"),
     "sddmm_graph": lambda a, b, g, p: ops.sddmm_graph(a, b, g),
 }
 
@@ -1416,13 +1419,15 @@ def test_spmm_routes_agree_on_the_card(cuda):
 
     ref = run(lambda v, xx: ops.spmm_graph(v, xx, g), w)
     for name, fn, v in (
-            ("panel", lambda v, xx: ops.panel_spmm_graph(v, xx, g, layout), w),
-            ("panel capped",
-             lambda v, xx: ops.panel_spmm_graph(v, xx, g, g_cap), w),
+            ("panel", lambda v, xx: ops.panel_spmm_graph(
+                v, xx, g, layout, precision="high"), w),
+            ("panel capped", lambda v, xx: ops.panel_spmm_graph(
+                v, xx, g, g_cap, precision="high"), w),
             ("panel corner", lambda v, xx: ops.panel_spmm_graph(
-                v, xx, g, layout, plans=plans), w),
+                v, xx, g, layout, plans=plans, precision="high"), w),
             ("corner", lambda v, xx: ops.spmm_corner_graph(v, xx, g, plans), w),
-            ("banded", lambda v, xx: ops.spmm_banded(v, xx, plan), w_b)):
+            ("banded", lambda v, xx: ops.spmm_banded(v, xx, plan,
+                                                     precision="high"), w_b)):
         out, dv, dx = run(fn, v)
         if name == "banded":
             dv = torch.zeros_like(w).index_put_((perm[live],), dv[live])
@@ -1538,10 +1543,12 @@ def test_spmm_wrappers_never_call_plain_on_the_card(cuda, monkeypatch):
                     requires_grad=True)
     k_f, k_i = len(plans.fwd.passes), len(plans.inv.passes)
     for fn, e, want in (
-            (lambda v: ops.spmm_banded(v, x, plan), plan.num_slots,
+            (lambda v: ops.spmm_banded(v, x, plan, precision="high"),
+             plan.num_slots,
              {"spmm_banded": 1, "banded_take": 1, "expand": 1,
               "banded_sender_sum": 1}),
-            (lambda v: ops.panel_spmm_graph(v, x, g, layout, plans=plans),
+            (lambda v: ops.panel_spmm_graph(v, x, g, layout, plans=plans,
+                                            precision="high"),
              g.num_edges_padded,
              {"panel_spmm": 1, "expand": 2, "corner_permute": k_f + k_i,
               "stream_scatter": 1}),
@@ -2600,3 +2607,102 @@ def test_plan_bf16_wrappers_never_call_plain_on_the_card(cuda, monkeypatch):
     assert launched == {"fused_v1_banded_bf16": 1, "fused_v2_banded_bf16": 1,
                         "fused_v1_window_bf16": 1, "fused_v2_window_bf16": 1,
                         "banded_take_bf16": 1, "banded_sender_sum_bf16": 1}
+
+
+# -- the one-limb SpMM kernels ---------------------------------------------------
+
+
+@pytest.mark.parametrize("which", ["banded", "panel"])
+@pytest.mark.parametrize("width", [7, 128])
+@pytest.mark.parametrize("kind", ["clustered", "hub"])
+def test_spmm_bf16_kernels_match_plain(cuda, kind, width, which):
+    """``spmm_banded_bf16.cu`` / ``panel_spmm_bf16.cu`` (through the SpMM
+    wrappers under 'fastest' and their one-limb twins) against their plain
+    versions under 'fastest' in f64, to RTOL of the same sums over
+    |message|: both sides round each message alike, so only the order of
+    the f32 sums differs. On the clustered graph's band plan and capped
+    panel layout, and on the hub's (its tile split over several blocks), at
+    an odd width (scalar loads) and at 128 (8-byte loads); counted apart
+    from the f32 kernels; two calls equal bit for bit; apart from 'high'."""
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    kernel, plain, vals, rest, g = _spmm_kernel(cuda, f"{which}_hub"
+                                                if kind == "hub" else which,
+                                                gen)
+    bf16 = {bd.banded_weighted_sum: bd.banded_weighted_sum_bf16,
+            pn.panel_weighted_sum: pn.panel_weighted_sum_bf16}[kernel]
+    x = _nan_tail(g.num_nodes_padded, width, gen, cuda)
+    before = build.launch_counts()
+    got = kernel(vals, x, *rest, precision="fastest")
+    again = bf16(vals, x, *rest)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in build.launch_counts().items()
+                if v - before[k]}
+    assert launched == {bf16.kernel: 2}
+    assert torch.equal(got, again)
+    want = plain(vals, x, *rest, precision="fastest", f64=True)
+    mag = plain(vals, x, *rest, precision="fastest", magnitude=True)
+    assert bool(torch.isfinite(got).all()) and float(mag.max()) > 1.0
+    assert bool(((got - want).abs() <= RTOL * mag + 1e-30).all())
+    high = plain(vals, x, *rest, f64=True)
+    assert float((got - high).abs().max()) > 1e-5 * float(mag.max())
+
+
+SPMM_BF16_ROUTES = {
+    "banded": (lambda v, x, g, p: ops.spmm_banded(v, x, p[0]),
+               {"spmm_banded_bf16": 1, "banded_take_bf16": 1, "expand": 1,
+                "banded_sender_sum_bf16": 1}),
+    "banded_two_pass": (lambda v, x, g, p: ops.spmm_banded(v, x, p[0],
+                                                           fused=False),
+                        {"banded_take_bf16": 2, "stream_scatter_bf16": 1,
+                         "expand": 1, "banded_sender_sum_bf16": 1}),
+    "panel": (lambda v, x, g, p: ops.panel_spmm_graph(v, x, g, p[1]),
+              {"panel_spmm_bf16": 1}),
+    "panel_corner": (lambda v, x, g, p: ops.panel_spmm_graph(v, x, g, p[1],
+                                                             plans=p[2]),
+                     {"panel_spmm_bf16": 1, "expand": 2,
+                      "stream_scatter_bf16": 1}),
+    "corner": (lambda v, x, g, p: ops.spmm_corner_graph(v, x, g, p[2],
+                                                        precision="fastest"),
+               {"expand": 2, "stream_scatter_bf16": 2}),
+}
+
+
+@pytest.mark.parametrize("route", list(SPMM_BF16_ROUTES))
+def test_spmm_ops_fastest_card_vs_cpu(cuda, route):
+    """Forward and both gradients of the SpMM ops under 'fastest' (the
+    default of spmm_banded and panel_spmm_graph) through their autograd
+    Functions, on the card against the same op on the CPU, from one seed:
+    one call launches the one-limb kernels as the route states (the corner
+    passes besides) and no f32 SpMM kernel or f32 segment sum."""
+    g, plan, layout, plans = _spmm_setup()
+    rng = np.random.default_rng(8)
+    n_pad, width = g.num_nodes_padded, 48
+    e = plan.num_slots if route.startswith("banded") else g.num_edges_padded
+    first = rng.standard_normal(e)
+    if route.startswith("banded"):
+        first = np.where(plan.perm >= 0, first, 0.0)  # 0 on dead slots
+    x = rng.standard_normal((n_pad, width))
+    ct = rng.standard_normal((n_pad, width))
+    fn, want = SPMM_BF16_ROUTES[route]
+    k_passes = len(plans.fwd.passes) + len(plans.inv.passes)
+    if "corner" in route:
+        want = dict(want, corner_permute=k_passes)
+    results = []
+    for dev in ("cpu", cuda):
+        leaves = [torch.tensor(a, dtype=torch.float32, device=dev,
+                               requires_grad=True) for a in (first, x)]
+        parts = (plan.to(dev), layout.to(dev), plans.to(dev))
+        before = build.launch_counts()
+        out = fn(*leaves, g.to(dev), parts)
+        grads = torch.autograd.grad(out, leaves, torch.tensor(
+            ct, dtype=torch.float32, device=dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            launched = {k: v - before[k]
+                        for k, v in build.launch_counts().items()
+                        if v - before[k]}
+            assert launched == want, (route, launched)
+        results.append([t.detach().cpu() for t in (out, *grads)])
+    for got, ref in zip(results[1], results[0]):
+        _close(got, ref)
+

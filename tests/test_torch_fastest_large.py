@@ -300,8 +300,8 @@ def test_sparse_models_fastest_match_jax(order, layer_type, monkeypatch):
 
 def test_plan_ops_refuse_an_unknown_precision(band, corner):
     """Every op over a plan that takes a precision refuses one that is
-    neither 'high' nor 'fastest'; the SpMM ops over the plans still raise
-    ``NotImplementedError`` naming ROADMAP item 9 under 'fastest'."""
+    neither 'high' nor 'fastest', the SpMM ops over the plans too, which
+    run under both (on ones, exact in bf16, alike)."""
     _, gb, _, pb, _ = band
     _, gc, _, pc, _ = corner
     leaves, fixed, _ = _op_inputs("v1", gb, pb.num_slots, 2, 3, 1)
@@ -330,10 +330,13 @@ def test_plan_ops_refuse_an_unknown_precision(band, corner):
         call("high")
         with pytest.raises(ValueError, match="unknown precision"):
             call("medium")
-    x = torch.zeros(gb.num_nodes_padded, 4)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tbd.spmm_banded(torch.zeros(pb.num_slots), x, pb, precision="fastest")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tlarge.spmm_corner_graph(torch.zeros(gc.num_edges_padded),
-                                 torch.zeros(gc.num_nodes_padded, 4), gc, pc,
-                                 precision="fastest")
+    for call in (
+            lambda p: tbd.spmm_banded(torch.ones(pb.num_slots),
+                                      torch.ones(gb.num_nodes_padded, 4), pb,
+                                      precision=p),
+            lambda p: tlarge.spmm_corner_graph(
+                torch.ones(gc.num_edges_padded),
+                torch.ones(gc.num_nodes_padded, 4), gc, pc, precision=p)):
+        assert torch.equal(call("fastest"), call("high"))  # exact in bf16
+        with pytest.raises(ValueError, match="unknown precision"):
+            call("medium")

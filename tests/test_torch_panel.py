@@ -111,8 +111,8 @@ def test_panel_spmm_graph_matches_jax(clustered, p_max, corner):
     pj = jplan_csc_to_csr(gj, p_cap=3) if corner else None
     pt = tplan_csc_to_csr(gt, p_cap=3) if corner else None
     want = _panel_vjp_jax(gj, lj, w, x, ct, pj)
-    got = _torch_vjp(lambda v, d: ops.panel_spmm_graph(v, d, gt, lt,
-                                                       plans=pt), (w, x), ct)
+    got = _torch_vjp(lambda v, d: ops.panel_spmm_graph(
+        v, d, gt, lt, plans=pt, precision="high"), (w, x), ct)
     mags = _spmm_mags(gt, w, x, ct)
     for a, b_, mag, what in zip(got, want, mags, ("out", "d values", "d x")):
         _assert_close(a, b_, what, mag)
@@ -133,7 +133,7 @@ def test_panel_spmm_empty_tiles():
         v, d, gj, lj, precision="high", interpret=True))(jnp.asarray(w),
                                                          jnp.asarray(x))
     got = ops.panel_spmm_graph(torch.from_numpy(w), torch.from_numpy(x), gt,
-                               lt)
+                               lt, precision="high")
     mag = _spmm_mags(gt, w, x, np.zeros_like(x))[0]
     _assert_close(got.numpy(), want, "out", mag)
     assert float(got.abs().max()) > 1.0 and not got[192:].any()
@@ -156,16 +156,23 @@ def test_panel_spmm_arrays_and_modes_agree(clustered):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(precision="fastest"), NotImplementedError),
+    (dict(precision="fastest"), None),
     (dict(precision="default"), ValueError), (dict(mode="gather"), ValueError),
-])
+], ids=["kw0-NotImplementedError", "kw1-ValueError", "kw2-ValueError"])
 def test_panel_spmm_graph_rejects_what_it_lacks(clustered, kw, err):
+    """An unknown precision or mode raises; 'fastest', the default, runs
+    (tests/test_torch_fastest_spmm.py holds it to the JAX package's)."""
     _, gt, x, w, _ = clustered
     lt = tpanel.build_panel_layout(gt)
-    with pytest.raises(err, match="item 9" if err is NotImplementedError
-                       else "unknown"):
-        ops.panel_spmm_graph(torch.from_numpy(w), torch.from_numpy(x), gt, lt,
-                             **kw)
+    args = (torch.from_numpy(w), torch.from_numpy(x), gt, lt)
+    if err is None:
+        got = ops.panel_spmm_graph(*args, **kw)
+        assert torch.equal(got, ops.panel_spmm_graph(*args))
+        assert float((got - ops.panel_spmm_graph(
+            *args, precision="high")).abs().max()) > 0
+        return
+    with pytest.raises(err, match="unknown"):
+        ops.panel_spmm_graph(*args, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +220,8 @@ def test_spmm_banded_matches_jax(banded, fused):
     two-pass form has no gradient of its own; the port's shares the fused
     form's backward)."""
     gt, pt, vals, x, ct, want = banded
-    got = _torch_vjp(lambda v, d: ops.spmm_banded(v, d, pt, fused=fused),
+    got = _torch_vjp(lambda v, d: ops.spmm_banded(v, d, pt, fused=fused,
+                                                  precision="high"),
                      (vals, x), ct)
     mags = _banded_mags(pt, vals, x, ct)
     for a, b_, mag, what in zip(got, want, mags, ("out", "d values", "d x")):
@@ -229,7 +237,8 @@ def test_spmm_banded_is_the_spmm(banded):
     live = pt.perm >= 0
     w = np.zeros(gt.num_edges_padded, np.float32)
     w[pt.perm[live]] = vals[live]
-    got = _torch_vjp(lambda v, d: ops.spmm_banded(v, d, pt), (vals, x), ct)
+    got = _torch_vjp(lambda v, d: ops.spmm_banded(v, d, pt, precision="high"),
+                     (vals, x), ct)
     ref = _torch_vjp(lambda v, d: ops.spmm_graph(v, d, gt), (w, x), ct)
     _assert_close(got[0], ref[0], "out")
     _assert_close(got[1][live], ref[1][pt.perm[live]], "d values")
@@ -237,7 +246,16 @@ def test_spmm_banded_is_the_spmm(banded):
 
 
 def test_spmm_banded_rejects_fastest(banded):
+    """'fastest', the default, runs in both forms (one bf16 limb, held to
+    the JAX package's by tests/test_torch_fastest_spmm.py); an unknown
+    precision raises."""
     _, pt, vals, x, _, _ = banded
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ops.spmm_banded(torch.from_numpy(vals), torch.from_numpy(x), pt,
-                        precision="fastest")
+    v, d = torch.from_numpy(vals), torch.from_numpy(x)
+    high = ops.spmm_banded(v, d, pt, precision="high")
+    for fused in (True, False):
+        got = ops.spmm_banded(v, d, pt, precision="fastest", fused=fused)
+        assert torch.equal(got, ops.spmm_banded(v, d, pt, fused=fused))
+        assert 0 < float((got - high).abs().max()) <= 2.0 ** -7 * float(
+            high.abs().max())
+    with pytest.raises(ValueError, match="unknown precision"):
+        ops.spmm_banded(v, d, pt, precision="medium")

@@ -158,9 +158,10 @@ def test_plain_spmm_kernels_match_jax_on_the_hub(hub, route):
                wt, xt, *args),
            "banded plain": lambda: tbd.banded_weighted_sum_plain(
                w_b, xt, plan),
-           "panel_spmm_graph": lambda: ops.panel_spmm_graph(wt, xt, gt,
-                                                            layout),
-           "spmm_banded": lambda: ops.spmm_banded(w_b, xt, plan)}[route]()
+           "panel_spmm_graph": lambda: ops.panel_spmm_graph(
+               wt, xt, gt, layout, precision="high"),
+           "spmm_banded": lambda: ops.spmm_banded(w_b, xt, plan,
+                                                  precision="high")}[route]()
     mag = ops.spmm(wt.abs(), xt.abs(), gt.senders, gt.receivers,
                    gt.edge_mask).numpy()
     assert float(mag.max()) > 1000.0  # the hub's row
