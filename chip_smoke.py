@@ -238,7 +238,9 @@ of which prints its seconds:
     ``fused_v1_window_bf16``, ``fused_v2_window_bf16`` at the Cora and
     524k corner shapes) against their plain versions under "fastest" in
     f64 (the take bit for bit), called twice (equal bit for bit) and timed
-    beside the f32 kernels, their casts and their bf16 bounds; the 524k
+    beside the f32 kernels, their casts (none for the take, whose kernel
+    rounds the f32 rows it moves) and their bounds (bf16 data and sender
+    tables, the take's f32 table); the 524k
     graph, both models, by ``fit_transductive_fast`` under "fastest" over
     the band plan it picks with no switch and over the corner plans
     (``set_band("off")``, ``set_corner("on")``), and Cora with ``--corner
@@ -1141,7 +1143,10 @@ def _time_banded(case, plan, big):
     only), each output written once, over the card's memory rate. A
     one-limb case is timed beside the f32 kernel at the same shape, its
     wrapper's bf16 cast, and the kernel alone on a bf16 copy made once;
-    its bound counts the table or data and the sender tables in bf16."""
+    its bound counts the data and the sender tables in bf16, and the take's
+    table in f32 (its kernel rounds the rows it moves: no cast); the
+    one-limb take also times the band backward's ``.float()`` of its rows
+    (``widen_ms``)."""
     import torch
 
     kw = dict(calls=BIG_CALLS, replays=BIG_REPLAYS) if big else {}
@@ -1159,7 +1164,11 @@ def _time_banded(case, plan, big):
             dict(case, kernel=base, precision="high"), plan), **kw)
         case["cast_ms"], case["kernel_ms"] = _one_limb_banded_ms(case, plan,
                                                                  kw)
-    vb = 2 if one else 4  # bytes of a table or data value the kernel reads
+        if base == "banded_take":  # the backward widens its rounded rows
+            rows = _banded_call(case, plan)
+            case["widen_ms"] = _time_ms(rows.float, **kw)
+            del rows
+    vb = 2 if one else 4  # bytes of a data value the kernel reads
     if base in ("expand", "banded_take"):
         width = case["L"]
         # index_select of rows from the table with one zero row appended,
@@ -1172,7 +1181,8 @@ def _time_banded(case, plan, big):
             padded = padded.to(torch.bfloat16)
         case["library_ms"] = _time_ms(
             lambda: torch.index_select(padded, 0, idx), **kw)
-        n_bytes, n_flops = vb * (n * width + e * width) + 4 * (e + c), 0
+        # the f32 table read once, the rows written in the kernel's type
+        n_bytes, n_flops = (4 * n + vb * e) * width + 4 * (e + c), 0
     elif base in ("stream_scatter", "banded_sender_sum"):
         width = case["L"]
         # index_add_ into a zeroed buffer with one scratch row taking the
@@ -1202,6 +1212,8 @@ def _time_banded(case, plan, big):
     f32 = (f" (the kernel alone {case['kernel_ms']:.4f} ms), f32 kernel "
            f"{case['f32_ms']:.4f} ms, bf16 cast {case['cast_ms']:.4f} ms"
            if one else "")
+    if "widen_ms" in case:
+        f32 += f", the rows' .float() {case['widen_ms']:.4f} ms"
     shape = f"H={case['H']} F={case['F']}" + (
         f" L={case['L']}" if "L" in case else "")
     print(f"  {k} {case['dataset']} {case['path']} {shape}: "
@@ -1211,9 +1223,10 @@ def _time_banded(case, plan, big):
 
 def _one_limb_banded_ms(case, plan, kw):
     """(ms of the wrapper's bf16 cast, ms of the one-limb kernel alone on a
-    bf16 copy made once) of a one-limb banded case: the take and the sender
-    sum cast their table or data, the fused forwards their sender tables
-    (GATv2: whj and whi)."""
+    bf16 copy made once) of a one-limb banded case: the sender sum casts its
+    data, the fused forwards their sender tables (GATv2: whj and whi); the
+    take casts nothing (its kernel rounds the f32 rows it moves: a cast of
+    0 ms, the kernel alone on a preallocated output)."""
     import torch
 
     from pygat_tpu_torch.ops import banded, build
@@ -1221,22 +1234,20 @@ def _one_limb_banded_ms(case, plan, kw):
 
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
     k = case["kernel"]
-    if k in ("banded_take_bf16", "banded_sender_sum_bf16"):
+    if k == "banded_take_bf16":
+        out = torch.empty(plan.num_slots, case["L"], dtype=torch.bfloat16,
+                          device="cuda")
+        return 0.0, _time_ms(lambda: build.launch(
+            banded.banded_take_bf16, case["data"], plan.band, plan.s_loc,
+            plan.num_chunks, plan.w, case["L"], out), **kw)
+    if k == "banded_sender_sum_bf16":
         data = case["data"]
         cast_ms = _time_ms(lambda: bf(data), **kw)
         d16 = bf(data)
-        if k == "banded_take_bf16":
-            out = torch.empty(plan.num_slots, case["L"], dtype=torch.bfloat16,
-                              device="cuda")
-            kernel_ms = _time_ms(lambda: build.launch(
-                banded.banded_take_bf16, d16, plan.band, plan.s_loc,
-                plan.num_chunks, plan.w, case["L"], out), **kw)
-        else:
-            walk = plan.sender_walk
-            kernel_ms = _time_ms(lambda: launch_tile_sum(
-                banded.banded_sender_sum_bf16, d16, walk.order, walk,
-                plan.n_pad), **kw)
-        return cast_ms, kernel_ms
+        walk = plan.sender_walk
+        return cast_ms, _time_ms(lambda: launch_tile_sum(
+            banded.banded_sender_sum_bf16, d16, walk.order, walk,
+            plan.n_pad), **kw)
     args = case["args"]
     if k == "fused_v1_banded_bf16":
         wh, f_dst, bound, a_src, keepq = args[:5]
@@ -5524,7 +5535,8 @@ def main() -> int:
                                          "live", "senders_read",
                                          "receivers_read", "single_device_ms",
                                          "precision", "kernel_ms", "f32_ms",
-                                         "cast_ms", "library_f32_ms",
+                                         "cast_ms", "widen_ms",
+                                         "library_f32_ms",
                                          "library_bf16_ms")
                        if k in c}
                       for c in cases],

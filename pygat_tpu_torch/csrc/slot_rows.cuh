@@ -1,8 +1,8 @@
-// How a slot of a chunked edge order finds its node row, and the row
-// gather built on it (shared by expand.cu, banded_take.cu,
-// banded_take_bf16.cu, corner_permute.cu and the SpMM body of
-// tile_spmm.cuh; the tile-owner bodies tile_fused.cuh and tile_sum.cuh
-// take EC and TILE from here and walk rows of their own).
+// How a slot of a chunked edge order finds its node row (shared by
+// expand.cu, corner_permute.cu, the banded take's row gather take_rows.cuh
+// and the SpMM body of tile_spmm.cuh; the tile-owner bodies tile_fused.cuh
+// and tile_sum.cuh take EC and TILE from here and walk rows of their own),
+// and the element-copy row gather of expand.cu and corner_permute.cu.
 //
 // Every edge order of the port is cut into chunks of EC = 256 slots. A slot
 // names a node row in one of three ways:
@@ -83,10 +83,9 @@ struct PanelRows {
 // chunk to the row policy. Each thread writes the elements i, i + ROWS, ...
 // of the block's [ROWS, L] output, so the stores are coalesced and a row's
 // L values are read by neighbouring threads. Offsets are 64-bit: E * L
-// passes 2^31 at 1M nodes. T is the element type: float (rows 4, 5 and
-// 10), or __nv_bfloat16 (row 5's one-limb gather, banded_take_bf16.cu);
-// the copy is element by element, so a bf16 row of odd length needs no
-// alignment.
+// passes 2^31 at 1M nodes. T is the element type (float for rows 4 and
+// 10); the copy is element by element, so a row of any length needs no
+// alignment. Row 5 moves rows as vectors instead (take_rows.cuh).
 template <int ROWS, class Rows, class T>
 __global__ void __launch_bounds__(ROWS)
 gather_rows_kernel(const T* __restrict__ table, Rows rows, int L,

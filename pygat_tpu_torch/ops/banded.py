@@ -42,8 +42,9 @@ Three parts:
 The kernels and the three ops take the reference's ``precision``.
 Under ``'fastest'`` (one bf16 limb) the fused forwards round as the
 receiver stream's do (:mod:`~pygat_tpu_torch.ops.fused_stream`), and the
-wrappers launch the one-limb kernels on bf16 copies they make once a call:
-``csrc/banded_take_bf16.cu`` (the table's rows rounded, as bf16),
+wrappers launch the one-limb kernels: ``csrc/banded_take_bf16.cu`` on the
+f32 table (the rows it moves rounded in registers, as bf16), and the
+others on bf16 copies they make once a call:
 ``csrc/banded_sender_sum_bf16.cu`` (the data rounded, summed in f32),
 ``csrc/fused_v1_banded_bf16.cu``, ``csrc/fused_v2_banded_bf16.cu`` and
 ``csrc/spmm_banded_bf16.cu`` (each message ``bf16(v) * bf16(x)`` rounded
@@ -471,20 +472,20 @@ def banded_take(table: torch.Tensor, plan: BandPlan, *,
     the table rounded to bf16 (to nearest, ties to even), as bf16. On a
     CUDA tensor this launches ``csrc/banded_take.cu`` (counted in
     ``banded_take.launches``), or under ``'fastest'``
-    ``csrc/banded_take_bf16.cu`` on a bf16 copy of the table (counted in
-    ``banded_take_bf16.launches``); on a CPU tensor it runs
-    :func:`banded_take_plain`. Not differentiable."""
+    ``csrc/banded_take_bf16.cu``, which reads the f32 table and rounds the
+    rows it moves (counted in ``banded_take_bf16.launches``); on a CPU
+    tensor it runs :func:`banded_take_plain`. Not differentiable."""
     check_precision("banded_take", precision)
     if table.device.type == "cpu":
         return banded_take_plain(table, plan, precision=precision)
     if table.device.type != "cuda":
         raise ValueError(f"banded_take: unsupported device {table.device}")
     _check_table("banded_take", table, plan)
-    wrapper = banded_take
-    if precision == "fastest":
-        table, wrapper = table.to(torch.bfloat16), banded_take_bf16
-    out = torch.empty(plan.num_slots, table.shape[1], dtype=table.dtype,
+    one = precision == "fastest"
+    out = torch.empty(plan.num_slots, table.shape[1],
+                      dtype=torch.bfloat16 if one else torch.float32,
                       device=table.device)
+    wrapper = banded_take_bf16 if one else banded_take
     build.launch(wrapper, table, plan.band, plan.s_loc, plan.num_chunks,
                  plan.w, table.shape[1], out)
     return out

@@ -4,6 +4,7 @@ call (parent, change, change, parent):
 
     python pygat_tpu_torch/tools/banded_ab.py ROOT --tag NAME [--out DIR] [--ablate] [--epochs]
     python pygat_tpu_torch/tools/banded_ab.py ROOT --tag NAME --bcsr [--out DIR] [--ablate]
+    python pygat_tpu_torch/tools/banded_ab.py ROOT --tag NAME --gathers [--out DIR] [--ablate] [--epochs] [--f2 F]
 
 ``ROOT`` is a checkout of the repository (for the parent, a ``git archive``
 unpacked into a directory that ``.gitignore`` lists). The script imports
@@ -66,6 +67,35 @@ cut tile's pieces), ``nosplit`` (no cut of long runs), ``batch2`` and
 (blocks of at most 128 threads); ``fsrc_heads``, ``cols4``, ``occ3``,
 ``occ4``, ``l2only`` and ``evictfirst`` give the same result too. The results go to
 ``OUT/banded_ab_NAME.json`` under ``"bcsr"`` and ``"bcsr_ablate"``.
+
+``--gathers`` times the row gathers instead: kernel row 5 (``banded_take``)
+in both precisions and, as controls, rows 4 (``expand``) and 10
+(``permute_pass``), at the widths one train step of each model gives them
+(row 5: GATv1 L = HF, GATv2 2HF; row 4: GATv1 3H + HF, GATv2 2HF + 2H;
+row 10: the corner turns' HF and 2HF, every pass of both plans; H F 8 x 8,
+then 1 x the dataset's classes: 4 at 524k, or ``--f2``, 7 at Cora): on the
+524k graph's band plan and corner plans, and row 5 also on Cora's band plan
+(w = 4). Each kernel is launched through ``ROOT``'s entry point on a
+preallocated output (GATHER_CALLS calls a captured graph), row 5 also
+through its wrapper (the one-limb wrapper with its bf16 cast in a checkout
+whose kernel reads a bf16 table; then the cast and the kernel alone on a
+bf16 copy are timed too); each output is held against its plain version bit
+for bit, a second call against the first, and its bits are summed into a
+checksum (``bits``) that compares checkouts; beside each, the bound (the
+f32 table once, the output in its type, the index words, over the memory
+rate). With ``--epochs`` it also times the 524k fast-loop epoch of both
+models over the band plan in both precisions, in turns. With ``--ablate``
+it builds altered copies of ``ROOT``'s row gather (``csrc/take_rows.cuh``)
+and times each at the 524k shapes through the entry point: ``bulk`` (the
+f32 copy by ``cp.async.bulk`` rows and one bulk store a chunk),
+``staged`` (narrow rows of more than 4 vectors under 16 bytes staged in
+shared memory and written as the chunk's block by 16-byte stores),
+``wide8`` (at most 8 rows in flight for wide rows, not 16),
+``nostcs`` (plain
+stores in place of streaming ones) and ``bf16table`` (the one-limb entry
+point on a bf16 table: the cast path, timed with and without its cast);
+all give the same result. The results go to ``OUT/banded_ab_NAME.json``
+under ``"gathers"``, ``"gathers_ablate"`` and ``"epoch_ms"``.
 
 ``--epochs`` also times, with ``ROOT``'s ``chip_smoke`` helpers, the Cora
 fast-loop epoch of both models and the 524k fast-loop epoch of both models
@@ -385,6 +415,362 @@ def _bcsr_section(cs, root, graphs, large, plan, build, ablate, torch):
     return cases, ablated
 
 
+# the bulk-copy form of row 5's f32 copy (the "bulk" ablation), inserted
+# into a copy of csrc/take_rows.cuh: a kernel, and its launch where rows are
+# a multiple of 16 bytes and both pointers 16-byte aligned
+_TAKE_BULK_KERNEL = """// The bulk-copy form of a copy: one cp.async.bulk per live row
+// into shared memory, completing on one mbarrier, dead rows zeroed by the
+// threads, then one bulk store of the chunk's [256, L] output block. Rows
+// of a multiple of 16 bytes, 16-byte aligned pointers, EC * row bytes of
+// dynamic shared memory (opted in past 48 KB).
+template <class T>
+__global__ void __launch_bounds__(TK_THREADS)
+take_rows_bulk_kernel(const T* __restrict__ table, WindowRows rows, int L,
+                      T* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char s_rows[];
+  __shared__ __align__(8) unsigned long long bar;
+  const unsigned rb = static_cast<unsigned>(L * sizeof(T));
+  const long long k0 = static_cast<long long>(blockIdx.x) * EC;
+  const int r = rows(k0 + threadIdx.x, blockIdx.x);
+  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(&bar));
+  const unsigned mine =
+      static_cast<unsigned>(__cvta_generic_to_shared(s_rows)) +
+      threadIdx.x * rb;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  const int n_live = __syncthreads_count(r >= 0);
+  if (threadIdx.x == 0)
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+        "r"(static_cast<unsigned>(n_live) * rb)
+        : "memory");
+  if (r >= 0) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];" ::"r"(mine),
+        "l"(reinterpret_cast<unsigned long long>(
+            table + static_cast<long long>(r) * L)),
+        "r"(rb), "r"(b)
+        : "memory");
+  } else {
+    uint4* z = reinterpret_cast<uint4*>(s_rows + threadIdx.x * rb);
+    for (unsigned i = 0; i < rb / 16; ++i) z[i] = uint4{};
+  }
+  // phase 0 of the barrier; a wait that never ends traps, not hangs
+  unsigned done = 0;
+  for (long long spins = 0; !done; ++spins) {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "0; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(b)
+        : "memory");
+    if (spins > (1LL << 26)) __trap();
+  }
+  // the zeros of dead rows (generic proxy) before the bulk store reads them
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+            reinterpret_cast<unsigned long long>(out + k0 * L)),
+        "r"(static_cast<unsigned>(__cvta_generic_to_shared(s_rows))),
+        "r"(EC * rb)
+        : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+}
+
+"""
+_TAKE_BULK_LAUNCH = """  if constexpr (sizeof(Tin) == sizeof(Tout)) {
+    const size_t row_bytes = static_cast<size_t>(L) * sizeof(Tout);
+    const size_t smem = EC * row_bytes;
+    constexpr int kMax = 227 * 1024 - 1024;  // the bulk kernel's opt-in
+    static const cudaError_t opted = cudaFuncSetAttribute(
+        take_rows_bulk_kernel<Tin>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMax);
+    if (opted != cudaSuccess) return static_cast<int>(opted);
+    if (row_bytes % 16 == 0 && t % 16 == 0 && o % 16 == 0 &&
+        smem <= static_cast<size_t>(kMax)) {
+      take_rows_bulk_kernel<Tin><<<n_chunks, TK_THREADS, smem, st>>>(
+          table, rows, L, reinterpret_cast<Tin*>(out));
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+"""
+# the staged form of narrow rows (the "staged" ablation), inserted into a
+# copy of csrc/take_rows.cuh: the chunk's [256, L] output block gathered in
+# shared memory, 4 rows in flight a lane, then written with 16-byte stores;
+# for rows of more than 4 vectors under 16 bytes
+_TAKE_STAGED_KERNEL = """template <class Tin, class Tout, int N>
+__global__ void __launch_bounds__(TK_THREADS)
+take_rows_staged_kernel(const Tin* __restrict__ table, WindowRows rows,
+                        int L, int lg, Tout* __restrict__ out) {
+  using M = Move<Tin, Tout, N>;
+  using Out = typename M::Out;
+  constexpr int B = TK_BATCH_NARROW;
+  extern __shared__ uint4 s_stage[];
+  __shared__ int s_row[EC];
+  const long long k0 = static_cast<long long>(blockIdx.x) * EC;
+  s_row[threadIdx.x] = rows(k0 + threadIdx.x, blockIdx.x);
+  __syncthreads();
+  const int G = 1 << lg;
+  const int g = threadIdx.x >> lg, lane = threadIdx.x & (G - 1);
+  const int rs = TK_THREADS >> lg;
+  Tout* o = reinterpret_cast<Tout*>(s_stage);
+  for (int col = lane * N; col < L; col += G * N) {
+    for (int s0 = 0; s0 < G; s0 += B) {
+      typename M::Raw v[B];
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const int r = s0 + b < G ? s_row[(s0 + b) * rs + g] : -1;
+        v[b] = typename M::Raw{};
+        if (r >= 0) v[b] = M::load(table + static_cast<long long>(r) * L + col);
+      }
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        if (s0 + b >= G) break;
+        *reinterpret_cast<Out*>(
+            o + static_cast<long long>((s0 + b) * rs + g) * L + col) =
+            M::put(v[b]);
+      }
+    }
+  }
+  __syncthreads();
+  const int n16 = EC * L * static_cast<int>(sizeof(Tout)) / 16;
+  uint4* dst = reinterpret_cast<uint4*>(out + k0 * L);
+  for (int i = threadIdx.x; i < n16; i += TK_THREADS) dst[i] = s_stage[i];
+}
+
+"""
+_TAKE_STAGED_LAUNCH = """  const size_t stage = static_cast<size_t>(EC) * L * sizeof(Tout);
+  if (N * sizeof(Tout) < 16 && (1 << lg) > TK_BATCH_NARROW &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+      stage + EC * sizeof(int) <= 48 * 1024) {
+    take_rows_staged_kernel<Tin, Tout, N>
+        <<<n_chunks, TK_THREADS, stage, st>>>(table, rows, L, lg, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+"""
+# row 5's row gather (csrc/take_rows.cuh) -> its altered copies: (file,
+# pattern, replacement, matches)
+_TAKE_ABLATIONS = {
+    "bulk": [("take_rows.cuh", r"(?=template <class Tin, class Tout, int N, "
+              r"int B>\nint launch_take\()", _TAKE_BULK_KERNEL, 1),
+             ("take_rows.cuh", r"(?=  // the widest step whose vectors)",
+              _TAKE_BULK_LAUNCH, 1)],
+    "staged": [("take_rows.cuh", r"(?=// The instantiation of b rows a lane)",
+                _TAKE_STAGED_KERNEL, 1),
+               ("take_rows.cuh", r"(?=  constexpr int kWide = WideBatch<)",
+                _TAKE_STAGED_LAUNCH, 1)],
+    "wide8": [("take_rows.cuh", r"constexpr int TK_BATCH_MAX = 16;",
+               "constexpr int TK_BATCH_MAX = 8;", 1)],
+    "nostcs": [("take_rows.cuh", r"  __stcs\(p, v\);", "  *p = v;", 1)],
+    "bf16table": [("banded_take_bf16.cu", r"const float\* table",
+                   "const __nv_bfloat16* table", 1)],
+}
+TAKES = ("banded_take", "banded_take_bf16")
+GATHER_CALLS, GATHER_REPLAYS = 20, 5
+
+
+def _take_ablated(root, build):
+    """Build the row-5 kernels of ``root`` against each altered copy, all
+    nvcc processes at once; returns {variant: {kernel: ctypes function}}
+    (``bf16table`` only the one-limb kernel, ``bulk`` only the f32 one)."""
+    csrc = os.path.join(root, "pygat_tpu_torch", "csrc")
+    out_dir = os.path.join(root, "pygat_tpu_torch", "_build", "ablate_take")
+    procs = []
+    for variant, subs in _TAKE_ABLATIONS.items():
+        vdir = os.path.join(out_dir, variant)
+        shutil.rmtree(vdir, ignore_errors=True)
+        shutil.copytree(csrc, vdir)
+        for name, pattern, repl, want in subs:
+            with open(os.path.join(vdir, name)) as f:
+                text, hits = re.subn(pattern, lambda m, r=repl: r, f.read())
+            if hits != want:
+                raise RuntimeError(f"{variant}: {pattern!r} matched {hits} "
+                                   f"times in {name}, not {want}")
+            with open(os.path.join(vdir, name), "w") as f:
+                f.write(text)
+        kernels = {"bf16table": ("banded_take_bf16",),
+                   "bulk": ("banded_take",)}.get(variant, TAKES)
+        for kernel in kernels:
+            lib = os.path.join(vdir, f"{kernel}.so")
+            cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib,
+                   os.path.join(vdir, f"{kernel}.cu")]
+            procs.append((variant, kernel, lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    libs = {}
+    for variant, kernel, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {variant} {kernel}:\n{log.decode()}")
+        symbol, argtypes = build.ENTRY_POINTS[kernel]
+        fn = getattr(ctypes.CDLL(lib), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        libs.setdefault(variant, {})[kernel] = fn
+    return libs
+
+
+def _bits(t, torch):
+    """A checksum of ``t``'s bits: the sum of every 32- or 16-bit word
+    times (its position mod 1,000,003) + 1, in wrapping int64 (the same
+    bits give the same sum on any card)."""
+    words = t.view(torch.int32 if t.element_size() == 4
+                   else torch.int16).reshape(-1)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    step = 1 << 26
+    for lo in range(0, words.numel(), step):
+        x = words[lo:lo + step].long()
+        w = torch.arange(lo, lo + x.numel(), device=t.device) % 1000003 + 1
+        total += (x * w).sum()
+    return int(total)
+
+
+def _gathers_section(cs, root, plans, feats, corner, build, ablate, torch):
+    """Rows 5, 4 and 10 of the checkout on the card (``--gathers``) at
+    both layers' widths, ``feats[label]`` (F of layer 1, then of layer 2 at
+    one head): returns (rows, ablation rows)."""
+    from pygat_tpu_torch.ops import banded as bd
+    from pygat_tpu_torch.ops import corner as cn
+    from pygat_tpu_torch.ops import large as lg
+
+    # a checkout whose one-limb take reads the f32 table (no cast)
+    rounds = os.path.exists(os.path.join(root, "pygat_tpu_torch", "csrc",
+                                         "take_rows.cuh"))
+    variants = _take_ablated(root, build) if ablate else {}
+    kw = dict(calls=GATHER_CALLS, replays=GATHER_REPLAYS)
+    big = dict(calls=cs.BIG_CALLS, replays=cs.BIG_REPLAYS)
+    rows, ablated = [], []
+
+    def timed(row, fn, c_args, n_bytes, kws, out, want, again):
+        row["ms"] = cs._time_ms(lambda: _call(fn, c_args, row["kernel"]),
+                                **kws)
+        row["bound_ms"] = cs._bound(n_bytes, 0)[0]
+        torch.cuda.synchronize()
+        row["bit_exact"] = bool(torch.equal(out, want))
+        row["bitwise_repeat"] = bool(torch.equal(out, again))
+        row["bits"] = _bits(out, torch)
+        print(f"  {row['kernel']} {row['dataset']} {row['path']} "
+              f"L={row['L']}: {row['ms']:.4f} ms" + "".join(
+                  f", {k} {row[k]:.4f}" for k in ("wrapper_ms", "cast_ms")
+                  if k in row)
+              + f", bound {row['bound_ms']:.5f} ms, bit-exact "
+              f"{row['bit_exact']}, repeat {row['bitwise_repeat']}, bits "
+              f"{row['bits']}", flush=True)
+        if not (row["bit_exact"] and row["bitwise_repeat"]):
+            print(f"  {row['kernel']} DISAGREES with its plain version or "
+                  "itself", flush=True)
+        rows.append(row)
+
+    heads = (8, 1)
+    for label in ("large", "cora"):
+        plan, n_pad = plans[label], plans[label].n_pad
+        e, c = plan.num_slots, plan.num_chunks
+        tkw = kw if label == "large" else dict(kw, calls=50)
+        for path in ("v1", "v2"):
+            for h, f in zip(heads, feats[label]):
+                hf = h * f
+                take_l = hf if path == "v1" else 2 * hf
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(take_l)
+                table = torch.randn(n_pad, take_l, generator=gen,
+                                    device="cuda")
+                for kernel in TAKES:
+                    one = kernel == "banded_take_bf16"
+                    prec = "fastest" if one else "high"
+                    row = dict(kernel=kernel, dataset=label, path=path, H=h,
+                               F=f, L=take_l)
+                    src = table if rounds or not one else table.to(
+                        torch.bfloat16)
+                    out = torch.empty(e, take_l, device="cuda",
+                                      dtype=torch.bfloat16 if one
+                                      else torch.float32)
+                    c_args = [src.data_ptr(), plan.band.data_ptr(),
+                              plan.s_loc.data_ptr(), c, plan.w, take_l,
+                              out.data_ptr()]
+                    row["wrapper_ms"] = cs._time_ms(
+                        lambda: bd.banded_take(table, plan, precision=prec),
+                        **(big if label == "large" else {}))
+                    if one and not rounds:
+                        row["cast_ms"] = cs._time_ms(
+                            lambda: table.to(torch.bfloat16), **tkw)
+                    want = bd.banded_take_plain(table, plan, precision=prec)
+                    again = bd.banded_take(table, plan, precision=prec)
+                    fn = build.kernel(kernel)
+                    timed(row, fn, c_args,
+                          (4 * n_pad + (2 if one else 4) * e) * take_l
+                          + 4 * (e + c), tkw, out, want, again)
+                    if label == "large" and variants:
+                        arow = {"kernel": kernel, "L": take_l, "path": path}
+                        for v, fns in variants.items():
+                            if kernel not in fns:
+                                continue
+                            vargs = list(c_args)
+                            t16 = None
+                            if v == "bf16table":
+                                t16 = table.to(torch.bfloat16)
+                                vargs[0] = t16.data_ptr()
+                                arow["bf16table_cast_ms"] = cs._time_ms(
+                                    lambda: table.to(torch.bfloat16), **tkw)
+                            out.zero_()
+                            arow[f"{v}_ms"] = cs._time_ms(
+                                lambda: _call(fns[kernel], vargs, kernel),
+                                **tkw)
+                            torch.cuda.synchronize()
+                            arow[f"{v}_bit_exact"] = bool(torch.equal(out,
+                                                                      want))
+                            del t16
+                        print(f"  take_rows.cuh {kernel} large {path} "
+                              f"L={take_l}: base {row['ms']:.4f}, " + ", ".join(
+                                  f"{k} {v}" for k, v in arow.items()
+                                  if k.endswith("_ms") or
+                                  k.endswith("_exact")), flush=True)
+                        ablated.append(arow)
+                    del out, want, again, src
+                    torch.cuda.empty_cache()
+                if label != "large":
+                    continue
+                # row 4 (expand) at the receiver operands' width
+                x_l = 3 * h + hf if path == "v1" else 2 * hf + 2 * h
+                x = torch.randn(n_pad, x_l, generator=gen, device="cuda")
+                out = torch.empty(e, x_l, device="cuda")
+                c_args = [x.data_ptr(), plan.r_local.data_ptr(),
+                          plan.r_chunk.data_ptr(), c, x_l, out.data_ptr()]
+                timed(dict(kernel="expand", dataset=label, path=path, H=h,
+                           F=f, L=x_l), build.kernel("expand"), c_args,
+                      4 * (n_pad + e) * x_l + 4 * (e + c), tkw, out,
+                      lg.expand_plain(x, plan.r_local, plan.r_chunk),
+                      lg.expand(x, plan.r_local, plan.r_chunk))
+                del x, out, table
+                torch.cuda.empty_cache()
+    # row 10 (permute_pass) on every pass of the 524k corner plans
+    for direction, cplan in (("fwd", corner.fwd), ("inv", corner.inv)):
+        for path, width in cs._corner_widths(heads, feats["large"]):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(width)
+            src = torch.randn(cplan.n_rows, width, generator=gen,
+                              device="cuda")
+            for i, cp in enumerate(cplan.passes):
+                t = cp.lo.shape[0]
+                out = torch.empty(t * 128, width, device="cuda")
+                c_args = [src.data_ptr(), cp.lo.data_ptr(), cp.g.data_ptr(),
+                          t, cp.p, width, out.data_ptr()]
+                timed(dict(kernel="corner_permute", dataset="large",
+                           path=f"{path} {direction} pass {i}", L=width),
+                      build.kernel("corner_permute"), c_args,
+                      4 * (src.shape[0] * width + t * 128 * (width + 1)
+                           + t), kw, out, cn.permute_pass_plain(src, cp),
+                      cn.permute_pass(src, cp))
+                src = out
+            del src
+            torch.cuda.empty_cache()
+    return rows, ablated
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", help="checkout whose kernels are timed")
@@ -396,6 +782,12 @@ def main() -> int:
                     help="also time the Cora and 524k fast-loop epochs")
     ap.add_argument("--bcsr", action="store_true",
                     help="time kernel row 11 (bcsr_attention) instead")
+    ap.add_argument("--gathers", action="store_true",
+                    help="time kernel rows 5, 4 and 10 (the row gathers) "
+                    "instead")
+    ap.add_argument("--f2", type=int, default=None,
+                    help="with --gathers: layer 2's F at 524k (default: "
+                    "the graph's classes)")
     a = ap.parse_args()
     root = os.path.abspath(a.root)
     sys.path.insert(0, root)
@@ -444,6 +836,24 @@ def main() -> int:
             case.pop("args", None)
         return _finish(res, a, t0)
     corner = plan_csc_to_csr(large.graph)
+    if a.gathers:
+        res["gathers"], res["gathers_ablate"] = _gathers_section(
+            cs, root, plans, {"large": (8, a.f2 or large.num_classes),
+                              "cora": (8, cora.num_classes)},
+            corner, build, a.ablate, torch)
+        if a.epochs:
+            res["epoch_ms"] = {}
+            for lt in ("GAT_sparse", "GATv2_sparse"):
+                samples, _ = cs._large_epoch_ms(
+                    large_config(lt, large), large,
+                    {"high": plans["large"], "fastest": plans["large"]},
+                    {"high": "high", "fastest": "fastest"})
+                for k, v in samples.items():
+                    res["epoch_ms"][f"large {lt} banded {k} fast_loop_ms"] = v
+                    print(f"  524k {lt} band plan, {k}: fast-loop epoch "
+                          f"median {v[len(v) // 2]:.4f} ms "
+                          f"({[round(x, 4) for x in v]})", flush=True)
+        return _finish(res, a, t0)
     wide = ((8, 8), (1, 4), (1, 64), (1, 256))
     # (order, graph label, kernel, shapes)
     specs = (
@@ -611,7 +1021,9 @@ def _finish(res, a, t0) -> int:
     with open(os.path.join(a.out, f"banded_ab_{a.tag}.json"), "w") as f:
         json.dump(res, f, indent=1)
     return int(not all(c.get("within_tolerance", True)
-                       for c in res["cases"] + res.get("bcsr", [])))
+                       for c in res["cases"] + res.get("bcsr", []))
+               or not all(c["bit_exact"] and c["bitwise_repeat"]
+                          for c in res.get("gathers", [])))
 
 
 if __name__ == "__main__":

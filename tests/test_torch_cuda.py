@@ -61,8 +61,13 @@ the hub's band plans and on corner plans with several passes, at widths of
 7 and 14 among others, against their plain versions under "fastest" in
 f64, two calls bit for bit; and one Cora training step under "fastest"
 over each order launches only the one-limb kernels (with expand and the
-corner passes, f32 moves in both modes). chip_smoke.py covers the main
-path's full-size shapes.
+corner passes, f32 moves in both modes). Row 5's row gather
+(``take_rows.cuh``) runs in both precisions at L = 1, 4, 7, 8, 14, 64 and
+128 on tables that are their own tensors, one row into a buffer whose rows
+around them are NaN, and one element into a buffer (no 16-byte
+alignment), bit for bit against its plain version, twice; rows 4 and 10,
+which keep the element copy, on the same tables. chip_smoke.py covers the main path's
+full-size shapes.
 """
 
 from __future__ import annotations
@@ -2461,6 +2466,71 @@ def test_banded_bf16_kernels_match_plain(cuda, kind, width):
     assert bool(((got_s - want).abs() <= RTOL * mag + 1e-30).all())
     high = bd.banded_sender_sum_plain(data, plan, f64=True)
     assert float((got_s - high).abs().max()) > 1e-5 * float(mag.max())
+
+
+def _take_tables(n, width, gen, device):
+    """(name, table) of [n, width] f32 tables for row 5's vector-width
+    choice: a tensor of its own; a view one row into a buffer whose rows
+    before and after it are NaN (big[1:]: at L = 7 not 16-byte aligned; a
+    dead slot's row formed as N_pad would read NaN); a view one element
+    into a buffer (4-byte aligned at every L)."""
+    big = torch.randn(n + 2, width, generator=gen, device=device)
+    big[0] = big[-1] = float("nan")
+    flat = torch.randn(n * width + 1, generator=gen, device=device)
+    return [("own", torch.randn(n, width, generator=gen, device=device)),
+            ("row_offset", big[1:n + 1]),
+            ("element_offset", flat[1:].view(n, width))]
+
+
+@pytest.mark.parametrize("precision", ["high", "fastest"])
+@pytest.mark.parametrize("width", [1, 4, 7, 8, 14, 64, 128])
+def test_banded_take_rows_bit_exact(cuda, width, precision):
+    """Row 5's row gather (``take_rows.cuh``: vectors picked by the
+    alignment of L and of the table; narrow rows, of vectors under 16
+    bytes or of 1 to 4 of them, as L = 4 and 8, with few rows in flight)
+    equal to
+    ``banded_take_plain`` bit for bit in both precisions (the one-limb
+    kernel rounds the f32 rows it moves), zeros at the dead slots (some on
+    the last band), on tables with and without 16-byte alignment; two calls
+    equal bit for bit; each precision counted on its own kernel."""
+    _, plan = _band(cuda, "clustered")
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    wrapper = bd.banded_take_bf16 if precision == "fastest" else bd.banded_take
+    dead = plan.s_loc == plan.w * 128
+    for name, table in _take_tables(plan.n_pad, width, gen, cuda):
+        before = build.launch_counts()
+        got = bd.banded_take(table, plan, precision=precision)
+        again = bd.banded_take(table, plan, precision=precision)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in build.launch_counts().items()
+                    if v - before[k]}
+        assert launched == {wrapper.kernel: 2}, name
+        assert got.dtype == (torch.bfloat16 if precision == "fastest"
+                             else torch.float32)
+        assert torch.equal(got, again), name
+        assert torch.equal(got, bd.banded_take_plain(
+            table, plan, precision=precision)), name
+        assert bool((got[dead] == 0).all()), name
+
+
+@pytest.mark.parametrize("width", [7, 64, 128])
+def test_expand_and_corner_permute_keep_the_element_copy(cuda, width):
+    """Rows 4 and 10 keep ``slot_rows.cuh``'s element copy beside row 5's
+    new body: ``expand`` on a band plan and every ``permute_pass`` of a
+    graph's corner plans equal their plain versions bit for bit, on tables
+    with and without 16-byte alignment."""
+    _, plan = _band(cuda, "clustered")
+    _, corner = _corner(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    for name, table in _take_tables(plan.n_pad, width, gen, cuda):
+        got = large.expand(table, plan.r_local, plan.r_chunk)
+        assert torch.equal(got, large.expand_plain(table, plan.r_local,
+                                                   plan.r_chunk)), name
+    for name, x in _take_tables(corner.fwd.n_rows, width, gen, cuda):
+        for cp in corner.fwd.passes:
+            got = cn.permute_pass(x, cp)
+            assert torch.equal(got, cn.permute_pass_plain(x, cp)), name
+            x = got
 
 
 def _bf16_forward_cases(kind, which, h, f, gen, device):
