@@ -3,6 +3,9 @@ reductions) vs the single-device XLA path — forward and gradients — on the
 8-device CPU mesh. Includes stream-layout (Pallas kernel, interpret mode)
 vs scatter-fallback equivalence for the multi-chip fast path."""
 
+# The ring comparisons run under jax.jit, as the ring's users run it: eager
+# shard_map dispatches op by op and costs each test minutes.
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +47,21 @@ def _from_out(out, h=H):  # [N, H*F] -> [H, N, F]
     return jnp.moveaxis(out.reshape(n, h, -1), 0, 1)
 
 
+def _ring(part, mesh, halo=False):  # (fdT, whf, a_src) -> [N, H*F]
+    return lambda fdT, whf, a: ring_gat_attention(fdT, whf, a, part, mesh,
+                                                  alpha=0.2, halo=halo)
+
+
+def _ref(g):  # (fd, fs, wh) -> [H, N, F], single device
+    return lambda fd, fs, wh: _xla_forward(fd, fs, wh, g.senders, g.receivers,
+                                           g.edge_mask, 0.2)
+
+
+def _sin_sum_grads(f):  # jitted grads of sum(sin(f)) in f's three arguments
+    return jax.jit(jax.grad(lambda *a: jnp.sum(jnp.sin(f(*a))),
+                            argnums=(0, 1, 2)))
+
+
 def test_partition_edges_layout(setup):
     g, fd, wh, a_src = setup
     part = partition_edges(g, 4)
@@ -77,9 +95,8 @@ def test_ring_matches_single_device(setup, n_shards):
     mesh = make_mesh(n_shards, 1, devices=jax.devices()[:n_shards])
     part = partition_edges(g, n_shards)
     fs = jnp.einsum("hnf,hf->hn", wh, a_src)
-    out_ring = ring_gat_attention(fd.T, _to_whf(wh), a_src, part, mesh,
-                                  alpha=0.2)
-    out_ref = _xla_forward(fd, fs, wh, g.senders, g.receivers, g.edge_mask, 0.2)
+    out_ring = jax.jit(_ring(part, mesh))(fd.T, _to_whf(wh), a_src)
+    out_ref = jax.jit(_ref(g))(fd, fs, wh)
     np.testing.assert_allclose(np.asarray(_from_out(out_ring)),
                                np.asarray(out_ref), rtol=1e-4, atol=1e-5)
 
@@ -90,20 +107,13 @@ def test_ring_gradients_match(setup):
     part = partition_edges(g, 4)
     fdT, whf = fd.T, _to_whf(wh)
 
-    def loss_ring(fdT, whf, a_src):
-        return jnp.sum(jnp.sin(
-            ring_gat_attention(fdT, whf, a_src, part, mesh, alpha=0.2)
-        ))
-
-    def loss_ref(fdT, whf, a_src):
+    def ref(fdT, whf, a_src):
         wh_ = jnp.moveaxis(whf.reshape(512, H, F), 0, 1)
         fs = jnp.einsum("hnf,hf->hn", wh_, a_src)
-        return jnp.sum(jnp.sin(_xla_forward(
-            fdT.T, fs, wh_, g.senders, g.receivers, g.edge_mask, 0.2
-        )))
+        return _ref(g)(fdT.T, fs, wh_)
 
-    g1 = jax.grad(loss_ring, argnums=(0, 1, 2))(fdT, whf, a_src)
-    g2 = jax.grad(loss_ref, argnums=(0, 1, 2))(fdT, whf, a_src)
+    g1 = _sin_sum_grads(_ring(part, mesh))(fdT, whf, a_src)
+    g2 = _sin_sum_grads(ref)(fdT, whf, a_src)
     for a, b in zip(g1, g2):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-3, atol=1e-5)
@@ -125,8 +135,7 @@ def test_ring_stream_matches_scatter(setup, variant):
     fdT, whf = fd.T, _to_whf(wh)
 
     if variant == "v1":
-        def run(fdT, whf, a_src):
-            return ring_gat_attention(fdT, whf, a_src, part, mesh, alpha=0.2)
+        run = _ring(part, mesh)
         args = (fdT, whf, a_src)
     else:
         def run(whi, whj, a):
@@ -134,11 +143,15 @@ def test_ring_stream_matches_scatter(setup, variant):
         args = (whf, whj, a_src)
 
     def value_and_grads(impl):
+        # a new function per impl: jit caches a trace by the function, and
+        # the impl it saw is not part of that key
+        def f(*a):
+            grads = jax.grad(lambda *b: jnp.sum(jnp.sin(run(*b))),
+                             argnums=tuple(range(len(a))))(*a)
+            return run(*a), grads
+
         with seg.use_impl(impl):
-            out = run(*args)
-            grads = jax.grad(lambda *a: jnp.sum(jnp.sin(run(*a))),
-                             argnums=tuple(range(len(args))))(*args)
-        return out, grads
+            return jax.jit(f)(*args)
 
     out_sc, g_sc = value_and_grads("scatter")
     # two-limb kernel precision (~1e-5 per reduction) for a strict check
@@ -295,11 +308,11 @@ def test_ring_v2_attention_matches_layer(setup):
         out = segment_sum(num[:, None] * wi[g.senders], g.receivers, 512)
         return out / jnp.where(den > 0, den, 1.0)[:, None]
 
-    want = jax.vmap(one_head)(whi, whj, a)
+    want = jax.jit(jax.vmap(one_head))(whi, whj, a)
     mesh = make_mesh(4, 2)
     part = partition_edges(g, 4)
-    got = ring_gat_attention_v2(_to_whf(whi), _to_whf(whj), a, part, mesh,
-                                alpha=alpha)
+    got = jax.jit(lambda wi, wj, ah: ring_gat_attention_v2(
+        wi, wj, ah, part, mesh, alpha=alpha))(_to_whf(whi), _to_whf(whj), a)
     np.testing.assert_allclose(np.asarray(_from_out(got)), np.asarray(want),
                                rtol=1e-4, atol=1e-5)
 
@@ -400,12 +413,13 @@ def test_interleaved_ring_matches_plain_forward():
                     dropout=0.0, alpha=0.2, layer_type="GAT_sparse")
     params = init_gat(jax.random.PRNGKey(7), cfg)
     key = jax.random.PRNGKey(0)
-    want = apply_gat(params, cfg, data.features, data.graph, key, train=False)
+    want = jax.jit(lambda p, x: apply_gat(p, cfg, x, data.graph, key,
+                                          train=False))(params, data.features)
     mesh = make_mesh(d, 2)
     from pygat_tpu.parallel.partition import partition_edges as pe
     part = pe(out.graph, d)
-    got = ring_apply_gat(params, cfg, out.features, part, mesh, key,
-                         train=False)
+    got = jax.jit(lambda p, x: ring_apply_gat(
+        p, cfg, x, part, mesh, key, train=False))(params, out.features)
     np.testing.assert_allclose(np.asarray(got)[new],
                                np.asarray(want)[:n_real],
                                rtol=2e-4, atol=1e-5)
@@ -446,10 +460,8 @@ def test_ring_halo_matches_single_device(setup, n_shards):
     mesh = make_mesh(n_shards, 1, devices=jax.devices()[:n_shards])
     part = partition_edges(g, n_shards)
     fs = jnp.einsum("hnf,hf->hn", wh, a_src)
-    out_ring = ring_gat_attention(fd.T, _to_whf(wh), a_src, part, mesh,
-                                  alpha=0.2, halo=True)
-    out_ref = _xla_forward(fd, fs, wh, g.senders, g.receivers, g.edge_mask,
-                           0.2)
+    out_ring = jax.jit(_ring(part, mesh, halo=True))(fd.T, _to_whf(wh), a_src)
+    out_ref = jax.jit(_ref(g))(fd, fs, wh)
     np.testing.assert_allclose(np.asarray(_from_out(out_ring)),
                                np.asarray(out_ref), rtol=1e-4, atol=1e-5)
 
@@ -460,13 +472,8 @@ def test_ring_halo_gradients_match(setup):
     part = partition_edges(g, 4)
     fdT, whf = fd.T, _to_whf(wh)
 
-    def loss(fdT, whf, a_src, halo):
-        return jnp.sum(jnp.sin(
-            ring_gat_attention(fdT, whf, a_src, part, mesh, alpha=0.2,
-                               halo=halo)))
-
-    g_h = jax.grad(loss, argnums=(0, 1, 2))(fdT, whf, a_src, True)
-    g_r = jax.grad(loss, argnums=(0, 1, 2))(fdT, whf, a_src, False)
+    g_h = _sin_sum_grads(_ring(part, mesh, halo=True))(fdT, whf, a_src)
+    g_r = _sin_sum_grads(_ring(part, mesh, halo=False))(fdT, whf, a_src)
     for a, b in zip(g_h, g_r):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-4, atol=1e-5)
@@ -506,10 +513,10 @@ def test_ring_halo_model_matches_rotation(layer_type, stream):
                                      train=False, halo=halo)
                 return jnp.sum(jnp.sin(out)), out
 
-            (l_h, o_h), gr_h = jax.value_and_grad(
-                loss, has_aux=True)(params, True)
-            (l_r, o_r), gr_r = jax.value_and_grad(
-                loss, has_aux=True)(params, False)
+            (l_h, o_h), gr_h = jax.jit(jax.value_and_grad(
+                lambda p: loss(p, True), has_aux=True))(params)
+            (l_r, o_r), gr_r = jax.jit(jax.value_and_grad(
+                lambda p: loss(p, False), has_aux=True))(params)
     finally:
         seg._STREAM_PRECISION = prev
     np.testing.assert_allclose(np.asarray(o_h), np.asarray(o_r),
